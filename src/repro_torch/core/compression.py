@@ -1,0 +1,60 @@
+"""Half-precision gradient communication (paper §3).
+
+The paper casts gradients to fp16 for the all-reduce. bf16 is the
+default wire format (fp32 exponent range, so no loss scaling); fp16 is
+available for paper-faithfulness. On one device there is no collective,
+so the train step applies the wire numerics with ``simulate_wire_cast``:
+every gradient round-trips through the wire dtype.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+WIRE_DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16, None: None,
+               "none": None}
+
+
+def _wire(dtype_name: Optional[str]):
+    if dtype_name not in WIRE_DTYPES:
+        raise ValueError(f"unknown wire dtype {dtype_name}")
+    return WIRE_DTYPES[dtype_name]
+
+
+def parse_compression(spec: Optional[str]) -> Tuple[Optional[str], bool]:
+    """Split a ``ParallelConfig.compression`` string into
+    ``(wire_dtype_name, bucketed)``: None/"none" -> (None, False);
+    "bf16" -> ("bf16", False); "bf16+bucketed" -> ("bf16", True);
+    "bucketed" -> (None, True)."""
+    if spec is None:
+        return None, False
+    wire: Optional[str] = None
+    bucketed = False
+    seen_wire = False
+    for part in spec.split("+"):
+        if part == "bucketed":
+            if bucketed:
+                raise ValueError(f"duplicate 'bucketed' in {spec!r}")
+            bucketed = True
+        elif part in WIRE_DTYPES:
+            if seen_wire:
+                raise ValueError(
+                    f"conflicting wire dtypes in {spec!r}")
+            seen_wire = True
+            wire = None if part == "none" else part
+        else:
+            raise ValueError(f"unknown compression spec part {part!r} "
+                             f"in {spec!r}")
+    return wire, bucketed
+
+
+def simulate_wire_cast(grads: Dict[str, torch.Tensor],
+                       wire: Optional[str] = "bf16"
+                       ) -> Dict[str, torch.Tensor]:
+    """Round-trip every gradient through the wire dtype, so the numerics
+    of compressed communication apply on a single device."""
+    wdt = _wire(wire)
+    if wdt is None:
+        return grads
+    return {k: g.to(wdt).to(g.dtype) for k, g in grads.items()}

@@ -1,0 +1,22 @@
+"""Optimizers: the paper's rmsprop_warmup and the momentum-SGD baseline."""
+from repro_torch.configs.base import OptimizerConfig
+from repro_torch.optim.interface import Optimizer  # noqa: F401
+from repro_torch.optim.rmsprop_warmup import rmsprop_warmup
+from repro_torch.optim.sgd import momentum_sgd
+
+_FACTORIES = {
+    "rmsprop_warmup": rmsprop_warmup,
+    "momentum_sgd": momentum_sgd,
+}
+
+
+def make_optimizer(cfg: OptimizerConfig, steps_per_epoch: int,
+                   global_batch: int) -> Optimizer:
+    """The plain per-leaf optimizer; the fused update kernel
+    (``--use-fused-kernel``) is ROADMAP queue 2, item 5."""
+    if cfg.kind == "lars":
+        raise NotImplementedError(
+            "LARS is not ported yet (ROADMAP queue 1, item 12)")
+    if cfg.kind not in _FACTORIES:
+        raise KeyError(f"unknown optimizer {cfg.kind!r}")
+    return _FACTORIES[cfg.kind](cfg, steps_per_epoch, global_batch)

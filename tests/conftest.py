@@ -20,6 +20,9 @@ def pytest_configure(config):
         "markers",
         "slow: multi-step virtual-mesh parity tests (subprocess compiles;"
         " run via `pytest -m slow` / excluded from the fast CI job)")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (the port's kernels); skips without one")
 
 
 @pytest.fixture
