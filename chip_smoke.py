@@ -2,29 +2,52 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 card: the quickest proof that the port builds, runs and is right there.
 
-    python3 chip_smoke.py [--out DIR] [--profile]
+    python3 chip_smoke.py [--out DIR] [--profile] [--turns N]
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc);
+  2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+     nvcc per source, all started together);
   3. kernels: each of the four fused-BN kernels against its plain
      PyTorch version on the card, at every BN-site shape of ResNet-50 at
      batch 32 (stem 401,408 x 64 down to stage 3 1,568 x 2,048), in bf16
      and f32, with kernel, plain and library times (CUDA events) and the
      HBM-bytes bound of each shape;
-  4. main path: ``repro_torch.launch.train.build_train_setup`` for the
-     full-width ResNet-50 (stages 3,4,6,3, width 64, 1000 classes, 224
+  3b. the fused update, the wire cast and the fused input kernels against
+     their plain versions, bitwise: ``hybrid_update`` at every distinct
+     ResNet-50 leaf size and the whole 25.56 M-element stream (decay
+     none, scalar and a stream; a_sgd 0, 0.5 and 1), ``cast_copy`` to
+     bf16/f16 and back at the whole stream and odd lengths,
+     ``input_train``/``input_eval`` at (32, 224, 224, 3) with +-4 shifts
+     and flips, bf16 and f32 out; with kernel, plain, library and bound
+     times per main-path step;
+  4. main path 1 (slice 1, one device):
+     ``repro_torch.launch.train.build_train_setup`` for the full-width
+     ResNet-50 (stages 3,4,6,3, width 64, 1000 classes, 224
      px), global batch 32, bf16, fused BN, rmsprop_warmup + slow_start,
      bf16 wire cast, driven by the ``Trainer`` for one epoch of 8
      steps and one eval batch; launch counts must be 53 per
      train step (and 53 more per eval batch for bn_apply);
   5. reference: the reduced ResNet in f32 on the card, fused kernels vs
-     the unfused plain path, three steps from the same seed.
-With ``--profile``, a few more main-path steps run under torch.profiler
-(device busy time and idle share, top host ops and kernels).
-Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
+     the unfused plain path, three steps from the same seed;
+  6. main path 2, the paper's data-parallel step at world size 1 (NCCL):
+     the same model and recipe with ``dp_mode="shardmap"``, the bucketed
+     bf16 all-reduce, the fused update, the fused input and a 4-worker
+     feed, 8 steps and one eval batch after the BN all-reduce; every
+     kernel's launch count is checked;
+  6b. reference: the reduced ResNet in f32, the DP step with every new
+     kernel on against the same step with them off (plain per-leaf
+     update, per-leaf all-reduce, host input transform), three steps.
+With ``--profile``, a few more steps of each main path run under
+torch.profiler (device busy time and idle share, top host ops and
+kernels). With ``--turns N``, phase 7 runs the main paths again in
+turns, N times: main path 2, main path 2 fed pre-made batches (its
+producer threads then only hand them over), main path 1 twice, then the
+two variants of main path 2 in reverse, for their wall step times side
+by side. Then a ``{"kernels": [...]}`` line (launches from main path
+2, which runs all eight kernels), the card's name and power limit, and
 last the ``{"ok": true, "device": ...}`` line. ``--out DIR`` also writes
-the per-shape kernel table to ``DIR/chip_smoke_kernels.json``.
+the per-shape kernel tables to ``DIR/chip_smoke_kernels.json``.
 
 It exits non-zero before printing any result when no CUDA device is
 present or when the port's sources are not beside it.
@@ -44,14 +67,30 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores, same sheet
 BATCH = 32  # the paper's per-GPU minibatch (32,768 over 1,024 GPUs)
 STEPS = 8  # main-path train steps: the first is set-up, 7 are timed
-SOURCE = "src/repro_torch/kernels/csrc/fused_bn.cu"
+CSRC = "src/repro_torch/kernels/csrc/"
+SOURCE = CSRC + "fused_bn.cu"
 REPLACES = {"bn_stats": "src/repro/kernels/fused_bn.py:54",
             "bn_apply": "src/repro/kernels/fused_bn.py:90",
             "bn_bwd_sums": "src/repro/kernels/fused_bn.py:108",
             "bn_bwd_dx": "src/repro/kernels/fused_bn.py:132"}
 KERNELS = tuple(REPLACES)
+# the kernels of main path 2 beyond fused BN: source, the Pallas body
+# each replaces (the variants ride on the same kernel: _kernel_wd through
+# hybrid_update's wd pointer)
+NEW_KERNELS = {
+    "hybrid_update": ("fused_update.cu",
+                      "src/repro/kernels/fused_update.py:24"),
+    "cast_copy": ("bucket_ops.cu", "src/repro/kernels/bucket_ops.py:30"),
+    "input_train": ("fused_input.cu", "src/repro/kernels/fused_input.py:41"),
+    "input_eval": ("fused_input.cu", "src/repro/kernels/fused_input.py:50"),
+}
+SOURCES = ("fused_bn", "fused_update", "bucket_ops", "fused_input")
+# flops per element of the hybrid update (decay 2, m 4, coef 4, delta 3,
+# theta 2) and of the input transform (subtract, multiply)
+UPDATE_FLOPS, INPUT_FLOPS = 15, 2
 # kernel vs plain, |k - p| <= atol + rtol * |p| elementwise; the sums are
 # held relative to the sum of the magnitudes they add (reduction order)
 TOL = {"f32": dict(rtol=1e-5, atol=1e-5), "bf16": dict(rtol=1e-2, atol=2e-2)}
@@ -284,7 +323,205 @@ def kernel_phase(torch, fb, cfg, out_rows):
     return totals, pair
 
 
-def main_path(torch, fb, cfg, steps: int):
+def bound(nbytes: float, flops: float):
+    """(bound ms, what bounds it): the larger of the bytes over the HBM
+    rate and the float32 operations over the card's float32 peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def model_leaves(cfg):
+    """(name, elements, decays) of every parameter leaf of the model,
+    from the port's own ResNet built on the CPU."""
+    from repro_torch.models import build_model
+    from repro_torch.optim.rmsprop_warmup import decays
+    model = build_model(cfg, device="cpu")
+    return [(k, p.numel(), decays(k)) for k, p in model.named_parameters()]
+
+
+def _bitwise(name: str, got, want) -> None:
+    """Raise unless ``got`` equals ``want`` bit for bit (same dtype and
+    shape, every element equal)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} vs "
+                             f"{want.dtype} {tuple(want.shape)}")
+    if not bool((got == want).all()):
+        diff = (got.float() - want.float()).abs().max().item()
+        raise AssertionError(f"{name}: kernel differs from its plain "
+                             f"version by up to {diff:.3g}")
+
+
+def update_phase(torch, leaves, wd: float):
+    """``hybrid_update`` bitwise against its plain version at every
+    distinct leaf size and the whole stream, then timed per main-path
+    step: one launch per leaf, each leaf at its own size and decay."""
+    from collections import Counter
+
+    from repro_torch.core.optimizer import HybridHyper
+    from repro_torch.kernels import fused_update as fu
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    total = sum(n for _, n, _ in leaves)
+
+    def tensors(n):
+        g = torch.randn(n, generator=gen, device=dev) * 1e-3
+        p = torch.randn(n, generator=gen, device=dev) * 0.05
+        d = torch.randn(n, generator=gen, device=dev) * 1e-3
+        m = torch.rand(n, generator=gen, device=dev) * 1e-6
+        m[:n // 4] = 0.0  # the state of the first step
+        return g, p, d, m
+
+    sizes = sorted({n for _, n, _ in leaves} | {total})
+    for n in sizes:
+        g, p, d, m = tensors(n)
+        stream = (torch.rand(n, generator=gen, device=dev) < 0.5).float() * wd
+        for dname, dec in (("none", 0.0), ("scalar", wd), ("stream", stream)):
+            for a_sgd in (0.0, 0.5, 1.0):
+                h = HybridHyper(eta=0.1, alpha_sgd=a_sgd)
+                kern = [t.clone() for t in (p, d, m)]
+                plain = [t.clone() for t in (p, d, m)]
+                fu.fused_hybrid_update(g, *kern, h, dec)
+                fu.PLAIN["hybrid_update"](g, *plain, h, dec)
+                for what, a, b in zip(("theta", "delta", "m"), kern, plain):
+                    _bitwise(f"hybrid_update n={n} wd={dname} "
+                             f"a_sgd={a_sgd} {what}", a, b)
+    log(f"  hybrid_update bitwise at {len(sizes)} sizes (1 .. {total}) x "
+        f"decay none/scalar/stream x a_sgd 0/0.5/1")
+    h = HybridHyper(eta=0.1, alpha_sgd=0.0)
+    out = {"ms": 0.0, "plain_ms": 0.0, "library_ms": None,
+           "max_abs_err": 0.0}
+    nbytes = flops = 0
+    for (n, dec), count in sorted(Counter((n, dec)
+                                          for _, n, dec in leaves).items()):
+        g, p, d, m = tensors(n)
+        w = wd if dec else 0.0
+        out["ms"] += count * time_ms(
+            torch, lambda: fu.fused_hybrid_update(g, p, d, m, h, w))
+        out["plain_ms"] += count * time_ms(
+            torch, lambda: fu.PLAIN["hybrid_update"](g, p, d, m, h, w))
+        nbytes += count * 28 * n  # read g, p, d, m; write p, d, m
+        flops += count * UPDATE_FLOPS * n
+    out["bound_ms"], out["bound_by"] = bound(nbytes, flops)
+    g, p, d, m = tensors(total)
+    out["one_launch_stream_ms"] = time_ms(
+        torch, lambda: fu.fused_hybrid_update(g, p, d, m, h, wd))
+    log(f"  hybrid_update per step ({len(leaves)} leaves, {total} "
+        f"elements): {out['ms']:.3f} ms (plain {out['plain_ms']:.3f}, "
+        f"bound {out['bound_ms']:.3f}); the whole stream in one launch "
+        f"{out['one_launch_stream_ms']:.3f} ms")
+    return out, total
+
+
+def cast_phase(torch, total: int):
+    """``cast_copy`` (``pack_cast`` / ``unpack_cast``) bitwise against
+    ``Tensor.to`` at odd lengths and the whole stream, to bf16 and f16
+    and back; timed as one pack and one unpack of the bf16 stream, the
+    main path's casts per step."""
+    from repro_torch.kernels import bucket_ops as bo
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    bf16, f32 = torch.bfloat16, torch.float32
+    for n in (1, 127, 128 * 1024 + 3, total):
+        x = torch.randn(n, generator=gen, device=dev) * 3
+        # overflow, underflow and subnormals of the half formats
+        edge = torch.tensor([7e4, -1e5, 1e-8, -3e-6, 6.1e-5, 3e38, 1e-40,
+                             0.0], device=dev)[:n]
+        x[:edge.numel()] = edge
+        for wire in (bf16, torch.float16):
+            packed = bo.pack_cast(x, wire)
+            _bitwise(f"pack_cast n={n} {wire}", packed, x.to(wire))
+            _bitwise(f"unpack_cast n={n} {wire}", bo.unpack_cast(packed),
+                     packed.to(f32))
+    log(f"  cast_copy bitwise at n = 1, 127, {128 * 1024 + 3}, {total}, "
+        f"bf16 and f16, both ways")
+    x = torch.randn(total, generator=gen, device=dev)
+    w = x.to(bf16)
+    out = {
+        "ms": time_ms(torch, lambda: bo.pack_cast(x, bf16))
+        + time_ms(torch, lambda: bo.unpack_cast(w)),
+        "plain_ms": time_ms(torch, lambda: bo.PLAIN["cast_copy"](x, bf16))
+        + time_ms(torch, lambda: bo.PLAIN["cast_copy"](w, f32)),
+        "library_ms": time_ms(torch, lambda: x.to(bf16))
+        + time_ms(torch, lambda: w.to(f32)),
+        "max_abs_err": 0.0}
+    out["bound_ms"], out["bound_by"] = bound(2 * 6 * total, 0)
+    log(f"  cast_copy per step (pack + unpack, {total} elements): "
+        f"{out['ms']:.3f} ms (plain {out['plain_ms']:.3f}, Tensor.to "
+        f"{out['library_ms']:.3f}, bound {out['bound_ms']:.3f})")
+    return out
+
+
+def input_phase(torch, cfg):
+    """``input_train`` and ``input_eval`` bitwise against their plain
+    versions at the main path's batch, float32 pixels in and bf16 / f32
+    out, with a table holding +-4 shifts and flips; timed in bf16."""
+    from repro_torch.kernels import fused_input as fi
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    s = cfg.image_size
+    x = torch.randn(BATCH, s, s, 3, generator=gen, device=dev) * 50 + 120
+    table = torch.from_numpy(fi.input_augment_params(0, 5, BATCH)).to(dev)
+    table[:4] = torch.tensor([[1, 4, -4, 0], [0, -4, 4, 0], [1, 0, 0, 0],
+                              [1, -4, -4, 0]], dtype=torch.int32)
+    mean = torch.tensor([123.7, 116.3, 103.5], device=dev)
+    inv = 1.0 / torch.tensor([58.4, 57.1, 57.4], device=dev)
+    for dt in (torch.bfloat16, torch.float32):
+        _bitwise(f"input_train {dt}",
+                 fi.fused_input_train(x, table, mean, inv, out_dtype=dt),
+                 fi.PLAIN["input_train"](x, table, mean, inv, dt))
+        _bitwise(f"input_eval {dt}",
+                 fi.fused_input_eval(x, mean, inv, out_dtype=dt),
+                 fi.PLAIN["input_eval"](x, mean, inv, dt))
+    log(f"  input_train / input_eval bitwise at {tuple(x.shape)}, bf16 "
+        f"and f32 out")
+    bf16, n = torch.bfloat16, x.numel()
+    out = {}
+    for name, kern, plain in (
+            ("input_train",
+             lambda: fi.fused_input_train(x, table, mean, inv,
+                                          out_dtype=bf16),
+             lambda: fi.PLAIN["input_train"](x, table, mean, inv, bf16)),
+            ("input_eval",
+             lambda: fi.fused_input_eval(x, mean, inv, out_dtype=bf16),
+             lambda: fi.PLAIN["input_eval"](x, mean, inv, bf16))):
+        rec = {"ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
+               "library_ms": None, "max_abs_err": 0.0}
+        extra = BATCH * 16 if name == "input_train" else 0  # the table
+        rec["bound_ms"], rec["bound_by"] = bound(n * 6 + extra + 24,
+                                                 INPUT_FLOPS * n)
+        out[name] = rec
+        log(f"  {name} per call: {rec['ms']:.4f} ms (plain "
+            f"{rec['plain_ms']:.4f}, bound {rec['bound_ms']:.4f})")
+    return out
+
+
+def reset_counts(libs) -> None:
+    for lib in libs:
+        lib.reset_launch_counts()
+
+
+def read_counts(libs):
+    return {k: v for lib in libs for k, v in lib.LAUNCHES.items()}
+
+
+def check_state(torch, state, p0) -> None:
+    """Every tensor of the train state on the card and finite, and every
+    parameter changed by the steps."""
+    tensors = list(state["params"].values())
+    for tree in (state["opt"]["delta"], state["opt"]["m"]):
+        tensors += list(tree.values())
+    for rec in state["model_state"].values():
+        tensors += list(rec.values())
+    assert all(t.device.type == "cuda" for t in tensors), "tensor off card"
+    assert all(bool(torch.isfinite(t).all()) for t in tensors), \
+        "non-finite state"
+    changed = sum(not torch.equal(p0[k], v)
+                  for k, v in state["params"].items())
+    assert changed == len(p0), f"only {changed}/{len(p0)} params changed"
+
+
+def main_path(torch, libs, cfg, steps: int):
     from repro_torch.configs import OptimizerConfig
     from repro_torch.launch.train import build_eval_setup, build_train_setup
     from repro_torch.training import Trainer, TrainerConfig
@@ -306,32 +543,24 @@ def main_path(torch, fb, cfg, steps: int):
                       val_data=val_data, finalize_state=finalize)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    fb.reset_launch_counts()
+    reset_counts(libs)
     result = trainer.run()
     torch.cuda.synchronize()
-    launches = dict(fb.LAUNCHES)
+    launches = read_counts(libs)
     state = result.state
 
     losses = [h["loss"] for h in result.history]
     log(f"  losses {losses}")
     assert len(losses) == steps and all(math.isfinite(v) for v in losses), \
         losses
-    tensors = list(state["params"].values())
-    for tree in (state["opt"]["delta"], state["opt"]["m"]):
-        tensors += list(tree.values())
-    for rec in state["model_state"].values():
-        tensors += list(rec.values())
-    assert all(t.device.type == "cuda" for t in tensors), "tensor off card"
-    assert all(bool(torch.isfinite(t).all()) for t in tensors), \
-        "non-finite state"
-    changed = sum(not torch.equal(p0[k], v)
-                  for k, v in state["params"].items())
-    assert changed == len(p0), f"only {changed}/{len(p0)} params changed"
+    check_state(torch, state, p0)
     sites = len(state["model_state"])
     assert sites == 53, sites
-    want = {"bn_stats": sites * steps, "bn_bwd_sums": sites * steps,
-            "bn_bwd_dx": sites * steps,
-            "bn_apply": sites * steps + sites * tcfg.val_batches}
+    # slice 1's path runs the fused-BN kernels only
+    want = {k: 0 for k in launches}
+    want.update(bn_stats=sites * steps, bn_bwd_sums=sites * steps,
+                bn_bwd_dx=sites * steps,
+                bn_apply=sites * steps + sites * tcfg.val_batches)
     log(f"  launches {launches} (want {want})")
     assert launches == want, (launches, want)
     ev = result.epoch_history[-1]
@@ -340,6 +569,8 @@ def main_path(torch, fb, cfg, steps: int):
     med = statistics.median(step_s)
     stats = {"steps": steps, "median_step_ms": med * 1e3,
              "images_per_s": BATCH / med,
+             "median_wall_ms": statistics.median(
+                 h["time"] for h in result.history[1:]) * 1e3,
              "step_ms": [t * 1e3 for t in step_s],
              "first_step_ms": (result.history[0]["time"]
                                - result.history[0]["data_wait"]) * 1e3,
@@ -432,6 +663,147 @@ def reference_phase(torch):
     return {"fused_losses": lf, "unfused_losses": lu, "param_rel_norm": rel}
 
 
+class PremadeSource:
+    """A source whose batches are made before the run: the producer
+    threads then only hand them over, so the step runs without them
+    competing for the host."""
+
+    def __init__(self, source, steps: int):
+        self.batch = source.batch
+        self.batches = [source.batch_at(i) for i in range(steps)]
+
+    def batch_at(self, step: int):
+        return self.batches[step]
+
+
+def dp_main_path(torch, libs, cfg, steps: int, premade: bool = False):
+    """Main path 2: the paper's data-parallel step at world size 1 on
+    NCCL, with every kernel of the slice on, through the same entry
+    points a ``torchrun`` worker calls. ``premade`` feeds it batches
+    made before the run (``PremadeSource``)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import InputConfig, OptimizerConfig
+    from repro_torch.launch.train import build_eval_setup, build_train_setup
+    from repro_torch.training import Trainer, TrainerConfig
+
+    workers = 4
+    input_cfg = InputConfig(fused=True, num_workers=workers)
+    t0 = time.perf_counter()
+    model, state, train_step, data, put_batch, _ = build_train_setup(
+        cfg, global_batch=BATCH, seq_len=0, opt_cfg=OptimizerConfig(),
+        steps_per_epoch=steps, dp_mode="shardmap",
+        compute_dtype=torch.bfloat16, use_fused_kernel=True,
+        compression="bf16+bucketed", fused_bn=True, input_cfg=input_cfg,
+        device="cuda")
+    eval_step, val_data, finalize = build_eval_setup(
+        model, cfg, global_batch=BATCH, seq_len=0, dp_mode="shardmap",
+        input_cfg=input_cfg)
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    n_leaves = len(state["params"])
+    log(f"  setup {time.perf_counter() - t0:.1f}s: {n_leaves} parameter "
+        f"leaves, {sum(p.numel() for p in state['params'].values())} "
+        f"elements, backend {dist.get_backend()}, world "
+        f"{dist.get_world_size()}")
+    p0 = {k: v.clone() for k, v in state["params"].items()}
+    if premade:
+        data = PremadeSource(data, steps)
+    tcfg = TrainerConfig(epochs=1, steps_per_epoch=steps,
+                         eval_every_epochs=1, val_batches=1, log_every=1,
+                         data_workers=workers)
+    trainer = Trainer(train_step, state, data, tcfg, eval_step=eval_step,
+                      val_data=val_data, finalize_state=finalize,
+                      put_batch=put_batch)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts(libs)
+    result = trainer.run()
+    torch.cuda.synchronize()
+    launches = read_counts(libs)
+    state = result.state
+
+    losses = [h["loss"] for h in result.history]
+    log(f"  losses {losses}")
+    assert len(losses) == steps and all(math.isfinite(v) for v in losses), \
+        losses
+    check_state(torch, state, p0)
+    sites, val = len(state["model_state"]), tcfg.val_batches
+    assert sites == 53, sites
+    want = {"bn_stats": sites * steps, "bn_bwd_sums": sites * steps,
+            "bn_bwd_dx": sites * steps, "bn_apply": (steps + val) * sites,
+            "hybrid_update": n_leaves * steps,
+            "cast_copy": 2 * steps,  # one pack, one unpack per step
+            "input_train": steps, "input_eval": val}
+    log(f"  launches {launches} (want {want}); batches staged "
+        f"{put_batch.staged}")
+    assert launches == want, (launches, want)
+    ev = result.epoch_history[-1]
+    assert math.isfinite(ev["loss"]) and 0.0 <= ev["top1"] <= 1.0, ev
+    walls = [h["time"] for h in result.history[1:]]
+    waits = [h["data_wait"] for h in result.history[1:]]
+    med = statistics.median(walls)
+    stats = {"steps": steps, "data_workers": workers,
+             "median_step_ms": med * 1e3, "images_per_s": BATCH / med,
+             "median_wall_ms": med * 1e3,
+             "step_ms": [t * 1e3 for t in walls],
+             "data_wait_ms": [t * 1e3 for t in waits],
+             "median_data_wait_ms": statistics.median(waits) * 1e3,
+             "first_step_ms": result.history[0]["time"] * 1e3,
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "eval": {k: ev[k] for k in ("top1", "loss")}}
+    log(f"  median step {stats['median_step_ms']:.2f} ms, "
+        f"{stats['images_per_s']:.1f} images/s (bf16, batch {BATCH}; host "
+        f"wall time of the whole step, the wait for its batch included); "
+        f"median data_wait {stats['median_data_wait_ms']:.2f} ms; peak "
+        f"{stats['peak_mem_gib']:.2f} GiB; eval {stats['eval']}")
+    return launches, stats, (train_step, state, data)
+
+
+def dp_reference_phase(torch):
+    """Reduced ResNet, f32 on the card, the DP step at world size 1 with
+    every new kernel on (fused update, bucketed cast, fused input without
+    augmentation) against the same step with them off (plain per-leaf
+    update, per-leaf all-reduce, host normalize): three steps from one
+    seed. cuDNN is held to deterministic algorithms for the comparison,
+    and every kernel is bitwise equal to its plain version, so the two
+    must be bitwise equal: losses and every parameter."""
+    from repro_torch.configs import (InputConfig, OptimizerConfig,
+                                     get_config, reduced_config)
+    from repro_torch.launch.train import build_train_setup
+
+    cfg = reduced_config(get_config("resnet50"))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for on in (True, False):
+            _, state, step, data, put, _ = build_train_setup(
+                cfg, global_batch=16, seq_len=0, opt_cfg=OptimizerConfig(),
+                steps_per_epoch=4, dp_mode="shardmap",
+                compute_dtype=torch.float32, fused_bn=True,
+                use_fused_kernel=on,
+                compression="bf16+bucketed" if on else "bf16",
+                input_cfg=InputConfig(fused=on, augment=False), seed=3,
+                device="cuda")
+            losses = []
+            for i in range(3):
+                state, metrics = step(state, put(data.batch_at(i)).take())
+                losses.append(float(metrics["loss"]))
+            runs[on] = (losses, state["params"])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (lk, pk), (lp, pp) = runs[True], runs[False]
+    num = sum(float((pk[k] - pp[k]).square().sum()) for k in pk)
+    den = sum(float(pp[k].square().sum()) for k in pp)
+    rel = (num / den) ** 0.5
+    bitwise = lk == lp and all(torch.equal(pk[k], pp[k]) for k in pk)
+    log(f"  kernels on {lk} vs off {lp}; param rel-norm diff {rel:.3g}; "
+        f"bitwise {bitwise}")
+    assert all(math.isfinite(v) for v in lk) and bitwise, (lk, lp, rel)
+    return {"kernels_on_losses": lk, "kernels_off_losses": lp,
+            "param_rel_norm": rel, "bitwise": bitwise}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -439,6 +811,11 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile a few main-path steps "
                          "(torch.profiler: device busy share, top ops)")
+    ap.add_argument("--turns", type=int, default=0,
+                    help="then run the main paths again in turns "
+                         "(2, 2 pre-made, 1, 1, 2 pre-made, 2) this many "
+                         "times, to compare their step times within one "
+                         "run")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -449,9 +826,14 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
-    from repro_torch.configs import get_config
+    from repro_torch.configs import OptimizerConfig, get_config
+    from repro_torch.distributed import shutdown
     from repro_torch.kernels import _build
+    from repro_torch.kernels import bucket_ops as bo
     from repro_torch.kernels import fused_bn as fb
+    from repro_torch.kernels import fused_input as fi
+    from repro_torch.kernels import fused_update as fu
+    libs = (fb, fu, bo, fi)
 
     t_all = time.perf_counter()
     card = nvidia_smi_line()
@@ -460,8 +842,8 @@ def main() -> int:
         f"{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    libs = _build.build(["fused_bn"])
-    log(f"[2] built {sorted(libs)} in {time.perf_counter() - t0:.1f}s")
+    built = _build.build(SOURCES)
+    log(f"[2] built {sorted(built)} in {time.perf_counter() - t0:.1f}s")
 
     cfg = get_config("resnet50")
     t0 = time.perf_counter()
@@ -475,9 +857,19 @@ def main() -> int:
         f"({time.perf_counter() - t0:.1f}s)")
 
     t0 = time.perf_counter()
-    log(f"[4] main path: ResNet-50 full width, batch {BATCH}, bf16, fused "
+    log("[3b] fused update, wire cast and fused input vs plain versions")
+    leaves = model_leaves(cfg)
+    wd = OptimizerConfig().weight_decay
+    new = {}
+    new["hybrid_update"], total = update_phase(torch, leaves, wd)
+    new["cast_copy"] = cast_phase(torch, total)
+    new.update(input_phase(torch, cfg))
+    log(f"  ({time.perf_counter() - t0:.1f}s)")
+
+    t0 = time.perf_counter()
+    log(f"[4] main path 1: ResNet-50 full width, batch {BATCH}, bf16, fused "
         f"BN, {STEPS} steps + 1 eval batch")
-    launches, stats, live = main_path(torch, fb, cfg, STEPS)
+    _, stats, live = main_path(torch, libs, cfg, STEPS)
     log(f"  ({time.perf_counter() - t0:.1f}s)")
     if args.profile:
         log("[4p] profile of the main path")
@@ -488,19 +880,66 @@ def main() -> int:
     ref = reference_phase(torch)
     log(f"  ({time.perf_counter() - t0:.1f}s)")
 
+    try:
+        t0 = time.perf_counter()
+        log(f"[6] main path 2: the paper's DP step at world size 1 (NCCL), "
+            f"ResNet-50 full width, batch {BATCH}, bf16, fused BN, "
+            f"bf16+bucketed, fused update, fused input, 4 data workers, "
+            f"{STEPS} steps + 1 eval batch")
+        launches, stats2, live2 = dp_main_path(torch, libs, cfg, STEPS)
+        log(f"  ({time.perf_counter() - t0:.1f}s)")
+        if args.profile:
+            log("[6p] profile of main path 2")
+            stats2["profile"] = profile_phase(torch, *live2)
+        del live2
+
+        t0 = time.perf_counter()
+        log("[6b] reference: reduced ResNet f32, DP step, new kernels on "
+            "vs off")
+        ref2 = dp_reference_phase(torch)
+        log(f"  ({time.perf_counter() - t0:.1f}s)")
+
+        order = ("path2", "path2_premade", "path1", "path1",
+                 "path2_premade", "path2")
+        turns = {f"{k}_median_wall_ms": [] for k in order}
+        if args.turns:
+            log(f"[7] main paths in turns {order} x {args.turns}")
+        for _ in range(args.turns):
+            for which in order:
+                if which == "path1":
+                    st = main_path(torch, libs, cfg, STEPS)[1]
+                else:
+                    st = dp_main_path(torch, libs, cfg, STEPS,
+                                      premade=which.endswith("premade"))[1]
+                turns[f"{which}_median_wall_ms"].append(st["median_wall_ms"])
+        if args.turns:
+            log(f"  {turns}")
+    finally:
+        shutdown()
+
     kernels = [{"name": k, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[k], "launches": launches[k],
                 "max_abs_err": totals[k]["max_abs_err"],
                 "ms": totals[k]["ms"], "plain_ms": totals[k]["plain_ms"],
                 "bound_ms": totals[k]["bound_ms"], "bound_by": "bytes",
                 "library_ms": totals[k]["library_ms"]} for k in KERNELS]
+    for k, (src, replaces) in NEW_KERNELS.items():
+        t = new[k]
+        kernels.append({
+            "name": k, "route": "cuda", "source": CSRC + src,
+            "replaces": replaces, "launches": launches[k],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke_kernels.json"),
                   "w") as f:
             json.dump({"card": card, "shapes": shape_rows, "pair": pair,
-                       "kernels": kernels, "main_path": stats,
-                       "reference": ref}, f, indent=1)
+                       "kernels": kernels, "new_kernels": new,
+                       "main_path": stats, "main_path_2": stats2,
+                       "reference": ref, "reference_2": ref2,
+                       "turns": turns}, f, indent=1)
     log(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

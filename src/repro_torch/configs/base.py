@@ -140,7 +140,7 @@ class OptimizerConfig:
     # is the "poly" schedule's decay exponent (2 in You/Yamazaki et al.)
     trust_coef: float = 0.001
     poly_power: float = 2.0
-    use_fused_kernel: bool = False  # fused update kernel (not ported yet)
+    use_fused_kernel: bool = False  # fused update kernel (kernels/fused_update.py)
     # beyond paper: bf16 optimizer state halves m/Delta residency (the
     # update math stays fp32) — what lets 400B fp32-master training fit
     # a single 256-chip pod (EXPERIMENTS.md §Dry-run)

@@ -2,13 +2,16 @@
 
 The model keeps only the last minibatch's statistics as state. This is
 the plain path of every BN site; ``kernels/fused_bn.py`` fuses the same
-math into the CUDA kernels.
+math into the CUDA kernels. In the data-parallel step every worker keeps
+the statistics of its own minibatch; before validation they are
+all-reduced moment-correctly (``finalize_bn_stats``, paper §2).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
+import torch.distributed as dist
 
 F32 = torch.float32
 
@@ -31,3 +34,61 @@ def bn_apply_stats(x: torch.Tensor, mean, var, scale, bias,
     inv = torch.rsqrt(var + eps) * scale.to(F32)
     off = bias.to(F32) - mean * inv
     return (x * inv.to(x.dtype) + off.to(x.dtype)).to(x.dtype)
+
+
+State = Dict[str, Dict[str, torch.Tensor]]
+
+
+def _combine_moments(mean_w, var_w, reduce_mean):
+    """Average per-worker (mean, var) pairs moment-correctly: through
+    E[x^2] = var + mean^2, so the result is exactly the statistics of
+    the concatenated minibatch when every worker saw an equal shard."""
+    mean = reduce_mean(mean_w)
+    ex2 = reduce_mean(var_w + mean_w.square())
+    return mean, torch.clamp_min(ex2 - mean.square(), 0.0)
+
+
+def combine_worker_bn_stats(state: State) -> State:
+    """The pre-validation combine in host form: every leaf carries a
+    leading worker dim (the JAX package's shard_map layout); returns the
+    global statistics with that dim reduced (``mean`` averaged, ``var``
+    through E[x^2], other leaves averaged)."""
+    def mean0(x):
+        return x.mean(dim=0)
+
+    out = {}
+    for site, rec in state.items():
+        mean, var = _combine_moments(rec["mean"], rec["var"], mean0)
+        out[site] = {k: mean0(v) for k, v in rec.items()}
+        out[site].update(mean=mean, var=var)
+    return out
+
+
+def finalize_bn_stats(state: State, group=None) -> State:
+    """Paper §2: all-reduce every worker's last-minibatch statistics
+    before validation, moment-correctly (as ``combine_worker_bn_stats``),
+    in one collective over all sites. Returns new tensors, equal on
+    every worker."""
+    sites = list(state)
+    n = dist.get_world_size(group)
+    parts = []
+    for site in sites:
+        rec = state[site]
+        parts += [rec["mean"].reshape(-1).float(),
+                  (rec["var"] + rec["mean"].square()).reshape(-1).float(),
+                  rec["count"].reshape(-1).float()]
+    flat = torch.cat(parts)
+    dist.all_reduce(flat, group=group)
+    flat = flat / n
+    out, i = {}, 0
+    for site in sites:
+        rec = state[site]
+        c, shape = rec["mean"].numel(), rec["mean"].shape
+        mean = flat[i:i + c].view(shape)
+        ex2 = flat[i + c:i + 2 * c].view(shape)
+        count = flat[i + 2 * c:i + 2 * c + 1].view(rec["count"].shape)
+        i += 2 * c + 1
+        out[site] = {"mean": mean,
+                     "var": torch.clamp_min(ex2 - mean.square(), 0.0),
+                     "count": count}
+    return out

@@ -2,15 +2,18 @@
 
 The paper casts gradients to fp16 for the all-reduce. bf16 is the
 default wire format (fp32 exponent range, so no loss scaling); fp16 is
-available for paper-faithfulness. On one device there is no collective,
-so the train step applies the wire numerics with ``simulate_wire_cast``:
-every gradient round-trips through the wire dtype.
+available for paper-faithfulness. ``compressed_psum`` is the per-leaf
+all-reduce of the data-parallel step. On one device there is no
+collective, so the single-device step applies the wire numerics with
+``simulate_wire_cast``: every gradient round-trips through the wire
+dtype. Error feedback is not ported yet (ROADMAP queue 1, item 6).
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 WIRE_DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16, None: None,
                "none": None}
@@ -58,3 +61,22 @@ def simulate_wire_cast(grads: Dict[str, torch.Tensor],
     if wdt is None:
         return grads
     return {k: g.to(wdt).to(g.dtype) for k, g in grads.items()}
+
+
+def compressed_psum(grads: Dict[str, torch.Tensor],
+                    wire: Optional[str] = "bf16", mean: bool = True,
+                    group=None) -> Dict[str, torch.Tensor]:
+    """Paper-faithful compressed all-reduce, one collective per leaf:
+    cast each gradient to the wire dtype, sum it over the workers, cast
+    it back, and divide by the worker count when ``mean`` (the order of
+    the JAX package's ``compressed_psum``, so sums of two workers agree
+    bitwise)."""
+    wdt = _wire(wire)
+    n = dist.get_world_size(group)
+    out = {}
+    for k, g in grads.items():
+        x = g.to(wdt) if wdt is not None else g.clone()
+        dist.all_reduce(x, group=group)
+        x = x.to(g.dtype)
+        out[k] = x / n if mean else x
+    return out

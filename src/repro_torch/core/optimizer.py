@@ -42,11 +42,13 @@ def alpha_rmsprop(h: HybridHyper) -> float:
 
 
 def hybrid_update(g, theta, delta, m, h: HybridHyper,
-                  weight_decay: float = 0.0) -> Tuple:
-    """One leaf update. Returns (theta', delta', m'). fp32 math."""
+                  weight_decay=0.0) -> Tuple:
+    """One leaf update. Returns (theta', delta', m'). fp32 math.
+    ``weight_decay`` is a scalar or a per-element tensor shaped like
+    the leaf (the packed-stream form)."""
     g = g.to(F32)
     theta32 = theta.to(F32)
-    if weight_decay:
+    if torch.is_tensor(weight_decay) or weight_decay:
         g = g + weight_decay * theta32  # L2-in-gradient (Goyal baseline)
     m_new = h.mu2 * m + (1.0 - h.mu2) * g.square()
     a_rms = torch.tensor(alpha_rmsprop(h), dtype=F32)

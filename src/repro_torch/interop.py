@@ -6,7 +6,10 @@ tensors named by the same paths joined with "/"
 (``stage1/block0/proj_bn/scale``). Conv weights go from HWIO to OIHW;
 the fc weight keeps its ``(C_in, classes)`` layout. ``flat_name`` also
 reads the keys of a checkpoint's ``arrays.npz`` (``['params']['fc']['w']``),
-so such a file loads directly.
+so such a file loads directly. The JAX package's data-parallel step keeps
+every worker's BN state under a leading worker dim; the port keeps one
+state per worker process (``worker_state_from_jax`` /
+``stack_worker_states``).
 """
 from __future__ import annotations
 
@@ -86,6 +89,26 @@ def state_from_jax(state: Mapping, device: DeviceLike = "cuda"
 def state_to_jax(state: Mapping) -> Dict[str, Dict[str, np.ndarray]]:
     return {site: {k: v.detach().cpu().numpy() for k, v in rec.items()}
             for site, rec in state.items()}
+
+
+def worker_state_from_jax(state: Mapping, worker: int,
+                          device: DeviceLike = "cuda"
+                          ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Worker ``worker``'s BN state out of the JAX package's per-worker
+    state (every leaf with a leading worker dim)."""
+    return state_from_jax({site: {k: np.asarray(v)[worker]
+                                  for k, v in rec.items()}
+                           for site, rec in state.items()}, device)
+
+
+def stack_worker_states(states) -> Dict[str, Dict[str, np.ndarray]]:
+    """The port's per-worker BN states (one per rank, in rank order) as
+    the JAX package's per-worker state: numpy leaves with a leading
+    worker dim."""
+    flat = [state_to_jax(s) for s in states]
+    return {site: {k: np.stack([f[site][k] for f in flat])
+                   for k in flat[0][site]}
+            for site in flat[0]}
 
 
 def load_reference_arrays(arrays: Mapping[str, np.ndarray],

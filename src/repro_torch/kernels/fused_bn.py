@@ -25,26 +25,20 @@ var cotangents.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, Optional, Tuple
 
 import torch
 
-Tensor = torch.Tensor
+from repro_torch.kernels._launch import (I32, I64, P, Library, on_cpu, ptr,
+                                        stream)
 
-LAUNCHES: Dict[str, int] = {"bn_stats": 0, "bn_apply": 0,
-                            "bn_bwd_sums": 0, "bn_bwd_dx": 0}
+Tensor = torch.Tensor
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _CH = 32               # channels per reduction block (csrc kCh)
 _TARGET_BLOCKS = 1056  # about one full wave of reduction blocks on 132 SMs
 _MIN_CHUNK_ROWS = 64
 _MAX_CHUNKS = 65535    # gridDim.y limit
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def rows_view(x: Tensor) -> Tensor:
@@ -73,57 +67,19 @@ def reduction_chunks(rows: int, c: int) -> Tuple[int, int]:
 # launch plumbing
 # ---------------------------------------------------------------------------
 
-_P = ctypes.c_void_p
-_I64 = ctypes.c_longlong
-_I32 = ctypes.c_int
-_SIGNATURES = {
-    "bn_stats": [_P, _I64, _I32, _I32, _I64, _P, _P, _P, _P, _P],
-    "bn_apply": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P],
-    "bn_bwd_sums": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I64,
-                    _P, _P, _P, _P, _P],
-    "bn_bwd_dx": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32,
-                  _I32, _I32, _P],
-}
-_FNS: Dict[str, object] = {}
-
-
-def _fn(name: str):
-    fn = _FNS.get(name)
-    if fn is None:
-        from repro_torch.kernels import _build
-        lib = _build.load("fused_bn")
-        for sym, argtypes in _SIGNATURES.items():
-            f = getattr(lib, sym)
-            f.argtypes = argtypes
-            f.restype = ctypes.c_int
-            _FNS[sym] = f
-        fn = _FNS[name]
-    return fn
-
-
-def _ptr(t: Optional[Tensor]) -> Optional[int]:
-    return None if t is None else t.data_ptr()
-
-
-def _launch(name: str, *args) -> None:
-    err = _fn(name)(*args)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+_LIB = Library("fused_bn", {
+    "bn_stats": [P, I64, I32, I32, I64, P, P, P, P, P],
+    "bn_apply": [P, P, P, P, P, I64, I32, I32, I32, P],
+    "bn_bwd_sums": [P, P, P, P, P, I64, I32, I32, I32, I64, P, P, P, P, P],
+    "bn_bwd_dx": [P, P, P, P, P, P, P, P, P, P, I64, I32, I32, I32, P],
+})
+LAUNCHES: Dict[str, int] = _LIB.launches
+reset_launch_counts = _LIB.reset
+_launch = _LIB.launch
 
 
 def _on_cpu(*ts: Optional[Tensor]) -> bool:
-    """True when the inputs lie on the CPU (plain version); False on a
-    CUDA device (kernel). Anything else raises."""
-    devs = {t.device.type for t in ts if t is not None}
-    if devs == {"cpu"}:
-        return True
-    if devs == {"cuda"} and len({t.device for t in ts
-                                 if t is not None}) == 1:
-        return False
-    got = sorted(str(t.device) for t in ts if t is not None)
-    raise ValueError(f"fused BN inputs must all lie on the CPU or on one "
-                     f"CUDA device; got {got}")
+    return on_cpu("fused BN", *ts)
 
 
 def _check_rows(c: int, *ts: Optional[Tensor]) -> torch.dtype:
@@ -158,10 +114,6 @@ def _check_channel(c: int, *vs: Tensor) -> None:
                              f"{tuple(v.shape)}")
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
 # ---------------------------------------------------------------------------
 # bn_stats
 # ---------------------------------------------------------------------------
@@ -187,7 +139,7 @@ def bn_stats(x: Tensor) -> Tuple[Tensor, Tensor]:
     var = torch.empty_like(mean)
     _launch("bn_stats", x.data_ptr(), rows, c, _DTYPE_CODE[dtype], rpc,
             scratch[0].data_ptr(), scratch[1].data_ptr(), mean.data_ptr(),
-            var.data_ptr(), _stream())
+            var.data_ptr(), stream())
     return mean, var
 
 
@@ -216,9 +168,9 @@ def bn_apply(x: Tensor, a: Tensor, o: Tensor,
     dtype = _check_rows(c, x, residual)
     _check_channel(c, a, o)
     y = torch.empty_like(x)
-    _launch("bn_apply", x.data_ptr(), _ptr(residual), a.data_ptr(),
+    _launch("bn_apply", x.data_ptr(), ptr(residual), a.data_ptr(),
             o.data_ptr(), y.data_ptr(), rows, c, _DTYPE_CODE[dtype],
-            int(relu), _stream())
+            int(relu), stream())
     return y
 
 
@@ -254,10 +206,10 @@ def bn_bwd_sums(dy: Tensor, x: Tensor, y: Tensor, mu: Tensor,
                           device=x.device)
     out = torch.empty((2, c), dtype=torch.float32, device=x.device)
     _launch("bn_bwd_sums", dy.data_ptr(), x.data_ptr(),
-            _ptr(y if relu else None), mu.data_ptr(), rstd.data_ptr(), rows,
+            ptr(y if relu else None), mu.data_ptr(), rstd.data_ptr(), rows,
             c, _DTYPE_CODE[dtype], int(relu), rpc, scratch[0].data_ptr(),
             scratch[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-            _stream())
+            stream())
     return out[0], out[1]
 
 
@@ -287,9 +239,9 @@ def bn_bwd_dx(dy: Tensor, x: Tensor, y: Tensor, mu: Tensor, rstd: Tensor,
     dx = torch.empty_like(x)
     dres = torch.empty_like(x) if with_dres else None
     _launch("bn_bwd_dx", dy.data_ptr(), x.data_ptr(),
-            _ptr(y if relu else None), mu.data_ptr(), rstd.data_ptr(),
+            ptr(y if relu else None), mu.data_ptr(), rstd.data_ptr(),
             ca.data_ptr(), cb.data_ptr(), cc.data_ptr(), dx.data_ptr(),
-            _ptr(dres), rows, c, _DTYPE_CODE[dtype], int(relu), _stream())
+            ptr(dres), rows, c, _DTYPE_CODE[dtype], int(relu), stream())
     return dx, dres
 
 

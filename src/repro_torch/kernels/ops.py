@@ -3,7 +3,17 @@
 kernels; on CPU tensors they run each kernel's plain PyTorch version."""
 from __future__ import annotations
 
+from repro_torch.kernels.bucket_ops import (  # noqa: F401
+    pack_cast,
+    unpack_cast,
+)
 from repro_torch.kernels.fused_bn import (  # noqa: F401
     fused_bn_apply,
     fused_bn_train,
 )
+from repro_torch.kernels.fused_input import (  # noqa: F401
+    fused_input_eval,
+    fused_input_train,
+    input_augment_params,
+)
+from repro_torch.kernels.fused_update import fused_hybrid_update  # noqa: F401

@@ -11,12 +11,14 @@ _FACTORIES = {
 
 
 def make_optimizer(cfg: OptimizerConfig, steps_per_epoch: int,
-                   global_batch: int) -> Optimizer:
-    """The plain per-leaf optimizer; the fused update kernel
-    (``--use-fused-kernel``) is ROADMAP queue 2, item 5."""
+                   global_batch: int, use_fused: bool = False) -> Optimizer:
+    """The per-leaf optimizer; ``use_fused`` (``--use-fused-kernel``)
+    runs rmsprop_warmup's update through the fused kernel, and momentum
+    SGD ignores it, as in the JAX package."""
     if cfg.kind == "lars":
         raise NotImplementedError(
             "LARS is not ported yet (ROADMAP queue 1, item 12)")
     if cfg.kind not in _FACTORIES:
         raise KeyError(f"unknown optimizer {cfg.kind!r}")
-    return _FACTORIES[cfg.kind](cfg, steps_per_epoch, global_batch)
+    return _FACTORIES[cfg.kind](cfg, steps_per_epoch, global_batch,
+                                use_fused=use_fused)

@@ -1,5 +1,8 @@
 """The paper's optimizer: hybrid RMSprop->SGD with the ELU transition
-schedule and slow-start LR."""
+schedule and slow-start LR. With ``use_fused`` each leaf goes through
+the fused update kernel (``kernels/fused_update.py``), one launch per
+leaf as the JAX package's ``tree.map``; without, through the plain
+per-leaf math of ``core/optimizer.py``. The two are bitwise equal."""
 from __future__ import annotations
 
 from typing import Dict, Tuple
@@ -9,6 +12,7 @@ import torch
 from repro_torch.configs.base import OptimizerConfig
 from repro_torch.core.optimizer import HybridHyper, hybrid_update
 from repro_torch.core.schedules import alpha_sgd_schedule, make_lr_schedule
+from repro_torch.kernels.ops import fused_hybrid_update
 from repro_torch.optim.interface import Optimizer, epoch_of, tree_zeros_like
 
 # path fragments that get no weight decay (norms, biases — standard
@@ -31,7 +35,7 @@ _STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def rmsprop_warmup(cfg: OptimizerConfig, steps_per_epoch: int,
-                   global_batch: int) -> Optimizer:
+                   global_batch: int, use_fused: bool = False) -> Optimizer:
     lr_fn = make_lr_schedule(cfg.schedule, global_batch,
                              base_lr_per_256=cfg.base_lr_per_256,
                              warmup_epochs=cfg.warmup_epochs,
@@ -57,6 +61,16 @@ def rmsprop_warmup(cfg: OptimizerConfig, steps_per_epoch: int,
         for k, p in params.items():
             d, m = state["delta"][k], state["m"][k]
             wd = cfg.weight_decay if decays(k) else 0.0
+            if use_fused:
+                # the kernel takes f32 state: a bf16 state is cast in
+                # and out, as the JAX package's fused leaf does
+                d32, m32 = d.float(), m.float()
+                fused_hybrid_update(grads[k].float().contiguous(), p, d32,
+                                    m32, h, wd)
+                if d32 is not d:
+                    d.copy_(d32)
+                    m.copy_(m32)
+                continue
             p2, d2, m2 = hybrid_update(grads[k], p, d.float(), m.float(),
                                        h, wd)
             p.copy_(p2)

@@ -14,7 +14,7 @@ from repro_torch.optim.rmsprop_warmup import decays
 
 
 def momentum_sgd(cfg: OptimizerConfig, steps_per_epoch: int,
-                 global_batch: int) -> Optimizer:
+                 global_batch: int, **_) -> Optimizer:
     lr_fn = make_lr_schedule(cfg.schedule, global_batch,
                              base_lr_per_256=cfg.base_lr_per_256,
                              warmup_epochs=cfg.warmup_epochs,

@@ -1,21 +1,24 @@
-"""Training loop: the epoch-driven trainer of the JAX package, on one
-device.
+"""Training loop: the epoch-driven trainer of the JAX package.
 
 ``Trainer`` interleaves train steps with validation on the held-out
 split at epoch boundaries, keeps per-epoch top-1 / loss history and the
-best epoch, and times every step and the batch it waited for. The paper's BN technique lives at
-validation: eval normalizes with the last minibatch's statistics (on
-one device they need no all-reduce, so ``finalize_state`` defaults to
-the identity). Batches are read with ``batch_at(step)`` on the loop's
-own thread. Checkpointing, the multi-worker input pipeline and the
-resilience machinery are later slices (ROADMAP queue 1, items 7, 9 and
-14): asking for them raises.
+best epoch, and times every step and the time it waited for its batch.
+Batches come through the ``DataPipeline`` (``data/pipeline.py``): host
+producer threads, an ordered reorder buffer and, with ``put_batch``, a
+device stage one step ahead. The paper's BN technique lives at
+validation: eval normalizes with the last minibatch's statistics, which
+the data-parallel path all-reduces first (``finalize_state``; on one
+device it is the identity). Checkpointing and the resilience machinery
+are later slices (ROADMAP queue 1, items 7 and 14): asking for them
+raises.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional
+
+from repro_torch.data.pipeline import DataPipeline
 
 Tree = Dict[str, Any]
 
@@ -30,13 +33,18 @@ class TrainerConfig:
     val_batches: int = 4
     checkpoint_dir: Optional[str] = None  # not ported yet: must be None
     log_every: int = 10
+    # input pipeline: host producer threads, reorder-buffer bound, and
+    # steps staged on the device past the current one (needs put_batch)
+    data_workers: int = 1
+    prefetch_depth: int = 4
+    device_ahead: int = 1
 
 
 @dataclasses.dataclass
 class TrainResult:
     state: Tree
     # per-step train log {"step", "loss", "time", "data_wait"}: "time"
-    # is the whole step, "data_wait" the part spent making its batch
+    # is the whole step, "data_wait" the part spent waiting for its batch
     history: list
     epoch_history: list  # per-eval {"epoch", "step", "top1", "loss"}
     best: Optional[Dict]  # {"top1", "epoch", "step"} (eval enabled only)
@@ -50,6 +58,8 @@ class Trainer:
         ``top1`` for best tracking).
     ``finalize_state``: model_state -> eval model_state; None is the
         identity (one device).
+    ``put_batch``: the pipeline's device stage (host batch -> device
+        batch), or None to hand host batches to the step.
     ``val_data``: held-out pipeline whose ``batch_at(i)`` is disjoint
         from the training split; eval replays batches ``0..val_batches-1``
         so every epoch is scored on the same set.
@@ -59,6 +69,7 @@ class Trainer:
                  cfg: TrainerConfig, *,
                  eval_step: Optional[Callable] = None, val_data=None,
                  finalize_state: Optional[Callable] = None,
+                 put_batch: Optional[Callable] = None,
                  resilience=None, chaos=None):
         if cfg.checkpoint_dir is not None:
             raise NotImplementedError(
@@ -77,6 +88,7 @@ class Trainer:
         self.eval_step = eval_step
         self.val_data = val_data
         self.finalize_state = finalize_state
+        self.put_batch = put_batch
         self._val_batches = None  # built once: the held-out set is fixed
 
     def _eval_enabled(self) -> bool:
@@ -109,28 +121,41 @@ class Trainer:
         history: List[Dict] = []
         eval_history: List[Dict] = []
         best: Optional[Dict] = None
-        for step in range(total_steps):
-            t0 = time.perf_counter()  # includes making the batch
-            batch = self.train_data.batch_at(step)
-            data_wait = time.perf_counter() - t0
-            state, metrics = self.train_step(state, batch)
-            loss = metrics.get("loss")
-            if loss is not None:
-                loss = float(loss)  # waits for the device
-            dt = time.perf_counter() - t0
-            if step % cfg.log_every == 0 or step == total_steps - 1:
-                history.append({"step": step, "loss": loss, "time": dt,
-                                "data_wait": data_wait})
-            done = step + 1
-            if self._eval_enabled() and done % cfg.steps_per_epoch == 0:
-                epoch = done // cfg.steps_per_epoch
-                if epoch % cfg.eval_every_epochs == 0 or epoch == cfg.epochs:
-                    rec = self.evaluate(state, epoch, done)
-                    eval_history.append(rec)
-                    top1 = rec.get("top1")
-                    if top1 is not None and (best is None
-                                             or top1 > best["top1"]):
-                        best = {"top1": top1, "epoch": epoch, "step": done}
+        pipeline = DataPipeline(
+            self.train_data, start_step=0, depth=cfg.prefetch_depth,
+            num_workers=cfg.data_workers, put=self.put_batch,
+            device_ahead=cfg.device_ahead)
+        try:
+            for step in range(total_steps):
+                t0 = time.perf_counter()  # includes the wait for the batch
+                got_step, batch = next(pipeline)
+                if got_step != step:
+                    raise RuntimeError(f"pipeline misalignment: got the "
+                                       f"batch of step {got_step}, "
+                                       f"expected {step}")
+                data_wait = pipeline.last_wait_s
+                state, metrics = self.train_step(state, batch)
+                loss = metrics.get("loss")
+                if loss is not None:
+                    loss = float(loss)  # waits for the device
+                dt = time.perf_counter() - t0
+                if step % cfg.log_every == 0 or step == total_steps - 1:
+                    history.append({"step": step, "loss": loss, "time": dt,
+                                    "data_wait": data_wait})
+                done = step + 1
+                if self._eval_enabled() and done % cfg.steps_per_epoch == 0:
+                    epoch = done // cfg.steps_per_epoch
+                    if epoch % cfg.eval_every_epochs == 0 \
+                            or epoch == cfg.epochs:
+                        rec = self.evaluate(state, epoch, done)
+                        eval_history.append(rec)
+                        top1 = rec.get("top1")
+                        if top1 is not None and (best is None
+                                                 or top1 > best["top1"]):
+                            best = {"top1": top1, "epoch": epoch,
+                                    "step": done}
+        finally:
+            pipeline.close()
         self.state = state
         return TrainResult(state=state, history=history,
                            epoch_history=eval_history, best=best)

@@ -1,11 +1,20 @@
-"""Step builders for one device.
+"""Step builders: the single-device step and the paper's explicit
+data-parallel step.
 
 ``make_train_step`` is the single-device step of the JAX package's
 ``make_train_step`` with no mesh: cast every float parameter to the
 compute dtype, take the loss and its gradients (accumulated over
 ``microbatches`` if asked), round-trip the gradients through the wire
-dtype of ``compression`` (paper §3), and apply the optimizer. The
-multi-device sync modes are later slices (ROADMAP queue 1, item 6).
+dtype of ``compression`` (paper §3), and apply the optimizer.
+
+``make_dp_shardmap_train_step`` is the JAX package's
+``make_dp_shardmap_train_step``. PyTorch has no shard_map: every worker
+is its own process (``distributed/process_group.py``) running this step
+on its own shard of the global batch, with its own BN statistics. The
+gradients are all-reduced in half precision, per leaf
+(``compressed_psum``) or per bucket (``bucketed_psum``), the scalar
+metrics are averaged in one all-reduce, and every worker applies the
+same optimizer update to its replica of the parameters.
 """
 from __future__ import annotations
 
@@ -13,25 +22,58 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import TrainConfig
-from repro_torch.core.compression import parse_compression, simulate_wire_cast
+from repro_torch.core.batchnorm import finalize_bn_stats
+from repro_torch.core.compression import (
+    compressed_psum,
+    parse_compression,
+    simulate_wire_cast,
+)
+from repro_torch.distributed.bucketing import bucketed_psum, plan_buckets
+from repro_torch.kernels.ops import (
+    fused_input_eval,
+    fused_input_train,
+    input_augment_params,
+)
 from repro_torch.optim.interface import Optimizer
 
 Tree = Dict[str, Any]
 
 
 def to_device(batch: Dict[str, Any], device: torch.device
-              ) -> Dict[str, torch.Tensor]:
+              ) -> Dict[str, Any]:
     """Host batch (numpy or tensors) -> tensors on ``device``; labels
-    become int64 (the index type of ``gather``)."""
+    become int64 (the index type of ``gather``). Scalars that are not
+    tensors (the ``input_step`` stamp) stay host integers."""
     out = {}
     for k, v in batch.items():
+        if not torch.is_tensor(v) and np.ndim(v) == 0:
+            out[k] = int(v)
+            continue
         t = torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v) else v
         if k == "labels":
             t = t.long()
         out[k] = t.to(device, non_blocking=True)
     return out
+
+
+def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
+    return torch.sqrt(sum(x.float().square().sum() for x in tree.values()))
+
+
+def _grads_of(model, train_cfg: TrainConfig, params, mstate, mbatch):
+    """(new BN state, metrics, f32 gradients) of one (micro)batch. Every
+    parameter is cast to the compute dtype first; the gradients reach
+    the f32 masters through that cast."""
+    names = list(params)
+    pc = {k: params[k].detach().to(model.compute_dtype).requires_grad_(True)
+          for k in names}
+    loss, (new_mstate, metrics) = model.loss_fn(
+        pc, mstate, mbatch, train_cfg.label_smoothing)
+    gs = torch.autograd.grad(loss, [pc[k] for k in names])
+    return new_mstate, metrics, {k: g.float() for k, g in zip(names, gs)}
 
 
 def make_train_step(model, optimizer: Optimizer, train_cfg: TrainConfig,
@@ -42,26 +84,14 @@ def make_train_step(model, optimizer: Optimizer, train_cfg: TrainConfig,
     gradients (equal to the full-batch gradient for a mean loss); the BN
     state threads through the microbatches and the last one's is kept."""
     wire, _ = parse_compression(train_cfg.parallel.compression)
-    compute_dtype = model.compute_dtype
     device = model.device
-
-    def grads_of(params, mstate, mbatch):
-        names = list(params)
-        # the cast to the compute dtype: gradients reach the fp32 masters
-        # through it (cast back to fp32 below)
-        pc = {k: params[k].detach().to(compute_dtype).requires_grad_(True)
-              for k in names}
-        loss, (new_mstate, metrics) = model.loss_fn(
-            pc, mstate, mbatch, train_cfg.label_smoothing)
-        gs = torch.autograd.grad(loss, [pc[k] for k in names])
-        return new_mstate, metrics, {k: g.float() for k, g in zip(names, gs)}
 
     def train_step(state: Tree, batch: Tree):
         batch = to_device(batch, device)
         params = state["params"]
         if microbatches <= 1:
-            new_mstate, metrics, grads = grads_of(
-                params, state["model_state"], batch)
+            new_mstate, metrics, grads = _grads_of(
+                model, train_cfg, params, state["model_state"], batch)
         else:
             b = batch["images"].shape[0]
             if b % microbatches:
@@ -72,7 +102,8 @@ def make_train_step(model, optimizer: Optimizer, train_cfg: TrainConfig,
             seq = []
             for i in range(microbatches):
                 mb = {k: v.chunk(microbatches)[i] for k, v in batch.items()}
-                mstate, metrics, g = grads_of(params, mstate, mb)
+                mstate, metrics, g = _grads_of(model, train_cfg, params,
+                                               mstate, mb)
                 g = {k: v / microbatches for k, v in g.items()}
                 grads = g if grads is None else {
                     k: grads[k] + g[k] for k in grads}
@@ -104,3 +135,131 @@ def make_eval_step(model, train_cfg: Optional[TrainConfig] = None):
                              to_device(batch, model.device))
 
     return eval_step
+
+
+# ---------------------------------------------------------------------------
+# the paper's explicit data-parallel step
+# ---------------------------------------------------------------------------
+
+
+def _pmean_metrics(metrics: Dict, group=None) -> Dict:
+    """One all-reduce for all scalar metrics (stacked in key order, then
+    divided by the worker count) instead of one per metric."""
+    n = dist.get_world_size(group)
+    out = dict(metrics)
+    scalar = sorted(k for k, v in metrics.items()
+                    if torch.is_tensor(v) and v.dim() == 0)
+    if scalar:
+        stacked = torch.stack([metrics[k].detach().float() for k in scalar])
+        dist.all_reduce(stacked, group=group)
+        stacked = stacked / n
+        out.update({k: stacked[i] for i, k in enumerate(scalar)})
+    for k, v in metrics.items():
+        if torch.is_tensor(v) and v.dim() > 0:
+            v = v.detach().float().clone()
+            dist.all_reduce(v, group=group)
+            out[k] = v / n
+    return out
+
+
+def make_batch_input_transform(input_cfg, seed: int, model, rank: int,
+                               world: int):
+    """The per-worker fused input transform of the DP step, or None when
+    the fused path is off. It pops the batch's ``input_step`` stamp,
+    draws the augmentation table of that step at the *global* batch size
+    (``rank``'s rows are this worker's shard, as the data rows are), and
+    runs the fused augment + normalize + cast kernel; with
+    ``augment=False`` the normalize + cast kernel only."""
+    if input_cfg is None or not input_cfg.fused:
+        return None
+    device = model.device
+    out_dtype = model.compute_dtype
+    mean = torch.tensor(input_cfg.mean, dtype=torch.float32, device=device)
+    inv_std = 1.0 / torch.tensor(input_cfg.std, dtype=torch.float32,
+                                 device=device)
+
+    def transform(batch):
+        batch = dict(batch)
+        step_no = int(batch.pop("input_step"))
+        x = batch["images"]
+        if input_cfg.augment:
+            b = x.shape[0]
+            table = input_augment_params(seed, step_no, b * world,
+                                         max_shift=input_cfg.max_shift)
+            mine = torch.from_numpy(table[rank * b:(rank + 1) * b]).to(
+                device)
+            batch["images"] = fused_input_train(x, mine, mean, inv_std,
+                                                out_dtype=out_dtype)
+        else:
+            batch["images"] = fused_input_eval(x, mean, inv_std,
+                                               out_dtype=out_dtype)
+        return batch
+
+    return transform
+
+
+def make_dp_shardmap_train_step(model, optimizer: Optimizer,
+                                train_cfg: TrainConfig, group=None,
+                                input_transform=None):
+    """The paper's synchronous data-parallel step, as each worker runs
+    it: forward and backward on the local batch with the worker's own
+    BN statistics, the **half-precision all-reduce of the gradients**,
+    one all-reduce of the scalar metrics, and the replicated optimizer
+    update. The name is the JAX package's; there is no shard_map in
+    PyTorch, and the collectives go through ``torch.distributed``
+    (``group`` None is the default group).
+
+    ``compression="<wire>+bucketed"`` swaps the per-leaf all-reduce for
+    one all-reduce per ``bucket_bytes`` of wire traffic, and the
+    gradient norm then comes from the packed stream. Error feedback,
+    ZeRO, overlap and hierarchical schedules are not ported yet (ROADMAP
+    queue 1, items 6, 11, 10 and 13)."""
+    parallel = train_cfg.parallel
+    for flag, what, item in (
+            (parallel.error_feedback, "error feedback", 6),
+            (parallel.zero_dp, "ZeRO sync (--zero)", 11),
+            (parallel.overlap_comm, "overlapped sync (--overlap-comm)", 10),
+            (parallel.hier_split is not None, "hierarchical sync", 13)):
+        if flag:
+            raise NotImplementedError(
+                f"{what} is not ported yet (ROADMAP queue 1, item {item})")
+    wire, bucketed = parse_compression(parallel.compression)
+    device = model.device
+    plan = None
+
+    def sync_grads(grads):
+        """(synced gradients, squared norm or None)."""
+        nonlocal plan
+        if bucketed:
+            if plan is None:
+                plan = plan_buckets(grads, parallel.bucket_bytes, wire)
+            return bucketed_psum(grads, wire, plan=plan, mean=True,
+                                 with_sq_norm=True, group=group)
+        return compressed_psum(grads, wire, mean=True, group=group), None
+
+    def train_step(state: Tree, batch: Tree):
+        batch = to_device(batch, device)
+        if input_transform is not None:
+            batch = input_transform(batch)
+        params = state["params"]
+        new_mstate, metrics, grads = _grads_of(
+            model, train_cfg, params, state["model_state"], batch)
+        # ---- the paper's technique: fp16/bf16 compressed all-reduce ----
+        grads, sq_norm = sync_grads(grads)
+        metrics = _pmean_metrics(metrics, group)
+        new_params, new_opt, opt_metrics = optimizer.update(
+            params, grads, state["opt"])
+        metrics.update(opt_metrics)
+        metrics["grad_norm"] = (torch.sqrt(sq_norm) if sq_norm is not None
+                                else global_norm(grads))
+        return {"params": new_params, "opt": new_opt,
+                "model_state": new_mstate}, metrics
+
+    return train_step
+
+
+def finalize_worker_bn_stats(model_state, group=None):
+    """Paper §2: the all-reduce of every worker's last-minibatch BN
+    statistics before validation, moment-correct (see
+    ``core.batchnorm.finalize_bn_stats``)."""
+    return finalize_bn_stats(model_state, group)

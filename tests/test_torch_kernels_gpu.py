@@ -1,6 +1,7 @@
-"""The port's CUDA fused-BN kernels against their plain PyTorch versions,
-on the card. Every test here is marked ``gpu`` and skips without a CUDA
-device. The file imports neither jax nor the JAX package, so it also
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card: the fused-BN kernels, and bitwise the fused update, the wire cast
+and the fused input. Every test here is marked ``gpu`` and skips
+without a CUDA device. The file imports neither jax nor the JAX package, so it also
 runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest --noconftest -p no:cacheprovider \
@@ -74,3 +75,64 @@ def test_reductions_are_bitwise_repeatable_on_card(cuda):
     for _ in range(3):
         again = tfb.bn_stats(x)
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+# ---------------------------------------------------------------------------
+# the fused update, the wire cast and the fused input: bitwise against
+# their plain versions (every operation rounded once, in the same order)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wd", ["none", "scalar", "stream"])
+@pytest.mark.parametrize("n", [1, 4097, 1_000_003])
+def test_hybrid_update_bitwise_on_card(cuda, n, wd):
+    from repro_torch.core.optimizer import HybridHyper
+    from repro_torch.kernels import fused_update as fu
+    g = torch.Generator().manual_seed(n)
+    grad = torch.randn(n, generator=g) * 1e-2
+    p, d = torch.randn(n, generator=g), torch.randn(n, generator=g) * 1e-3
+    m = torch.rand(n, generator=g) * 1e-4
+    wds = (torch.rand(n, generator=g) < 0.5).float() * 1e-4
+    gc = grad.to(cuda)
+    dec = {"none": 0.0, "scalar": 1e-4, "stream": wds.to(cuda)}[wd]
+    for a_sgd in (0.0, 0.5, 1.0):
+        h = HybridHyper(eta=0.05, alpha_sgd=a_sgd)
+        kern = [t.to(cuda) for t in (p, d, m)]
+        plain = [t.to(cuda) for t in (p, d, m)]
+        fu.reset_launch_counts()
+        fu.fused_hybrid_update(gc, *kern, h, dec)
+        fu.PLAIN["hybrid_update"](gc, *plain, h, dec)
+        torch.cuda.synchronize()
+        assert fu.LAUNCHES == {"hybrid_update": 1}
+        assert all(torch.equal(a, b) for a, b in zip(kern, plain))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 127, 25_557_032])
+def test_cast_copy_bitwise_on_card(cuda, n):
+    from repro_torch.kernels import bucket_ops as bo
+    x = torch.randn(n, generator=torch.Generator().manual_seed(n)).to(cuda)
+    for wire in (torch.bfloat16, torch.float16):
+        packed = bo.pack_cast(x, wire)
+        assert torch.equal(packed, x.to(wire))
+        assert torch.equal(bo.unpack_cast(packed), packed.float())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_fused_input_bitwise_on_card(cuda, dt):
+    from repro_torch.kernels import fused_input as fi
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(32, 224, 224, 3, generator=g).to(cuda)
+    table = torch.from_numpy(fi.input_augment_params(0, 3, 32)).to(cuda)
+    table[:4] = torch.tensor([[1, 4, -4, 0], [0, -4, 4, 0], [1, 0, 0, 0],
+                              [0, 0, 0, 0]], dtype=torch.int32)
+    mean = torch.tensor([0.1, -0.2, 0.3], device=cuda)
+    inv = 1.0 / torch.tensor([0.9, 1.1, 1.3], device=cuda)
+    tdt = DTYPES[dt]
+    assert torch.equal(
+        fi.fused_input_train(x, table, mean, inv, out_dtype=tdt),
+        fi.PLAIN["input_train"](x, table, mean, inv, tdt))
+    assert torch.equal(fi.fused_input_eval(x, mean, inv, out_dtype=tdt),
+                       fi.PLAIN["input_eval"](x, mean, inv, tdt))

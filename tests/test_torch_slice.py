@@ -182,6 +182,9 @@ def test_unported_options_raise():
     kw = dict(global_batch=BATCH, seq_len=0, opt_cfg=TOpt(),
               steps_per_epoch=SPE, device="cpu")
     with pytest.raises(NotImplementedError, match="item 6"):
+        tlaunch.build_train_setup(tc, error_feedback=True, **kw)
+    # bucketed sync needs the data-parallel step, as in the JAX package
+    with pytest.raises(ValueError, match="dp_mode='shardmap'"):
         tlaunch.build_train_setup(tc, compression="bf16+bucketed", **kw)
     with pytest.raises(NotImplementedError, match="item 12"):
         tlaunch.build_train_setup(tc, **{**kw, "opt_cfg": TOpt(kind="lars")})
