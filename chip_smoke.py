@@ -21,6 +21,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      ``input_train``/``input_eval`` at (32, 224, 224, 3) with +-4 shifts
      and flips, bf16 and f32 out; with kernel, plain, library and bound
      times per main-path step;
+  3c. the stream-LARS kernels against their plain versions:
+     ``seg_sq_partials`` within rtol 1e-5 of a float64 sum of the same
+     inputs and the same bits on a second launch, ``lars_update``
+     bitwise, at ResNet-50's whole stream (162 segments), at the
+     worker slices of an ``align=4`` plan for 2 and 4 workers, with zero
+     gradients, and at edge cases (1 element, an empty segment,
+     1-element segments, a segment across the kernels' chunks, a length
+     not a multiple of 128); with kernel, plain and bound times, and
+     ``hybrid_update`` timed with the per-element decay stream;
   4. main path 1 (slice 1, one device):
      ``repro_torch.launch.train.build_train_setup`` for the full-width
      ResNet-50 (stages 3,4,6,3, width 64, 1000 classes, 224
@@ -37,7 +46,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      kernel's launch count is checked;
   6b. reference: the reduced ResNet in f32, the DP step with every new
      kernel on against the same step with them off (plain per-leaf
-     update, per-leaf all-reduce, host input transform), three steps.
+     update, per-leaf all-reduce, host input transform), three steps;
+  8. main path 3, stream-LARS on the DP step at world size 1 (NCCL):
+     main path 2 with the ``lars_ls_poly`` recipe (LARS, poly schedule,
+     label smoothing 0.1); the update runs on the packed stream through
+     ``seg_sq_partials`` and ``lars_update``, once each per step, and
+     ``hybrid_update`` never; every launch count is checked;
+  8b. reference: the reduced ResNet in f32, the stream-LARS DP step with
+     error feedback, twice with the kernels on (bitwise equal) and once
+     with the plain stream update (losses within rtol 1e-5, parameters
+     within a relative norm of 1e-5), three steps.
 With ``--profile``, a few more steps of each main path run under
 torch.profiler (device busy time and idle share, top host ops and
 kernels). With ``--turns N``, phase 7 runs the main paths again in
@@ -45,7 +63,9 @@ turns, N times: main path 2, main path 2 fed pre-made batches (its
 producer threads then only hand them over), main path 1 twice, then the
 two variants of main path 2 in reverse, for their wall step times side
 by side. Then a ``{"kernels": [...]}`` line (launches from main path
-2, which runs all eight kernels), the card's name and power limit, and
+2 for its eight kernels, from main path 3 for the two stream-LARS
+kernels; ``launches_by_path`` holds both), the card's name and power
+limit, and
 last the ``{"ok": true, "device": ...}`` line. ``--out DIR`` also writes
 the per-shape kernel tables to ``DIR/chip_smoke_kernels.json``.
 
@@ -87,10 +107,21 @@ NEW_KERNELS = {
     "input_train": ("fused_input.cu", "src/repro/kernels/fused_input.py:41"),
     "input_eval": ("fused_input.cu", "src/repro/kernels/fused_input.py:50"),
 }
+# the kernels of main path 3 beyond those of main path 2
+LARS_KERNELS = {
+    "seg_sq_partials": ("fused_update.cu",
+                        "src/repro/kernels/fused_update.py:130"),
+    "lars_update": ("fused_update.cu",
+                    "src/repro/kernels/fused_update.py:189"),
+}
 SOURCES = ("fused_bn", "fused_update", "bucket_ops", "fused_input")
 # flops per element of the hybrid update (decay 2, m 4, coef 4, delta 3,
 # theta 2) and of the input transform (subtract, multiply)
 UPDATE_FLOPS, INPUT_FLOPS = 15, 2
+# per element: seg_sq_partials g + wd*p (2), two squares, two sums; the
+# LARS update g + wd*p (2), mu1*d, t*g', their difference, eta*d', p + .
+SEG_SQ_FLOPS, LARS_FLOPS = 6, 7
+BUCKET_BYTES = 64 * 1024 * 1024
 # kernel vs plain, |k - p| <= atol + rtol * |p| elementwise; the sums are
 # held relative to the sum of the magnitudes they add (reduction order)
 TOL = {"f32": dict(rtol=1e-5, atol=1e-5), "bf16": dict(rtol=1e-2, atol=2e-2)}
@@ -162,6 +193,22 @@ def time_ms(torch, fn, iters: int = 10, trials: int = 5) -> float:
         times.append(start.elapsed_time(end) / iters)
     del graph
     return statistics.median(times)
+
+
+def time_eager_ms(torch, fn, iters: int = 5) -> float:
+    """Device time of one call of ``fn`` where it cannot be captured in a
+    graph (it reads values on the host): ``iters`` calls between two
+    CUDA events, their host waits included."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def site_bytes(rows: int, c: int, esize: int, relu: bool, res: bool):
@@ -331,13 +378,17 @@ def bound(nbytes: float, flops: float):
                                        else "operations")
 
 
-def model_leaves(cfg):
-    """(name, elements, decays) of every parameter leaf of the model,
-    from the port's own ResNet built on the CPU."""
+def model_params(cfg):
+    """The parameters of the port's own ResNet, built on the CPU."""
     from repro_torch.models import build_model
-    from repro_torch.optim.rmsprop_warmup import decays
     model = build_model(cfg, device="cpu")
-    return [(k, p.numel(), decays(k)) for k, p in model.named_parameters()]
+    return {k: p.detach() for k, p in model.named_parameters()}
+
+
+def model_leaves(params):
+    """(name, elements, decays) of every parameter leaf."""
+    from repro_torch.optim.rmsprop_warmup import decays
+    return [(k, p.numel(), decays(k)) for k, p in params.items()]
 
 
 def _bitwise(name: str, got, want) -> None:
@@ -406,10 +457,23 @@ def update_phase(torch, leaves, wd: float):
     g, p, d, m = tensors(total)
     out["one_launch_stream_ms"] = time_ms(
         torch, lambda: fu.fused_hybrid_update(g, p, d, m, h, wd))
+    # the per-element decay stream (the _kernel_wd variant) over the
+    # whole stream: read g, p, d, m, wd; write p, d, m
+    wds = torch.cat([torch.full((n,), wd if dec else 0.0, device=dev)
+                     for _, n, dec in leaves])
+    out["wd_stream_ms"] = time_ms(
+        torch, lambda: fu.fused_hybrid_update(g, p, d, m, h, wds))
+    out["wd_stream_plain_ms"] = time_ms(
+        torch, lambda: fu.PLAIN["hybrid_update"](g, p, d, m, h, wds))
+    out["wd_stream_bound_ms"], _ = bound(32 * total,
+                                         (UPDATE_FLOPS + 2) * total)
     log(f"  hybrid_update per step ({len(leaves)} leaves, {total} "
         f"elements): {out['ms']:.3f} ms (plain {out['plain_ms']:.3f}, "
         f"bound {out['bound_ms']:.3f}); the whole stream in one launch "
-        f"{out['one_launch_stream_ms']:.3f} ms")
+        f"{out['one_launch_stream_ms']:.3f} ms; with the decay stream "
+        f"{out['wd_stream_ms']:.3f} ms (plain "
+        f"{out['wd_stream_plain_ms']:.3f}, bound "
+        f"{out['wd_stream_bound_ms']:.3f})")
     return out, total
 
 
@@ -496,6 +560,124 @@ def input_phase(torch, cfg):
     return out
 
 
+def lars_phase(torch, params, weight_decay: float):
+    """``seg_sq_partials`` and ``lars_update`` against their plain
+    versions and ``seg_sq_partials`` against a float64 sum, at
+    ResNet-50's whole stream (the ``align=1`` plan of world size 1),
+    the worker slices of an ``align=4`` plan for 2 and 4 workers, the
+    whole stream with zero gradients, and edge cases; every case is
+    timed. Returns the records of the whole stream (the main path's
+    shape at world size 1) and of every case."""
+    from repro_torch.distributed.bucketing import (local_shard, plan_buckets,
+                                                   segment_ids_stream)
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.optim.stream import decay_wd_stream, trust_mask_segments
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def rnd(n, scale):
+        return torch.randn(n, generator=gen, device=dev) * scale
+
+    def stream(plan):
+        n = plan.padded_total
+        pgd = [rnd(n, 0.05), rnd(n, 1e-3), rnd(n, 1e-3)]
+        for t in pgd:
+            t[plan.total_elems:] = 0.0  # the pad holds zeros
+        wd = torch.from_numpy(decay_wd_stream(params, plan,
+                                              weight_decay)).to(dev)
+        seg = torch.from_numpy(segment_ids_stream(plan)).to(dev)
+        mask = torch.from_numpy(trust_mask_segments(params, plan)).to(dev)
+        trust = torch.where(mask, torch.rand(mask.numel(), generator=gen,
+                                             device=dev) * 1e-2, 1.0)
+        return (*pgd, wd, seg, trust)
+
+    cases = {}
+    plan1 = plan_buckets(params, BUCKET_BYTES, "bf16", align=1)
+    full = stream(plan1)
+    cases["stream"] = full
+    p, g, d, wd, seg, trust = full
+    cases["stream_zero_grad"] = (p, torch.zeros_like(g), d, wd, seg, trust)
+    plan4 = plan_buckets(params, BUCKET_BYTES, "bf16", align=4)
+    whole4 = stream(plan4)
+    for n in (2, 4):
+        for w in range(n):
+            cases[f"shard{w}of{n}"] = tuple(
+                local_shard(t, plan4, n, w) if t.numel() == plan4.padded_total
+                else t for t in whole4)
+    # 1 element; an empty segment; 1-element segments; a segment across
+    # the chunks of the first pass; a length not a multiple of 128
+    for name, sizes in (("one_element", [1]),
+                        ("edges", [1, 0, 1, 1, 5000, 4095, 1, 8193, 3])):
+        n = sum(sizes)
+        seg_e = torch.repeat_interleave(
+            torch.arange(len(sizes), dtype=torch.int32, device=dev),
+            torch.tensor(sizes, device=dev))
+        trust_e = torch.rand(len(sizes), generator=gen, device=dev) * 1e-2
+        trust_e[::2] = 1.0
+        wd_e = (torch.rand(n, generator=gen, device=dev) < 0.5).float() \
+            * weight_decay
+        cases[name] = (rnd(n, 0.05), rnd(n, 1e-3), rnd(n, 1e-3), wd_e, seg_e,
+                       trust_e)
+    eta, mu1 = 0.1, 0.9
+    records = {}
+    for name, (p, g, d, wd, seg, trust) in cases.items():
+        n, n_seg = p.numel(), trust.numel()
+        got = fu.fused_segment_sq_partials(p, g, wd, seg, n_seg)
+        again = fu.fused_segment_sq_partials(p, g, wd, seg, n_seg)
+        plain = fu.PLAIN["seg_sq_partials"](p, g, wd, seg, n_seg)
+        p64, ge64 = p.double(), g.double() + wd.double() * p.double()
+        want = torch.zeros(2, n_seg, dtype=torch.float64, device=dev)
+        want.index_add_(1, seg.long(), torch.stack([p64 * p64, ge64 * ge64]))
+        repeat = torch.equal(got, again)
+        rel = ((got.double() - want).abs() / want.clamp_min(1e-300)).max()
+        if not (repeat and rel.item() <= 1e-5
+                and bool((got[want == 0] == 0).all())):
+            raise AssertionError(f"seg_sq_partials {name}: repeatable "
+                                 f"{repeat}, rel err vs f64 {rel.item():.3g}")
+        kern, ref = [p.clone(), d.clone()], [p.clone(), d.clone()]
+        fu.fused_lars_update(g, *kern, wd, seg, trust, eta, mu1)
+        fu.PLAIN["lars_update"](g, *ref, wd, seg, trust, eta, mu1)
+        _bitwise(f"lars_update {name} p", kern[0], ref[0])
+        _bitwise(f"lars_update {name} d", kern[1], ref[1])
+        sq_bound, sq_by = bound(16 * n + 8 * n_seg, SEG_SQ_FLOPS * n)
+        up_bound, up_by = bound(28 * n + 4 * n_seg, LARS_FLOPS * n)
+        rec = {
+            "elements": n, "segments": n_seg,
+            "seg_sq_partials": {
+                "ms": time_ms(torch, lambda: fu.fused_segment_sq_partials(
+                    p, g, wd, seg, n_seg)),
+                "plain_ms": time_eager_ms(
+                    torch, lambda: fu.PLAIN["seg_sq_partials"](
+                        p, g, wd, seg, n_seg)),
+                "bound_ms": sq_bound, "bound_by": sq_by, "library_ms": None,
+                "max_abs_err": (got - plain).abs().max().item(),
+                "rel_err_f64": rel.item(), "repeatable": repeat},
+            "lars_update": {
+                "ms": time_ms(torch, lambda: fu.fused_lars_update(
+                    g, kern[0], kern[1], wd, seg, trust, eta, mu1)),
+                "plain_ms": time_ms(torch, lambda: fu.PLAIN["lars_update"](
+                    g, ref[0], ref[1], wd, seg, trust, eta, mu1)),
+                "bound_ms": up_bound, "bound_by": up_by, "library_ms": None,
+                "max_abs_err": 0.0},
+        }
+        if name == "stream":  # a yardstick: index_add_ of the squares
+            sq = torch.stack([p * p, (g + wd * p).square()])
+            seg64 = seg.long()
+            rec["index_add_ms"] = time_ms(
+                torch, lambda: torch.zeros(2, n_seg, device=dev).index_add_(
+                    1, seg64, sq))
+        records[name] = rec
+        r, u = rec["seg_sq_partials"], rec["lars_update"]
+        log(f"  {name:16s} n={n:9d} segs={n_seg:3d}  seg_sq_partials "
+            f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+            f"{r['bound_ms']:.4f}; rel err vs f64 {r['rel_err_f64']:.2g}, "
+            f"repeatable)  lars_update {u['ms']:.4f} ms (plain "
+            f"{u['plain_ms']:.4f}, bound {u['bound_ms']:.4f}; bitwise)")
+    log(f"  index_add_ of the precomputed squares (whole stream): "
+        f"{records['stream']['index_add_ms']:.4f} ms")
+    return {k: records["stream"][k] for k in LARS_KERNELS}, records
+
+
 def reset_counts(libs) -> None:
     for lib in libs:
         lib.reset_launch_counts()
@@ -509,8 +691,9 @@ def check_state(torch, state, p0) -> None:
     """Every tensor of the train state on the card and finite, and every
     parameter changed by the steps."""
     tensors = list(state["params"].values())
-    for tree in (state["opt"]["delta"], state["opt"]["m"]):
-        tensors += list(tree.values())
+    for v in state["opt"].values():  # per-leaf dicts, or flat streams
+        tensors += list(v.values()) if isinstance(v, dict) else (
+            [v] if torch.is_tensor(v) else [])
     for rec in state["model_state"].values():
         tensors += list(rec.values())
     assert all(t.device.type == "cuda" for t in tensors), "tensor off card"
@@ -631,6 +814,15 @@ def profile_phase(torch, train_step, state, data, steps: int = 3):
     return out
 
 
+def param_rel_norm(a, b) -> float:
+    """Relative norm of the difference of two parameter dicts, in
+    float64: |a - b| / |b|."""
+    num = sum(float((a[k].double() - b[k].double()).square().sum())
+              for k in b)
+    den = sum(float(b[k].double().square().sum()) for k in b)
+    return (num / den) ** 0.5
+
+
 def reference_phase(torch):
     """Reduced ResNet, f32 on the card: the fused kernels against the
     unfused plain path, three train steps from one seed."""
@@ -653,9 +845,7 @@ def reference_phase(torch):
             losses.append(float(metrics["loss"]))
         runs[fused] = (losses, state["params"])
     (lf, pf), (lu, pu) = runs[True], runs[False]
-    num = sum(float((pf[k] - pu[k]).square().sum()) for k in pf)
-    den = sum(float(pu[k].square().sum()) for k in pu)
-    rel = (num / den) ** 0.5
+    rel = param_rel_norm(pf, pu)
     log(f"  fused {lf} vs unfused {lu}; param rel-norm diff {rel:.3g}")
     for a, b in zip(lf, lu):
         assert math.isfinite(a) and abs(a - b) <= 1e-4 * abs(b), (lf, lu)
@@ -676,11 +866,24 @@ class PremadeSource:
         return self.batches[step]
 
 
-def dp_main_path(torch, libs, cfg, steps: int, premade: bool = False):
+def lars_recipe(steps: int, steps_per_epoch: int):
+    """The ``lars_ls_poly`` recipe of the JAX package's
+    ``examples/large_batch_sweep.py``: (optimizer config, label
+    smoothing)."""
+    from repro_torch.configs import OptimizerConfig
+    return OptimizerConfig(kind="lars", schedule="poly", warmup_epochs=1.0,
+                           total_epochs=max(1.0, steps / steps_per_epoch)), \
+        0.1
+
+
+def dp_main_path(torch, libs, cfg, steps: int, premade: bool = False,
+                 lars: bool = False):
     """Main path 2: the paper's data-parallel step at world size 1 on
     NCCL, with every kernel of the slice on, through the same entry
     points a ``torchrun`` worker calls. ``premade`` feeds it batches
-    made before the run (``PremadeSource``)."""
+    made before the run (``PremadeSource``). ``lars`` makes it main path
+    3: the ``lars_ls_poly`` recipe, whose update runs on the packed
+    stream through the stream-LARS kernels."""
     import torch.distributed as dist
 
     from repro_torch.configs import InputConfig, OptimizerConfig
@@ -689,13 +892,15 @@ def dp_main_path(torch, libs, cfg, steps: int, premade: bool = False):
 
     workers = 4
     input_cfg = InputConfig(fused=True, num_workers=workers)
+    opt_cfg, smoothing = (lars_recipe(steps, steps) if lars
+                          else (OptimizerConfig(), 0.0))
     t0 = time.perf_counter()
     model, state, train_step, data, put_batch, _ = build_train_setup(
-        cfg, global_batch=BATCH, seq_len=0, opt_cfg=OptimizerConfig(),
+        cfg, global_batch=BATCH, seq_len=0, opt_cfg=opt_cfg,
         steps_per_epoch=steps, dp_mode="shardmap",
         compute_dtype=torch.bfloat16, use_fused_kernel=True,
         compression="bf16+bucketed", fused_bn=True, input_cfg=input_cfg,
-        device="cuda")
+        label_smoothing=smoothing, device="cuda")
     eval_step, val_data, finalize = build_eval_setup(
         model, cfg, global_batch=BATCH, seq_len=0, dp_mode="shardmap",
         input_cfg=input_cfg)
@@ -731,7 +936,9 @@ def dp_main_path(torch, libs, cfg, steps: int, premade: bool = False):
     assert sites == 53, sites
     want = {"bn_stats": sites * steps, "bn_bwd_sums": sites * steps,
             "bn_bwd_dx": sites * steps, "bn_apply": (steps + val) * sites,
-            "hybrid_update": n_leaves * steps,
+            "hybrid_update": 0 if lars else n_leaves * steps,
+            "seg_sq_partials": steps if lars else 0,
+            "lars_update": steps if lars else 0,
             "cast_copy": 2 * steps,  # one pack, one unpack per step
             "input_train": steps, "input_eval": val}
     log(f"  launches {launches} (want {want}); batches staged "
@@ -793,15 +1000,63 @@ def dp_reference_phase(torch):
     finally:
         torch.backends.cudnn.deterministic = deterministic
     (lk, pk), (lp, pp) = runs[True], runs[False]
-    num = sum(float((pk[k] - pp[k]).square().sum()) for k in pk)
-    den = sum(float(pp[k].square().sum()) for k in pp)
-    rel = (num / den) ** 0.5
+    rel = param_rel_norm(pk, pp)
     bitwise = lk == lp and all(torch.equal(pk[k], pp[k]) for k in pk)
     log(f"  kernels on {lk} vs off {lp}; param rel-norm diff {rel:.3g}; "
         f"bitwise {bitwise}")
     assert all(math.isfinite(v) for v in lk) and bitwise, (lk, lp, rel)
     return {"kernels_on_losses": lk, "kernels_off_losses": lp,
             "param_rel_norm": rel, "bitwise": bitwise}
+
+
+def lars_reference_phase(torch):
+    """Reduced ResNet, f32 on the card, cuDNN held to deterministic
+    algorithms: the stream-LARS DP step with error feedback, three steps
+    from one seed, twice with the kernels on (which must agree bit for
+    bit) and once with the plain stream update. The kernels' segment
+    norms are summed in another order than the plain version's, so the
+    last two agree to rounding: losses within rtol 1e-5, parameters
+    within a relative norm of 1e-5."""
+    from repro_torch.configs import InputConfig, get_config, reduced_config
+    from repro_torch.launch.train import build_train_setup
+
+    cfg = reduced_config(get_config("resnet50"))
+    opt_cfg, smoothing = lars_recipe(3, 4)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    try:
+        for on in (True, True, False):
+            _, state, step, data, put, _ = build_train_setup(
+                cfg, global_batch=16, seq_len=0, opt_cfg=opt_cfg,
+                steps_per_epoch=4, dp_mode="shardmap",
+                compute_dtype=torch.float32, fused_bn=True,
+                use_fused_kernel=on, compression="bf16+bucketed",
+                error_feedback=True, label_smoothing=smoothing,
+                input_cfg=InputConfig(fused=True, augment=False), seed=3,
+                device="cuda")
+            losses = []
+            for i in range(3):
+                state, metrics = step(state, put(data.batch_at(i)).take())
+                losses.append(float(metrics["loss"]))
+            runs.append((losses, state))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (l1, s1), (l2, s2), (lp, sp) = runs
+    tensors = [(s1["params"], s2["params"]),
+               (s1["ef_residual"], s2["ef_residual"]),
+               ({"delta": s1["opt"]["delta"]}, {"delta": s2["opt"]["delta"]})]
+    repeat = l1 == l2 and all(torch.equal(a[k], b[k]) for a, b in tensors
+                              for k in a)
+    rel = param_rel_norm(s1["params"], sp["params"])
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l1, lp))
+    log(f"  kernels on {l1} (again: bitwise {repeat}) vs plain {lp}; loss "
+        f"rel diff {loss_rel:.3g}, param rel-norm diff {rel:.3g}")
+    assert all(math.isfinite(v) for v in l1) and repeat, (l1, l2)
+    assert loss_rel <= 1e-5 and rel <= 1e-5, (l1, lp, rel)
+    return {"kernels_on_losses": l1, "plain_losses": lp,
+            "loss_rel_diff": loss_rel, "param_rel_norm": rel,
+            "repeat_bitwise": repeat}
 
 
 def main() -> int:
@@ -858,12 +1113,20 @@ def main() -> int:
 
     t0 = time.perf_counter()
     log("[3b] fused update, wire cast and fused input vs plain versions")
-    leaves = model_leaves(cfg)
+    params_cpu = model_params(cfg)
+    leaves = model_leaves(params_cpu)
     wd = OptimizerConfig().weight_decay
     new = {}
     new["hybrid_update"], total = update_phase(torch, leaves, wd)
     new["cast_copy"] = cast_phase(torch, total)
     new.update(input_phase(torch, cfg))
+    log(f"  ({time.perf_counter() - t0:.1f}s)")
+
+    t0 = time.perf_counter()
+    log("[3c] stream-LARS kernels vs plain versions and float64 sums")
+    lars_totals, lars_cases = lars_phase(torch, params_cpu, wd)
+    new.update(lars_totals)
+    del params_cpu
     log(f"  ({time.perf_counter() - t0:.1f}s)")
 
     t0 = time.perf_counter()
@@ -914,23 +1177,48 @@ def main() -> int:
                 turns[f"{which}_median_wall_ms"].append(st["median_wall_ms"])
         if args.turns:
             log(f"  {turns}")
+
+        t0 = time.perf_counter()
+        log(f"[8] main path 3: stream-LARS on the DP step at world size 1 "
+            f"(NCCL), ResNet-50 full width, batch {BATCH}, bf16, fused BN, "
+            f"bf16+bucketed, lars_ls_poly, fused update, fused input, 4 "
+            f"data workers, {STEPS} steps + 1 eval batch")
+        launches3, stats3, live3 = dp_main_path(torch, libs, cfg, STEPS,
+                                                lars=True)
+        log(f"  ({time.perf_counter() - t0:.1f}s)")
+        if args.profile:
+            log("[8p] profile of main path 3")
+            stats3["profile"] = profile_phase(torch, *live3)
+        del live3
+
+        t0 = time.perf_counter()
+        log("[8b] reference: reduced ResNet f32, stream-LARS DP step with "
+            "error feedback, kernels on twice vs the plain stream update")
+        ref3 = lars_reference_phase(torch)
+        log(f"  ({time.perf_counter() - t0:.1f}s)")
     finally:
         shutdown()
 
+    by_path = {k: {"path2": launches[k], "path3": launches3[k]}
+               for k in launches}
     kernels = [{"name": k, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[k], "launches": launches[k],
+                "launches_by_path": by_path[k],
                 "max_abs_err": totals[k]["max_abs_err"],
                 "ms": totals[k]["ms"], "plain_ms": totals[k]["plain_ms"],
                 "bound_ms": totals[k]["bound_ms"], "bound_by": "bytes",
                 "library_ms": totals[k]["library_ms"]} for k in KERNELS]
-    for k, (src, replaces) in NEW_KERNELS.items():
+    for k, (src, replaces) in {**NEW_KERNELS, **LARS_KERNELS}.items():
         t = new[k]
         kernels.append({
             "name": k, "route": "cuda", "source": CSRC + src,
-            "replaces": replaces, "launches": launches[k],
+            "replaces": replaces,
+            "launches": (launches3 if k in LARS_KERNELS else launches)[k],
+            "launches_by_path": by_path[k],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    assert len(kernels) == 10, len(kernels)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke_kernels.json"),
@@ -938,8 +1226,9 @@ def main() -> int:
             json.dump({"card": card, "shapes": shape_rows, "pair": pair,
                        "kernels": kernels, "new_kernels": new,
                        "main_path": stats, "main_path_2": stats2,
+                       "main_path_3": stats3, "lars_cases": lars_cases,
                        "reference": ref, "reference_2": ref2,
-                       "turns": turns}, f, indent=1)
+                       "reference_3": ref3, "turns": turns}, f, indent=1)
     log(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

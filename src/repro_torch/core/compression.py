@@ -6,7 +6,8 @@ available for paper-faithfulness. ``compressed_psum`` is the per-leaf
 all-reduce of the data-parallel step. On one device there is no
 collective, so the single-device step applies the wire numerics with
 ``simulate_wire_cast``: every gradient round-trips through the wire
-dtype. Error feedback is not ported yet (ROADMAP queue 1, item 6).
+dtype. Error feedback (``apply_error_feedback``, beyond the paper)
+carries each worker's rounding residual into its next step.
 """
 from __future__ import annotations
 
@@ -80,3 +81,41 @@ def compressed_psum(grads: Dict[str, torch.Tensor],
         x = x.to(g.dtype)
         out[k] = x / n if mean else x
     return out
+
+
+# ---------------------------------------------------------------------------
+# error feedback (beyond the paper)
+# ---------------------------------------------------------------------------
+
+
+def init_error_feedback(grads: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+    return {k: torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+            for k, g in grads.items()}
+
+
+def apply_error_feedback(grads: Dict[str, torch.Tensor],
+                         residual: Dict[str, torch.Tensor],
+                         wire: str = "bf16"):
+    """q = Q(g + r);  r' = (g + r) - q.  Returns (quantized, new_residual)
+    in the JAX package's order of operations, so bitwise equal to it."""
+    wdt = _wire(wire)
+    quant, resid = {}, {}
+    for k, g in grads.items():
+        corrected = g.float() + residual[k]
+        q = corrected.to(wdt).float()
+        quant[k] = q.to(g.dtype)
+        resid[k] = corrected - q
+    return quant, resid
+
+
+def compressed_psum_ef(grads: Dict[str, torch.Tensor],
+                       residual: Dict[str, torch.Tensor],
+                       wire: str = "bf16", mean: bool = True, group=None):
+    """Per-leaf compressed all-reduce with error feedback. The residual
+    is worker-local (it sees the local gradient); only the wire-rounded
+    value crosses the interconnect, and its cast inside
+    ``compressed_psum`` is exact. Returns (synced, new_residual)."""
+    quant, new_residual = apply_error_feedback(grads, residual, wire)
+    return compressed_psum(quant, wire, mean=mean, group=group), \
+        new_residual

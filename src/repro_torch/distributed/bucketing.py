@@ -17,9 +17,15 @@ wire dtype, sum over the workers, cast back, divide; packing only moves
 where element i sits during the sum. The casts of the whole stream are
 the ``cast_copy`` kernel (``kernels/bucket_ops.py``) on the card.
 
+The stream-LARS path adds the leaf-segment map of the stream
+(``segment_ids_stream``), its per-segment squared norms
+(``segment_sq_partials``, the plain version of the ``seg_sq_partials``
+kernel) and a worker's 1/N slice of it (``local_shard``), and
+``bucketed_psum_ef`` threads error feedback through the bucketed sync.
+
 Not ported yet: the ready-order plans of the overlapped step, the shard
-layouts of ZeRO and the hierarchical schedules (ROADMAP queue 1, items
-10, 11 and 13), and error feedback (item 6).
+layouts of ZeRO (``shard_perm`` and the rest) and the hierarchical
+schedules (ROADMAP queue 1, items 10, 11 and 13).
 """
 from __future__ import annotations
 
@@ -27,10 +33,11 @@ import dataclasses
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.compression import _wire
+from repro_torch.core.compression import _wire, apply_error_feedback
 from repro_torch.kernels.bucket_ops import pack_cast, unpack_cast
 
 DEFAULT_BUCKET_BYTES = 64 * 1024 * 1024
@@ -190,3 +197,100 @@ def bucketed_psum(grads: Dict[str, Tensor], wire: Optional[str] = "bf16",
         dist.all_reduce(b, group=group)
     return unpack(buckets, plan, denom=n if mean else None,
                   with_sq_norm=with_sq_norm)
+
+
+def bucketed_psum_ef(grads: Dict[str, Tensor], residual: Dict[str, Tensor],
+                     wire: str = "bf16",
+                     bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+                     mean: bool = True, plan: Optional[BucketPlan] = None,
+                     with_sq_norm: bool = False, group=None):
+    """``bucketed_psum`` with error feedback threaded through: q = Q(g +
+    r) is packed and reduced, r' stays with the worker. Error feedback
+    runs before packing, so its residuals are those of the per-leaf
+    ``compressed_psum_ef``. Returns ``(synced, new_residual)``, or
+    ``(synced, new_residual, sq_norm)`` with ``with_sq_norm``."""
+    quant, new_residual = apply_error_feedback(grads, residual, wire)
+    out = bucketed_psum(quant, wire, bucket_bytes, mean=mean, plan=plan,
+                        with_sq_norm=with_sq_norm, group=group)
+    if with_sq_norm:
+        synced, sq_norm = out
+        return synced, new_residual, sq_norm
+    return out, new_residual
+
+
+# ---------------------------------------------------------------------------
+# worker shards of the stream and its leaf segments (stream-LARS)
+# ---------------------------------------------------------------------------
+#
+# Every bucket of an ``align=n`` plan splits into n equal chunks, one per
+# worker; a worker's shard is its chunk of every bucket, in bucket order.
+# The stream-LARS step reduces its trust norms on that shard only, so
+# the workers' partials add up to the whole stream's.
+
+
+def shard_chunks(plan: BucketPlan, n_shards: int) -> Tuple[int, ...]:
+    """Per-bucket chunk length owned by each of ``n_shards`` workers."""
+    sizes = []
+    for b in range(plan.n_buckets):
+        lo, hi = plan.bucket_bounds(b)
+        if (hi - lo) % n_shards:
+            raise ValueError(
+                f"bucket {b} has {hi - lo} elements, not divisible by "
+                f"{n_shards} shards; plan with align={n_shards}")
+        sizes.append((hi - lo) // n_shards)
+    return tuple(sizes)
+
+
+def shard_size(plan: BucketPlan, n_shards: int) -> int:
+    """Elements per worker shard (== padded_total / n_shards)."""
+    return sum(shard_chunks(plan, n_shards))
+
+
+def local_shard(stream: Tensor, plan: BucketPlan, n_shards: int,
+                shard_idx: int) -> Tensor:
+    """Worker ``shard_idx``'s shard of a full packed (padded) stream: the
+    concatenation of its per-bucket chunks (a view when the plan has one
+    bucket)."""
+    parts = []
+    for b, c in enumerate(shard_chunks(plan, n_shards)):
+        lo, _ = plan.bucket_bounds(b)
+        parts.append(stream[lo + shard_idx * c:lo + (shard_idx + 1) * c])
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+
+def segment_ids_stream(plan: BucketPlan) -> np.ndarray:
+    """int32[padded_total] mapping each stream position to its leaf index
+    in ``plan.slots`` order; the alignment pad maps to the extra trailing
+    segment ``len(plan.slots)`` (never trusted, never decayed). The ids
+    are non-decreasing along the stream, and so along every
+    ``local_shard`` of it (asserted: the ``seg_sq_partials`` kernel
+    relies on it for its speed)."""
+    ids = np.full((plan.padded_total,), len(plan.slots), np.int32)
+    for i, s in enumerate(plan.slots):
+        ids[s.offset:s.offset + s.size] = i
+    assert (np.diff(ids) >= 0).all(), "leaf slots out of stream order"
+    return ids
+
+
+def segment_sq_partials(x: Tensor, seg_ids: Tensor, num_segments: int
+                        ) -> Tensor:
+    """f32[num_segments] per-segment sums of squares of flat ``x``; ids
+    outside ``[0, num_segments)`` are dropped, as ``segment_sum`` drops
+    them, and a segment with no elements sums to 0.
+
+    Ids may come in any order. Each segment is summed as one contiguous
+    slice (after a stable sort when the ids are not sorted), so its sum
+    does not depend on where its elements sit in ``x``: a leaf's norm on
+    its own (``optim/lars.py``) and as a segment of the stream are
+    bitwise equal. No float atomics, so a CUDA tensor gets the same
+    answer every time (``index_add_`` would not); the slice bounds are
+    read on the host."""
+    sq = x.reshape(-1).float().square()
+    seg = seg_ids.reshape(-1).long()
+    if seg.numel() > 1 and not bool((seg[1:] >= seg[:-1]).all()):
+        seg, order = torch.sort(seg, stable=True)
+        sq = sq[order]
+    bounds = torch.searchsorted(
+        seg, torch.arange(num_segments + 1, device=seg.device)).tolist()
+    return torch.stack([sq[lo:hi].sum() for lo, hi in
+                        zip(bounds[:-1], bounds[1:])])

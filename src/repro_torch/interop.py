@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.bucketing import leaf_order
 
 _KEY = re.compile(r"\['([^']*)'\]")
 
@@ -122,3 +123,58 @@ def load_reference_arrays(arrays: Mapping[str, np.ndarray],
         if name.startswith("params/"):
             flat[name[len("params/"):]] = v
     return params_from_jax(_unflatten(flat), device)
+
+
+def _restream(flat: np.ndarray, params: Mapping[str, torch.Tensor],
+              to_port: bool) -> np.ndarray:
+    """Reorder each conv leaf's elements inside a flat packed stream
+    between HWIO (JAX) and OIHW (port); the other leaves and the pad
+    tail keep their places."""
+    out = np.array(flat, copy=True)
+    off = 0
+    for name in leaf_order(params):
+        shape = tuple(params[name].shape)
+        size = int(np.prod(shape))
+        if len(shape) == 4:
+            o, i, h, w = shape
+            seg = flat[off:off + size]
+            seg = (seg.reshape(h, w, i, o).transpose(3, 2, 0, 1) if to_port
+                   else seg.reshape(o, i, h, w).transpose(2, 3, 1, 0))
+            out[off:off + size] = seg.reshape(-1)
+        off += size
+    return out
+
+
+def stream_opt_state_from_jax(opt: Mapping, params: Mapping[str, torch.Tensor],
+                              device: DeviceLike = "cuda") -> Dict[str, Any]:
+    """The JAX package's stream optimizer state (``step``, the flat padded
+    ``delta``) -> the port's, for the parameters ``params`` (the port's
+    own, which give the leaves' names and shapes)."""
+    dev = resolve_device(device)
+    delta = _restream(np.asarray(opt["delta"]), params, to_port=True)
+    return {"step": int(opt["step"]),
+            "delta": torch.from_numpy(delta).to(dev)}
+
+
+def stream_opt_state_to_jax(opt: Mapping, params: Mapping[str, torch.Tensor]
+                            ) -> Dict[str, np.ndarray]:
+    delta = opt["delta"].detach().cpu().numpy()
+    return {"step": np.int32(opt["step"]),
+            "delta": _restream(delta, params, to_port=False)}
+
+
+def ef_residual_from_jax(residual: Mapping, worker: int,
+                         device: DeviceLike = "cuda"
+                         ) -> Dict[str, torch.Tensor]:
+    """Worker ``worker``'s error-feedback residual out of the JAX
+    package's per-worker residual (a parameter-shaped tree with a
+    leading worker dim)."""
+    return params_from_jax(_unflatten({k: np.asarray(v)[worker] for k, v in
+                                       _flatten(residual).items()}), device)
+
+
+def stack_ef_residuals(residuals) -> Dict[str, Any]:
+    """The port's per-worker residuals (in rank order) as the JAX
+    package's: a nested tree with a leading worker dim."""
+    flat = [_flatten(params_to_jax(r)) for r in residuals]
+    return _unflatten({k: np.stack([f[k] for f in flat]) for k in flat[0]})

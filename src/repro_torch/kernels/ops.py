@@ -16,4 +16,8 @@ from repro_torch.kernels.fused_input import (  # noqa: F401
     fused_input_train,
     input_augment_params,
 )
-from repro_torch.kernels.fused_update import fused_hybrid_update  # noqa: F401
+from repro_torch.kernels.fused_update import (  # noqa: F401
+    fused_hybrid_update,
+    fused_lars_update,
+    fused_segment_sq_partials,
+)

@@ -3,7 +3,9 @@
 BN without moving averages, optionally the fused BN, update and input
 kernels) on synthetic data, with held-out validation at epoch
 boundaries. On one device (``--dp-mode none``), or data-parallel with
-one process per worker (``--dp-mode shardmap``, the paper's own run):
+one process per worker (``--dp-mode shardmap``, the paper's own run).
+``--optimizer lars`` on the bucketed DP path runs LARS on the packed
+gradient stream (the stream-LARS kernels with ``--use-fused-kernel``):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch resnet50 \\
         --reduced --epochs 2 --steps-per-epoch 5 --global-batch 16 \\
@@ -11,6 +13,10 @@ one process per worker (``--dp-mode shardmap``, the paper's own run):
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --dp-mode shardmap --compression bf16+bucketed --use-fused-kernel \\
         --fused-input --fused-bn --data-workers 4 --compute-dtype bfloat16
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
+        --dp-mode shardmap --compression bf16+bucketed --optimizer lars \\
+        --schedule poly --label-smoothing 0.1 --use-fused-kernel \\
+        --error-feedback --device cuda
 """
 from __future__ import annotations
 
@@ -30,7 +36,7 @@ from repro_torch.configs import (
     get_config,
     reduced_config,
 )
-from repro_torch.core.compression import parse_compression
+from repro_torch.core.compression import init_error_feedback, parse_compression
 from repro_torch.data import make_data
 from repro_torch.data.pipeline import (
     AugmentedSource,
@@ -42,6 +48,7 @@ from repro_torch.distributed import init_workers, rank, shutdown, world_size
 from repro_torch.kernels.ops import fused_input_eval
 from repro_torch.models import build_model, init_model_state
 from repro_torch.optim import make_optimizer
+from repro_torch.optim.stream import make_stream_optimizer, zero_padded_total
 from repro_torch.training import Trainer, TrainerConfig
 from repro_torch.training.step import (
     finalize_worker_bn_stats,
@@ -90,6 +97,12 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
     own parameters, updated in place. ``state_shardings`` is None:
     nothing is sharded. ``seq_len`` is unused by the conv family.
 
+    LARS on the bucketed DP path is the packed-stream optimizer
+    (``optim/stream.py``; its state is one flat padded ``delta``), as in
+    the JAX package; elsewhere it is the per-leaf LARS.
+    ``error_feedback`` (DP path only, with a wire dtype) adds each
+    worker's residual to the state as ``ef_residual``.
+
     ``input_cfg`` turns on per-sample augmentation; with ``fused=True``
     augment + normalize + cast run on the device in the fused input
     kernel inside the DP step (``dp_mode="shardmap"`` and the conv
@@ -99,15 +112,21 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
     if dp_mode not in DP_MODES:
         raise ValueError(f"dp_mode must be one of {DP_MODES}, got "
                          f"{dp_mode!r}")
-    if error_feedback:
-        raise _unported("error feedback (--error-feedback)", 6)
+    if error_feedback and dp_mode != "shardmap":
+        raise ValueError(
+            "error_feedback is only implemented for the explicit DP step "
+            "(dp_mode='shardmap'); the one-device path has no "
+            "worker-local gradients to correct")
+    wire, bucketed = parse_compression(compression)
+    if error_feedback and wire is None:
+        raise ValueError("error_feedback requires a wire dtype "
+                         f"(compression={compression!r})")
     if sync_bn:
         raise _unported("cross-replica BN (sync-BN)", 6)
     if overlap_comm:
         raise _unported("overlapped gradient sync (--overlap-comm)", 10)
     if zero_dp:
         raise _unported("ZeRO sync (--zero)", 11)
-    _, bucketed = parse_compression(compression)
     if bucketed and dp_mode != "shardmap":
         raise ValueError(
             "bucketed gradient sync all-reduces explicit buckets, which "
@@ -146,15 +165,27 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
     train_cfg = TrainConfig(
         optimizer=opt_cfg,
         parallel=ParallelConfig(compression=compression,
-                                bucket_bytes=bucket_bytes, zero_1=False),
+                                bucket_bytes=bucket_bytes, zero_1=False,
+                                error_feedback=error_feedback),
         input=input_cfg, label_smoothing=label_smoothing)
     model = build_model(cfg, compute_dtype=compute_dtype, seed=seed,
                         device=dev)
-    optimizer = make_optimizer(opt_cfg, steps_per_epoch, global_batch,
-                               use_fused=use_fused_kernel)
     params = {k: p.detach() for k, p in model.named_parameters()}
-    state = {"params": params, "opt": optimizer.init(params),
+    # the packed-stream layout: LARS on the bucketed DP path
+    if opt_cfg.kind == "lars" and dp_mode == "shardmap" and bucketed:
+        optimizer = make_stream_optimizer(opt_cfg, steps_per_epoch,
+                                          global_batch,
+                                          use_fused=use_fused_kernel)
+        opt_state = optimizer.init(zero_padded_total(
+            params, compression, bucket_bytes, world), dev)
+    else:
+        optimizer = make_optimizer(opt_cfg, steps_per_epoch, global_batch,
+                                   use_fused=use_fused_kernel)
+        opt_state = optimizer.init(params)
+    state = {"params": params, "opt": opt_state,
              "model_state": init_model_state(model)}
+    if error_feedback:
+        state["ef_residual"] = init_error_feedback(params)
     put_batch = None
     if dp_mode == "shardmap":
         transform = make_batch_input_transform(input_cfg, seed, model, me,
@@ -237,7 +268,7 @@ def main(argv=None):
     ap.add_argument("--val-batches", type=int, default=4)
     ap.add_argument("--global-batch", type=int, default=32)
     ap.add_argument("--optimizer", default="rmsprop_warmup",
-                    choices=["rmsprop_warmup", "momentum_sgd"])
+                    choices=["rmsprop_warmup", "momentum_sgd", "lars"])
     ap.add_argument("--schedule", default="slow_start",
                     choices=["slow_start", "goyal", "poly", "constant"])
     ap.add_argument("--dp-mode", default="none", choices=DP_MODES,
@@ -252,7 +283,8 @@ def main(argv=None):
     ap.add_argument("--bucket-mib", type=int, default=64,
                     help="bucket size in MiB for the +bucketed modes")
     ap.add_argument("--use-fused-kernel", action="store_true",
-                    help="the fused hybrid update kernel")
+                    help="the fused update kernels (hybrid update; "
+                         "stream-LARS norms and update)")
     ap.add_argument("--fused-bn", action="store_true",
                     help="fused BN kernels at every ResNet BN site")
     ap.add_argument("--fused-input", action="store_true",
@@ -260,12 +292,16 @@ def main(argv=None):
                          "the device (shardmap only)")
     ap.add_argument("--data-workers", type=int, default=1,
                     help="host input-producer threads")
-    ap.add_argument("--error-feedback", action="store_true")
+    ap.add_argument("--error-feedback", action="store_true",
+                    help="carry each worker's wire rounding residual into "
+                         "its next step (shardmap only)")
     ap.add_argument("--overlap-comm", action="store_true")
     ap.add_argument("--zero", action="store_true")
     ap.add_argument("--sync-bn", action="store_true")
     ap.add_argument("--comm-plan", default="flat")
-    ap.add_argument("--label-smoothing", type=float, default=0.0)
+    ap.add_argument("--label-smoothing", type=float, default=0.0,
+                    help="label smoothing epsilon (large-batch recipes "
+                         "pair it with --schedule poly)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--compute-dtype", default="float32",
                     choices=sorted(DTYPES))

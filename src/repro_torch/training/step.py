@@ -12,9 +12,13 @@ dtype of ``compression`` (paper §3), and apply the optimizer.
 is its own process (``distributed/process_group.py``) running this step
 on its own shard of the global batch, with its own BN statistics. The
 gradients are all-reduced in half precision, per leaf
-(``compressed_psum``) or per bucket (``bucketed_psum``), the scalar
-metrics are averaged in one all-reduce, and every worker applies the
-same optimizer update to its replica of the parameters.
+(``compressed_psum``) or per bucket (``bucketed_psum``), optionally
+with error feedback, the scalar metrics are averaged in one all-reduce,
+and every worker applies the same optimizer update to its replica of
+the parameters. A packed-stream optimizer (stream-LARS,
+``optim/stream.py``) takes ``_make_dp_stream_train_step`` instead: the
+update runs on the flat synced stream, and the LARS trust norms are
+reduced on each worker's 1/N slice of it.
 """
 from __future__ import annotations
 
@@ -27,17 +31,29 @@ import torch.distributed as dist
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.batchnorm import finalize_bn_stats
 from repro_torch.core.compression import (
+    apply_error_feedback,
     compressed_psum,
+    compressed_psum_ef,
     parse_compression,
     simulate_wire_cast,
 )
-from repro_torch.distributed.bucketing import bucketed_psum, plan_buckets
+from repro_torch.distributed.bucketing import (
+    BucketPlan,
+    bucketed_psum,
+    bucketed_psum_ef,
+    local_shard,
+    pack,
+    plan_buckets,
+    segment_ids_stream,
+)
 from repro_torch.kernels.ops import (
     fused_input_eval,
     fused_input_train,
     input_augment_params,
+    unpack_cast,
 )
 from repro_torch.optim.interface import Optimizer
+from repro_torch.optim.stream import trust_mask_segments
 
 Tree = Dict[str, Any]
 
@@ -211,12 +227,15 @@ def make_dp_shardmap_train_step(model, optimizer: Optimizer,
 
     ``compression="<wire>+bucketed"`` swaps the per-leaf all-reduce for
     one all-reduce per ``bucket_bytes`` of wire traffic, and the
-    gradient norm then comes from the packed stream. Error feedback,
-    ZeRO, overlap and hierarchical schedules are not ported yet (ROADMAP
-    queue 1, items 6, 11, 10 and 13)."""
+    gradient norm then comes from the packed stream.
+    ``error_feedback=True`` threads each worker's rounding residual
+    through either sync path (the state gains ``ef_residual``, one per
+    worker like the BN statistics). An optimizer with ``update_shard``
+    (stream-LARS) takes the packed-stream step. ZeRO, overlap and
+    hierarchical schedules are not ported yet (ROADMAP queue 1, items
+    11, 10 and 13)."""
     parallel = train_cfg.parallel
     for flag, what, item in (
-            (parallel.error_feedback, "error feedback", 6),
             (parallel.zero_dp, "ZeRO sync (--zero)", 11),
             (parallel.overlap_comm, "overlapped sync (--overlap-comm)", 10),
             (parallel.hier_split is not None, "hierarchical sync", 13)):
@@ -224,18 +243,35 @@ def make_dp_shardmap_train_step(model, optimizer: Optimizer,
             raise NotImplementedError(
                 f"{what} is not ported yet (ROADMAP queue 1, item {item})")
     wire, bucketed = parse_compression(parallel.compression)
+    use_ef = parallel.error_feedback
+    if use_ef and wire is None:
+        raise ValueError("error_feedback requires a wire dtype "
+                         f"(compression={parallel.compression!r})")
+    if hasattr(optimizer, "update_shard"):
+        return _make_dp_stream_train_step(model, optimizer, train_cfg, wire,
+                                          bucketed, group, input_transform)
     device = model.device
     plan = None
 
-    def sync_grads(grads):
-        """(synced gradients, squared norm or None)."""
+    def sync_grads(grads, residual):
+        """One of the four (per-leaf | bucketed) x (plain | EF) sync
+        paths: (synced, new residual or None, squared norm or None)."""
         nonlocal plan
+        if bucketed and plan is None:
+            plan = plan_buckets(grads, parallel.bucket_bytes, wire)
+        if use_ef:
+            if bucketed:
+                return bucketed_psum_ef(grads, residual, wire, plan=plan,
+                                        with_sq_norm=True, group=group)
+            synced, new_residual = compressed_psum_ef(grads, residual, wire,
+                                                      group=group)
+            return synced, new_residual, None
         if bucketed:
-            if plan is None:
-                plan = plan_buckets(grads, parallel.bucket_bytes, wire)
-            return bucketed_psum(grads, wire, plan=plan, mean=True,
-                                 with_sq_norm=True, group=group)
-        return compressed_psum(grads, wire, mean=True, group=group), None
+            synced, sq = bucketed_psum(grads, wire, plan=plan, mean=True,
+                                       with_sq_norm=True, group=group)
+            return synced, None, sq
+        return compressed_psum(grads, wire, mean=True, group=group), None, \
+            None
 
     def train_step(state: Tree, batch: Tree):
         batch = to_device(batch, device)
@@ -245,15 +281,148 @@ def make_dp_shardmap_train_step(model, optimizer: Optimizer,
         new_mstate, metrics, grads = _grads_of(
             model, train_cfg, params, state["model_state"], batch)
         # ---- the paper's technique: fp16/bf16 compressed all-reduce ----
-        grads, sq_norm = sync_grads(grads)
+        grads, new_residual, sq_norm = sync_grads(
+            grads, state.get("ef_residual"))
         metrics = _pmean_metrics(metrics, group)
         new_params, new_opt, opt_metrics = optimizer.update(
             params, grads, state["opt"])
         metrics.update(opt_metrics)
         metrics["grad_norm"] = (torch.sqrt(sq_norm) if sq_norm is not None
                                 else global_norm(grads))
-        return {"params": new_params, "opt": new_opt,
-                "model_state": new_mstate}, metrics
+        new_state = {"params": new_params, "opt": new_opt,
+                     "model_state": new_mstate}
+        if use_ef:
+            new_state["ef_residual"] = new_residual
+        return new_state, metrics
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# the packed-stream step (stream-LARS)
+# ---------------------------------------------------------------------------
+
+
+def _stream_aux(optimizer, plan: BucketPlan, params, n: int, w: int,
+                device) -> Dict[str, torch.Tensor]:
+    """The static per-element side inputs of the stream update, built
+    once and kept on the device: the weight-decay and segment-id streams
+    (whole, for the update; worker ``w``'s slice, for the norms) and the
+    per-segment trust mask."""
+    wd = torch.from_numpy(optimizer.wd_stream(params, plan)).to(device)
+    seg = torch.from_numpy(segment_ids_stream(plan)).to(device)
+    return {"wd": wd, "seg": seg,
+            "wd_loc": local_shard(wd, plan, n, w),
+            "seg_loc": local_shard(seg, plan, n, w),
+            "trust_mask": torch.from_numpy(
+                trust_mask_segments(params, plan)).to(device)}
+
+
+def _cast_divide_stream(stream: torch.Tensor, plan: BucketPlan, n: int
+                        ) -> torch.Tensor:
+    """The synced wire stream cast back to f32 and divided by the worker
+    count, with ``unpack``'s ops."""
+    dtypes = {s.dtype for s in plan.slots}
+    if dtypes != {torch.float32}:
+        raise ValueError(
+            "packed-stream updates need a uniform fp32 param tree; got "
+            f"leaf dtypes {sorted(str(d) for d in dtypes)}")
+    if stream.dtype != torch.float32:
+        stream = unpack_cast(stream.contiguous(), torch.float32)
+    return stream / n
+
+
+def _stream_full_update(optimizer, plan: BucketPlan, params, g_stream, opt,
+                        n: int, w: int, aux, group=None):
+    """The replicated LARS update over the full synced stream, every
+    worker alike, with the trust norms reduced on this worker's 1/N
+    slice only (the chunks a ZeRO reduce-scatter would hand it) and the
+    (2, L + 1) partials summed with one all-reduce: the JAX package's
+    program, which ZeRO will share. The parameters are packed into one
+    f32 stream, updated in place and copied back into the leaves.
+    Returns ``(opt_metrics, local squared gradient norm)``."""
+    pad = [params[plan.names[0]].new_zeros(plan.pad_elems)] \
+        if plan.pad_elems else []
+    p_stream = torch.cat([params[k].reshape(-1) for k in plan.names] + pad)
+    g_loc = local_shard(g_stream, plan, n, w)
+    local_sq = g_loc.square().sum()
+    partials = optimizer.segment_partials(
+        local_shard(p_stream, plan, n, w), g_loc, aux["wd_loc"],
+        aux["seg_loc"], len(plan.slots) + 1)
+    dist.all_reduce(partials, group=group)
+    trust = optimizer.trust_ratios(partials, aux["trust_mask"])
+    _, _, opt_metrics = optimizer.update_shard(
+        p_stream, g_stream, opt["delta"], opt["step"], aux["wd"],
+        aux["seg"], trust)
+    opt["step"] += 1
+    for k, s in zip(plan.names, plan.slots):
+        params[k].copy_(p_stream[s.offset:s.offset + s.size].view(s.shape))
+    return opt_metrics, local_sq
+
+
+def _zero_grad_norm(metrics: Dict, n: int) -> Dict:
+    """The global gradient norm from the averaged per-worker partial sums
+    (exact when n is a power of two)."""
+    metrics["grad_norm"] = torch.sqrt(metrics.pop("grad_sq_local") * n)
+    return metrics
+
+
+def _make_dp_stream_train_step(model, optimizer, train_cfg: TrainConfig,
+                               wire, bucketed: bool, group=None,
+                               input_transform=None):
+    """The bucketed DP step with a packed-stream optimizer (stream-LARS):
+    pack -> one all-reduce per bucket -> the replicated update over the
+    full f32 stream, trust norms reduced worker by worker
+    (``_stream_full_update``). Error feedback stays with the worker and
+    runs on the leaves before packing, as in ``bucketed_psum_ef``. The
+    plan (``align`` = the worker count, so every worker's norm slice is
+    the one ZeRO would give it) and the side streams are built at the
+    first step and kept."""
+    parallel = train_cfg.parallel
+    use_ef = parallel.error_feedback
+    if not bucketed:
+        raise ValueError(
+            "the packed-stream optimizer updates a contiguous stream, "
+            "which requires bucketed compression (e.g. "
+            "compression='bf16+bucketed', got "
+            f"{parallel.compression!r})")
+    n, w = dist.get_world_size(group), dist.get_rank(group)
+    device = model.device
+    plan: Optional[BucketPlan] = None
+    aux: Dict[str, torch.Tensor] = {}
+
+    def train_step(state: Tree, batch: Tree):
+        nonlocal plan, aux
+        batch = to_device(batch, device)
+        if input_transform is not None:
+            batch = input_transform(batch)
+        params = state["params"]
+        new_mstate, metrics, grads = _grads_of(
+            model, train_cfg, params, state["model_state"], batch)
+        if use_ef:
+            quant, new_residual = apply_error_feedback(
+                grads, state["ef_residual"], wire)
+        else:
+            quant = grads
+        if plan is None:
+            plan = plan_buckets(quant, parallel.bucket_bytes, wire, align=n)
+            aux = _stream_aux(optimizer, plan, params, n, w, device)
+        buckets = pack(quant, plan)
+        for b in buckets:
+            dist.all_reduce(b, group=group)
+        g_stream = _cast_divide_stream(
+            buckets[0] if len(buckets) == 1 else torch.cat(buckets), plan, n)
+        opt_metrics, local_sq = _stream_full_update(
+            optimizer, plan, params, g_stream, state["opt"], n, w, aux,
+            group)
+        metrics["grad_sq_local"] = local_sq
+        metrics = _zero_grad_norm(_pmean_metrics(metrics, group), n)
+        metrics.update(opt_metrics)
+        new_state = {"params": params, "opt": state["opt"],
+                     "model_state": new_mstate}
+        if use_ef:
+            new_state["ef_residual"] = new_residual
+        return new_state, metrics
 
     return train_step
 

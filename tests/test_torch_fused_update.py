@@ -71,7 +71,8 @@ def test_wrapper_keeps_leaf_shape_and_counts_nothing_on_cpu():
     fused_update.reset_launch_counts()
     fused_hybrid_update(*tt, THyper(eta=ETA, alpha_sgd=0.5), 1e-4)
     assert tt[1].shape == (6, 35)
-    assert fused_update.LAUNCHES == {"hybrid_update": 0}
+    assert fused_update.LAUNCHES == {"hybrid_update": 0,
+                                     "seg_sq_partials": 0, "lars_update": 0}
     with pytest.raises(ValueError, match="lie on the CPU or on one"):
         fused_hybrid_update(tt[0], tt[1], tt[2], tt[3].to("meta"),
                             THyper(eta=ETA, alpha_sgd=0.5))

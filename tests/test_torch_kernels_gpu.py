@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: the fused-BN kernels, and bitwise the fused update, the wire cast
-and the fused input. Every test here is marked ``gpu`` and skips
+card: the fused-BN kernels, the stream-LARS segment norms, and bitwise
+the fused update, the LARS update, the wire cast and the fused input. Every test here is marked ``gpu`` and skips
 without a CUDA device. The file imports neither jax nor the JAX package, so it also
 runs on a machine that has only PyTorch:
 
@@ -9,7 +9,9 @@ runs on a machine that has only PyTorch:
 
 Tolerances: f32 outputs rtol/atol 1e-5 (FMA contraction and reduction
 order); bf16 outputs rtol 1e-2 / atol 2e-2 (one bf16 ulp where the f32
-values before rounding differ in their last bits); sums rtol 1e-4.
+values before rounding differ in their last bits); sums rtol 1e-4; the
+segment norms rtol 1e-5 of a float64 sum of the same inputs, and the
+same bits on every run.
 """
 import pytest
 import torch
@@ -104,7 +106,8 @@ def test_hybrid_update_bitwise_on_card(cuda, n, wd):
         fu.fused_hybrid_update(gc, *kern, h, dec)
         fu.PLAIN["hybrid_update"](gc, *plain, h, dec)
         torch.cuda.synchronize()
-        assert fu.LAUNCHES == {"hybrid_update": 1}
+        assert fu.LAUNCHES == {"hybrid_update": 1, "seg_sq_partials": 0,
+                               "lars_update": 0}
         assert all(torch.equal(a, b) for a, b in zip(kern, plain))
 
 
@@ -136,3 +139,74 @@ def test_fused_input_bitwise_on_card(cuda, dt):
         fi.PLAIN["input_train"](x, table, mean, inv, tdt))
     assert torch.equal(fi.fused_input_eval(x, mean, inv, out_dtype=tdt),
                        fi.PLAIN["input_eval"](x, mean, inv, tdt))
+
+
+# ---------------------------------------------------------------------------
+# stream-LARS: segment norms (float64 reference, repeatable) and the
+# update (bitwise)
+# ---------------------------------------------------------------------------
+
+# segment sizes: an empty segment, 1-element segments, one spanning the
+# kernels' 4,096-element chunks, a total that is not a multiple of 128
+SEGMENT_SIZES = {
+    "edges": [1, 0, 1, 1, 5000, 4095, 1, 8193, 3],
+    "one": [1],
+    "stream": [2_359_296, 512, 512, 1_048_576, 2048, 2048, 7],
+}
+
+
+def _stream(cuda, sizes, seed):
+    g = torch.Generator().manual_seed(seed)
+    n = sum(sizes)
+    seg = torch.repeat_interleave(torch.arange(len(sizes), dtype=torch.int32),
+                                  torch.tensor(sizes))
+    p, grad = torch.randn(n, generator=g), torch.randn(n, generator=g) * 1e-2
+    wd = (torch.rand(n, generator=g) < 0.5).float() * 1e-4
+    return [t.to(cuda) for t in (p, grad, wd, seg)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(SEGMENT_SIZES))
+def test_seg_sq_partials_on_card(cuda, case):
+    from repro_torch.kernels import fused_update as fu
+    sizes = SEGMENT_SIZES[case]
+    p, g, wd, seg = _stream(cuda, sizes, len(sizes))
+    fu.reset_launch_counts()
+    got = fu.fused_segment_sq_partials(p, g, wd, seg, len(sizes))
+    again = fu.fused_segment_sq_partials(p, g, wd, seg, len(sizes))
+    torch.cuda.synchronize()
+    assert fu.LAUNCHES["seg_sq_partials"] == 2
+    assert torch.equal(got, again)
+    p64 = p.double()
+    ge = (g + wd * p).double()
+    want = torch.zeros(2, len(sizes), dtype=torch.float64, device=cuda)
+    want[0].index_add_(0, seg.long(), p64 * p64)
+    want[1].index_add_(0, seg.long(), ge * ge)
+    torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=0)
+    plain = fu.PLAIN["seg_sq_partials"](p, g, wd, seg, len(sizes))
+    torch.testing.assert_close(got, plain, rtol=1e-5, atol=0)
+    assert torch.equal(plain, fu.PLAIN["seg_sq_partials"](p, g, wd, seg,
+                                                          len(sizes)))
+    # ids in any order give the same sums
+    perm = torch.randperm(p.numel(), device=cuda)
+    shuffled = fu.fused_segment_sq_partials(p[perm], g[perm], wd[perm],
+                                            seg[perm], len(sizes))
+    torch.testing.assert_close(shuffled.double(), want, rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(SEGMENT_SIZES))
+def test_lars_update_bitwise_on_card(cuda, case):
+    from repro_torch.kernels import fused_update as fu
+    sizes = SEGMENT_SIZES[case]
+    p, g, wd, seg = _stream(cuda, sizes, 7 + len(sizes))
+    d = torch.randn(p.shape, device=cuda) * 1e-3
+    trust = torch.rand(len(sizes), device=cuda) * 1e-2
+    trust[::2] = 1.0  # masked segments
+    kern, plain = [p.clone(), d.clone()], [p.clone(), d.clone()]
+    fu.reset_launch_counts()
+    fu.fused_lars_update(g, *kern, wd, seg, trust, 0.37, 0.9)
+    fu.PLAIN["lars_update"](g, *plain, wd, seg, trust, 0.37, 0.9)
+    torch.cuda.synchronize()
+    assert fu.LAUNCHES["lars_update"] == 1
+    assert all(torch.equal(a, b) for a, b in zip(kern, plain))

@@ -181,13 +181,19 @@ def test_unported_options_raise():
     _, tc = _cfgs()
     kw = dict(global_batch=BATCH, seq_len=0, opt_cfg=TOpt(),
               steps_per_epoch=SPE, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # error feedback corrects worker-local gradients: the DP step only,
+    # as in the JAX package
+    with pytest.raises(ValueError, match="error_feedback is only "
+                                         "implemented"):
         tlaunch.build_train_setup(tc, error_feedback=True, **kw)
     # bucketed sync needs the data-parallel step, as in the JAX package
     with pytest.raises(ValueError, match="dp_mode='shardmap'"):
         tlaunch.build_train_setup(tc, compression="bf16+bucketed", **kw)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tlaunch.build_train_setup(tc, **{**kw, "opt_cfg": TOpt(kind="lars")})
+    # LARS is ported: on one device it is the per-leaf optimizer
+    _, st, *_ = tlaunch.build_train_setup(
+        tc, **{**kw, "opt_cfg": TOpt(kind="lars")})
+    assert set(st["opt"]) == {"step", "delta"}
+    assert st["opt"]["delta"].keys() == st["params"].keys()
     _, state, step, data, _, _ = tlaunch.build_train_setup(tc, **kw)
     with pytest.raises(NotImplementedError, match="item 7"):
         TTrainer(step, state, data, TTCfg(checkpoint_dir="ck"))
