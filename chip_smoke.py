@@ -30,6 +30,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      1-element segments, a segment across the kernels' chunks, a length
      not a multiple of 128); with kernel, plain and bound times, and
      ``hybrid_update`` timed with the per-element decay stream;
+  3d. ``flash_attention`` and ``rmsnorm`` against their plain versions,
+     bf16 and f32: flash at the serving path's prefill (8 x 1,024
+     tokens, 32 query heads on 8 kv heads, Dh 64, causal), lengths 1 and
+     1000, Sq != Sk, non-causal, a causal window of 256, groups 1, 4 and
+     8, Dh 32 and 128 (f32 rtol 1e-5 / atol 1e-6, bf16 within one bf16
+     ulp beyond that); rmsnorm at 8,192 x 2,048 and 8 x 2,048 (a
+     prefill's and a decode step's norm sites), odd row counts and d =
+     128 and 100 (f32 rtol 1e-6, bf16 within two bf16 ulps: it rounds
+     twice); with kernel, plain and library times
+     (``F.scaled_dot_product_attention``, ``F.rms_norm``) and the bound
+     of each case;
   4. main path 1 (slice 1, one device):
      ``repro_torch.launch.train.build_train_setup`` for the full-width
      ResNet-50 (stages 3,4,6,3, width 64, 1000 classes, 224
@@ -56,18 +67,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      error feedback, twice with the kernels on (bitwise equal) and once
      with the plain stream update (losses within rtol 1e-5, parameters
      within a relative norm of 1e-5), three steps.
+  9. main path 4, serving: ``repro_torch.launch.serve.serve`` of
+     llama3.2-1b at full width (16 layers, d 2,048, 128,256-token
+     vocabulary), 8 prompts of 1,024 tokens, one prefill and 31 greedy
+     decode steps, bf16, chunked (flash) attention; the launch counts
+     are checked (flash 16 per prefill and none per decode step, rmsnorm
+     33 per forward), the first call against a warm one, peak device
+     memory, and the prefill logits against the same prompts through
+     the naive attention (relative norm within 5e-2);
+  9b. reference: the reduced llama3.2-1b in f32 with the same weights on
+     the card (kernels) and on the CPU (plain versions), prefill and 6
+     decode steps, logits within rtol/atol 1e-4 and the same tokens.
 With ``--profile``, a few more steps of each main path run under
 torch.profiler (device busy time and idle share, top host ops and
-kernels). With ``--turns N``, phase 7 runs the main paths again in
-turns, N times: main path 2, main path 2 fed pre-made batches (its
-producer threads then only hand them over), main path 1 twice, then the
-two variants of main path 2 in reverse, for their wall step times side
-by side. Then a ``{"kernels": [...]}`` line (launches from main path
-2 for its eight kernels, from main path 3 for the two stream-LARS
-kernels; ``launches_by_path`` holds both), the card's name and power
-limit, and
-last the ``{"ok": true, "device": ...}`` line. ``--out DIR`` also writes
-the per-shape kernel tables to ``DIR/chip_smoke_kernels.json``.
+kernels), and one prefill and four decode steps of main path 4. With
+``--turns N``, phase 7 runs the main paths again in turns, N times: main
+path 2, main path 2 fed pre-made batches (its producer threads then only
+hand them over), main path 1 twice, then the two variants of main path 2
+in reverse, for their wall step times side by side. Then a ``{"kernels":
+[...]}`` line (launches from main path 2 for its eight kernels, from
+main path 3 for the two stream-LARS kernels, from main path 4 for
+flash_attention and rmsnorm, whose times are per prefill;
+``launches_by_path`` holds all three), the card's name and power limit,
+and last the ``{"ok": true, "device": ...}`` line. ``--out DIR`` also
+writes the per-shape kernel tables to ``DIR/chip_smoke_kernels.json``.
 
 It exits non-zero before printing any result when no CUDA device is
 present or when the port's sources are not beside it.
@@ -88,8 +111,12 @@ SRC = os.path.join(ROOT, "src")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores, same sheet
+BF16_FLOPS_PER_S = 989e12  # bf16 dense on the tensor cores, same sheet
 BATCH = 32  # the paper's per-GPU minibatch (32,768 over 1,024 GPUs)
 STEPS = 8  # main-path train steps: the first is set-up, 7 are timed
+# main path 4: llama3.2-1b serving 8 prompts of 1,024 tokens, then 31
+# greedy decode steps (the first of the 32 tokens comes from the prefill)
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 8, 1024, 32
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCE = CSRC + "fused_bn.cu"
 REPLACES = {"bn_stats": "src/repro/kernels/fused_bn.py:54",
@@ -114,7 +141,14 @@ LARS_KERNELS = {
     "lars_update": ("fused_update.cu",
                     "src/repro/kernels/fused_update.py:189"),
 }
-SOURCES = ("fused_bn", "fused_update", "bucket_ops", "fused_input")
+# the kernels of main path 4 (serving llama3.2-1b)
+LM_KERNELS = {
+    "flash_attention": ("flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:29"),
+    "rmsnorm": ("rmsnorm.cu", "src/repro/kernels/rmsnorm.py:20"),
+}
+SOURCES = ("fused_bn", "fused_update", "bucket_ops", "fused_input",
+           "flash_attention", "rmsnorm")
 # flops per element of the hybrid update (decay 2, m 4, coef 4, delta 3,
 # theta 2) and of the input transform (subtract, multiply)
 UPDATE_FLOPS, INPUT_FLOPS = 15, 2
@@ -940,7 +974,8 @@ def dp_main_path(torch, libs, cfg, steps: int, premade: bool = False,
             "seg_sq_partials": steps if lars else 0,
             "lars_update": steps if lars else 0,
             "cast_copy": 2 * steps,  # one pack, one unpack per step
-            "input_train": steps, "input_eval": val}
+            "input_train": steps, "input_eval": val,
+            "flash_attention": 0, "rmsnorm": 0}
     log(f"  launches {launches} (want {want}); batches staged "
         f"{put_batch.staged}")
     assert launches == want, (launches, want)
@@ -1059,6 +1094,403 @@ def lars_reference_phase(torch):
             "repeat_bitwise": repeat}
 
 
+# (B, Sq, Sk, Hq, Hkv, Dh, causal, window) of phase 3d: the serving
+# path's prefill first, then lengths 1 and 1000, Sq != Sk, non-causal, a
+# causal window of 256, groups 1, 4 and 8, Dh 32 and 128
+FLASH_CASES = [
+    (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32, 8, 64, True, None),
+    (2, 1, 1, 8, 8, 64, True, None),
+    (2, 1000, 1000, 32, 8, 64, True, None),
+    (2, 300, 1000, 8, 2, 64, True, None),
+    (2, 1000, 300, 8, 2, 64, False, None),
+    (2, 1024, 1024, 8, 8, 64, False, None),
+    (2, 1000, 1000, 16, 4, 64, True, 256),
+    (1, 777, 777, 8, 1, 128, True, None),
+    (2, 513, 513, 8, 2, 32, True, None),
+]
+# (rows, d) of phase 3d: a prefill's and a decode step's norm sites, odd
+# row counts, the reduced config's d = 128, a d with no 16-byte loads
+RMSNORM_CASES = [(SERVE_BATCH * SERVE_PROMPT, 2048), (SERVE_BATCH, 2048),
+                 (333, 2048), (1001, 128), (5, 100)]
+# kernel vs plain: flash f32 rtol 1e-5 / atol 1e-6 (its sums run in
+# another order than the plain full softmax), RMSNorm f32 rtol 1e-6 (the
+# row sum's order moves inv by an ulp); in bf16, beyond those, flash
+# within one bf16 ulp (one rounding of the f32 result) and RMSNorm within
+# two (it rounds twice, x * inv and then the product with the scale: a
+# flip of the first rounding moves the second product by up to ~2 ulps)
+LM_TOL = {"flash_attention": dict(rtol=1e-5, atol=1e-6),
+          "rmsnorm": dict(rtol=1e-6, atol=0.0)}
+BF16_ULPS = {"flash_attention": 1, "rmsnorm": 2}
+# flash vs naive attention, bf16 prefill logits at full width, relative
+# norm: the naive path rounds scores and probabilities to bf16 (2^-8
+# each) where the flash kernel keeps them in f32, and 16 layers of
+# random weights carry that drift to the logits (~2e-2, PERF.md §6); the
+# bound leaves room above it
+NAIVE_REL_TOL = 5e-2
+
+
+def live_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """The (q, k) pairs the masks keep, positions from 0 on both sides."""
+    import numpy as np
+    q = np.arange(sq)[:, None]
+    k = np.arange(sk)[None, :]
+    keep = np.ones((sq, sk), bool)
+    if causal:
+        keep &= k <= q
+    if window is not None:
+        keep &= q - k < window
+    return int(keep.sum())
+
+
+def flash_bound(case, esize: int):
+    """(bound ms at the bf16 tensor-core peak, the same at the f32
+    CUDA-core peak, what bounds the first): the larger of q, k, v and out
+    moved once over the HBM rate and 4 * Dh flops per live (q, k) pair
+    per batch row and query head."""
+    b, sq, sk, hq, hkv, dh, causal, window = case
+    nbytes = esize * b * dh * (2 * sq * hq + 2 * sk * hkv)
+    flops = 4 * b * hq * dh * live_pairs(sq, sk, causal, window)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_bf16, t_f32 = flops / BF16_FLOPS_PER_S, flops / F32_FLOPS_PER_S
+    return (max(t_bytes, t_bf16) * 1e3, max(t_bytes, t_f32) * 1e3,
+            "bytes" if t_bytes >= t_bf16 else "operations", flops)
+
+
+def _bf16_ulp_check(torch, name, got, want, ulps, rtol, atol) -> float:
+    """Raise unless |got - want| <= ``ulps`` bf16 ulps of want + atol +
+    rtol * |want| everywhere; returns the largest |got - want|."""
+    got, want = got.float(), want.float()
+    mag = want.abs().clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    err = (got - want).abs()
+    if bool((err > ulps * ulp + atol + rtol * want.abs()).any()):
+        raise AssertionError(f"{name}: beyond {ulps} bf16 ulp, max error "
+                             f"{err.max().item():.3g}")
+    return err.max().item()
+
+
+def lm_kernel_phase(torch):
+    """Phase 3d: ``flash_attention`` and ``rmsnorm`` against their plain
+    versions at every case, bf16 and f32, each case timed (kernel, plain,
+    library) with its bound. Returns per-prefill totals at the serving
+    path's shapes in bf16 (16 flash launches at the first case, 33
+    rmsnorm launches at the first) and every case's record."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    dtypes = (("bf16", torch.bfloat16), ("f32", torch.float32))
+    records = {"flash_attention": [], "rmsnorm": []}
+    for case in FLASH_CASES:
+        b, sq, sk, hq, hkv, dh, causal, window = case
+        for dname, dt in dtypes:
+            q, k, v = (torch.randn(b, s, h, dh, generator=gen, device=dev)
+                       .to(dt) for s, h in ((sq, hq), (sk, hkv), (sk, hkv)))
+            got = fa.flash_attention(q, k, v, causal=causal, window=window)
+            want = fa.PLAIN["flash_attention"](q, k, v, causal, window)
+            torch.cuda.synchronize()
+            name = f"flash_attention {dname} {case}"
+            tol, ulps = LM_TOL["flash_attention"], BF16_ULPS["flash_attention"]
+            if dname == "f32":
+                torch.testing.assert_close(got, want, **tol, msg=lambda m: (
+                    f"{name}: {m}"))
+                err = (got - want).abs().max().item()
+            else:
+                err = _bf16_ulp_check(torch, name, got, want, ulps, **tol)
+            bound_ms, f32_bound_ms, bound_by, flops = flash_bound(
+                case, q.element_size())
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            rec = {"case": list(case), "dtype": dname, "max_abs_err": err,
+                   "ms": time_ms(torch, lambda: fa.flash_attention(
+                       q, k, v, causal=causal, window=window)),
+                   "plain_ms": time_ms(torch, lambda: fa.PLAIN[
+                       "flash_attention"](q, k, v, causal, window)),
+                   "library_ms": None, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "f32_bound_ms": f32_bound_ms,
+                   "flops": flops}
+            if window is None:  # SDPA takes a window only as a mask
+                rec["library_ms"] = time_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=causal, enable_gqa=True))
+            records["flash_attention"].append(rec)
+            lib = rec["library_ms"]
+            log(f"  flash {dname:4s} {case}: {rec['ms']:.4f} ms (plain "
+                f"{rec['plain_ms']:.4f}, sdpa "
+                f"{'-' if lib is None else f'{lib:.4f}'}, bound "
+                f"{bound_ms:.4f} bf16 tc / {f32_bound_ms:.4f} f32), max err "
+                f"{err:.3g}")
+            del q, k, v, got, want
+    for rows, d in RMSNORM_CASES:
+        for dname, dt in dtypes:
+            x = (torch.randn(rows, d, generator=gen, device=dev) * 2
+                 + 0.3).to(dt)
+            scale = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
+            got = rn.rmsnorm(x, scale)
+            want = rn.PLAIN["rmsnorm"](x, scale, 1e-5)
+            torch.cuda.synchronize()
+            name = f"rmsnorm {dname} rows={rows} d={d}"
+            tol, ulps = LM_TOL["rmsnorm"], BF16_ULPS["rmsnorm"]
+            if dname == "f32":
+                torch.testing.assert_close(got, want, **tol, msg=lambda m: (
+                    f"{name}: {m}"))
+                err = (got - want).abs().max().item()
+            else:
+                err = _bf16_ulp_check(torch, name, got, want, ulps, **tol)
+            es = x.element_size()
+            bound_ms, bound_by = bound(es * (2 * rows * d + d), 4 * rows * d)
+            st = scale.to(dt)
+            rec = {"rows": rows, "d": d, "dtype": dname, "max_abs_err": err,
+                   "ms": time_ms(torch, lambda: rn.rmsnorm(x, scale)),
+                   "plain_ms": time_ms(torch, lambda: rn.PLAIN["rmsnorm"](
+                       x, scale, 1e-5)),
+                   "library_ms": time_ms(torch, lambda: F.rms_norm(
+                       x, (d,), st, 1e-5)),
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            records["rmsnorm"].append(rec)
+            log(f"  rmsnorm {dname:4s} {rows:5d} x {d:4d}: {rec['ms']:.4f} "
+                f"ms (plain {rec['plain_ms']:.4f}, F.rms_norm "
+                f"{rec['library_ms']:.4f}, bound {bound_ms:.4f}), max err "
+                f"{err:.3g}")
+    n_layers = 16  # llama3.2-1b
+    per_prefill = {"flash_attention": n_layers, "rmsnorm": 2 * n_layers + 1}
+    totals = {}
+    for k, recs in records.items():
+        first = next(r for r in recs if r["dtype"] == "bf16")
+        n = per_prefill[k]
+        totals[k] = {f: (None if first[f] is None else n * first[f])
+                     for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        totals[k].update(
+            max_abs_err=max(r["max_abs_err"] for r in recs),
+            bound_by=first["bound_by"], ms_per_launch=first["ms"],
+            unit=f"per prefill ({n} launches at the first case, bf16)")
+    dec = next(r for r in records["rmsnorm"]
+               if r["dtype"] == "bf16" and r["rows"] == SERVE_BATCH)
+    totals["rmsnorm"]["decode_step_ms"] = per_prefill["rmsnorm"] * dec["ms"]
+    totals["rmsnorm"]["decode_step_bound_ms"] = \
+        per_prefill["rmsnorm"] * dec["bound_ms"]
+    first = records["flash_attention"][0]
+    totals["flash_attention"]["f32_bound_ms"] = \
+        n_layers * first["f32_bound_ms"]
+    return totals, records
+
+
+def serve_counts_check(launches, n_layers: int, forwards: int,
+                       prefills: int) -> None:
+    """flash = n_layers per prefill and none per decode step; rmsnorm =
+    2 n_layers + 1 per forward; every other kernel none."""
+    want = {k: 0 for k in launches}
+    want.update(flash_attention=n_layers * prefills,
+                rmsnorm=(2 * n_layers + 1) * forwards)
+    log(f"  launches {launches} (want {want})")
+    assert launches == want, (launches, want)
+
+
+def serve_main_path(torch, libs, profile: bool):
+    """Main path 4: ``serve()`` of llama3.2-1b at full width, 8 prompts of
+    1,024 tokens, 31 greedy decode steps, bf16, chunked (flash)
+    attention. The counted run goes through ``serve()`` itself; then a
+    second session (``build_serve_setup`` + ``generate``, the two halves
+    of ``serve()``) gives the warm call, the launches of one prefill and
+    of one decode step alone, the profile and the prefill logits through
+    the naive attention."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import (build_serve_setup, generate,
+                                          make_prompts, serve)
+    from repro_torch.models import build_model
+    from repro_torch.training.step import make_decode_step, make_prefill_step
+
+    cfg = get_config("llama3.2-1b")
+    bf16, L = torch.bfloat16, cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts(libs)
+    t0 = time.perf_counter()
+    first = serve(cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS,
+                  compute_dtype=bf16, attention_impl="chunked",
+                  device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(libs)
+    serve_counts_check(launches, L, SERVE_STEPS, 1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    gen = first["generated"]
+    assert gen.shape == (SERVE_BATCH, SERVE_STEPS), gen.shape
+    assert ((gen >= 0) & (gen < cfg.vocab_size)).all(), gen
+
+    t0 = time.perf_counter()
+    model, params = build_serve_setup(cfg, compute_dtype=bf16,
+                                      attention_impl="chunked",
+                                      device="cuda")
+    setup_s = time.perf_counter() - t0
+    prompts = make_prompts(cfg, SERVE_BATCH, SERVE_PROMPT)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    warm = generate(model, params, prompts, SERVE_STEPS)
+    warm_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    same = bool((warm["generated"] == gen).all())
+
+    # one prefill and one decode step alone, their launches counted
+    tokens = {"tokens": torch.from_numpy(prompts).to("cuda")}
+    cache, _ = model.cache_shape(SERVE_BATCH, SERVE_PROMPT + SERVE_STEPS,
+                                 bf16)
+    reset_counts(libs)
+    logits, cache = make_prefill_step(model)(params, cache, tokens)
+    torch.cuda.synchronize()
+    serve_counts_check(read_counts(libs), L, 1, 1)
+    assert logits.shape == (SERVE_BATCH, 1, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all()), "non-finite prefill logits"
+    step = {"tokens": torch.argmax(logits[:, -1], -1)[:, None],
+            "cache_index": SERVE_PROMPT}
+    reset_counts(libs)
+    dlogits, cache = make_decode_step(model)(params, cache, step)
+    torch.cuda.synchronize()
+    serve_counts_check(read_counts(libs), L, 1, 0)
+    assert bool(torch.isfinite(dlogits).all()), "non-finite decode logits"
+
+    # the same prompts and weights through the naive attention
+    naive = build_model(cfg, bf16, attention_impl="naive", device="cuda")
+    ncache, _ = naive.cache_shape(SERVE_BATCH, SERVE_PROMPT, bf16)
+    nlogits, _ = make_prefill_step(naive)(params, ncache, tokens)
+    rel = ((logits.float() - nlogits.float()).norm()
+           / nlogits.float().norm()).item()
+    agree = (logits.argmax(-1) == nlogits.argmax(-1)).float().mean().item()
+    del ncache, nlogits
+
+    stats = {
+        "batch": SERVE_BATCH, "prompt_len": SERVE_PROMPT,
+        "decode_steps": SERVE_STEPS,
+        "first": {k: first[k] for k in ("prefill_s", "decode_s",
+                                        "decode_tok_per_s")},
+        "first_wall_s": wall,
+        "warm": {k: warm[k] for k in ("prefill_s", "decode_s",
+                                      "decode_tok_per_s")},
+        "prefill_ms": warm["prefill_s"] * 1e3,
+        "decode_ms_per_step": warm["decode_s"] / (SERVE_STEPS - 1) * 1e3,
+        "decode_tok_per_s": warm["decode_tok_per_s"],
+        "peak_mem_gib": warm_peak, "first_peak_mem_gib": peak,
+        "setup_s": setup_s,
+        "warm_tokens_equal_first": same,
+        "naive_rel_norm": rel, "naive_argmax_agree": agree,
+        "launches": launches}
+    log(f"  first call: prefill {first['prefill_s'] * 1e3:.2f} ms, decode "
+        f"{first['decode_s'] / (SERVE_STEPS - 1) * 1e3:.2f} ms/step "
+        f"({first['decode_tok_per_s']:.1f} tok/s), serve() wall "
+        f"{wall:.1f}s with set-up")
+    log(f"  warm call: prefill {stats['prefill_ms']:.2f} ms, decode "
+        f"{stats['decode_ms_per_step']:.2f} ms/step "
+        f"({stats['decode_tok_per_s']:.1f} tok/s); the same tokens as the "
+        f"first call: {same}; peak {warm_peak:.2f} GiB (the first call "
+        f"with its set-up {peak:.2f} GiB)")
+    log(f"  prefill logits, flash vs naive attention: relative norm "
+        f"{rel:.3g} (bound {NAIVE_REL_TOL}), argmax agree {agree:.3f}")
+    assert rel <= NAIVE_REL_TOL, rel
+    if profile:
+        stats["profile"] = serve_profile(torch, model, params, tokens)
+    return launches, stats
+
+
+def serve_profile(torch, model, params, tokens, steps: int = 4):
+    """``--profile``: one prefill and ``steps`` decode steps under
+    torch.profiler, each window's wall time, device busy time (the summed
+    kernel time, one stream) and idle share, and its top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.training.step import make_decode_step, make_prefill_step
+    prompt = tokens["tokens"].shape[1]
+    cache, _ = model.cache_shape(SERVE_BATCH, prompt + steps + 1,
+                                 model.compute_dtype)
+    out = {}
+    for phase in ("prefill", "decode"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if phase == "prefill":
+                logits, cache = make_prefill_step(model)(params, cache,
+                                                         tokens)
+                n = 1
+            else:
+                tok = torch.argmax(logits[:, -1], -1)[:, None]
+                for i in range(steps):
+                    logits, cache = make_decode_step(model)(
+                        params, cache, {"tokens": tok,
+                                        "cache_index": prompt + i})
+                    tok = torch.argmax(logits[:, -1], -1)[:, None]
+                n = steps
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = prof.key_averages()
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kernels) / 1e6
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+        rec = {"calls": n, "wall_ms": wall / n * 1e3,
+               "device_busy_ms": busy / n * 1e3,
+               "device_idle_share": 1.0 - busy / wall if wall else None,
+               "kernels_per_call": sum(e.count for e in kernels) / n,
+               "top_kernels": [(e.key[:90], e.count // n,
+                                e.self_device_time_total / n / 1e3)
+                               for e in top]}
+        out[phase] = rec
+        log(f"  {phase} (per call, {n}): wall {rec['wall_ms']:.2f} ms, "
+            f"device busy {rec['device_busy_ms']:.2f} ms (idle share "
+            f"{rec['device_idle_share']:.3f}), "
+            f"{rec['kernels_per_call']:.0f} kernels")
+        for name, c, ms in rec["top_kernels"]:
+            log(f"    device {ms:8.3f} ms x{c:4d} {name}")
+    return out
+
+
+def serve_reference_phase(torch):
+    """Phase 9b: the reduced llama3.2-1b in f32 with the same weights on
+    the card (the kernels) and on the CPU (their plain versions): prefill
+    and 6 greedy decode steps, logits within rtol/atol 1e-4 (f32 sums in
+    other orders) and the same tokens. TF32 is off for float32 products
+    on the card (``torch.backends.cuda.matmul.allow_tf32 = False``), so
+    both sides multiply in full f32."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models import build_model
+    from repro_torch.training.step import make_decode_step, make_prefill_step
+
+    cfg = reduced_config(get_config("llama3.2-1b"))
+    b, prompt, steps = 4, 130, 6
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        sides = {}
+        for dev in ("cuda", "cpu"):
+            model = build_model(cfg, torch.float32, attention_impl="chunked",
+                                device=dev)
+            params = model.init(7)
+            cache, _ = model.cache_shape(b, prompt + steps, torch.float32)
+            toks = torch.from_numpy(make_prompts(cfg, b, prompt, 7)).to(dev)
+            logits, cache = make_prefill_step(model)(params, cache,
+                                                     {"tokens": toks})
+            seq_logits, seq_tokens = [logits.cpu()], []
+            for i in range(steps):
+                tok = torch.argmax(logits[:, -1], -1)[:, None]
+                seq_tokens.append(tok.cpu())
+                logits, cache = make_decode_step(model)(
+                    params, cache, {"tokens": tok, "cache_index": prompt + i})
+                seq_logits.append(logits.cpu())
+            sides[dev] = (seq_logits, torch.cat(seq_tokens, 1))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (card_l, card_t), (cpu_l, cpu_t) = sides["cuda"], sides["cpu"]
+    err = max((a - c).abs().max().item() for a, c in zip(card_l, cpu_l))
+    for i, (a, c) in enumerate(zip(card_l, cpu_l)):
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4,
+                                   msg=lambda m, i=i: f"call {i}: {m}")
+    assert torch.equal(card_t, cpu_t), (card_t, cpu_t)
+    log(f"  prefill + {steps} decode steps: logits within {err:.3g} "
+        f"(bound rtol/atol 1e-4), greedy tokens equal "
+        f"{card_t.tolist()[0]}")
+    return {"max_abs_err": err, "tokens": card_t.tolist()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -1087,8 +1519,10 @@ def main() -> int:
     from repro_torch.kernels import bucket_ops as bo
     from repro_torch.kernels import fused_bn as fb
     from repro_torch.kernels import fused_input as fi
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_update as fu
-    libs = (fb, fu, bo, fi)
+    from repro_torch.kernels import rmsnorm as rn
+    libs = (fb, fu, bo, fi, fa, rn)
 
     t_all = time.perf_counter()
     card = nvidia_smi_line()
@@ -1127,6 +1561,11 @@ def main() -> int:
     lars_totals, lars_cases = lars_phase(torch, params_cpu, wd)
     new.update(lars_totals)
     del params_cpu
+    log(f"  ({time.perf_counter() - t0:.1f}s)")
+
+    t0 = time.perf_counter()
+    log("[3d] flash_attention and rmsnorm vs plain versions")
+    lm_totals, lm_cases = lm_kernel_phase(torch)
     log(f"  ({time.perf_counter() - t0:.1f}s)")
 
     t0 = time.perf_counter()
@@ -1199,8 +1638,21 @@ def main() -> int:
     finally:
         shutdown()
 
-    by_path = {k: {"path2": launches[k], "path3": launches3[k]}
-               for k in launches}
+    t0 = time.perf_counter()
+    log(f"[9] main path 4: serve() llama3.2-1b full width, batch "
+        f"{SERVE_BATCH}, {SERVE_PROMPT}-token prompts, {SERVE_STEPS - 1} "
+        f"greedy decode steps, bf16, chunked (flash) attention")
+    launches4, stats4 = serve_main_path(torch, libs, args.profile)
+    log(f"  ({time.perf_counter() - t0:.1f}s)")
+
+    t0 = time.perf_counter()
+    log("[9b] reference: reduced llama3.2-1b f32, kernels on the card vs "
+        "plain versions on the CPU")
+    ref4 = serve_reference_phase(torch)
+    log(f"  ({time.perf_counter() - t0:.1f}s)")
+
+    by_path = {k: {"path2": launches[k], "path3": launches3[k],
+                   "path4": launches4[k]} for k in launches}
     kernels = [{"name": k, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[k], "launches": launches[k],
                 "launches_by_path": by_path[k],
@@ -1218,7 +1670,17 @@ def main() -> int:
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
-    assert len(kernels) == 10, len(kernels)
+    for k, (src, replaces) in LM_KERNELS.items():
+        t = lm_totals[k]
+        kernels.append({
+            "name": k, "route": "cuda", "source": CSRC + src,
+            "replaces": replaces, "launches": launches4[k],
+            "launches_by_path": by_path[k],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "unit": t["unit"]})
+    assert len(kernels) == 12, len(kernels)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke_kernels.json"),
@@ -1228,7 +1690,10 @@ def main() -> int:
                        "main_path": stats, "main_path_2": stats2,
                        "main_path_3": stats3, "lars_cases": lars_cases,
                        "reference": ref, "reference_2": ref2,
-                       "reference_3": ref3, "turns": turns}, f, indent=1)
+                       "reference_3": ref3, "turns": turns,
+                       "lm_kernels": lm_totals, "lm_cases": lm_cases,
+                       "main_path_4": stats4, "reference_4": ref4}, f,
+                      indent=1)
     log(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

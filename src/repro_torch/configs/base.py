@@ -4,7 +4,7 @@ The PyTorch port's own copy of the JAX package's config dataclasses,
 field for field, so a configuration means the same thing in both
 packages. Every architecture is a ``ModelConfig`` produced by a factory
 in ``src/repro_torch/configs/<arch>.py`` and registered under its public
-id (``--arch <id>``). Only ResNet-50 is registered in the port so far.
+id (``--arch <id>``). The port registers ResNet-50 and llama3.2-1b.
 """
 from __future__ import annotations
 
@@ -98,6 +98,11 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim is None and self.n_heads:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    def is_moe_layer(self, layer_idx: int) -> bool:
+        if not self.n_experts:
+            return False
+        return layer_idx % self.moe_layer_every == self.moe_layer_every - 1
 
 
 # ---------------------------------------------------------------------------

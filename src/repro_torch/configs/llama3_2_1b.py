@@ -1,0 +1,21 @@
+"""Llama-3.2-1B — small llama3 GQA [hf:meta-llama/Llama-3.2-1B; unverified]."""
+from repro_torch.configs.base import ModelConfig, register
+
+
+@register("llama3.2-1b")
+def llama3_2_1b() -> ModelConfig:
+    return ModelConfig(
+        name="llama3.2-1b",
+        family="dense",
+        n_layers=16,
+        d_model=2048,
+        n_heads=32,
+        n_kv_heads=8,
+        head_dim=64,
+        d_ff=8192,
+        vocab_size=128256,
+        tie_embeddings=True,
+        norm="rmsnorm",
+        rope_theta=500000.0,
+        source="hf:meta-llama/Llama-3.2-1B; unverified",
+    )

@@ -9,7 +9,8 @@ reads the keys of a checkpoint's ``arrays.npz`` (``['params']['fc']['w']``),
 so such a file loads directly. The JAX package's data-parallel step keeps
 every worker's BN state under a leading worker dim; the port keeps one
 state per worker process (``worker_state_from_jax`` /
-``stack_worker_states``).
+``stack_worker_states``). An LM's parameters (``lm_params_from_jax``)
+have the same layout in both packages and are only renamed.
 """
 from __future__ import annotations
 
@@ -65,6 +66,22 @@ def params_from_jax(tree: Mapping, device: DeviceLike = "cuda"
             a = a.transpose(3, 2, 0, 1)
         out[name] = torch.from_numpy(np.array(a, order="C")).to(dev)
     return out
+
+
+def lm_params_from_jax(tree: Mapping, device: DeviceLike = "cuda"
+                       ) -> Dict[str, torch.Tensor]:
+    """JAX ``TransformerLM`` parameters -> the port's flat tensors, no
+    transposes: the layouts are the same. ``tree`` is the nested numpy
+    tree (``embed/table``, ``sub0/attn/wq``, ...) or a flat mapping whose
+    keys ``flat_name`` reads, such as the ``['params'][...]`` keys of a
+    checkpoint's ``arrays.npz``."""
+    dev = resolve_device(device)
+    flat = {flat_name(k): v for k, v in _flatten(tree).items()}
+    if any(n.startswith("params/") for n in flat):  # a whole checkpoint
+        flat = {n[len("params/"):]: v for n, v in flat.items()
+                if n.startswith("params/")}
+    return {n: torch.from_numpy(np.array(v, order="C")).to(dev)
+            for n, v in flat.items()}
 
 
 def params_to_jax(params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:

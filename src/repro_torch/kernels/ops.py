@@ -3,10 +3,15 @@
 kernels; on CPU tensors they run each kernel's plain PyTorch version."""
 from __future__ import annotations
 
+from typing import Optional
+
+import torch
+
 from repro_torch.kernels.bucket_ops import (  # noqa: F401
     pack_cast,
     unpack_cast,
 )
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_bn import (  # noqa: F401
     fused_bn_apply,
     fused_bn_train,
@@ -21,3 +26,11 @@ from repro_torch.kernels.fused_update import (  # noqa: F401
     fused_lars_update,
     fused_segment_sq_partials,
 )
+from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: F401
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None
+              ) -> torch.Tensor:
+    """Tiled online-softmax attention (GQA-aware), forward only."""
+    return flash_attention(q, k, v, causal=causal, window=window)

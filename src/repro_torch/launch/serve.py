@@ -1,0 +1,142 @@
+"""Batched serving driver: prefill + greedy decode with a KV cache.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+        --reduced --batch 4 --prompt-len 128 --decode-steps 16 \\
+        --attention-impl chunked --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+        --batch 8 --prompt-len 1024 --decode-steps 32 --dtype bfloat16 \\
+        --attention-impl chunked
+
+The port of the JAX package's ``launch/serve.py``: the same defaults
+(naive attention, float32), the same prompts (``np.random.RandomState
+(seed)``), the same result keys. The model runs on the card unless
+``--device cpu`` is given; ``chunked`` attention there is the flash
+kernel, and every RMSNorm site the rmsnorm kernel.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, reduced_config
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import build_model
+from repro_torch.training.step import make_decode_step, make_prefill_step
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def build_serve_setup(cfg, *, seed: int = 0, compute_dtype=torch.float32,
+                      attention_impl: str = "naive",
+                      device: DeviceLike = "cuda") -> Tuple:
+    """(model, params) for a serving session: parameters from ``seed``,
+    cast to the compute dtype once here. The values are those of the JAX
+    package's per-op ``astype``, and the decode loop then does not cast
+    every weight again at every step (5 GB of casts a step at
+    llama3.2-1b's width)."""
+    model = build_model(cfg, compute_dtype=compute_dtype,
+                        attention_impl=attention_impl, device=device)
+    params, _ = model.init_params(seed)
+    params = {k: v.to(compute_dtype) for k, v in params.items()}
+    return model, params
+
+
+def make_prompts(cfg, batch: int, prompt_len: int, seed: int = 0
+                 ) -> np.ndarray:
+    """The JAX package's prompts, bit for bit."""
+    rng = np.random.RandomState(seed)
+    return rng.randint(0, cfg.vocab_size, size=(batch, prompt_len))
+
+
+def generate(model, params, prompts: np.ndarray, decode_steps: int
+             ) -> Dict:
+    """Prefill ``prompts`` into a fresh cache, then ``decode_steps - 1``
+    greedy decode steps. Each phase is timed between device syncs."""
+    dev = model.device
+    batch, prompt_len = prompts.shape
+    cache, _ = model.cache_shape(batch, prompt_len + decode_steps,
+                                 model.compute_dtype)
+    batch_in = {"tokens": torch.from_numpy(prompts.astype(np.int64)).to(dev)}
+    prefill = make_prefill_step(model)
+    decode = make_decode_step(model)
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, cache, batch_in)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    tokens = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    out = [tokens]
+    t0 = time.perf_counter()
+    for i in range(decode_steps - 1):
+        step_batch = {"tokens": tokens, "cache_index": prompt_len + i}
+        logits, cache = decode(params, cache, step_batch)
+        tokens = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        out.append(tokens)
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+    generated = torch.cat(out, dim=1)
+    return {
+        "generated": generated.cpu().numpy(),
+        "prefill_s": t_prefill,
+        "decode_s": t_decode,
+        "decode_tok_per_s": batch * (decode_steps - 1) / max(t_decode, 1e-9),
+    }
+
+
+def serve(cfg, batch: int, prompt_len: int, decode_steps: int,
+          seed: int = 0, compute_dtype=torch.float32, greedy: bool = True,
+          *, attention_impl: str = "naive", device: DeviceLike = "cuda"
+          ) -> Dict:
+    """Serve ``batch`` random prompts of ``prompt_len`` tokens: one
+    prefill and ``decode_steps - 1`` greedy decode steps. Decoding is
+    greedy whatever ``greedy`` says, as in the JAX package."""
+    del greedy
+    dev = resolve_device(device)
+    if cfg.audio is not None or cfg.vision is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: modality frontends are not ported yet (ROADMAP "
+            "queue 1, item 15)")
+    model, params = build_serve_setup(
+        cfg, seed=seed, compute_dtype=compute_dtype,
+        attention_impl=attention_impl, device=dev)
+    return generate(model, params,
+                    make_prompts(cfg, batch, prompt_len, seed), decode_steps)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--decode-steps", type=int, default=16)
+    ap.add_argument("--attention-impl", default="naive",
+                    choices=["naive", "chunked", "chunked_opt"])
+    ap.add_argument("--dtype", default="float32", choices=sorted(DTYPES))
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced_config(cfg)
+    res = serve(cfg, args.batch, args.prompt_len, args.decode_steps,
+                compute_dtype=DTYPES[args.dtype],
+                attention_impl=args.attention_impl, device=args.device)
+    print(f"prefill: {res['prefill_s']*1e3:.1f} ms   "
+          f"decode: {res['decode_tok_per_s']:.1f} tok/s")
+    print("sample tokens:", res["generated"][0][:12])
+    return res
+
+
+if __name__ == "__main__":
+    main()

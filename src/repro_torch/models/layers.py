@@ -1,0 +1,306 @@
+"""Transformer building blocks of the dense family: RoPE, GQA attention
+(full forward, prefill into a KV cache, decode against it), the MLPs,
+the embedding and the LM head.
+
+The port of the JAX package's ``models/layers.py``, function for
+function, in the same layouts: activations ``(B, S, H, Dh)``, attention
+weights ``(d, H, Dh)`` and ``(H, Dh, d)``. Functions are pure in their
+parameters except the KV cache, which attention updates in place (the
+JAX package writes a new cache, in place too once its buffer is
+donated). ``chunked_attention`` at ``precision="f32"`` is the flash
+kernel (``kernels.ops.attention``); the JAX package's pure-jnp chunked
+loop and its Pallas kernel compute the same function. Plain products
+and ``decode_attention`` stay ``torch.matmul`` / einsum, as the JAX
+package leaves them to XLA. The MoE layer is not ported yet (ROADMAP
+queue 1, item 15).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import common
+from repro_torch.models.common import dense, gelu
+
+Tensor = torch.Tensor
+Params = Dict[str, Tensor]
+NEG_INF = -1e30
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding (llama split-half convention)
+# ---------------------------------------------------------------------------
+
+
+def rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
+    """x: (B, S, H, Dh); positions: (B, S) integers. cos and sin are cast
+    to x's dtype before the products, as in the JAX package."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(half, dtype=torch.float32,
+                                    device=x.device) / half)
+    angles = positions[..., None].to(torch.float32) * freqs  # (B, S, half)
+    cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def attention_init(gen: torch.Generator, cfg: ModelConfig, stacked: int = 0,
+                   kv_dim: Optional[int] = None) -> Params:
+    """QKV + output projection, weights shaped (d, H, Dh) and (H, Dh, d)
+    (with a leading layer dim when ``stacked``)."""
+    d, h, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
+    kv = cfg.n_kv_heads
+    kd = kv_dim or d
+    L = (stacked,) if stacked else ()
+
+    def w(d_in, n_heads):
+        return common.fan_in_init(gen, L + (d_in, n_heads, dh), (-3,))
+
+    p: Params = {
+        "wq": w(d, h),
+        "wk": w(kd, kv),
+        "wv": w(kd, kv),
+        "wo": common.fan_in_init(gen, L + (h, dh, d), (-3, -2)),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros(L + (h, dh))
+        p["bk"] = torch.zeros(L + (kv, dh))
+        p["bv"] = torch.zeros(L + (kv, dh))
+    return p
+
+
+def _proj(x: Tensor, w: Tensor) -> Tensor:
+    """``einsum("bsd,dhk->bshk")`` as one matmul over the flattened heads."""
+    d, h, k = w.shape
+    return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
+
+
+def _qkv(p: Params, x: Tensor, kv_x: Tensor, cfg: ModelConfig,
+         positions: Optional[Tensor], kv_positions: Optional[Tensor],
+         use_rope: bool) -> Tuple[Tensor, Tensor, Tensor]:
+    q = _proj(x, p["wq"])
+    k = _proj(kv_x, p["wk"])
+    v = _proj(kv_x, p["wv"])
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, kv_positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _expand_kv(k: Tensor, n_heads: int) -> Tensor:
+    """GQA: repeat kv heads to match query heads (reference path), in
+    ``jnp.repeat``'s order: query head h reads kv head h // group."""
+    kv = k.shape[2]
+    if kv == n_heads:
+        return k
+    return torch.repeat_interleave(k, n_heads // kv, dim=2)
+
+
+def _mask(sq: int, sk: int, causal: bool, window: Optional[int],
+          q_offset: int, device) -> Tensor:
+    qi = torch.arange(sq, device=device)[:, None] + q_offset
+    kj = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones(sq, sk, dtype=torch.bool, device=device)
+    if causal:
+        mask &= kj <= qi
+    if window is not None:
+        mask &= qi - kj < window
+    return mask
+
+
+def naive_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
+                    window: Optional[int] = None, q_offset: int = 0
+                    ) -> Tensor:
+    """Materializes (B, H, Sq, Sk) scores. Reference / smoke-test path:
+    scores in q's dtype, then f32 for the softmax, probabilities rounded
+    to q's dtype before the product with v (the JAX package's order)."""
+    h, dh = q.shape[2], q.shape[3]
+    k = _expand_kv(k, h)
+    v = _expand_kv(v, h)
+    scale = 1.0 / math.sqrt(dh)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    mask = _mask(q.shape[1], k.shape[1], causal, window, q_offset, q.device)
+    scores = torch.where(mask, scores,
+                         torch.full((), NEG_INF, device=q.device))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def chunked_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
+                      window: Optional[int] = None, q_chunk: int = 1024,
+                      kv_chunk: int = 1024, precision: str = "f32",
+                      inner_checkpoint: bool = False) -> Tensor:
+    """Online-softmax attention. At ``precision="f32"`` this is the flash
+    kernel (``kernels.ops.attention``: f32 tiles, f32 statistics, f32 p),
+    which needs no chunk sizes or padding; ``q_chunk`` and ``kv_chunk``
+    only shape the JAX package's jnp loop and give the same result.
+    ``precision="bf16"`` with ``inner_checkpoint`` (``chunked_opt``) is a
+    training path and is not ported yet."""
+    del q_chunk, kv_chunk
+    if precision != "f32" or inner_checkpoint:
+        raise NotImplementedError(
+            "chunked_attention at precision='bf16' / inner_checkpoint (the "
+            "chunked_opt training path) is not ported yet (ROADMAP queue 1, "
+            "item 15: LM training)")
+    from repro_torch.kernels.ops import attention
+    return attention(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
+                     valid_len: Tensor, window: Optional[int] = None
+                     ) -> Tensor:
+    """Single-token query vs cache. q: (B, 1, H, Dh); cache: (B, S, KV,
+    Dh). GQA by a grouped einsum: the cache is never repeated to H
+    heads."""
+    b, one, h, dh = q.shape
+    s, kv = k_cache.shape[1], k_cache.shape[2]
+    g = h // kv
+    qg = q.reshape(b, one, kv, g, dh)
+    scale = 1.0 / math.sqrt(dh)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache).float() * scale
+    kj = torch.arange(s, device=q.device)[None, None, None, None, :]
+    valid = valid_len.reshape(-1, 1, 1, 1, 1)
+    mask = kj < valid
+    if window is not None:
+        mask &= kj >= valid - window
+    scores = torch.where(mask, scores,
+                         torch.full((), NEG_INF, device=q.device))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v_cache)
+    return out.reshape(b, one, h, dh)
+
+
+def attention_apply(
+    p: Params,
+    x: Tensor,
+    cfg: ModelConfig,
+    *,
+    positions: Tensor,
+    causal: bool = True,
+    window: Optional[int] = None,
+    impl: str = "chunked",
+    kv_x: Optional[Tensor] = None,  # cross-attention source
+    kv_positions: Optional[Tensor] = None,
+    cache: Optional[Params] = None,  # {"k","v"} (B,Smax,KV,Dh)
+    cache_index: Optional[int] = None,
+    use_rope: bool = True,
+) -> Tuple[Tensor, Optional[Params]]:
+    """Returns (output, updated cache); the cache tensors are written in
+    place and returned.
+
+    If the cache is *smaller* than the position index it behaves as a
+    ring buffer (sliding-window serving): writes go to ``index %
+    cache_len`` and the whole ring is valid once full. RoPE phases are
+    absolute, so scores are storage-order independent.
+    """
+    cross = kv_x is not None
+    kv_x = x if kv_x is None else kv_x
+    kv_positions = positions if kv_positions is None else kv_positions
+    q, k, v = _qkv(p, x, kv_x, cfg, positions, kv_positions,
+                   use_rope and not cross and cfg.pos_embedding == "rope")
+
+    opt = impl == "chunked_opt"
+
+    def chunked(q, k, v, *, causal, window):
+        return chunked_attention(q, k, v, causal=causal, window=window,
+                                 precision="bf16" if opt else "f32",
+                                 inner_checkpoint=opt)
+
+    new_cache = None
+    if cache is not None and not cross:
+        cache_len = cache["k"].shape[1]
+        idx = int(cache_index)
+        if x.shape[1] == 1:  # decode
+            write = idx % cache_len if window else idx
+            cache["k"][:, write] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][:, write] = v[:, 0].to(cache["v"].dtype)
+            new_cache = cache
+            valid = torch.full((x.shape[0],), min(idx + 1, cache_len),
+                               device=x.device)
+            out = decode_attention(q, cache["k"].to(q.dtype),
+                                   cache["v"].to(q.dtype), valid,
+                                   None)  # the ring IS the window
+        else:  # prefill into cache (keep the last cache_len positions)
+            k_in, v_in = k, v
+            if k.shape[1] > cache_len:
+                k_in, v_in = k[:, -cache_len:], v[:, -cache_len:]
+            # jax.lax.dynamic_update_slice clamps the start so the update
+            # fits inside the cache
+            start = min(idx, cache_len - k_in.shape[1])
+            end = start + k_in.shape[1]
+            cache["k"][:, start:end] = k_in.to(cache["k"].dtype)
+            cache["v"][:, start:end] = v_in.to(cache["v"].dtype)
+            new_cache = cache
+            out = chunked(q, k, v, causal=causal, window=window) \
+                if impl.startswith("chunked") else \
+                naive_attention(q, k, v, causal=causal, window=window)
+    else:
+        fn = chunked if impl.startswith("chunked") else naive_attention
+        if impl.startswith("chunked") and (x.shape[1] < 128 or
+                                           kv_x.shape[1] < 128):
+            fn = naive_attention  # smoke shapes
+        out = fn(q, k, v, causal=causal and not cross, window=window)
+
+    h, dh, d = p["wo"].shape
+    y = out.reshape(*out.shape[:2], h * dh) @ p["wo"].to(x.dtype).reshape(
+        h * dh, d)
+    return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU / GELU)
+# ---------------------------------------------------------------------------
+
+
+def mlp_init(gen: torch.Generator, cfg: ModelConfig, stacked: int = 0,
+             d_ff: Optional[int] = None) -> Params:
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.mlp_variant == "swiglu":
+        return {
+            "w_gate": dense(gen, d, ff, stacked),
+            "w_up": dense(gen, d, ff, stacked),
+            "w_down": dense(gen, ff, d, stacked),
+        }
+    return {
+        "w_up": dense(gen, d, ff, stacked),
+        "w_down": dense(gen, ff, d, stacked),
+    }
+
+
+def mlp_apply(p: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
+    if "w_gate" in p:
+        h = F.silu(x @ p["w_gate"].to(x.dtype)) * (x @ p["w_up"].to(x.dtype))
+    else:
+        h = gelu(x @ p["w_up"].to(x.dtype))
+    return h @ p["w_down"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding + LM head
+# ---------------------------------------------------------------------------
+
+
+def embedding_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    return {"table": common.normal_init(gen, (cfg.vocab_size, cfg.d_model))}
+
+
+def embed(p: Params, tokens: Tensor, compute_dtype) -> Tensor:
+    return p["table"].to(compute_dtype)[tokens]
+
+
+def lm_head(table_or_w: Tensor, x: Tensor, tied: bool) -> Tensor:
+    w = table_or_w.to(x.dtype)
+    return x @ (w.T if tied else w)

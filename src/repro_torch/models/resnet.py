@@ -126,8 +126,7 @@ class ResNet50(nn.Module):
             if bi == 0:
                 p.update(_bn_values(f"{pre}/proj_bn", c_out))
             c_last = c_out
-        p["fc/w"] = common.fan_in_init(gen, (c_last, cfg.num_classes),
-                                       c_last)
+        p["fc/w"] = common.fan_in_init(gen, (c_last, cfg.num_classes))
         p["fc/b"] = torch.zeros(cfg.num_classes)
         return p
 

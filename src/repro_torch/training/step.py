@@ -19,6 +19,10 @@ the parameters. A packed-stream optimizer (stream-LARS,
 ``optim/stream.py``) takes ``_make_dp_stream_train_step`` instead: the
 update runs on the flat synced stream, and the LARS trust norms are
 reduced on each worker's 1/N slice of it.
+
+``make_prefill_step`` and ``make_decode_step`` are the serving steps of
+an LM, thin wrappers around the model's ``prefill`` and ``decode_step``
+as in the JAX package.
 """
 from __future__ import annotations
 
@@ -432,3 +436,23 @@ def finalize_worker_bn_stats(model_state, group=None):
     statistics before validation, moment-correct (see
     ``core.batchnorm.finalize_bn_stats``)."""
     return finalize_bn_stats(model_state, group)
+
+
+def make_prefill_step(model):
+    """``prefill_step(params, cache, batch) -> (last logits, cache)``;
+    ``batch["tokens"]`` is the (B, S) prompt."""
+    def prefill_step(params, cache, batch):
+        kw = {k: batch[k] for k in ("frames", "patches") if k in batch}
+        return model.prefill(params, batch["tokens"], cache, **kw)
+
+    return prefill_step
+
+
+def make_decode_step(model):
+    """``decode_step(params, cache, batch) -> (logits, cache)``;
+    ``batch`` holds the (B, 1) ``tokens`` and their ``cache_index``."""
+    def decode_step(params, cache, batch):
+        return model.decode_step(params, cache, batch["tokens"],
+                                 batch["cache_index"])
+
+    return decode_step

@@ -68,7 +68,7 @@ def test_resnet50_config_matches(reduced):
 
 def test_unknown_arch_raises():
     with pytest.raises(KeyError):
-        tget("llama3.2-1b")
+        tget("mixtral-8x7b")
 
 
 # ------------------------------------------------------------------- data

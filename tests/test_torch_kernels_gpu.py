@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: the fused-BN kernels, the stream-LARS segment norms, and bitwise
-the fused update, the LARS update, the wire cast and the fused input. Every test here is marked ``gpu`` and skips
+card: the fused-BN kernels, the stream-LARS segment norms, flash
+attention and RMSNorm, and bitwise the fused update, the LARS update,
+the wire cast and the fused input. Every test here is marked ``gpu`` and skips
 without a CUDA device. The file imports neither jax nor the JAX package, so it also
 runs on a machine that has only PyTorch:
 
@@ -11,7 +12,12 @@ Tolerances: f32 outputs rtol/atol 1e-5 (FMA contraction and reduction
 order); bf16 outputs rtol 1e-2 / atol 2e-2 (one bf16 ulp where the f32
 values before rounding differ in their last bits); sums rtol 1e-4; the
 segment norms rtol 1e-5 of a float64 sum of the same inputs, and the
-same bits on every run.
+same bits on every run; flash attention f32 rtol 1e-5 / atol 1e-6 (its
+sums run in another order than the plain full softmax), RMSNorm f32
+rtol 1e-6 (the row sum's order moves inv by an ulp); in bf16, beyond
+those, flash within one bf16 ulp and RMSNorm within two (it rounds
+twice, x * inv and then the product with the scale, so a flip of the
+first rounding moves the second product by up to ~2 ulps).
 """
 import pytest
 import torch
@@ -210,3 +216,70 @@ def test_lars_update_bitwise_on_card(cuda, case):
     torch.cuda.synchronize()
     assert fu.LAUNCHES["lars_update"] == 1
     assert all(torch.equal(a, b) for a, b in zip(kern, plain))
+
+
+def _within_bf16_ulps(got, want, ulps, rtol, atol):
+    """|got - want| <= ``ulps`` bf16 ulps of want + atol + rtol * |want|."""
+    got, want = got.float(), want.float()
+    mag = want.abs().clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    bad = (got - want).abs() > ulps * ulp + atol + rtol * want.abs()
+    assert not bool(bad.any()), (got - want).abs().max().item()
+
+
+# (B, Sq, Sk, Hq, Hkv, Dh, causal, window): the serving path's prefill,
+# lengths 1 and 1000, Sq != Sk, non-causal, a causal window of 256,
+# groups 1, 4 and 8, Dh 32 and 128
+FLASH_CASES = [
+    (8, 1024, 1024, 32, 8, 64, True, None),
+    (2, 1, 1, 8, 8, 64, True, None),
+    (2, 1000, 1000, 32, 8, 64, True, None),
+    (2, 300, 1000, 8, 2, 64, True, None),
+    (2, 1000, 300, 8, 2, 64, False, None),
+    (2, 1024, 1024, 8, 8, 64, False, None),
+    (2, 1000, 1000, 16, 4, 64, True, 256),
+    (1, 777, 777, 8, 1, 128, True, None),
+    (2, 513, 513, 8, 2, 32, True, None),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_attention_matches_plain_on_card(cuda, case, dt):
+    from repro_torch.kernels import flash_attention as tfa
+    b, sq, sk, hq, hkv, dh, causal, window = case
+    g = torch.Generator(device=cuda).manual_seed(sq + sk + dh)
+    q, k, v = (torch.randn(b, s, h, dh, generator=g, device=cuda)
+               .to(DTYPES[dt]) for s, h in ((sq, hq), (sk, hkv), (sk, hkv)))
+    tfa.reset_launch_counts()
+    got = tfa.flash_attention(q, k, v, causal=causal, window=window)
+    want = tfa.PLAIN["flash_attention"](q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES == {"flash_attention": 1}
+    assert got.dtype == q.dtype and got.shape == q.shape
+    if dt == "f32":
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    else:
+        _within_bf16_ulps(got, want, 1, 1e-5, 1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("rows,d", [(8192, 2048), (8, 2048), (333, 2048),
+                                    (1001, 128), (5, 100)])
+def test_rmsnorm_matches_plain_on_card(cuda, rows, d, dt):
+    from repro_torch.kernels import rmsnorm as trn
+    g = torch.Generator(device=cuda).manual_seed(rows + d)
+    x = (torch.randn(rows, d, generator=g, device=cuda) * 2 + 0.3).to(
+        DTYPES[dt])
+    scale = 1 + 0.1 * torch.randn(d, generator=g, device=cuda)
+    trn.reset_launch_counts()
+    got = trn.rmsnorm(x, scale)
+    want = trn.PLAIN["rmsnorm"](x, scale, 1e-5)
+    torch.cuda.synchronize()
+    assert trn.LAUNCHES == {"rmsnorm": 1}
+    if dt == "f32":
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    else:
+        _within_bf16_ulps(got, want, 2, 0.0, 0.0)
