@@ -25,11 +25,23 @@
 //    Within a block the chunk is read twice (sum, then M2 about the
 //    chunk's own mean), which keeps the variance free of the
 //    E[x^2] - mean^2 cancellation.
-//  * The elementwise kernels walk rows with 64 x 4 blocks, a warp on 32
-//    neighbouring channels, so no element index is divided by C.
+//  * bn_bwd_dx walks rows with 64 x 4 blocks, a warp on 32 neighbouring
+//    channels, so no element index is divided by C.
+//  * bn_apply gives each thread one fixed group of 16 bytes of channels
+//    (8 bf16 or 4 f32): it loads that group's a and o into registers once,
+//    then walks rows with a grid stride, reading x (and the residual)
+//    with one 16-byte load each and writing y with one 16-byte store. The
+//    grid is the SM count times the blocks per SM that occupancy allows.
+//    Where C is not a multiple of the vector width, or a pointer is not
+//    16-byte aligned, the same kernel takes a scalar path (one channel
+//    per thread). y = x * a + o [+ r] is computed with explicit _rn
+//    multiply and adds in the plain version's order (no FMA contraction),
+//    then ReLU, then one _rn cast, so it is bitwise equal to the plain
+//    version.
 //  * Every kernel takes f32 or bf16 activations and does f32 math.
-// Later work: 16-byte vectorised loads, one-pass Welford in the stats
-// kernel, fusing the merge into the last block, and fewer launches.
+// Later work: 16-byte loads in the other three kernels, one-pass Welford
+// in the stats kernel, fusing the merge into the last block, and fewer
+// launches.
 //
 // C interface (loaded with ctypes): every pointer and the stream are
 // void*, dtype is 0 for float32 and 1 for bfloat16, and each entry point
@@ -46,6 +58,7 @@ constexpr int kMergeLanes = 32; // chunk lanes per merge block
 constexpr int kEltX = 64;       // channel threads per elementwise block
 constexpr int kEltY = 4;        // row threads per elementwise block
 constexpr int kEltMaxBlocks = 132 * 16;
+constexpr int kApplyThreads = 256;  // threads per bn_apply block
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -156,19 +169,88 @@ __global__ void __launch_bounds__(kCh * kMergeLanes)
 
 // ---------------------------------------------------------------- bn_apply
 
+// y = relu?(x * a + o [+ r]) in the plain version's order, each op
+// rounded once
+__device__ __forceinline__ float apply_one(float x, float a, float o,
+                                           bool has_r, float r, int relu) {
+  float v = __fadd_rn(__fmul_rn(x, a), o);
+  if (has_r) v = __fadd_rn(v, r);
+  return (relu && v < 0.f) ? 0.f : v;
+}
+
+// 16 bytes of T as floats, and back (one _rn cast each)
+__device__ __forceinline__ void unpack(uint4 u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack(uint4 u, float (&f)[8]) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 p = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    f[2 * i] = p.x;
+    f[2 * i + 1] = p.y;
+  }
+}
+__device__ __forceinline__ uint4 pack(const float (&f)[4]) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                    __float_as_uint(f[2]), __float_as_uint(f[3]));
+}
+__device__ __forceinline__ uint4 pack(const float (&f)[8]) {
+  unsigned w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    w[i] = *reinterpret_cast<const unsigned*>(&p);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Thread i owns unit i % units of every row (a 16-byte channel group when
+// vec, else one channel) and walks rows i / units, + lanes, ... where
+// lanes = threads / units; the launch gives at least `units` threads.
 template <typename T>
-__global__ void __launch_bounds__(kEltX * kEltY)
+__global__ void __launch_bounds__(kApplyThreads)
     apply_kernel(const T* __restrict__ x, const T* __restrict__ res,
                  const float* __restrict__ a, const float* __restrict__ o,
-                 T* __restrict__ y, long long rows, int C, int relu) {
-  for (long long r = (long long)blockIdx.x * kEltY + threadIdx.y; r < rows;
-       r += (long long)gridDim.x * kEltY) {
-    const long long base = r * C;
-    for (int c = threadIdx.x; c < C; c += kEltX) {
-      float v = to_f32(x[base + c]) * a[c] + o[c];
-      if (res != nullptr) v += to_f32(res[base + c]);
-      if (relu) v = fmaxf(v, 0.f);
-      y[base + c] = from_f32<T>(v);
+                 T* __restrict__ y, long long rows, int C, int relu,
+                 int vec) {
+  constexpr int V = 16 / sizeof(T);  // elements per 16 bytes
+  const long long tid = (long long)blockIdx.x * kApplyThreads + threadIdx.x;
+  const int units = vec ? C / V : C;
+  const long long lanes = (long long)gridDim.x * kApplyThreads / units;
+  if (tid >= lanes * units) return;
+  const int u = (int)(tid % units);
+  if (vec) {
+    const int c0 = u * V;
+    float av[V], ov[V];
+#pragma unroll
+    for (int i = 0; i < V; i += 4) {
+      const float4 a4 = *reinterpret_cast<const float4*>(a + c0 + i);
+      const float4 o4 = *reinterpret_cast<const float4*>(o + c0 + i);
+      av[i] = a4.x, av[i + 1] = a4.y, av[i + 2] = a4.z, av[i + 3] = a4.w;
+      ov[i] = o4.x, ov[i + 1] = o4.y, ov[i + 2] = o4.z, ov[i + 3] = o4.w;
+    }
+    for (long long r = tid / units; r < rows; r += lanes) {
+      const long long i = r * C + c0;
+      float xv[V], rv[V] = {}, yv[V];
+      unpack(*reinterpret_cast<const uint4*>(x + i), xv);
+      if (res != nullptr) unpack(*reinterpret_cast<const uint4*>(res + i), rv);
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        yv[j] = apply_one(xv[j], av[j], ov[j], res != nullptr, rv[j], relu);
+      *reinterpret_cast<uint4*>(y + i) = pack(yv);
+    }
+  } else {
+    const float ac = a[u], oc = o[u];
+    for (long long r = tid / units; r < rows; r += lanes) {
+      const long long i = r * C + u;
+      const float rv = res != nullptr ? to_f32(res[i]) : 0.f;
+      y[i] = from_f32<T>(
+          apply_one(to_f32(x[i]), ac, oc, res != nullptr, rv, relu));
     }
   }
 }
@@ -276,6 +358,42 @@ dim3 elementwise_grid(long long rows) {
   return dim3((unsigned)(blocks < kEltMaxBlocks ? blocks : kEltMaxBlocks));
 }
 
+bool aligned16(const void* p) { return ((unsigned long long)p & 15) == 0; }
+
+// One bn_apply launch: the vector path where C and every pointer allow
+// it; a grid of (SMs x resident blocks), fewer when the tensor needs
+// fewer threads, never fewer than one thread per unit of a row.
+template <typename T>
+cudaError_t apply_launch(const void* x, const void* res, const void* a,
+                         const void* o, void* y, long long rows, int C,
+                         int relu, cudaStream_t s) {
+  static long long full = 0;  // SMs x resident blocks, found once
+  if (full == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, apply_kernel<T>, kApplyThreads, 0);
+    if (err != cudaSuccess) return err;
+    full = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  }
+  constexpr int V = 16 / sizeof(T);
+  const int vec = C % V == 0 && aligned16(x) && aligned16(y) &&
+                  (res == nullptr || aligned16(res)) && aligned16(a) &&
+                  aligned16(o);
+  const long long units = vec ? C / V : C;
+  const long long need = (rows * units + kApplyThreads - 1) / kApplyThreads;
+  const long long least = (units + kApplyThreads - 1) / kApplyThreads;
+  long long blocks = need < full ? need : full;
+  if (blocks < least) blocks = least;
+  apply_kernel<T><<<(unsigned)blocks, kApplyThreads, 0, s>>>(
+      (const T*)x, (const T*)res, (const float*)a, (const float*)o, (T*)y,
+      rows, C, relu, vec);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -305,18 +423,12 @@ int bn_apply(const void* x, const void* res, const void* a, const void* o,
              void* y, long long rows, int C, int dtype, int relu,
              void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid = elementwise_grid(rows), block(kEltX, kEltY);
   if (dtype == 0)
-    apply_kernel<float><<<grid, block, 0, s>>>(
-        (const float*)x, (const float*)res, (const float*)a, (const float*)o,
-        (float*)y, rows, C, relu);
-  else if (dtype == 1)
-    apply_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-        (const __nv_bfloat16*)x, (const __nv_bfloat16*)res, (const float*)a,
-        (const float*)o, (__nv_bfloat16*)y, rows, C, relu);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return (int)apply_launch<float>(x, res, a, o, y, rows, C, relu, s);
+  if (dtype == 1)
+    return (int)apply_launch<__nv_bfloat16>(x, res, a, o, y, rows, C, relu,
+                                            s);
+  return (int)cudaErrorInvalidValue;
 }
 
 int bn_bwd_sums(const void* dy, const void* x, const void* y, const void* mu,

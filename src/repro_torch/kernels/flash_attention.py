@@ -13,7 +13,10 @@ positions count from 0 for q and k alike; query head h reads kv head
 asserts whole 128-row blocks). On CPU tensors it runs the plain version,
 a straightforward f32 attention with the same masks and output cast; on
 CUDA tensors it launches the kernel, whose sums run in another order, so
-the two agree to f32 rounding (and to one ulp of bf16 in bf16).
+the two agree to f32 rounding (and to one ulp of bf16 in bf16). bf16
+inputs go to the tensor-core kernel, which reads rows with 16-byte
+copies: each row of q, k and v must start 16-byte aligned (the wrapper
+raises otherwise); f32 inputs go to the CUDA-core kernel.
 """
 from __future__ import annotations
 
@@ -64,6 +67,14 @@ def _flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, causal: bool,
 PLAIN = {"flash_attention": _flash_attention_plain}
 
 
+def _rows_aligned(t: Tensor) -> bool:
+    """Every (b, s, h) row of ``t`` starts on a 16-byte boundary."""
+    es = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        (st * es) % 16 == 0 for n, st in zip(t.shape[:3], t.stride()[:3])
+        if n > 1)
+
+
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                     window: Optional[int] = None) -> Tensor:
     """Attention of q ``(B, Sq, Hq, Dh)`` over k, v ``(B, Sk, Hkv, Dh)``;
@@ -93,6 +104,11 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
         return _flash_attention_plain(q, k, v, causal, window)
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention needs the head dim contiguous")
+    if q.dtype == torch.bfloat16 and not all(_rows_aligned(t)
+                                             for t in (q, k, v)):
+        raise ValueError("flash_attention in bfloat16 needs every row of "
+                         "q, k and v to start 16-byte aligned (data "
+                         "pointer and strides)")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     _LIB.launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),

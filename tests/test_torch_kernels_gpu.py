@@ -8,9 +8,11 @@ runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest --noconftest -p no:cacheprovider \
         tests/test_torch_kernels_gpu.py
 
-Tolerances: f32 outputs rtol/atol 1e-5 (FMA contraction and reduction
-order); bf16 outputs rtol 1e-2 / atol 2e-2 (one bf16 ulp where the f32
-values before rounding differ in their last bits); sums rtol 1e-4; the
+Tolerances: ``bn_apply`` bitwise (each op rounded once, in the plain
+version's order); the other f32 outputs rtol/atol 1e-5 (FMA contraction
+and reduction order); bf16 outputs rtol 1e-2 / atol 2e-2 (one bf16 ulp
+where the f32 values before rounding differ in their last bits); sums
+rtol 1e-4; the
 segment norms rtol 1e-5 of a float64 sum of the same inputs, and the
 same bits on every run; flash attention f32 rtol 1e-5 / atol 1e-6 (its
 sums run in another order than the plain full softmax), RMSNorm f32
@@ -37,7 +39,7 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 @pytest.mark.parametrize("rows,c", [(1, 64), (333, 40), (100352, 64),
-                                    (1568, 2048)])
+                                    (1568, 2048), (777, 100)])
 def test_kernels_match_plain_on_card(cuda, rows, c, dt):
     tdt = DTYPES[dt]
     g = torch.Generator().manual_seed(rows + c)
@@ -58,7 +60,7 @@ def test_kernels_match_plain_on_card(cuda, rows, c, dt):
         y = tfb.bn_apply(x.to(cuda), a.to(cuda), o.to(cuda), r.to(cuda),
                          relu)
         py = tfb.bn_apply(x, a, o, r, relu)
-        torch.testing.assert_close(y.cpu().float(), py.float(), **tol)
+        assert torch.equal(y.cpu(), py)
         rstd = torch.rsqrt(pv + 1e-5)
         s1, s2 = tfb.bn_bwd_sums(dy.to(cuda), x.to(cuda), py.to(cuda),
                                  pm.to(cuda), rstd.to(cuda), relu)
@@ -229,7 +231,8 @@ def _within_bf16_ulps(got, want, ulps, rtol, atol):
 
 # (B, Sq, Sk, Hq, Hkv, Dh, causal, window): the serving path's prefill,
 # lengths 1 and 1000, Sq != Sk, non-causal, a causal window of 256,
-# groups 1, 4 and 8, Dh 32 and 128
+# groups 1, 4 and 8, Dh 32 and 128, and the 64-row tile edges (one row
+# past a tile, one short of it, a single key)
 FLASH_CASES = [
     (8, 1024, 1024, 32, 8, 64, True, None),
     (2, 1, 1, 8, 8, 64, True, None),
@@ -240,6 +243,9 @@ FLASH_CASES = [
     (2, 1000, 1000, 16, 4, 64, True, 256),
     (1, 777, 777, 8, 1, 128, True, None),
     (2, 513, 513, 8, 2, 32, True, None),
+    (1, 65, 63, 8, 8, 64, True, None),
+    (2, 129, 129, 32, 8, 128, True, None),
+    (1, 64, 1, 4, 1, 32, False, None),
 ]
 
 
@@ -262,6 +268,17 @@ def test_flash_attention_matches_plain_on_card(cuda, case, dt):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
     else:
         _within_bf16_ulps(got, want, 1, 1e-5, 1e-6)
+
+
+@pytest.mark.gpu
+def test_flash_attention_bf16_raises_on_misaligned_rows(cuda):
+    from repro_torch.kernels import flash_attention as tfa
+    wide = torch.zeros(1, 10, 2, 68, device=cuda, dtype=torch.bfloat16)
+    q = wide[..., :64]  # rows 136 bytes apart: not 16-byte aligned
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.flash_attention(q, q, q)
+    assert tfa.flash_attention(q.float(), q.float(), q.float()).shape == \
+        q.shape
 
 
 @pytest.mark.gpu
