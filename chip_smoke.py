@@ -9,15 +9,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      nvcc per source, all started together);
   3. kernels: each of the four fused-BN kernels against its plain
-     PyTorch version on the card (``bn_apply`` bitwise), at every BN-site
-     shape of ResNet-50 at batch 32 (stem 401,408 x 64 down to stage 3
-     1,568 x 2,048), in bf16 and f32, with kernel, plain and library
-     times (CUDA events) and the HBM-bytes bound of each shape;
+     PyTorch version on the card (``bn_apply`` bitwise, ``bn_stats`` the
+     same bits on a second launch), at every BN-site shape of ResNet-50
+     at batch 32 (stem 401,408 x 64 down to stage 3 1,568 x 2,048), in
+     bf16 and f32, with kernel, plain and library times (CUDA events)
+     and the HBM-bytes bound of each shape;
   3b. the fused update, the wire cast and the fused input kernels against
      their plain versions, bitwise: ``hybrid_update`` at every distinct
      ResNet-50 leaf size and the whole 25.56 M-element stream (decay
      none, scalar and a stream; a_sgd 0, 0.5 and 1), ``cast_copy`` to
-     bf16/f16 and back at the whole stream and odd lengths,
+     bf16/f16 and back at the whole stream, odd lengths (7, 8k + 3) and
+     views 4 and 8 bytes (f32) or 2 and 4 bytes (half) into a buffer,
      ``input_train``/``input_eval`` at (32, 224, 224, 3) with +-4 shifts
      and flips, bf16 and f32 out; with kernel, plain, library and bound
      times per main-path step;
@@ -34,13 +36,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      bf16 and f32: flash at the serving path's prefill (8 x 1,024
      tokens, 32 query heads on 8 kv heads, Dh 64, causal), lengths 1 and
      1000, Sq != Sk, non-causal, a causal window of 256, groups 1, 4 and
-     8, Dh 32 and 128, the 64-row tile edges (f32 rtol 1e-5 / atol 1e-6,
-     bf16 within one bf16 ulp beyond that); rmsnorm at 8,192 x 2,048
-     and 8 x 2,048 (a prefill's and a decode step's norm sites), odd row
-     counts and d = 128 and 100 (f32 rtol 1e-6, bf16 within two bf16
-     ulps: it rounds twice); with kernel, plain and library times
-     (``F.scaled_dot_product_attention``, ``F.rms_norm``) and the bound
-     of each case;
+     8, Dh 32, 96, 112 and 128, the 64-row tile edges (f32 rtol 1e-5 /
+     atol 1e-6, bf16 within one bf16 ulp beyond that), and bf16 q, k, v
+     that are views 8 bytes into their buffers, bitwise equal to their
+     aligned copies' result; rmsnorm in both rounding orders (the Pallas
+     kernel's and the JAX model's, which the serving path runs) at
+     8,192 x 2,048 and 8 x 2,048 (a prefill's and a decode step's norm
+     sites), odd row counts and d = 128 and 100 (f32 rtol 1e-6, bf16
+     within two bf16 ulps: it rounds twice); with kernel, plain and
+     library times (``F.scaled_dot_product_attention``, ``F.rms_norm``,
+     every rmsnorm call given the same bf16 scale as the serving path's
+     parameters are) and the bound of each case;
+  3e. gradients through the LM kernels' autograd Functions: rmsnorm in
+     both orders and dtypes, flash at Dh 64 and 96 in both dtypes; every
+     gradient (x and scale; q, k and v) present, finite, not all zero,
+     and bitwise equal to the plain version's own autograd;
   4. main path 1 (slice 1, one device):
      ``repro_torch.launch.train.build_train_setup`` for the full-width
      ResNet-50 (stages 3,4,6,3, width 64, 1000 classes, 224
@@ -312,6 +322,11 @@ def kernel_phase(torch, fb, cfg, out_rows):
                         f"{bad:.3g} of the summed magnitude > {SUM_TOL}")
                 return (got - want).abs().max().item()
 
+            again = fb.bn_stats(x)  # one launch, merged by its last block
+            if not (torch.equal(again[0], mean)
+                    and torch.equal(again[1], var)):
+                raise AssertionError(f"bn_stats {dname} rows={rows} C={c}: "
+                                     f"not the same bits on a second launch")
             errs["bn_stats"] = max(
                 sum_err("bn_stats mean", mean, pmean,
                         x32.abs().mean(0)),
@@ -527,19 +542,26 @@ def cast_phase(torch, total: int):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     bf16, f32 = torch.bfloat16, torch.float32
-    for n in (1, 127, 128 * 1024 + 3, total):
-        x = torch.randn(n, generator=gen, device=dev) * 3
-        # overflow, underflow and subnormals of the half formats
-        edge = torch.tensor([7e4, -1e5, 1e-8, -3e-6, 6.1e-5, 3e38, 1e-40,
-                             0.0], device=dev)[:n]
-        x[:edge.numel()] = edge
-        for wire in (bf16, torch.float16):
-            packed = bo.pack_cast(x, wire)
-            _bitwise(f"pack_cast n={n} {wire}", packed, x.to(wire))
-            _bitwise(f"unpack_cast n={n} {wire}", bo.unpack_cast(packed),
-                     packed.to(f32))
-    log(f"  cast_copy bitwise at n = 1, 127, {128 * 1024 + 3}, {total}, "
-        f"bf16 and f16, both ways")
+    lengths = (1, 7, 127, 8 * 16384 + 3, total)
+    for n in lengths:
+        for offset in (0, 1, 2):  # elements into the buffer
+            buf = torch.randn(n + offset, generator=gen, device=dev) * 3
+            x = buf[offset:]
+            # overflow, underflow and subnormals of the half formats
+            edge = torch.tensor([7e4, -1e5, 1e-8, -3e-6, 6.1e-5, 3e38, 1e-40,
+                                 0.0], device=dev)[:n]
+            x[:edge.numel()] = edge
+            for wire in (bf16, torch.float16):
+                what = f"n={n} offset={offset} {wire}"
+                packed = bo.pack_cast(x, wire)
+                _bitwise(f"pack_cast {what}", packed, x.to(wire))
+                wbuf = torch.empty(n + offset, dtype=wire, device=dev)
+                wbuf[offset:] = packed
+                _bitwise(f"unpack_cast {what}", bo.unpack_cast(
+                    wbuf[offset:]), packed.to(f32))
+            del buf, x
+    log(f"  cast_copy bitwise at n = {', '.join(map(str, lengths))}, each "
+        f"0, 1 and 2 elements into its buffer, bf16 and f16, both ways")
     x = torch.randn(total, generator=gen, device=dev)
     w = x.to(bf16)
     out = {
@@ -1103,8 +1125,10 @@ def lars_reference_phase(torch):
 
 # (B, Sq, Sk, Hq, Hkv, Dh, causal, window) of phase 3d: the serving
 # path's prefill first, then lengths 1 and 1000, Sq != Sk, non-causal, a
-# causal window of 256, groups 1, 4 and 8, Dh 32 and 128, and the 64-row
-# tile edges (one row past a tile, one short of it, a single key)
+# causal window of 256, groups 1, 4 and 8, Dh 32 and 128, the 64-row
+# tile edges (one row past a tile, one short of it, a single key), and Dh
+# 96 and 112 (phi-3-vision's and zamba2-7b's heads: MHA, 32 kv heads),
+# each with a tile-edge case of its own
 FLASH_CASES = [
     (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32, 8, 64, True, None),
     (2, 1, 1, 8, 8, 64, True, None),
@@ -1118,7 +1142,13 @@ FLASH_CASES = [
     (1, 65, 63, 8, 8, 64, True, None),
     (2, 129, 129, 32, 8, 128, True, None),
     (1, 64, 1, 4, 1, 32, False, None),
+    (1, 1000, 1000, 32, 32, 96, True, None),
+    (1, 1000, 1000, 32, 32, 112, True, None),
+    (1, 65, 63, 8, 8, 96, True, None),
+    (2, 129, 129, 8, 4, 112, False, None),
 ]
+# the bf16 case whose q, k and v are views 8 bytes into their buffers
+MISALIGNED_CASE = (2, 300, 300, 8, 2, 64, True, None)
 # (rows, d) of phase 3d: a prefill's and a decode step's norm sites, odd
 # row counts, the reduced config's d = 128, a d with no 16-byte loads
 RMSNORM_CASES = [(SERVE_BATCH * SERVE_PROMPT, 2048), (SERVE_BATCH, 2048),
@@ -1233,41 +1263,52 @@ def lm_kernel_phase(torch):
                 f"{bound_ms:.4f} bf16 tc / {f32_bound_ms:.4f} f32), max err "
                 f"{err:.3g}")
             del q, k, v, got, want
+    records["flash_misaligned"] = misaligned_flash(torch, fa, gen)
     for rows, d in RMSNORM_CASES:
         for dname, dt in dtypes:
             x = (torch.randn(rows, d, generator=gen, device=dev) * 2
                  + 0.3).to(dt)
-            scale = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
-            got = rn.rmsnorm(x, scale)
-            want = rn.PLAIN["rmsnorm"](x, scale, 1e-5)
-            torch.cuda.synchronize()
-            name = f"rmsnorm {dname} rows={rows} d={d}"
+            # the serving path's scale is a parameter in x's dtype already
+            st = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(dt)
             tol, ulps = LM_TOL["rmsnorm"], BF16_ULPS["rmsnorm"]
-            if dname == "f32":
-                torch.testing.assert_close(got, want, **tol, msg=lambda m: (
-                    f"{name}: {m}"))
-                err = (got - want).abs().max().item()
-            else:
-                err = _bf16_ulp_check(torch, name, got, want, ulps, **tol)
+            err = 0.0
+            for order, round_inv in (("pallas", False), ("model", True)):
+                got = rn.rmsnorm(x, st, round_inv=round_inv)
+                want = rn.PLAIN["rmsnorm"](x, st, 1e-5, round_inv)
+                torch.cuda.synchronize()
+                name = f"rmsnorm {dname} rows={rows} d={d} {order} order"
+                if dname == "f32":
+                    torch.testing.assert_close(got, want, **tol,
+                                               msg=lambda m: f"{name}: {m}")
+                    e = (got - want).abs().max().item()
+                else:
+                    e = _bf16_ulp_check(torch, name, got, want, ulps, **tol)
+                err = max(err, e)
             es = x.element_size()
             bound_ms, bound_by = bound(es * (2 * rows * d + d), 4 * rows * d)
-            st = scale.to(dt)
+            # timed in the model's order, the one the serving path runs;
+            # kernel, plain version and F.rms_norm take the same scale
             rec = {"rows": rows, "d": d, "dtype": dname, "max_abs_err": err,
-                   "ms": time_ms(torch, lambda: rn.rmsnorm(x, scale)),
+                   "ms": time_ms(torch, lambda: rn.rmsnorm(
+                       x, st, round_inv=True)),
+                   "pallas_order_ms": time_ms(torch, lambda: rn.rmsnorm(
+                       x, st)),
                    "plain_ms": time_ms(torch, lambda: rn.PLAIN["rmsnorm"](
-                       x, scale, 1e-5)),
+                       x, st, 1e-5, True)),
                    "library_ms": time_ms(torch, lambda: F.rms_norm(
                        x, (d,), st, 1e-5)),
                    "bound_ms": bound_ms, "bound_by": bound_by}
             records["rmsnorm"].append(rec)
             log(f"  rmsnorm {dname:4s} {rows:5d} x {d:4d}: {rec['ms']:.4f} "
-                f"ms (plain {rec['plain_ms']:.4f}, F.rms_norm "
+                f"ms (Pallas order {rec['pallas_order_ms']:.4f}, plain "
+                f"{rec['plain_ms']:.4f}, F.rms_norm "
                 f"{rec['library_ms']:.4f}, bound {bound_ms:.4f}), max err "
-                f"{err:.3g}")
+                f"{err:.3g} (both orders)")
     n_layers = 16  # llama3.2-1b
     per_prefill = {"flash_attention": n_layers, "rmsnorm": 2 * n_layers + 1}
     totals = {}
-    for k, recs in records.items():
+    for k in ("flash_attention", "rmsnorm"):
+        recs = records[k]
         first = next(r for r in recs if r["dtype"] == "bf16")
         n = per_prefill[k]
         totals[k] = {f: (None if first[f] is None else n * first[f])
@@ -1285,6 +1326,93 @@ def lm_kernel_phase(torch):
     totals["flash_attention"]["f32_bound_ms"] = \
         n_layers * first["f32_bound_ms"]
     return totals, records
+
+
+def misaligned_flash(torch, fa, gen):
+    """bf16 q, k and v as views 8 bytes into their buffers (their rows do
+    not start 16-byte aligned): the wrapper copies them and launches the
+    same kernel, so the result must equal that of aligned copies bit for
+    bit, and the plain version's within the bf16 check."""
+    b, sq, sk, hq, hkv, dh, causal, window = MISALIGNED_CASE
+    views = []
+    for s, h in ((sq, hq), (sk, hkv), (sk, hkv)):
+        n = b * s * h * dh
+        buf = torch.randn(n + 4, generator=gen, device="cuda").bfloat16()
+        views.append(buf[4:].view(b, s, h, dh))
+    assert not any(fa._rows_aligned(t) for t in views)
+    copies = [t.clone(memory_format=torch.contiguous_format) for t in views]
+    got = fa.flash_attention(*views, causal=causal, window=window)
+    want = fa.flash_attention(*copies, causal=causal, window=window)
+    plain = fa.PLAIN["flash_attention"](*views, causal, window)
+    torch.cuda.synchronize()
+    _bitwise(f"flash_attention misaligned {MISALIGNED_CASE} vs aligned "
+             f"copies", got, want)
+    err = _bf16_ulp_check(torch, "flash_attention misaligned", got, plain,
+                          BF16_ULPS["flash_attention"],
+                          **LM_TOL["flash_attention"])
+    rec = {"case": list(MISALIGNED_CASE), "dtype": "bf16",
+           "bitwise_vs_aligned": True, "max_abs_err": err,
+           "ms": time_ms(torch, lambda: fa.flash_attention(
+               *views, causal=causal, window=window)),
+           "aligned_ms": time_ms(torch, lambda: fa.flash_attention(
+               *copies, causal=causal, window=window))}
+    log(f"  flash bf16 {MISALIGNED_CASE} as views 8 bytes into their "
+        f"buffers: bitwise equal to aligned copies, max err vs plain "
+        f"{err:.3g}; {rec['ms']:.4f} ms with the copies (aligned "
+        f"{rec['aligned_ms']:.4f})")
+    return rec
+
+
+def grad_phase(torch):
+    """Phase 3e: ``backward`` through the autograd Functions of
+    ``rmsnorm`` (both rounding orders, both dtypes) and
+    ``flash_attention`` (Dh 64 and 96, both dtypes). Each gradient must
+    exist, be finite and not all zero, and equal the plain version's own
+    autograd gradient bit for bit (the Function's backward is that
+    recompute)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    cases = []
+    for dname, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        x = (torch.randn(333, 2048, generator=gen, device=dev) * 2).to(dt)
+        scale = 1 + 0.1 * torch.randn(2048, generator=gen, device=dev)
+        for round_inv in (False, True):
+            cases.append((
+                f"rmsnorm {dname} round_inv={round_inv}", (x, scale),
+                lambda a, b, r=round_inv: rn.rmsnorm(a, b, round_inv=r),
+                lambda a, b, r=round_inv: rn.PLAIN["rmsnorm"](a, b, 1e-5, r)))
+        for dh in (64, 96):
+            qkv = tuple(torch.randn(2, 300, h, dh, generator=gen, device=dev)
+                        .to(dt) for h in (8, 2, 2))
+            cases.append((
+                f"flash_attention {dname} Dh {dh}", qkv,
+                lambda a, b, c: fa.flash_attention(a, b, c, causal=True),
+                lambda a, b, c: fa.PLAIN["flash_attention"](a, b, c, True,
+                                                            None)))
+    out = {}
+    for name, inputs, fn, plain in cases:
+        grads = []
+        for f in (fn, plain):
+            leaves = [t.detach().clone().requires_grad_() for t in inputs]
+            y = f(*leaves)
+            g = torch.Generator(device=dev).manual_seed(7)
+            y.backward(torch.randn(y.shape, generator=g, device=dev)
+                       .to(y.dtype))
+            grads.append([t.grad for t in leaves])
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(*grads)):
+            what = f"{name} grad of input {i}"
+            if a is None or not bool(torch.isfinite(a).all()) \
+                    or not bool((a != 0).any()):
+                raise AssertionError(f"{what}: missing, non-finite or zero")
+            _bitwise(what, a, b)
+        out[name] = {"inputs": len(inputs), "bitwise": True}
+    log(f"  {len(cases)} cases, every gradient present, finite, non-zero "
+        f"and bitwise equal to the plain version's autograd: "
+        f"{', '.join(out)}")
+    return out
 
 
 def serve_counts_check(launches, n_layers: int, forwards: int,
@@ -1580,6 +1708,12 @@ def main() -> int:
     log(f"  ({time.perf_counter() - t0:.1f}s)")
 
     t0 = time.perf_counter()
+    log("[3e] gradients through the LM kernels' autograd Functions vs the "
+        "plain versions' autograd")
+    lm_grads = grad_phase(torch)
+    log(f"  ({time.perf_counter() - t0:.1f}s)")
+
+    t0 = time.perf_counter()
     log(f"[4] main path 1: ResNet-50 full width, batch {BATCH}, bf16, fused "
         f"BN, {STEPS} steps + 1 eval batch")
     _, stats, live = main_path(torch, libs, cfg, STEPS)
@@ -1703,6 +1837,7 @@ def main() -> int:
                        "reference": ref, "reference_2": ref2,
                        "reference_3": ref3, "turns": turns,
                        "lm_kernels": lm_totals, "lm_cases": lm_cases,
+                       "lm_grads": lm_grads,
                        "main_path_4": stats4, "reference_4": ref4}, f,
                       indent=1)
     log(f"total {time.perf_counter() - t_all:.1f}s")

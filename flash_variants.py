@@ -20,7 +20,7 @@ interface:
     two_terms_running    two terms into the running accumulator
   register budget (the kernel's bf16 epilogue): no minimum of blocks
   per SM in the launch bounds, and a minimum of 2, 3 and 4, each with
-  ptxas's registers and spills at Dh 32, 64 and 128.
+  ptxas's registers and spills at Dh 32, 64, 96, 112 and 128.
 
 For each numerics variant, at every case of ``chip_smoke.py``'s phase
 3d in bf16: the largest |out - ref| against the plain version in f32,
@@ -28,7 +28,7 @@ that error over the row's largest |ref| in the first and the last 128
 query rows, and the outputs beyond the card tests' bf16 check (one bf16
 ulp beyond rtol 1e-5 / atol 1e-6) once rounded to bf16. For each
 budget, the CUDA-graph times in turns at the prefill shape and at the
-first Dh 128 and Dh 32 cases. Needs one CUDA card and nvcc; exits
+first Dh 128, 32, 96 and 112 cases. Needs one CUDA card and nvcc; exits
 non-zero without them.
 """
 from __future__ import annotations
@@ -220,7 +220,8 @@ def main() -> int:
     record["budget"] = {key: {"ptxas": built[f"blocks_{key}"][1], "ms": {}}
                         for key in budgets}
     cases = [cs.FLASH_CASES[0]] + [
-        next(c for c in cs.FLASH_CASES if c[5] == dh) for dh in (128, 32)]
+        next(c for c in cs.FLASH_CASES if c[5] == dh)
+        for dh in (128, 32, 96, 112)]
     gen = torch.Generator(device="cuda").manual_seed(0)
     for case in cases:
         b, sq, sk, hq, hkv, dh, causal, window = case

@@ -1,10 +1,11 @@
 """Launch plumbing shared by the kernel wrappers: binding a library's C
 entry points, the device rule (plain version on the CPU, kernel on one
-CUDA device, anything else raises) and the current stream."""
+CUDA device, anything else raises), the current stream, and the
+gradient of a plain version for kernels whose backward recomputes it."""
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -69,3 +70,16 @@ def stream() -> int:
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+def plain_grads(plain: Callable[..., torch.Tensor],
+                inputs: Sequence[torch.Tensor], needs: Sequence[bool],
+                dy: torch.Tensor) -> Tuple[Optional[torch.Tensor], ...]:
+    """The gradients of ``plain(*inputs)`` under cotangent ``dy`` for the
+    inputs flagged in ``needs``, None for the others: the backward of a
+    kernel whose forward computes the same function."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+        got = iter(torch.autograd.grad(
+            plain(*leaves), [t for t in leaves if t.requires_grad], dy))
+    return tuple(next(got) if n else None for n in needs)

@@ -53,7 +53,8 @@
 //   (one FMA with the softmax correction). That is 2x the counted flops.
 //   The output tile goes through shared memory once and out in 16-byte
 //   stores.
-//   Shared memory: 40 KB a block at Dh 64, 80 KB at Dh 128.
+//   Shared memory: 20 KB a block at Dh 32, 40 KB at Dh 64, 80 KB at Dh
+//   96, 112 and 128 (their rows padded to Dh 128's, see row_units).
 //   Next step: wgmma with TMA-fed K / V and warp specialisation (a
 //   producer warp keeping the ring full, two consumer warpgroups).
 //
@@ -73,7 +74,8 @@
 // nothing is padded. Inputs are read in their (B, S, H, Dh) layout
 // through strides: nothing is transposed, and kv heads are not repeated
 // for GQA. The bf16 kernel needs every row start 16-byte aligned (the
-// wrapper checks).
+// wrapper copies a tensor whose rows are not). Head dims: 32, 64, 96,
+// 112 and 128, every attention config of the registry.
 //
 // Masked scores are the finite -1e30, and the running max starts there,
 // as in the Pallas kernel: a row wholly masked in a live tile (the
@@ -257,17 +259,29 @@ constexpr int kTcBQ = 16 * kTcWarps;  // q rows per block, 16 per warp
 constexpr int kTcBK = 64;             // kv rows per tile
 constexpr int kTcNT = kTcBK / 8;      // 8-key column tiles of S
 
+// 16-byte units a row of a [rows][DH] bf16 tile takes in shared memory:
+// DH / 8 at Dh 32 and 64, and 16 (Dh 128's row) at Dh 96, 112 and 128.
+// The swizzle below XORs a chunk index with 3 bits of the row, which
+// maps chunks 8 .. DH/8 - 1 of a 12- or 14-chunk row past the row's end
+// (into the next row); a 16-unit row keeps every XOR inside the row, and
+// its pad units are never read. That costs 80 KB a block at Dh 96 and
+// 112 (60 and 70 KB packed), two blocks per SM either way.
+template <int DH>
+__host__ __device__ constexpr int row_units() {
+  return DH <= 64 ? DH / 8 : 16;
+}
+
 // Index of the 16-byte unit holding (row r, 8-element chunk c) of a
 // [rows][DH] bf16 tile in shared memory. The chunk is XORed with bits of
 // the row so that the 8 rows one ldmatrix reads at one chunk fall in 8
-// different 16-byte bank groups (a row of Dh 64 or 128 spans whole
-// 128-byte lines; a row of Dh 32 half of one).
+// different 16-byte bank groups (a row of Dh 64 spans one 128-byte
+// line, a row of Dh 96-128 two; a row of Dh 32 half of one).
 template <int DH>
 __device__ __forceinline__ int unit(int r, int c) {
   if constexpr (DH >= 64)
-    return r * (DH / 8) + (c ^ (r & 7));
+    return r * row_units<DH>() + (c ^ (r & 7));
   else
-    return r * (DH / 8) + (c ^ ((r >> 1) & 3));
+    return r * row_units<DH>() + (c ^ ((r >> 1) & 3));
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -341,8 +355,8 @@ __device__ __forceinline__ void split3(float x, float y, unsigned& hi,
 
 template <int DH>
 constexpr size_t tc_smem_bytes() {
-  // q tile, two k tiles, two v tiles, 64 rows x DH bf16 each
-  return (size_t)5 * kTcBK * DH * 2;
+  // q tile, two k tiles, two v tiles, 64 rows of row_units 16-byte units
+  return (size_t)5 * kTcBK * row_units<DH>() * 16;
 }
 
 // Blocks per SM the register budget is cut for (flash_variants.py on an
@@ -350,7 +364,8 @@ constexpr size_t tc_smem_bytes() {
 // 0.314 ms at the prefill shape, 2 or 3 about as long, and no minimum
 // (180 registers) 0.367; Dh 32 runs 15% faster at 3 (159 registers) than
 // with none; Dh 128 needs 255 registers and spills hundreds of bytes,
-// 1.6x slower, at 3 or 4.
+// 1.6x slower, at 3 or 4. Dh 96 and 112 take Dh 128's 80 KB of shared
+// memory, so no more than 2 blocks fit on an SM whatever the budget.
 template <int DH>
 constexpr int tc_min_blocks() {
   return DH == 32 ? 3 : DH == 64 ? 4 : 2;
@@ -366,7 +381,8 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks<DH>())
                  float scale, int causal, int window) {
   constexpr int CH = DH / 8;         // 16-byte chunks per row
   constexpr int KS = DH / 16;        // k-steps of q.k^T
-  constexpr int TILE = kTcBK * CH;   // 16-byte units per 64-row tile
+  constexpr int LOAD = kTcBK * CH;   // 16-byte chunks a 64-row tile holds
+  constexpr int TILE = kTcBK * row_units<DH>();  // its units in smem
   static_assert(kTcBQ == kTcBK, "the q tile and a k/v tile share a size");
   extern __shared__ uint4 smem_tc[];
   uint4* s_q = smem_tc;           // q tile, then the output tile
@@ -398,7 +414,7 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks<DH>())
   auto load_kv = [&](int kt, int stage) {
     uint4* dk = s_k + stage * TILE;
     uint4* dv = s_v + stage * TILE;
-    for (int i = tid; i < TILE; i += kTcThreads) {
+    for (int i = tid; i < LOAD; i += kTcThreads) {
       const int r = i / CH, c = i % CH;
       const int pos = kt * kTcBK + r;
       const bool in = pos < sk_len;
@@ -408,7 +424,7 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks<DH>())
     }
   };
 
-  for (int i = tid; i < TILE; i += kTcThreads) {
+  for (int i = tid; i < LOAD; i += kTcThreads) {
     const int r = i / CH, c = i % CH;
     const int pos = q_lo + r;
     const bool in = pos < sq_len;
@@ -667,6 +683,12 @@ int flash_attention(const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch<64>(dtype, q, k, v, o, batch, sq_len, sk_len, hq, hkv, qs,
                         ks, vs, os, scale, causal, window, s);
+    case 96:
+      return launch<96>(dtype, q, k, v, o, batch, sq_len, sk_len, hq, hkv, qs,
+                        ks, vs, os, scale, causal, window, s);
+    case 112:
+      return launch<112>(dtype, q, k, v, o, batch, sq_len, sk_len, hq, hkv,
+                         qs, ks, vs, os, scale, causal, window, s);
     case 128:
       return launch<128>(dtype, q, k, v, o, batch, sq_len, sk_len, hq, hkv,
                          qs, ks, vs, os, scale, causal, window, s);

@@ -13,18 +13,38 @@
 // it, so each is bounded by HBM bytes, rows * C * (bytes in + bytes out)
 // over the card's memory rate; the per-channel vectors are noise.
 //
-// Design of this first version: plain and deterministic.
+// Design: deterministic, no float atomics, so repeated runs give
+// bitwise-identical results.
 //  * The Pallas stats kernel carries a running sum through a sequential
 //    grid; blocks on the GPU run in no order, so that does not translate.
-//    The reductions (bn_stats, bn_bwd_sums) instead use 2D blocks of
-//    32 channels x 8 row lanes. Each block reduces one chunk of rows and
-//    writes its partials (sum and centered M2, or S1 and S2) to a
-//    (chunks, C) scratch; a second launch merges the partials per channel
-//    in a fixed order (Chan's formula for the moments). There are no
-//    float atomics, so repeated runs give bitwise-identical results.
-//    Within a block the chunk is read twice (sum, then M2 about the
-//    chunk's own mean), which keeps the variance free of the
-//    E[x^2] - mean^2 cancellation.
+//  * bn_stats is one launch that reads x once. Each thread owns one
+//    16-byte group of channels (8 bf16 or 4 f32) and walks the rows of
+//    one chunk with 16-byte loads, four rows in flight, keeping one-pass
+//    Welford moments (n, mean, M2) of its channels: n is shared by the
+//    group, so a row costs one reciprocal, not one per element, and the
+//    variance stays free of the E[x^2] - mean^2 cancellation. A block is
+//    up to 8 such units across (128 bytes of a row) by 32 or more row
+//    lanes, so a wide C splits into many column groups. Its lanes are
+//    merged in a fixed order by Chan's combine (mean form, one fast
+//    division per merge): by warp shuffles, then across the warps by
+//    warp 0; the block writes its chunk's (mean, M2) to a (chunks, C)
+//    scratch. The last block of a column group to finish (a counter per
+//    group, fences around the atomicAdd, reset by that block) reads the
+//    partials back, each lane a fixed set of chunks in chunk order, and
+//    merges them the same way into mean and var: no second launch. A
+//    site of at most 2,048 rows takes one chunk: blocks one unit across,
+//    whose 256 lanes read every row, and no merge at all. Where C is not
+//    a multiple of the vector width or x is not 16-byte aligned, the
+//    same kernel runs with one channel per unit. The first version read
+//    each chunk twice with 2-byte loads (a warp took 64 bytes of a row
+//    per load) and merged in a second launch. What holds this one at
+//    ~2.7x its bound over ResNet-50's sites (bn_cast_variants.py): ~3.5
+//    us of launch and loads a small site, then ~1 us per serial stage
+//    (block merge, counter, partial reads, final merge).
+//  * bn_bwd_sums uses 2D blocks of 32 channels x 8 row lanes. Each block
+//    reduces one chunk of rows and writes its partials (S1, S2) to a
+//    (chunks, C) scratch; a second launch sums the partials per channel
+//    in a fixed order.
 //  * bn_bwd_dx walks rows with 64 x 4 blocks, a warp on 32 neighbouring
 //    channels, so no element index is divided by C.
 //  * bn_apply gives each thread one fixed group of 16 bytes of channels
@@ -39,16 +59,20 @@
 //    then ReLU, then one _rn cast, so it is bitwise equal to the plain
 //    version.
 //  * Every kernel takes f32 or bf16 activations and does f32 math.
-// Later work: 16-byte loads in the other three kernels, one-pass Welford
-// in the stats kernel, fusing the merge into the last block, and fewer
+// Later work: 16-byte loads in bn_bwd_sums and bn_bwd_dx, and fewer
 // launches.
 //
 // C interface (loaded with ctypes): every pointer and the stream are
 // void*, dtype is 0 for float32 and 1 for bfloat16, and each entry point
-// returns cudaGetLastError() after its launches.
+// returns cudaGetLastError() after its launches. bn_stats takes a counter
+// of at least ceil(C / 32) unsigned ints that is zero before the launch
+// and zero again after it (one per column group: ceil(C / 32) covers
+// every path); launches that share one must not overlap.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -84,100 +108,6 @@ __device__ __forceinline__ float column_sum(float v, float* sh) {
   return s;
 }
 
-// ---------------------------------------------------------------- bn_stats
-
-template <typename T>
-__global__ void __launch_bounds__(kCh * kRowLanes)
-    stats_partial(const T* __restrict__ x, long long rows, int C,
-                  long long rpc, float* __restrict__ psum,
-                  float* __restrict__ pm2) {
-  __shared__ float sh[kRowLanes * kCh];
-  const int c = blockIdx.x * kCh + threadIdx.x;
-  const bool live = c < C;
-  const long long k = blockIdx.y;
-  const long long r0 = k * rpc;
-  const long long r1 = min(r0 + rpc, rows);
-  float s = 0.f;
-  if (live)
-    for (long long r = r0 + threadIdx.y; r < r1; r += kRowLanes)
-      s += to_f32(x[r * C + c]);
-  const float bsum = column_sum(s, sh);
-  const float bmean = bsum / (float)(r1 - r0);
-  float q = 0.f;
-  if (live)
-    for (long long r = r0 + threadIdx.y; r < r1; r += kRowLanes) {
-      const float d = to_f32(x[r * C + c]) - bmean;
-      q += d * d;
-    }
-  const float bm2 = column_sum(q, sh);
-  if (live && threadIdx.y == 0) {
-    psum[k * C + c] = bsum;
-    pm2[k * C + c] = bm2;
-  }
-}
-
-// Chan's parallel-variance combine of (n, sum, M2) partials into a.
-__device__ __forceinline__ void chan(float& na, float& sa, float& qa,
-                                     float nb, float sb, float qb) {
-  if (nb == 0.f) return;
-  if (na == 0.f) {
-    na = nb;
-    sa = sb;
-    qa = qb;
-    return;
-  }
-  const float n = na + nb;
-  const float delta = sb / nb - sa / na;
-  qa = qa + qb + delta * delta * (na * nb / n);
-  sa += sb;
-  na = n;
-}
-
-__global__ void __launch_bounds__(kCh * kMergeLanes)
-    stats_merge(const float* __restrict__ psum, const float* __restrict__ pm2,
-                long long rows, long long rpc, long long chunks, int C,
-                float* __restrict__ mean, float* __restrict__ var) {
-  __shared__ float sn[kMergeLanes][kCh];
-  __shared__ float ss[kMergeLanes][kCh];
-  __shared__ float sq[kMergeLanes][kCh];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int c = blockIdx.x * kCh + tx;
-  float n = 0.f, s = 0.f, q = 0.f;
-  if (c < C)
-    for (long long k = ty; k < chunks; k += kMergeLanes)
-      chan(n, s, q, (float)min(rpc, rows - k * rpc), psum[k * C + c],
-           pm2[k * C + c]);
-  sn[ty][tx] = n;
-  ss[ty][tx] = s;
-  sq[ty][tx] = q;
-  __syncthreads();
-  for (int off = kMergeLanes / 2; off > 0; off >>= 1) {
-    if (ty < off) {
-      float na = sn[ty][tx], sa = ss[ty][tx], qa = sq[ty][tx];
-      chan(na, sa, qa, sn[ty + off][tx], ss[ty + off][tx], sq[ty + off][tx]);
-      sn[ty][tx] = na;
-      ss[ty][tx] = sa;
-      sq[ty][tx] = qa;
-    }
-    __syncthreads();
-  }
-  if (c < C && ty == 0) {
-    mean[c] = ss[0][tx] / (float)rows;
-    var[c] = sq[0][tx] / (float)rows;
-  }
-}
-
-// ---------------------------------------------------------------- bn_apply
-
-// y = relu?(x * a + o [+ r]) in the plain version's order, each op
-// rounded once
-__device__ __forceinline__ float apply_one(float x, float a, float o,
-                                           bool has_r, float r, int relu) {
-  float v = __fadd_rn(__fmul_rn(x, a), o);
-  if (has_r) v = __fadd_rn(v, r);
-  return (relu && v < 0.f) ? 0.f : v;
-}
-
 // 16 bytes of T as floats, and back (one _rn cast each)
 __device__ __forceinline__ void unpack(uint4 u, float (&f)[4]) {
   f[0] = __uint_as_float(u.x);
@@ -207,6 +137,279 @@ __device__ __forceinline__ uint4 pack(const float (&f)[8]) {
     w[i] = *reinterpret_cast<const unsigned*>(&p);
   }
   return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// ---------------------------------------------------------------- bn_stats
+
+constexpr int kStatsThreads = 256;
+constexpr int kStatsWarps = kStatsThreads / 32;
+constexpr int kStatsMinBlocks = 4;    // blocks per SM registers are cut for
+constexpr int kStatsUnroll = 4;       // rows a thread has in flight
+constexpr int kStatsMergeUnroll = 2;  // partials a merging lane has in flight
+
+// Channel units across a bn_stats block, at most: 8 16-byte units (a
+// warp reads 4 rows of 128 contiguous bytes), so that a wide C splits
+// into many column groups, each merged by its own last block; 32 single
+// channels on the scalar path. A block takes the largest power of two
+// up to that and up to C's units, so its lanes split evenly into warps.
+__host__ __device__ constexpr int stats_units(bool vec) {
+  return vec ? 8 : 32;
+}
+
+// A block of a single-chunk launch (a site small enough that one block
+// per column group reads all its rows) takes one unit across, so that
+// its 256 lanes split the rows: no partials, no counter, no merge.
+__host__ __device__ inline int stats_block_units(int units, bool vec,
+                                                 long long chunks) {
+  int ub = 1;
+  while (chunks > 1 && 2 * ub <= units && 2 * ub <= stats_units(vec))
+    ub *= 2;
+  return ub;
+}
+
+// The loaded bits of one unit: 16 bytes on the vector path, one element
+// on the scalar path; unpacked to floats only when used, so four rows in
+// flight cost 16 registers
+template <typename T, int V>
+using StatsRaw = typename std::conditional<V == 1, T, uint4>::type;
+
+template <typename T, int V>
+__device__ __forceinline__ void to_floats(const StatsRaw<T, V>& r,
+                                          float (&f)[V]) {
+  if constexpr (V == 1)
+    f[0] = to_f32(r);
+  else
+    unpack(r, f);
+}
+
+// V consecutive floats of a partial, 16 bytes at a time where V allows
+// (the offset is then a multiple of V and the scratch 16-byte aligned);
+// read through L2, where the other blocks wrote them
+template <int V>
+__device__ __forceinline__ void load_partial(const float* p, float* f) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < V; j += 4) {
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(p + j));
+      f[j] = v.x, f[j + 1] = v.y, f[j + 2] = v.z, f[j + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) f[j] = __ldcg(p + j);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_partial(float* p, const float* f) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < V; j += 4)
+      *reinterpret_cast<float4*>(p + j) =
+          make_float4(f[j], f[j + 1], f[j + 2], f[j + 3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) p[j] = f[j];
+  }
+}
+
+// One more row in the Welford moments (n, mean, M2) of V channels.
+template <int V>
+__device__ __forceinline__ void welford(float& n, float (&m)[V],
+                                        float (&q)[V], const float (&f)[V]) {
+  n += 1.f;
+  const float r = __fdividef(1.f, n);  // fast: ~2 ulps, the same each run
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const float d = f[j] - m[j];
+    m[j] = fmaf(d, r, m[j]);
+    q[j] = fmaf(d, f[j] - m[j], q[j]);
+  }
+}
+
+// (na, ma, qa) <- the moments of both sets (Chan et al.'s combine in
+// mean form, one fast division for the V channels, ~2 ulps; na = 0
+// takes b exactly). The merges chain these, so they are kept short.
+template <int V>
+__device__ __forceinline__ void combine(float& na, float (&ma)[V],
+                                        float (&qa)[V], float nb,
+                                        const float* mb, const float* qb) {
+  if (nb == 0.f) return;
+  const float n = na + nb;
+  const float f = na == 0.f ? 1.f : __fdividef(nb, n);
+  const float w = na * f;  // na * nb / n
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const float d = mb[j] - ma[j];
+    ma[j] = fmaf(d, f, ma[j]);
+    qa[j] = qa[j] + qb[j] + d * d * w;
+  }
+  na = n;
+}
+
+// (n, m, q) <- the combine of the same unit's moments held by the lanes
+// off, off / 2, ..., ub apart in this warp (lane i takes lane i + off):
+// lanes below ub hold the warp's result.
+template <int V>
+__device__ __forceinline__ void combine_warp(float& n, float (&m)[V],
+                                             float (&q)[V], int ub) {
+  for (int off = 16; off >= ub; off >>= 1) {  // ub divides 32
+    float mb[V], qb[V];
+    const float nb = __shfl_down_sync(0xffffffffu, n, off);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      mb[j] = __shfl_down_sync(0xffffffffu, m[j], off);
+      qb[j] = __shfl_down_sync(0xffffffffu, q[j], off);
+    }
+    combine<V>(n, m, q, nb, mb, qb);
+  }
+}
+
+// The moments of every lane of the block, merged per unit in a fixed
+// order: within each warp by shuffles; then warp 0's lanes, 32 / ub to a
+// unit, each take their share of the 8 warps' results from shared memory
+// (lane t: warps t / ub, t / ub + 32 / ub, ...) and combine those by
+// shuffles again. The result is in the threads with tid < ub.
+template <int V>
+__device__ __forceinline__ void combine_block(float* sh, float& n,
+                                              float (&m)[V], float (&q)[V],
+                                              int ub) {
+  constexpr int W = 2 * V + 1;  // floats per slot (odd: no bank conflicts)
+  combine_warp<V>(n, m, q, ub);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane < ub) {
+    float* slot = sh + (warp * ub + lane) * W;
+    slot[0] = n;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      slot[1 + j] = m[j];
+      slot[1 + V + j] = q[j];
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    n = 0.f;
+#pragma unroll
+    for (int j = 0; j < V; ++j) m[j] = q[j] = 0.f;
+    for (int w = lane / ub; w < kStatsWarps; w += 32 / ub) {
+      const float* slot = sh + (w * ub + lane % ub) * W;
+      combine<V>(n, m, q, slot[0], slot + 1, slot + 1 + V);
+    }
+    combine_warp<V>(n, m, q, ub);
+  }
+  __syncthreads();  // sh is free again
+}
+
+// Thread (lane l, unit u) of block (g, k) owns channels c0 .. c0 + V - 1,
+// c0 = (g * ub + u) * V, over rows r0 + l, r0 + l + lanes, ... of chunk k.
+template <typename T, int V>
+__global__ void __launch_bounds__(kStatsThreads, kStatsMinBlocks)
+    stats_kernel(const T* __restrict__ x, long long rows, int C,
+                 long long rpc, int chunks, float* __restrict__ pmean,
+                 float* __restrict__ pm2, unsigned* __restrict__ counter,
+                 float* __restrict__ mean, float* __restrict__ var,
+                 float inv_rows) {
+  __shared__ float sh[kStatsWarps * stats_units(V > 1) * (2 * V + 1)];
+  __shared__ bool s_last;
+  const int units = C / V;
+  const int ub = stats_block_units(units, V > 1, chunks);
+  const int lanes = kStatsThreads / ub;
+  const int u = threadIdx.x % ub, l = threadIdx.x / ub;
+  const int unit = blockIdx.x * ub + u;
+  const bool live = unit < units;
+  const long long c0 = (long long)unit * V;
+  const long long k = blockIdx.y;
+  const long long r0 = k * rpc;
+  const long long r1 = min(r0 + rpc, rows);
+
+  float n = 0.f, m[V], q[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) m[j] = q[j] = 0.f;
+  if (live) {
+    const long long step = (long long)lanes * kStatsUnroll;
+    for (long long r = r0 + l; r < r1; r += step) {
+      StatsRaw<T, V> raw[kStatsUnroll];
+#pragma unroll
+      for (int i = 0; i < kStatsUnroll; ++i) {
+        const long long rr = r + (long long)i * lanes;
+        if (rr < r1)
+          raw[i] = *reinterpret_cast<const StatsRaw<T, V>*>(x + rr * C + c0);
+      }
+#pragma unroll
+      for (int i = 0; i < kStatsUnroll; ++i)
+        if (r + (long long)i * lanes < r1) {
+          float f[V];
+          to_floats<T, V>(raw[i], f);
+          welford<V>(n, m, q, f);
+        }
+    }
+  }
+  combine_block<V>(sh, n, m, q, ub);
+  if (chunks == 1) {  // this block read every row of its channels
+    if (threadIdx.x < ub && live) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        mean[c0 + j] = m[j];
+        var[c0 + j] = q[j] * inv_rows;
+      }
+    }
+    return;
+  }
+  if (threadIdx.x < ub && live) {
+    store_partial<V>(pmean + k * C + c0, m);
+    store_partial<V>(pm2 + k * C + c0, q);
+  }
+
+  // the last block of this column group to get here merges every chunk
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();  // this block's partials before its count
+    s_last = atomicAdd(counter + blockIdx.x, 1u) == (unsigned)chunks - 1;
+    __threadfence();  // every block's partials after the last count
+  }
+  __syncthreads();
+  if (!s_last) return;
+  n = 0.f;
+#pragma unroll
+  for (int j = 0; j < V; ++j) m[j] = q[j] = 0.f;
+  if (live)  // this lane's chunks l, l + lanes, ... in order
+    for (int kk = l; kk < chunks; kk += lanes * kStatsMergeUnroll) {
+      float mb[kStatsMergeUnroll][V], qb[kStatsMergeUnroll][V];
+#pragma unroll
+      for (int i = 0; i < kStatsMergeUnroll; ++i) {
+        const long long kc = kk + (long long)i * lanes;
+        if (kc < chunks) {
+          load_partial<V>(pmean + kc * C + c0, mb[i]);
+          load_partial<V>(pm2 + kc * C + c0, qb[i]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kStatsMergeUnroll; ++i) {
+        const long long kc = kk + (long long)i * lanes;
+        if (kc < chunks)
+          combine<V>(n, m, q, (float)min(rpc, rows - kc * rpc), mb[i],
+                     qb[i]);
+      }
+    }
+  combine_block<V>(sh, n, m, q, ub);
+  if (threadIdx.x < ub && live) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      mean[c0 + j] = m[j];
+      var[c0 + j] = q[j] * inv_rows;  // no division on the tail
+    }
+  }
+  if (threadIdx.x == 0) counter[blockIdx.x] = 0u;  // ready for the next
+}
+
+// ---------------------------------------------------------------- bn_apply
+
+// y = relu?(x * a + o [+ r]) in the plain version's order, each op
+// rounded once
+__device__ __forceinline__ float apply_one(float x, float a, float o,
+                                           bool has_r, float r, int relu) {
+  float v = __fadd_rn(__fmul_rn(x, a), o);
+  if (has_r) v = __fadd_rn(v, r);
+  return (relu && v < 0.f) ? 0.f : v;
 }
 
 // Thread i owns unit i % units of every row (a 16-byte channel group when
@@ -360,6 +563,33 @@ dim3 elementwise_grid(long long rows) {
 
 bool aligned16(const void* p) { return ((unsigned long long)p & 15) == 0; }
 
+// One bn_stats launch: 16-byte units where C and x allow it, one channel
+// per unit otherwise; a column group of up to stats_units units per block
+// column, a chunk of rpc rows per block row.
+template <typename T>
+cudaError_t stats_launch(const void* x, long long rows, int C, long long rpc,
+                         void* pmean, void* pm2, void* counter, void* mean,
+                         void* var, cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = C % V == 0 && aligned16(x);
+  const int units = vec ? C / V : C;
+  const long long chunks = (rows + rpc - 1) / rpc;
+  const int ub = stats_block_units(units, vec, chunks);
+  if (rows <= 0 || C <= 0 || rpc <= 0 || chunks > 65535)
+    return cudaErrorInvalidValue;
+  const dim3 grid((units + ub - 1) / ub, (unsigned)chunks);
+  const float inv_rows = 1.0f / (float)rows;
+  if (vec)
+    stats_kernel<T, V><<<grid, kStatsThreads, 0, s>>>(
+        (const T*)x, rows, C, rpc, (int)chunks, (float*)pmean, (float*)pm2,
+        (unsigned*)counter, (float*)mean, (float*)var, inv_rows);
+  else
+    stats_kernel<T, 1><<<grid, kStatsThreads, 0, s>>>(
+        (const T*)x, rows, C, rpc, (int)chunks, (float*)pmean, (float*)pm2,
+        (unsigned*)counter, (float*)mean, (float*)var, inv_rows);
+  return cudaGetLastError();
+}
+
 // One bn_apply launch: the vector path where C and every pointer allow
 // it; a grid of (SMs x resident blocks), fewer when the tensor needs
 // fewer threads, never fewer than one thread per unit of a row.
@@ -399,24 +629,16 @@ cudaError_t apply_launch(const void* x, const void* res, const void* a,
 extern "C" {
 
 int bn_stats(const void* x, long long rows, int C, int dtype, long long rpc,
-             void* psum, void* pm2, void* mean, void* var, void* stream) {
+             void* pmean, void* pm2, void* counter, void* mean, void* var,
+             void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid = reduce_grid(C, rows, rpc), block(kCh, kRowLanes);
-  float* ps = (float*)psum;
-  float* pq = (float*)pm2;
   if (dtype == 0)
-    stats_partial<float><<<grid, block, 0, s>>>((const float*)x, rows, C, rpc,
-                                                 ps, pq);
-  else if (dtype == 1)
-    stats_partial<__nv_bfloat16><<<grid, block, 0, s>>>(
-        (const __nv_bfloat16*)x, rows, C, rpc, ps, pq);
-  else
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  stats_merge<<<dim3(grid.x), dim3(kCh, kMergeLanes), 0, s>>>(
-      ps, pq, rows, rpc, (long long)grid.y, C, (float*)mean, (float*)var);
-  return (int)cudaGetLastError();
+    return (int)stats_launch<float>(x, rows, C, rpc, pmean, pm2, counter,
+                                    mean, var, s);
+  if (dtype == 1)
+    return (int)stats_launch<__nv_bfloat16>(x, rows, C, rpc, pmean, pm2,
+                                            counter, mean, var, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 int bn_apply(const void* x, const void* res, const void* a, const void* o,

@@ -8,6 +8,12 @@
 //                                    rounded to T first, then the product
 //                                    with the scale (in T) once more
 //
+// With round_inv, inv is rounded to T before the product, the order of
+// the JAX model's apply_norm (src/repro/models/common.py:127-129):
+// y = T(T(f32(x) * T(inv)) * scale). In bf16 the product of two bf16
+// values is exact in f32, so each step rounds once, as XLA's bf16
+// multiply does; in f32 the two orders are the same ops.
+//
 // The plain version (kernels/rmsnorm.py) computes the same ops in the
 // same order; only the order of the row sum differs, so the two agree to
 // the last bit of inv (one ulp of T at most in y).
@@ -27,8 +33,8 @@
 // 256, which this kernel does not need.
 //
 // C interface (loaded with ctypes): dtype code 0 float32, 1 bfloat16;
-// the scale is in x's dtype (the Pallas wrapper casts it so); returns
-// cudaGetLastError() after the launch.
+// the scale is in x's dtype (the Pallas wrapper casts it so); round_inv
+// 0 or 1; returns cudaGetLastError() after the launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,7 +68,8 @@ __device__ __forceinline__ float norm_one(T x, T scale, float inv) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ scale,
-                   T* __restrict__ y, int d, float eps, int vec) {
+                   T* __restrict__ y, int d, float eps, int vec,
+                   int round_inv) {
   constexpr int V = 16 / sizeof(T);  // elements per 16-byte load
   __shared__ float warp_sums[kThreads / 32];
   __shared__ float s_inv;
@@ -98,7 +105,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int w = 0; w < kThreads / 32; ++w) total += warp_sums[w];
     const float var = __fdiv_rn(total, (float)d);
-    s_inv = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, eps)));
+    const float inv = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, eps)));
+    s_inv = round_inv ? round_to(T(), inv) : inv;
   }
   __syncthreads();
   const float inv = s_inv;
@@ -125,12 +133,12 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T>
 int launch(const void* x, const void* scale, void* y, long long rows, int d,
-           float eps, cudaStream_t stream) {
+           float eps, int round_inv, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   const int vec = (d % V == 0) && ((uintptr_t)x % 16 == 0) &&
                   ((uintptr_t)scale % 16 == 0) && ((uintptr_t)y % 16 == 0);
   rmsnorm_kernel<T><<<(unsigned)rows, kThreads, 0, stream>>>(
-      (const T*)x, (const T*)scale, (T*)y, d, eps, vec);
+      (const T*)x, (const T*)scale, (T*)y, d, eps, vec, round_inv);
   return (int)cudaGetLastError();
 }
 
@@ -139,12 +147,14 @@ int launch(const void* x, const void* scale, void* y, long long rows, int d,
 extern "C" {
 
 int rmsnorm(const void* x, const void* scale, void* y, int dtype,
-            long long rows, int d, float eps, void* stream) {
+            long long rows, int d, float eps, int round_inv, void* stream) {
   if (rows <= 0 || rows > 2147483647LL || d <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch<float>(x, scale, y, rows, d, eps, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, scale, y, rows, d, eps, s);
+  if (dtype == 0)
+    return launch<float>(x, scale, y, rows, d, eps, round_inv, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(x, scale, y, rows, d, eps, round_inv, s);
   return (int)cudaErrorInvalidValue;
 }
 

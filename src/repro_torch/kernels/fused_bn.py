@@ -39,6 +39,19 @@ _CH = 32               # channels per reduction block (csrc kCh)
 _TARGET_BLOCKS = 1056  # about one full wave of reduction blocks on 132 SMs
 _MIN_CHUNK_ROWS = 64
 _MAX_CHUNKS = 65535    # gridDim.y limit
+# bn_stats (csrc kStatsThreads, stats_block_units): 256 threads a block.
+# Up to 2,048 rows, one chunk: a block per 16-byte channel unit, its 256
+# lanes over the rows (at most 8 rows a thread), no merge. Above, up to 8
+# units across (32 single channels where C is not a multiple of the
+# vector width), a power of two; about two blocks per SM on 132 SMs, at
+# least 8 rows per thread, and at most 8 chunks per lane of the block
+# that merges them (bn_cast_variants.py picked these on an H100)
+_STATS_THREADS, _STATS_UNITS, _STATS_SCALAR_UNITS = 256, 8, 32
+_STATS_ONE_CHUNK_ROWS = 2048
+_STATS_TARGET_BLOCKS = 264
+_STATS_MIN_THREAD_ROWS = 8
+_STATS_LANE_CHUNKS = 8
+_STATS_COUNTERS: Dict[torch.device, Tensor] = {}
 
 
 def rows_view(x: Tensor) -> Tensor:
@@ -63,12 +76,46 @@ def reduction_chunks(rows: int, c: int) -> Tuple[int, int]:
     return rpc, -(-rows // rpc)
 
 
+def stats_chunks(rows: int, c: int, esize: int) -> Tuple[int, int]:
+    """(rows per chunk, chunks) of ``bn_stats``, fixed by the shape and
+    the element size alone (see the constants above). (``reduction_chunks``
+    sizes ``bn_bwd_sums``, whose bits stay as they are.)"""
+    if rows <= _STATS_ONE_CHUNK_ROWS:
+        return rows, 1
+    v = 16 // esize
+    units, most = ((c // v, _STATS_UNITS) if c % v == 0
+                   else (c, _STATS_SCALAR_UNITS))
+    ub = 1 << (min(units, most).bit_length() - 1)
+    lanes = _STATS_THREADS // ub
+    groups = -(-units // ub)
+    chunks = max(1, min(-(-_STATS_TARGET_BLOCKS // groups),
+                        rows // (lanes * _STATS_MIN_THREAD_ROWS),
+                        lanes * _STATS_LANE_CHUNKS, _MAX_CHUNKS))
+    rpc = -(-rows // chunks)
+    return rpc, -(-rows // rpc)
+
+
+def _stats_counter(device: torch.device, c: int) -> Tensor:
+    """The zeroed per-column-group counters of ``bn_stats`` on
+    ``device``, made once (each launch leaves them zero again); enough
+    for ``c`` channels."""
+    need = -(-c // _STATS_SCALAR_UNITS)  # the most column groups that merge
+    buf = _STATS_COUNTERS.get(device)
+    if buf is None or buf.numel() < need:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("bn_stats: call it once outside CUDA graph "
+                               "capture first (its counters are made then)")
+        buf = torch.zeros(max(need, 4096), dtype=torch.int32, device=device)
+        _STATS_COUNTERS[device] = buf
+    return buf
+
+
 # ---------------------------------------------------------------------------
 # launch plumbing
 # ---------------------------------------------------------------------------
 
 _LIB = Library("fused_bn", {
-    "bn_stats": [P, I64, I32, I32, I64, P, P, P, P, P],
+    "bn_stats": [P, I64, I32, I32, I64, P, P, P, P, P, P],
     "bn_apply": [P, P, P, P, P, I64, I32, I32, I32, P],
     "bn_bwd_sums": [P, P, P, P, P, I64, I32, I32, I32, I64, P, P, P, P, P],
     "bn_bwd_dx": [P, P, P, P, P, P, P, P, P, P, I64, I32, I32, I32, P],
@@ -132,13 +179,14 @@ def bn_stats(x: Tensor) -> Tuple[Tensor, Tensor]:
         return _bn_stats_plain(x)
     rows, c = x.shape
     dtype = _check_rows(c, x)
-    rpc, chunks = reduction_chunks(rows, c)
+    rpc, chunks = stats_chunks(rows, c, x.element_size())
     scratch = torch.empty((2, chunks, c), dtype=torch.float32,
                           device=x.device)
     mean = torch.empty((c,), dtype=torch.float32, device=x.device)
     var = torch.empty_like(mean)
     _launch("bn_stats", x.data_ptr(), rows, c, _DTYPE_CODE[dtype], rpc,
-            scratch[0].data_ptr(), scratch[1].data_ptr(), mean.data_ptr(),
+            scratch[0].data_ptr(), scratch[1].data_ptr(),
+            _stats_counter(x.device, c).data_ptr(), mean.data_ptr(),
             var.data_ptr(), stream())
     return mean, var
 

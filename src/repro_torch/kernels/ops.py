@@ -32,5 +32,6 @@ from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: F401
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None
               ) -> torch.Tensor:
-    """Tiled online-softmax attention (GQA-aware), forward only."""
+    """Tiled online-softmax attention (GQA-aware); its gradient is the
+    plain version's, recomputed."""
     return flash_attention(q, k, v, causal=causal, window=window)

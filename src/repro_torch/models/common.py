@@ -68,14 +68,15 @@ def apply_norm(p: Dict[str, Tensor], x: Tensor, kind: str,
                eps: float = 1e-5) -> Tensor:
     """Normalize over the last dim with f32 statistics; the result is in
     x's dtype. ``rmsnorm`` is the kernel (``kernels.ops.rmsnorm``, its
-    plain version on the CPU), which rounds ``x * inv`` to x's dtype
-    where the JAX package's ``apply_norm`` rounds ``inv``: the same in
-    f32, up to one bf16 ulp apart in bf16. ``layernorm`` stays plain
-    PyTorch, in the JAX package's op order."""
+    plain version on the CPU) in the JAX package's ``apply_norm``
+    rounding order: ``inv`` is rounded to x's dtype before ``x * inv``
+    (``round_inv=True``; the Pallas kernel's order rounds ``x * inv``
+    instead). ``layernorm`` stays plain PyTorch, in the JAX package's op
+    order."""
     dtype = x.dtype
     if kind == "rmsnorm":
         from repro_torch.kernels.ops import rmsnorm
-        return rmsnorm(x, p["scale"], eps=eps)
+        return rmsnorm(x, p["scale"], eps=eps, round_inv=True)
     if kind == "layernorm":
         x32 = x.float()
         mean = x32.mean(-1, keepdim=True)

@@ -146,7 +146,8 @@ def chunked_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
     """Online-softmax attention. At ``precision="f32"`` this is the flash
     kernel (``kernels.ops.attention``: f32 tiles, f32 statistics, f32 p),
     which needs no chunk sizes or padding; ``q_chunk`` and ``kv_chunk``
-    only shape the JAX package's jnp loop and give the same result.
+    only shape the JAX package's jnp loop and give the same result. It
+    differentiates through the kernel's plain version, recomputed.
     ``precision="bf16"`` with ``inner_checkpoint`` (``chunked_opt``) is a
     training path and is not ported yet."""
     del q_chunk, kv_chunk

@@ -14,7 +14,10 @@ output cancels to near zero, ~2e-6, the f32 difference is larger than
 its own bf16 ulp) and RMSNorm within two (it rounds twice, ``x * inv``
 and then the product with the scale, so a flip of the first rounding
 moves the second product by up to ~2 ulps). S = 200 goes only to
-``chunked_attention``: the Pallas wrapper asserts whole blocks.
+``chunked_attention``: the Pallas wrapper asserts whole blocks. Head
+dims: 32 everywhere, 96 and 112 (the registry's phi-3-vision and
+zamba2-7b) against the Pallas kernel, and 80, which the card has no
+instance for, on the CPU against ``chunked_attention``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -100,16 +103,45 @@ def test_flash_matches_chunked_attention(s, causal, window, dt):
         _assert_within_bf16_ulps(got, want, **F32_ATTN)
 
 
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("dh", [96, 112])
+def test_flash_head_dims_match_pallas_interpret(dh, dt):
+    arrs = _qkv(dh, 1, 128, 4, 2, dh)
+    (jq, jk, jv), (tq, tk, tv) = _to(arrs, DT[dt])
+    want = jops.attention(jq, jk, jv, causal=True, block_q=64, block_k=64)
+    got = tops.attention(tq, tk, tv, causal=True)
+    assert got.shape == tq.shape
+    if dt == "f32":
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_ATTN)
+    else:
+        _assert_within_bf16_ulps(got, want, **F32_ATTN)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_any_head_dim_on_cpu_matches_chunked_attention(dt):
+    arrs = _qkv(80, 1, 200, 4, 2, 80)
+    (jq, jk, jv), (tq, tk, tv) = _to(arrs, DT[dt])
+    want = jlayers.chunked_attention(jq, jk, jv, causal=True, window=64,
+                                     q_chunk=64, kv_chunk=64,
+                                     precision="f32")
+    got = tops.attention(tq, tk, tv, causal=True, window=64)
+    assert 80 not in tfa.HEAD_DIMS and got.shape == tq.shape
+    if dt == "f32":
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_ATTN)
+    else:
+        _assert_within_bf16_ulps(got, want, **F32_ATTN)
+
+
 def test_flash_wrapper_checks_and_counts_nothing_on_cpu():
     tfa.reset_launch_counts()
     q, k, v = (torch.zeros(1, 8, 4, 32), torch.zeros(1, 8, 3, 32),
                torch.zeros(1, 8, 3, 32))
     with pytest.raises(ValueError, match="multiple"):
         tfa.flash_attention(q, k, v)
-    with pytest.raises(ValueError, match="head dims"):
-        tfa.flash_attention(torch.zeros(1, 8, 4, 48),
-                            torch.zeros(1, 8, 4, 48),
-                            torch.zeros(1, 8, 4, 48))
+    # the plain version takes any head dim; only the card's kernel keeps
+    # to HEAD_DIMS (the card tests check that it raises there)
+    odd = torch.ones(1, 8, 4, 48)
+    torch.testing.assert_close(tfa.flash_attention(odd, odd, odd), odd)
     with pytest.raises(TypeError):
         tfa.flash_attention(q.half(), q.half(), q.half())
     out = tfa.flash_attention(q, q, q, causal=True)
@@ -119,7 +151,7 @@ def test_flash_wrapper_checks_and_counts_nothing_on_cpu():
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("rows,d", [(300, 128), (7, 2048), (1, 64)])
-def test_rmsnorm_matches_pallas_and_ref(rows, d, dt):
+def test_rmsnorm_matches_pallas_and_ref(rows, d, dt):  # the Pallas order
     rng = np.random.default_rng(rows + d)
     x = (rng.standard_normal((rows, d)) * 2 + 0.3).astype(np.float32)
     scale = (1 + 0.1 * rng.standard_normal(d)).astype(np.float32)

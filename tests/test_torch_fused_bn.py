@@ -186,3 +186,17 @@ def test_reduction_chunks_cover_rows(rows, c):
     rpc, chunks = tfb.reduction_chunks(rows, c)
     assert 1 <= chunks <= 65535
     assert (chunks - 1) * rpc < rows <= chunks * rpc
+
+
+@pytest.mark.parametrize("esize", [2, 4])
+@pytest.mark.parametrize("rows,c", [(1, 64), (63, 64), (1568, 2048),
+                                    (401408, 64), (100352, 256),
+                                    (777, 100), (100000, 40)])
+def test_stats_chunks_cover_rows(rows, c, esize):
+    """``bn_stats`` chunks: every row in exactly one chunk, within the
+    grid's limit, and no more blocks than one wave asks for (so its
+    last-block merge reads few partials)."""
+    rpc, chunks = tfb.stats_chunks(rows, c, esize)
+    assert 1 <= chunks <= 65535
+    assert (chunks - 1) * rpc < rows <= chunks * rpc
+    assert chunks <= tfb._STATS_TARGET_BLOCKS

@@ -19,7 +19,10 @@ sums run in another order than the plain full softmax), RMSNorm f32
 rtol 1e-6 (the row sum's order moves inv by an ulp); in bf16, beyond
 those, flash within one bf16 ulp and RMSNorm within two (it rounds
 twice, x * inv and then the product with the scale, so a flip of the
-first rounding moves the second product by up to ~2 ulps).
+first rounding moves the second product by up to ~2 ulps), in either
+rounding order; gradients through the LM kernels' autograd Functions
+bitwise against the plain versions' own autograd (the backward is that
+same recompute).
 """
 import pytest
 import torch
@@ -87,6 +90,25 @@ def test_reductions_are_bitwise_repeatable_on_card(cuda):
         assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_bn_stats_unaligned_rows_on_card(cuda, dt):
+    """x starting 2 elements into its buffer takes the scalar path of the
+    same kernel; repeated launches (the self-resetting merge counters)
+    give the same bits."""
+    rows, c = 6272, 256
+    buf = torch.randn(rows * c + 2, generator=torch.Generator().manual_seed(
+        5)).to(DTYPES[dt])
+    xc = buf.to(cuda)[2:].view(rows, c)
+    assert xc.data_ptr() % 16 != 0
+    m, v = tfb.bn_stats(xc)
+    pm, pv = tfb.bn_stats(buf[2:].view(rows, c))
+    torch.testing.assert_close(m.cpu(), pm, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(v.cpu(), pv, rtol=1e-4, atol=1e-5)
+    again = tfb.bn_stats(xc)
+    assert torch.equal(again[0], m) and torch.equal(again[1], v)
+
+
 # ---------------------------------------------------------------------------
 # the fused update, the wire cast and the fused input: bitwise against
 # their plain versions (every operation rounded once, in the same order)
@@ -120,7 +142,7 @@ def test_hybrid_update_bitwise_on_card(cuda, n, wd):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 127, 25_557_032])
+@pytest.mark.parametrize("n", [1, 7, 127, 8 * 4099 + 3, 25_557_032])
 def test_cast_copy_bitwise_on_card(cuda, n):
     from repro_torch.kernels import bucket_ops as bo
     x = torch.randn(n, generator=torch.Generator().manual_seed(n)).to(cuda)
@@ -128,6 +150,25 @@ def test_cast_copy_bitwise_on_card(cuda, n):
         packed = bo.pack_cast(x, wire)
         assert torch.equal(packed, x.to(wire))
         assert torch.equal(bo.unpack_cast(packed), packed.float())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 2, 3, 5])
+def test_cast_copy_offset_views_bitwise_on_card(cuda, offset):
+    """Streams that start 4-20 bytes (f32) or 2-10 bytes (half) into
+    their buffers: the scalar head, the vector groups and the tail, or
+    the scalar path where no head aligns both pointers."""
+    from repro_torch.kernels import bucket_ops as bo
+    n = 8 * 1000 + 5
+    buf = torch.randn(n + offset, generator=torch.Generator().manual_seed(
+        offset)).to(cuda) * 3
+    x = buf[offset:]
+    for wire in (torch.bfloat16, torch.float16):
+        packed = bo.pack_cast(x, wire)
+        assert torch.equal(packed, x.to(wire))
+        half = packed.new_empty(n + offset)
+        half[offset:] = packed
+        assert torch.equal(bo.unpack_cast(half[offset:]), packed.float())
 
 
 @pytest.mark.gpu
@@ -231,8 +272,9 @@ def _within_bf16_ulps(got, want, ulps, rtol, atol):
 
 # (B, Sq, Sk, Hq, Hkv, Dh, causal, window): the serving path's prefill,
 # lengths 1 and 1000, Sq != Sk, non-causal, a causal window of 256,
-# groups 1, 4 and 8, Dh 32 and 128, and the 64-row tile edges (one row
-# past a tile, one short of it, a single key)
+# groups 1, 4 and 8, Dh 32 and 128, the 64-row tile edges (one row
+# past a tile, one short of it, a single key), and Dh 96 and 112 (the
+# registry's MHA configs with 32 kv heads) with tile edges of their own
 FLASH_CASES = [
     (8, 1024, 1024, 32, 8, 64, True, None),
     (2, 1, 1, 8, 8, 64, True, None),
@@ -246,6 +288,10 @@ FLASH_CASES = [
     (1, 65, 63, 8, 8, 64, True, None),
     (2, 129, 129, 32, 8, 128, True, None),
     (1, 64, 1, 4, 1, 32, False, None),
+    (1, 1000, 1000, 32, 32, 96, True, None),
+    (1, 1000, 1000, 32, 32, 112, True, None),
+    (1, 65, 63, 8, 8, 96, True, None),
+    (2, 129, 129, 8, 4, 112, False, None),
 ]
 
 
@@ -271,14 +317,34 @@ def test_flash_attention_matches_plain_on_card(cuda, case, dt):
 
 
 @pytest.mark.gpu
-def test_flash_attention_bf16_raises_on_misaligned_rows(cuda):
+@pytest.mark.parametrize("how", ["row_stride", "offset"])
+def test_flash_attention_bf16_misaligned_rows_match_aligned_copy(cuda, how):
     from repro_torch.kernels import flash_attention as tfa
-    wide = torch.zeros(1, 10, 2, 68, device=cuda, dtype=torch.bfloat16)
-    q = wide[..., :64]  # rows 136 bytes apart: not 16-byte aligned
-    with pytest.raises(ValueError, match="16-byte aligned"):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    shape = (2, 130, 4, 64)
+    if how == "row_stride":  # rows 136 bytes apart
+        views = [torch.randn(2, 130, 4, 68, generator=g, device=cuda)
+                 .bfloat16()[..., :64] for _ in range(3)]
+    else:  # contiguous, starting 8 bytes into the buffer
+        n = 2 * 130 * 4 * 64
+        views = [torch.randn(n + 4, generator=g, device=cuda).bfloat16()
+                 [4:].view(shape) for _ in range(3)]
+    assert not any(tfa._rows_aligned(t) for t in views)
+    copies = [t.clone(memory_format=torch.contiguous_format) for t in views]
+    tfa.reset_launch_counts()
+    got = tfa.flash_attention(*views)
+    want = tfa.flash_attention(*copies)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES == {"flash_attention": 2}
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_flash_attention_raises_on_other_head_dims_on_card(cuda):
+    from repro_torch.kernels import flash_attention as tfa
+    q = torch.zeros(1, 8, 2, 80, device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
         tfa.flash_attention(q, q, q)
-    assert tfa.flash_attention(q.float(), q.float(), q.float()).shape == \
-        q.shape
 
 
 @pytest.mark.gpu
@@ -300,3 +366,77 @@ def test_rmsnorm_matches_plain_on_card(cuda, rows, d, dt):
         torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
     else:
         _within_bf16_ulps(got, want, 2, 0.0, 0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("rows,d", [(8192, 2048), (8, 2048), (5, 100)])
+def test_rmsnorm_model_order_matches_plain_on_card(cuda, rows, d, dt):
+    """``round_inv=True``, the JAX model's order (``apply_norm``)."""
+    from repro_torch.kernels import rmsnorm as trn
+    g = torch.Generator(device=cuda).manual_seed(rows * d)
+    x = (torch.randn(rows, d, generator=g, device=cuda) * 2 + 0.3).to(
+        DTYPES[dt])
+    scale = (1 + 0.1 * torch.randn(d, generator=g, device=cuda)).to(
+        DTYPES[dt])
+    got = trn.rmsnorm(x, scale, round_inv=True)
+    want = trn.PLAIN["rmsnorm"](x, scale, 1e-5, True)
+    if dt == "f32":
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    else:
+        _within_bf16_ulps(got, want, 2, 0.0, 0.0)
+
+
+def _grads_both_ways(fn, plain, inputs, seed):
+    """(outputs, grads) of ``fn`` (through its autograd Function) and of
+    ``plain`` (the plain version's own autograd), under the same random
+    cotangent."""
+    out = []
+    for f in (fn, plain):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        y = f(*leaves)
+        g = torch.Generator(device=y.device).manual_seed(seed)
+        dy = torch.randn(y.shape, generator=g, device=y.device).to(y.dtype)
+        y.backward(dy)
+        out.append((y, [t.grad for t in leaves]))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("round_inv", [False, True])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_rmsnorm_gradients_on_card(cuda, dt, round_inv):
+    from repro_torch.kernels import rmsnorm as trn
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = (torch.randn(333, 2048, generator=g, device=cuda) * 2).to(DTYPES[dt])
+    scale = 1 + 0.1 * torch.randn(2048, generator=g, device=cuda)
+    trn.reset_launch_counts()
+    (yk, gk), (yp, gp) = _grads_both_ways(
+        lambda a, b: trn.rmsnorm(a, b, round_inv=round_inv),
+        lambda a, b: trn.PLAIN["rmsnorm"](a, b, 1e-5, round_inv),
+        (x, scale), 4)
+    torch.cuda.synchronize()
+    assert trn.LAUNCHES == {"rmsnorm": 1} and yk.grad_fn is not None
+    for a, b in zip(gk, gp):
+        assert a is not None and bool(torch.isfinite(a).all())
+        assert bool((a != 0).any()) and torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [64, 96])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_flash_attention_gradients_on_card(cuda, dt, dh):
+    from repro_torch.kernels import flash_attention as tfa
+    g = torch.Generator(device=cuda).manual_seed(dh)
+    q, k, v = (torch.randn(2, 200, h, dh, generator=g, device=cuda)
+               .to(DTYPES[dt]) for h in (8, 2, 2))
+    tfa.reset_launch_counts()
+    (yk, gk), (yp, gp) = _grads_both_ways(
+        lambda a, b, c: tfa.flash_attention(a, b, c, causal=True),
+        lambda a, b, c: tfa.PLAIN["flash_attention"](a, b, c, True, None),
+        (q, k, v), 5)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES == {"flash_attention": 1} and yk.grad_fn is not None
+    for a, b in zip(gk, gp):
+        assert a is not None and bool(torch.isfinite(a).all())
+        assert bool((a != 0).any()) and torch.equal(a, b)
