@@ -15,14 +15,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      bf16 and f32, with kernel, plain and library times (CUDA events)
      and the HBM-bytes bound of each shape;
   3b. the fused update, the wire cast and the fused input kernels against
-     their plain versions, bitwise: ``hybrid_update`` at every distinct
-     ResNet-50 leaf size and the whole 25.56 M-element stream (decay
-     none, scalar and a stream; a_sgd 0, 0.5 and 1), ``cast_copy`` to
-     bf16/f16 and back at the whole stream, odd lengths (7, 8k + 3) and
-     views 4 and 8 bytes (f32) or 2 and 4 bytes (half) into a buffer,
-     ``input_train``/``input_eval`` at (32, 224, 224, 3) with +-4 shifts
-     and flips, bf16 and f32 out; with kernel, plain, library and bound
-     times per main-path step;
+     their plain versions, bitwise: ``hybrid_update`` for one leaf at
+     every distinct ResNet-50 leaf size and the whole 25.56 M-element
+     stream (decay none, scalar and a stream; a_sgd 0, 0.5 and 1), and
+     over all 161 leaves and a one-element leaf in one launch (decay
+     none and per leaf, gradients as views 0, 1 and 2 elements into one
+     stream), ``cast_copy`` to bf16/f16 and back at the whole stream,
+     odd lengths (7, 8k + 3) and views 4 and 8 bytes (f32) or 2 and 4
+     bytes (half) into a buffer, ``input_train``/``input_eval`` at (32,
+     224, 224, 3) with +-4 shifts and flips, bf16 and f32 out, and
+     ``input_train`` at edge shapes ((2, 7, 5, 3), C = 1 and 4, an
+     unaligned input) with shifts of +-W, +-(W+1) and +-3H; with kernel,
+     plain, library and bound times per main-path step (the update also
+     as one launch per leaf, the earlier design), and the host time of
+     ``optimizer.update`` at main path 2's shapes against that of one
+     launch per leaf;
   3c. the stream-LARS kernels against their plain versions:
      ``seg_sq_partials`` within rtol 1e-5 of a float64 sum of the same
      inputs and the same bits on a second launch, ``lars_update``
@@ -46,7 +53,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      within two bf16 ulps: it rounds twice); with kernel, plain and
      library times (``F.scaled_dot_product_attention``, ``F.rms_norm``,
      every rmsnorm call given the same bf16 scale as the serving path's
-     parameters are) and the bound of each case;
+     parameters are) and the bound of each case; an empty kernel timed
+     the same way (the launch floor) at rmsnorm's decode grid;
   3e. gradients through the LM kernels' autograd Functions: rmsnorm in
      both orders and dtypes, flash at Dh 64 and 96 in both dtypes; every
      gradient (x and scale; q, k and v) present, finite, not all zero,
@@ -62,9 +70,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the unfused plain path, three steps from the same seed;
   6. main path 2, the paper's data-parallel step at world size 1 (NCCL):
      the same model and recipe with ``dp_mode="shardmap"``, the bucketed
-     bf16 all-reduce, the fused update, the fused input and a 4-worker
-     feed, 8 steps and one eval batch after the BN all-reduce; every
-     kernel's launch count is checked;
+     bf16 all-reduce, the fused update (one launch a step over every
+     leaf), the fused input and a 4-worker feed, 8 steps and one eval
+     batch after the BN all-reduce; every kernel's launch count is
+     checked;
   6b. reference: the reduced ResNet in f32, the DP step with every new
      kernel on against the same step with them off (plain per-leaf
      update, per-leaf all-reduce, host input transform), three steps;
@@ -158,7 +167,7 @@ LM_KERNELS = {
     "rmsnorm": ("rmsnorm.cu", "src/repro/kernels/rmsnorm.py:20"),
 }
 SOURCES = ("fused_bn", "fused_update", "bucket_ops", "fused_input",
-           "flash_attention", "rmsnorm")
+           "flash_attention", "rmsnorm", "launch_floor")
 # flops per element of the hybrid update (decay 2, m 4, coef 4, delta 3,
 # theta 2) and of the input transform (subtract, multiply)
 UPDATE_FLOPS, INPUT_FLOPS = 15, 2
@@ -459,10 +468,34 @@ def _bitwise(name: str, got, want) -> None:
                              f"version by up to {diff:.3g}")
 
 
+def leaf_tensors(torch, leaves, gen, offset: int = 0, extra=()):
+    """Per-leaf p, d and m (each its own allocation, as parameters and
+    state are) and g as views into one stream ``offset`` elements into
+    its buffer (as ``unpack`` hands the gradients over), for leaves of
+    the given sizes plus ``extra`` sizes."""
+    dev = torch.device("cuda")
+    sizes = [n for _, n, _ in leaves] + list(extra)
+    buf = torch.randn(offset + sum(sizes), generator=gen, device=dev) * 1e-3
+    gs, ps, ds, ms, lo = [], [], [], [], offset
+    for n in sizes:
+        gs.append(buf[lo:lo + n])
+        lo += n
+        ps.append(torch.randn(n, generator=gen, device=dev) * 0.05)
+        ds.append(torch.randn(n, generator=gen, device=dev) * 1e-3)
+        m = torch.rand(n, generator=gen, device=dev) * 1e-6
+        m[:n // 4] = 0.0  # the state of the first step
+        ms.append(m)
+    return gs, ps, ds, ms
+
+
 def update_phase(torch, leaves, wd: float):
-    """``hybrid_update`` bitwise against its plain version at every
-    distinct leaf size and the whole stream, then timed per main-path
-    step: one launch per leaf, each leaf at its own size and decay."""
+    """``hybrid_update`` bitwise against its plain version: the one-leaf
+    entry at every distinct leaf size and the whole stream (decay none,
+    scalar and a stream), the multi-leaf entry over all leaves at once
+    (decay none and per leaf, gradients as views 0, 1 and 2 elements
+    into one stream, and a one-element leaf), each with a_sgd 0, 0.5 and
+    1. Timed per main-path step as the one launch over every leaf, with
+    the earlier design (one launch per leaf) beside it."""
     from collections import Counter
 
     from repro_torch.core.optimizer import HybridHyper
@@ -493,17 +526,47 @@ def update_phase(torch, leaves, wd: float):
                 for what, a, b in zip(("theta", "delta", "m"), kern, plain):
                     _bitwise(f"hybrid_update n={n} wd={dname} "
                              f"a_sgd={a_sgd} {what}", a, b)
-    log(f"  hybrid_update bitwise at {len(sizes)} sizes (1 .. {total}) x "
-        f"decay none/scalar/stream x a_sgd 0/0.5/1")
+    log(f"  hybrid_update one leaf bitwise at {len(sizes)} sizes (1 .. "
+        f"{total}) x decay none/scalar/stream x a_sgd 0/0.5/1")
+    per_leaf = [wd if dec else 0.0 for _, _, dec in leaves]
+    for offset in (0, 1, 2):
+        gs, ps, ds, ms = leaf_tensors(torch, leaves, gen, offset, extra=(1,))
+        for dname, wds in (("none", [0.0] * len(gs)),
+                           ("per leaf", per_leaf + [wd])):
+            for a_sgd in (0.0, 0.5, 1.0):
+                h = HybridHyper(eta=0.1, alpha_sgd=a_sgd)
+                kern = [[t.clone() for t in ts] for ts in (ps, ds, ms)]
+                plain = [[t.clone() for t in ts] for ts in (ps, ds, ms)]
+                fu.reset_launch_counts()
+                fu.fused_hybrid_update_leaves(gs, *kern, h, wds)
+                launches = fu.LAUNCHES["hybrid_update"]
+                assert launches == 1, launches
+                for i, g in enumerate(gs):
+                    fu.PLAIN["hybrid_update"](g, plain[0][i], plain[1][i],
+                                              plain[2][i], h, wds[i])
+                for what, ka, pa in zip(("theta", "delta", "m"), kern,
+                                        plain):
+                    for i, (a, b) in enumerate(zip(ka, pa)):
+                        _bitwise(f"hybrid_update_leaves leaf {i} "
+                                 f"g offset {offset} wd={dname} "
+                                 f"a_sgd={a_sgd} {what}", a, b)
+        del gs, ps, ds, ms, kern, plain
+    log(f"  hybrid_update {len(leaves)} leaves + a 1-element leaf in one "
+        f"launch, bitwise per leaf, g views 0/1/2 elements into one stream "
+        f"x decay none/per leaf x a_sgd 0/0.5/1")
     h = HybridHyper(eta=0.1, alpha_sgd=0.0)
-    out = {"ms": 0.0, "plain_ms": 0.0, "library_ms": None,
+    gs, ps, ds, ms = leaf_tensors(torch, leaves, gen)
+    out = {"ms": time_ms(torch, lambda: fu.fused_hybrid_update_leaves(
+               gs, ps, ds, ms, h, per_leaf)),
+           "per_leaf_ms": 0.0, "plain_ms": 0.0, "library_ms": None,
            "max_abs_err": 0.0}
+    del gs, ps, ds, ms
     nbytes = flops = 0
     for (n, dec), count in sorted(Counter((n, dec)
                                           for _, n, dec in leaves).items()):
         g, p, d, m = tensors(n)
         w = wd if dec else 0.0
-        out["ms"] += count * time_ms(
+        out["per_leaf_ms"] += count * time_ms(
             torch, lambda: fu.fused_hybrid_update(g, p, d, m, h, w))
         out["plain_ms"] += count * time_ms(
             torch, lambda: fu.PLAIN["hybrid_update"](g, p, d, m, h, w))
@@ -524,13 +587,76 @@ def update_phase(torch, leaves, wd: float):
     out["wd_stream_bound_ms"], _ = bound(32 * total,
                                          (UPDATE_FLOPS + 2) * total)
     log(f"  hybrid_update per step ({len(leaves)} leaves, {total} "
-        f"elements): {out['ms']:.3f} ms (plain {out['plain_ms']:.3f}, "
-        f"bound {out['bound_ms']:.3f}); the whole stream in one launch "
+        f"elements): {out['ms']:.3f} ms in one launch (one launch per leaf "
+        f"{out['per_leaf_ms']:.3f}, plain {out['plain_ms']:.3f}, bound "
+        f"{out['bound_ms']:.3f}); the whole stream as one leaf "
         f"{out['one_launch_stream_ms']:.3f} ms; with the decay stream "
         f"{out['wd_stream_ms']:.3f} ms (plain "
         f"{out['wd_stream_plain_ms']:.3f}, bound "
         f"{out['wd_stream_bound_ms']:.3f})")
     return out, total
+
+
+def update_host_phase(torch, params_cpu, steps: int = 20):
+    """Host time of one ``optimizer.update`` call (fused, f32 state) at
+    main path 2's shapes: the parameters on the card, the gradients as
+    views into one stream as ``unpack`` gives them. The earlier design,
+    one ``fused_hybrid_update`` call per leaf as the optimizer's loop
+    made them (the decay found from the name, the casts, the checks, a
+    launch), is timed beside it. The host clock runs from a synchronized
+    device to the call's return (the launches are asynchronous)."""
+    from repro_torch.configs import OptimizerConfig
+    from repro_torch.core.optimizer import HybridHyper
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.optim import make_optimizer
+    from repro_torch.optim.rmsprop_warmup import decays
+
+    dev = torch.device("cuda")
+    cfg = OptimizerConfig()
+    params = {k: v.to(dev).clone() for k, v in params_cpu.items()}
+    stream = torch.randn(sum(p.numel() for p in params.values()),
+                         device=dev) * 1e-3
+    grads, lo = {}, 0
+    for k, p in params.items():
+        grads[k] = stream[lo:lo + p.numel()].view(p.shape)
+        lo += p.numel()
+    opt = make_optimizer(cfg, STEPS, BATCH, use_fused=True)
+    state = opt.init(params)
+    h = HybridHyper(eta=0.1, alpha_sgd=0.0)
+
+    def per_leaf():
+        for k, p in params.items():
+            d, m = state["delta"][k], state["m"][k]
+            w = cfg.weight_decay if decays(k) else 0.0
+            d32, m32 = d.float(), m.float()
+            fu.fused_hybrid_update(grads[k].float().contiguous(), p, d32,
+                                   m32, h, w)
+
+    def host_ms(fn):
+        times = []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return statistics.median(times)
+
+    def one_launch():
+        opt.update(params, grads, state)
+
+    out = {"one_launch_host_ms": [], "per_leaf_host_ms": []}
+    for name, fn in (("one_launch", one_launch), ("per_leaf", per_leaf),
+                     ("per_leaf", per_leaf), ("one_launch", one_launch)):
+        out[f"{name}_host_ms"].append(host_ms(fn))
+    fu.reset_launch_counts()
+    opt.update(params, grads, state)
+    out["launches_per_update"] = fu.LAUNCHES["hybrid_update"]
+    assert out["launches_per_update"] == 1, out
+    log(f"  optimizer.update host time ({len(params)} leaves, median of "
+        f"{steps} calls, in turns): one launch {out['one_launch_host_ms']} "
+        f"ms, one launch per leaf {out['per_leaf_host_ms']} ms")
+    return out
 
 
 def cast_phase(torch, total: int):
@@ -579,6 +705,23 @@ def cast_phase(torch, total: int):
     return out
 
 
+# (shape, elements into the input's buffer) of input_train's edge cases:
+# rows of 15 elements (no 16-byte access either side), C = 1 and C = 4
+# (the run-time channel loop), rows of 24 (16-byte loads and stores; H 9
+# leaves a block of one row), and the same with the input 4 bytes off
+# alignment (element loads)
+INPUT_EDGE_CASES = (((2, 7, 5, 3), 0), ((2, 7, 5, 1), 0), ((2, 7, 5, 4), 0),
+                    ((3, 9, 8, 3), 0), ((3, 9, 8, 3), 1))
+# (flip, dy(H), dx(W)) of the edge cases' samples, taken in turn
+INPUT_EDGE_SHIFTS = (
+    (1, lambda h: 3 * h, lambda w: w), (0, lambda h: -3 * h, lambda w: -w),
+    (1, lambda h: h + 1, lambda w: w + 1),
+    (0, lambda h: -(h + 1), lambda w: -(w + 1)),
+    (1, lambda h: -3 * h, lambda w: w + 1),
+    (0, lambda h: 3 * h + 2, lambda w: -(w + 1)),
+    (1, lambda h: 0, lambda w: 0), (0, lambda h: 2, lambda w: -3))
+
+
 def input_phase(torch, cfg):
     """``input_train`` and ``input_eval`` bitwise against their plain
     versions at the main path's batch, float32 pixels in and bf16 / f32
@@ -602,6 +745,26 @@ def input_phase(torch, cfg):
                  fi.PLAIN["input_eval"](x, mean, inv, dt))
     log(f"  input_train / input_eval bitwise at {tuple(x.shape)}, bf16 "
         f"and f32 out")
+    for shape, offset in INPUT_EDGE_CASES:
+        b, h, w, c = shape
+        rows = [[f, dy(h), dx(w), 0] for f, dy, dx in INPUT_EDGE_SHIFTS]
+        buf = torch.randn(offset + b * h * w * c, generator=gen,
+                          device=dev) * 50 + 120
+        xe = buf[offset:].view(shape)
+        me = torch.linspace(100.0, 130.0, c, device=dev)
+        ie = 1.0 / torch.linspace(50.0, 60.0, c, device=dev)
+        for lo in range(0, len(rows), b):
+            te = torch.tensor((rows * b)[lo:lo + b], dtype=torch.int32,
+                              device=dev)
+            for dt in (torch.bfloat16, torch.float32, torch.float16):
+                _bitwise(f"input_train {shape} offset {offset} table "
+                         f"{te.tolist()} {dt}",
+                         fi.fused_input_train(xe, te, me, ie, out_dtype=dt),
+                         fi.PLAIN["input_train"](xe, te, me, ie, dt))
+    log(f"  input_train bitwise at {[s for s, _ in INPUT_EDGE_CASES]} "
+        f"(input offsets {[o for _, o in INPUT_EDGE_CASES]} elements), "
+        f"shifts of +-W, +-(W+1), +-3H with and without flips, bf16 / f32 "
+        f"/ f16 out")
     bf16, n = torch.bfloat16, x.numel()
     out = {}
     for name, kern, plain in (
@@ -950,6 +1113,7 @@ def dp_main_path(torch, libs, cfg, steps: int, premade: bool = False,
     import torch.distributed as dist
 
     from repro_torch.configs import InputConfig, OptimizerConfig
+    from repro_torch.kernels.fused_update import MAX_LEAVES
     from repro_torch.launch.train import build_eval_setup, build_train_setup
     from repro_torch.training import Trainer, TrainerConfig
 
@@ -999,7 +1163,8 @@ def dp_main_path(torch, libs, cfg, steps: int, premade: bool = False,
     assert sites == 53, sites
     want = {"bn_stats": sites * steps, "bn_bwd_sums": sites * steps,
             "bn_bwd_dx": sites * steps, "bn_apply": (steps + val) * sites,
-            "hybrid_update": 0 if lars else n_leaves * steps,
+            "hybrid_update": 0 if lars else steps * -(-n_leaves
+                                                       // MAX_LEAVES),
             "seg_sq_partials": steps if lars else 0,
             "lars_update": steps if lars else 0,
             "cast_copy": 2 * steps,  # one pack, one unpack per step
@@ -1319,6 +1484,7 @@ def lm_kernel_phase(torch):
             unit=f"per prefill ({n} launches at the first case, bf16)")
     dec = next(r for r in records["rmsnorm"]
                if r["dtype"] == "bf16" and r["rows"] == SERVE_BATCH)
+    totals["rmsnorm"]["decode_launch_ms"] = dec["ms"]
     totals["rmsnorm"]["decode_step_ms"] = per_prefill["rmsnorm"] * dec["ms"]
     totals["rmsnorm"]["decode_step_bound_ms"] = \
         per_prefill["rmsnorm"] * dec["bound_ms"]
@@ -1326,6 +1492,24 @@ def lm_kernel_phase(torch):
     totals["flash_attention"]["f32_bound_ms"] = \
         n_layers * first["f32_bound_ms"]
     return totals, records
+
+
+def launch_floor_phase(torch):
+    """An empty kernel (``csrc/launch_floor.cu``) timed by the same
+    CUDA-graph replay as the kernels: the least time any launch takes.
+    At rmsnorm's decode grid (one 128-thread block per row of a decode
+    step) and at one warp."""
+    from repro_torch.kernels._launch import I32, P, Library, stream
+    lib = Library("launch_floor", {"launch_floor": [I32, I32, P]})
+    out = {}
+    for name, blocks, threads in (("decode_grid", SERVE_BATCH, 128),
+                                  ("one_warp", 1, 32)):
+        out[f"{name}_ms"] = time_ms(torch, lambda: lib.launch(
+            "launch_floor", blocks, threads, stream()))
+    log(f"  empty kernel: {out['decode_grid_ms'] * 1e3:.2f} us at "
+        f"{SERVE_BATCH} x 128 threads, {out['one_warp_ms'] * 1e3:.2f} us "
+        f"at 1 x 32")
+    return out
 
 
 def misaligned_flash(torch, fa, gen):
@@ -1691,6 +1875,7 @@ def main() -> int:
     wd = OptimizerConfig().weight_decay
     new = {}
     new["hybrid_update"], total = update_phase(torch, leaves, wd)
+    new["hybrid_update"]["host"] = update_host_phase(torch, params_cpu)
     new["cast_copy"] = cast_phase(torch, total)
     new.update(input_phase(torch, cfg))
     log(f"  ({time.perf_counter() - t0:.1f}s)")
@@ -1705,6 +1890,12 @@ def main() -> int:
     t0 = time.perf_counter()
     log("[3d] flash_attention and rmsnorm vs plain versions")
     lm_totals, lm_cases = lm_kernel_phase(torch)
+    floor = launch_floor_phase(torch)
+    rms = lm_totals["rmsnorm"]
+    rms["launch_floor_ms"] = floor["decode_grid_ms"]
+    log(f"  rmsnorm at a decode site {rms['decode_launch_ms'] * 1e3:.2f} "
+        f"us a launch, {rms['decode_launch_ms'] / floor['decode_grid_ms']:.2f}"
+        f"x the empty kernel on its grid")
     log(f"  ({time.perf_counter() - t0:.1f}s)")
 
     t0 = time.perf_counter()
@@ -1815,6 +2006,8 @@ def main() -> int:
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        if k == "hybrid_update":  # the earlier design, timed in this run
+            kernels[-1]["per_leaf_ms"] = t["per_leaf_ms"]
     for k, (src, replaces) in LM_KERNELS.items():
         t = lm_totals[k]
         kernels.append({
@@ -1825,6 +2018,7 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "unit": t["unit"]})
+    kernels[-1]["launch_floor_ms"] = floor["decode_grid_ms"]
     assert len(kernels) == 12, len(kernels)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
@@ -1837,7 +2031,7 @@ def main() -> int:
                        "reference": ref, "reference_2": ref2,
                        "reference_3": ref3, "turns": turns,
                        "lm_kernels": lm_totals, "lm_cases": lm_cases,
-                       "lm_grads": lm_grads,
+                       "lm_grads": lm_grads, "launch_floor": floor,
                        "main_path_4": stats4, "reference_4": ref4}, f,
                       indent=1)
     log(f"total {time.perf_counter() - t_all:.1f}s")

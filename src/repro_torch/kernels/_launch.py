@@ -20,10 +20,15 @@ class Library:
     argument types at first use (the source is built then), and one
     launch count per entry point."""
 
-    def __init__(self, name: str, signatures: Dict[str, Sequence]):
+    def __init__(self, name: str, signatures: Dict[str, Sequence],
+                 counts_as: Optional[Dict[str, str]] = None):
+        """``counts_as`` maps an entry point to the kernel whose count its
+        launches add to (another entry of the same kernel)."""
         self.name = name
         self.signatures = signatures
-        self.launches: Dict[str, int] = {k: 0 for k in signatures}
+        self.counts_as = counts_as or {}
+        self.launches: Dict[str, int] = {
+            k: 0 for k in signatures if k not in self.counts_as}
         self._fns: Dict[str, object] = {}
 
     def _fn(self, sym: str):
@@ -44,7 +49,7 @@ class Library:
         if err != 0:
             raise RuntimeError(f"{sym} kernel launch failed: CUDA error "
                                f"{err}")
-        self.launches[sym] += 1
+        self.launches[self.counts_as.get(sym, sym)] += 1
 
     def reset(self) -> None:
         for k in self.launches:

@@ -1,26 +1,27 @@
 """The fused optimizer kernels of ``csrc/fused_update.cu``, ported from
 the Pallas kernels of the JAX package's ``repro/kernels/fused_update.py``:
 
-- ``fused_hybrid_update`` (``hybrid_update``; ``_kernel`` and
-  ``_kernel_wd``): the hybrid RMSprop-warm-up update (paper A.1) of one
-  parameter leaf;
+- ``fused_hybrid_update_leaves`` (``hybrid_update``; ``_kernel``): the
+  hybrid RMSprop-warm-up update (paper A.1) of every parameter leaf of a
+  model in one launch, each leaf with its own scalar decay;
+- ``fused_hybrid_update`` (``hybrid_update``; ``_kernel_wd``): the same
+  update of one leaf or stream, with a scalar or per-element decay;
 - ``fused_segment_sq_partials`` (``seg_sq_partials``;
   ``_seg_sq_kernel``) and ``fused_lars_update`` (``lars_update``;
   ``_lars_update_kernel``): the per-segment trust norms and the
   trust-scaled momentum step of LARS on the packed parameter stream.
 
-``fused_hybrid_update`` updates the parameter, ``delta`` and ``m``
-**in place** (the Pallas kernel writes new arrays; in place saves a
-second copy of the parameters and the optimizer state) and returns
-them. Weight decay is a scalar or a per-element stream shaped like the
-leaf (the kernel's optional ``wd`` pointer). On CPU tensors it runs the
-plain version, ``core.optimizer.hybrid_update``; on CUDA tensors it
-launches the kernel, which rounds every operation in the same order and
-so is bitwise equal to it.
+Both update the parameter, ``delta`` and ``m`` **in place** (the Pallas
+kernel writes new arrays; in place saves a second copy of the parameters
+and the optimizer state) and return them. On CPU tensors they run the
+plain version, ``core.optimizer.hybrid_update``, leaf by leaf; on CUDA
+tensors they launch the kernel, which rounds every operation in the same
+order and so is bitwise equal to it. Both entries count their launches
+as ``hybrid_update``.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+from typing import Dict, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,9 +35,13 @@ Tensor = torch.Tensor
 _LIB = Library("fused_update", {
     "hybrid_update": [P, P, P, P, P, I64, F32, F32, F32, F32, F32, F32, F32,
                       F32, P],
+    "hybrid_update_leaves": [P, P, P, P, P, P, I32, F32, F32, F32, F32, F32,
+                             F32, F32, P],
     "seg_sq_partials": [P, P, P, P, I64, I32, I64, P, P, P, P],
     "lars_update": [P, P, P, P, P, P, I32, I64, F32, F32, P],
-})
+}, counts_as={"hybrid_update_leaves": "hybrid_update"})
+# the leaves one launch of hybrid_update_leaves takes (kMaxLeaves)
+MAX_LEAVES = 256
 # elements per block of seg_sq_partials' first pass (kChunk in the source)
 SEG_CHUNK = 4096
 # the largest trust vector lars_update stages in shared memory (48 KB)
@@ -103,10 +108,63 @@ def fused_hybrid_update(g: Tensor, p: Tensor, d: Tensor, m: Tensor,
         _LIB.launch(
             "hybrid_update", g.data_ptr(), p.data_ptr(), d.data_ptr(),
             m.data_ptr(), None if wd_t is None else wd_t.data_ptr(),
-            p.numel(), _f32(h.eta), _f32(h.alpha_sgd), alpha_rmsprop(h),
-            _f32(h.mu1), _f32(h.mu2), _f32(1.0 - h.mu2), _f32(h.eps),
+            p.numel(), *_hyper_args(h),
             0.0 if wd_t is not None else _f32(weight_decay), stream())
     return p, d, m
+
+
+def _hyper_args(h: HybridHyper):
+    """The kernel's f32 scalars, rounded from the plain version's
+    doubles: eta, a_sgd, a_rms, mu1, mu2, 1 - mu2, eps."""
+    return (_f32(h.eta), _f32(h.alpha_sgd), alpha_rmsprop(h), _f32(h.mu1),
+            _f32(h.mu2), _f32(1.0 - h.mu2), _f32(h.eps))
+
+
+def fused_hybrid_update_leaves(gs: Sequence[Tensor], ps: Sequence[Tensor],
+                               ds: Sequence[Tensor], ms: Sequence[Tensor],
+                               h: HybridHyper, wds: Sequence[float]
+                               ) -> Tuple[Sequence[Tensor], Sequence[Tensor],
+                                          Sequence[Tensor]]:
+    """Every leaf of the hybrid update, **in place** over each ``ps[i]``,
+    ``ds[i]`` and ``ms[i]`` (float32, contiguous, the shape of ``gs[i]``,
+    which may be a view into a larger buffer), leaf ``i`` with the scalar
+    decay ``wds[i]``; returns ``(ps, ds, ms)``.
+
+    On the card: one launch for up to ``MAX_LEAVES`` leaves (ResNet-50's
+    161 take one), bitwise equal to ``fused_hybrid_update`` per leaf."""
+    with torch.no_grad():
+        if not len(gs) == len(ps) == len(ds) == len(ms) == len(wds):
+            raise ValueError(
+                f"fused update: {len(gs)} g, {len(ps)} p, {len(ds)} delta, "
+                f"{len(ms)} m and {len(wds)} decays")
+        if on_cpu("fused update", *gs, *ps, *ds, *ms):
+            for g, p, d, m, wd in zip(gs, ps, ds, ms, wds):
+                _hybrid_update_plain(g, p, d, m, h, wd)
+            return ps, ds, ms
+        live = []
+        for i, leaf in enumerate(zip(gs, ps, ds, ms)):
+            shape = leaf[1].shape
+            for name, t in zip(("g", "p", "delta", "m"), leaf):
+                if t.dtype != torch.float32 or t.shape != shape \
+                        or not t.is_contiguous():
+                    raise ValueError(
+                        f"fused update: leaf {i}'s {name} must be contiguous "
+                        f"float32 of shape {tuple(shape)}, got {t.dtype} "
+                        f"{tuple(t.shape)}")
+            if leaf[1].numel():
+                live.append(i)
+        hyper, st = _hyper_args(h), stream()
+        for lo in range(0, len(live), MAX_LEAVES):
+            part = live[lo:lo + MAX_LEAVES]
+            ptrs = [np.fromiter((ts[i].data_ptr() for i in part), np.uint64,
+                                len(part)) for ts in (gs, ps, ds, ms)]
+            n = np.fromiter((ps[i].numel() for i in part), np.int64,
+                            len(part))
+            wd = np.fromiter((wds[i] for i in part), np.float32, len(part))
+            _LIB.launch("hybrid_update_leaves",
+                        *(a.ctypes.data for a in (*ptrs, n, wd)), len(part),
+                        *hyper, st)
+    return ps, ds, ms
 
 
 def _check_stream(what: str, n: int, **ts: Tensor) -> None:

@@ -23,6 +23,7 @@ from repro_torch.kernels.fused_input import (  # noqa: F401
 )
 from repro_torch.kernels.fused_update import (  # noqa: F401
     fused_hybrid_update,
+    fused_hybrid_update_leaves,
     fused_lars_update,
     fused_segment_sq_partials,
 )

@@ -1,8 +1,8 @@
 """The paper's optimizer: hybrid RMSprop->SGD with the ELU transition
-schedule and slow-start LR. With ``use_fused`` each leaf goes through
-the fused update kernel (``kernels/fused_update.py``), one launch per
-leaf as the JAX package's ``tree.map``; without, through the plain
-per-leaf math of ``core/optimizer.py``. The two are bitwise equal."""
+schedule and slow-start LR. With ``use_fused`` every leaf goes through
+the fused update kernel (``kernels/fused_update.py``) in one launch a
+step; without, through the plain per-leaf math of
+``core/optimizer.py``. The two are bitwise equal."""
 from __future__ import annotations
 
 from typing import Dict, Tuple
@@ -12,7 +12,7 @@ import torch
 from repro_torch.configs.base import OptimizerConfig
 from repro_torch.core.optimizer import HybridHyper, hybrid_update
 from repro_torch.core.schedules import alpha_sgd_schedule, make_lr_schedule
-from repro_torch.kernels.ops import fused_hybrid_update
+from repro_torch.kernels.ops import fused_hybrid_update_leaves
 from repro_torch.optim.interface import Optimizer, epoch_of, tree_zeros_like
 
 # path fragments that get no weight decay (norms, biases — standard
@@ -42,6 +42,13 @@ def rmsprop_warmup(cfg: OptimizerConfig, steps_per_epoch: int,
                              total_epochs=cfg.total_epochs,
                              poly_power=cfg.poly_power)
     state_dtype = _STATE_DTYPES[cfg.state_dtype]
+    decay_of: Dict[str, float] = {}  # leaf name -> its weight decay
+
+    def weight_decays(names):
+        for k in names:
+            if k not in decay_of:
+                decay_of[k] = cfg.weight_decay if decays(k) else 0.0
+        return [decay_of[k] for k in names]
 
     def init(params):
         return {"step": 0,
@@ -58,24 +65,29 @@ def rmsprop_warmup(cfg: OptimizerConfig, steps_per_epoch: int,
         h = HybridHyper(eta=float(eta), alpha_sgd=float(a_sgd),
                         mu1=cfg.mu1, mu2=cfg.mu2, eps=cfg.eps,
                         eta_rmsprop=cfg.eta_rmsprop)
-        for k, p in params.items():
-            d, m = state["delta"][k], state["m"][k]
-            wd = cfg.weight_decay if decays(k) else 0.0
-            if use_fused:
-                # the kernel takes f32 state: a bf16 state is cast in
-                # and out, as the JAX package's fused leaf does
-                d32, m32 = d.float(), m.float()
-                fused_hybrid_update(grads[k].float().contiguous(), p, d32,
-                                    m32, h, wd)
-                if d32 is not d:
-                    d.copy_(d32)
-                    m.copy_(m32)
-                continue
-            p2, d2, m2 = hybrid_update(grads[k], p, d.float(), m.float(),
-                                       h, wd)
-            p.copy_(p2)
-            d.copy_(d2)
-            m.copy_(m2)
+        names = list(params)
+        wds = weight_decays(names)
+        ds = [state["delta"][k] for k in names]
+        ms = [state["m"][k] for k in names]
+        if use_fused:
+            # the kernel takes f32 state: a bf16 state is cast in and
+            # out, as the JAX package's fused leaf does
+            d32, m32 = [d.float() for d in ds], [m.float() for m in ms]
+            fused_hybrid_update_leaves(
+                [grads[k].float().contiguous() for k in names],
+                [params[k] for k in names], d32, m32, h, wds)
+            for d, m, d2, m2 in zip(ds, ms, d32, m32):
+                if d2 is not d:
+                    d.copy_(d2)
+                    m.copy_(m2)
+        else:
+            for k, d, m, wd in zip(names, ds, ms, wds):
+                p = params[k]
+                p2, d2, m2 = hybrid_update(grads[k], p, d.float(),
+                                           m.float(), h, wd)
+                p.copy_(p2)
+                d.copy_(d2)
+                m.copy_(m2)
         state["step"] = step + 1
         metrics = {"lr": float(eta), "alpha_sgd": float(a_sgd),
                    "epoch": float(epoch)}

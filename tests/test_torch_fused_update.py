@@ -1,7 +1,8 @@
 """The port's fused hybrid update (``kernels/fused_update.py``, its plain
-version on the CPU) against the JAX package's Pallas kernel in
-interpret mode (``repro.kernels.ops.fused_hybrid_update``) and its
-oracle ``ref.hybrid_update``, on the same numpy inputs.
+version on the CPU), for one leaf and for every leaf at once, against
+the JAX package's Pallas kernel in interpret mode
+(``repro.kernels.ops.fused_hybrid_update``, leaf by leaf) and its oracle
+``ref.hybrid_update``, on the same numpy inputs.
 
 Tolerance rtol 2.4e-7 with atol 1e-8, the one ROADMAP queue 3 found for
 the plain update against eager JAX: the Pallas kernel rounds
@@ -22,7 +23,8 @@ from repro.kernels import ref as jref
 from repro_torch.configs import OptimizerConfig
 from repro_torch.core.optimizer import HybridHyper as THyper
 from repro_torch.kernels import fused_update
-from repro_torch.kernels.ops import fused_hybrid_update
+from repro_torch.kernels.ops import (fused_hybrid_update,
+                                     fused_hybrid_update_leaves)
 from repro_torch.optim import make_optimizer
 
 TOL = dict(rtol=2.4e-7, atol=1e-8)
@@ -63,6 +65,56 @@ def test_plain_fused_update_matches_jax(n, wd_kind, a_sgd):
                                 alpha_sgd=a_sgd, weight_decay=jwd)
         for got, r in zip(out, jr):
             np.testing.assert_allclose(got.numpy(), np.asarray(r), **TOL)
+
+
+# leaf shapes of the multi-leaf update: one element, a BN vector, an odd
+# length, a conv kernel, and more rows than one Pallas block
+LEAF_SHAPES = [(1,), (64,), (1000,), (4, 3, 3, 3), (128 * 513 + 7,)]
+LEAF_DECAYS = [1e-4, 0.0, 1e-4, 1e-4, 0.0]
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("a_sgd", [0.0, 0.37, 1.0])
+def test_plain_leaves_update_matches_jax(a_sgd, offset):
+    """The multi-leaf wrapper (its plain path, leaf by leaf) against the
+    Pallas kernel per leaf, with mixed decays and the gradients given as
+    views into one flat stream at an odd offset, as ``unpack`` gives
+    them."""
+    rng = np.random.default_rng(offset)
+    sizes = [int(np.prod(s)) for s in LEAF_SHAPES]
+    flat = (rng.standard_normal(offset + sum(sizes)) * 1e-2).astype(
+        np.float32)
+    a_sgd = float(np.float32(a_sgd))
+    th = THyper(eta=ETA, alpha_sgd=a_sgd)
+    jh = JHyper(eta=ETA, alpha_sgd=a_sgd)
+    stream = torch.from_numpy(flat.copy())
+    gs, states, lo = [], [], offset
+    for shape, n in zip(LEAF_SHAPES, sizes):
+        gs.append(stream[lo:lo + n].view(shape))
+        lo += n
+        states.append([a.reshape(shape) for a in _inputs(n, seed=n)[1:4]])
+    ps, ds, ms = ([torch.from_numpy(s[i].copy()) for s in states]
+                  for i in range(3))
+    out = fused_hybrid_update_leaves(gs, ps, ds, ms, th, LEAF_DECAYS)
+    assert all(o is t for o, t in zip(out, (ps, ds, ms)))  # in place
+    for i, (g, (p, d, m), wd) in enumerate(zip(gs, states, LEAF_DECAYS)):
+        jk = jops.fused_hybrid_update(jnp.asarray(g.numpy()), jnp.asarray(p),
+                                      jnp.asarray(d), jnp.asarray(m), jh, wd)
+        for got, k in zip((ps[i], ds[i], ms[i]), jk):
+            assert got.shape == LEAF_SHAPES[i]
+            np.testing.assert_allclose(got.numpy(), np.asarray(k), **TOL)
+
+
+def test_leaves_wrapper_checks_counts_and_counts_nothing_on_cpu():
+    g, p, d, m, _ = _inputs(6, seed=0)
+    tt = [[torch.from_numpy(a.copy())] for a in (g, p, d, m)]
+    fused_update.reset_launch_counts()
+    with pytest.raises(ValueError, match="1 g, 1 p, 1 delta, 1 m and 2"):
+        fused_hybrid_update_leaves(*tt, THyper(eta=ETA, alpha_sgd=0.5),
+                                   [0.0, 1e-4])
+    fused_hybrid_update_leaves(*tt, THyper(eta=ETA, alpha_sgd=0.5), [1e-4])
+    assert fused_update.LAUNCHES == {"hybrid_update": 0,
+                                     "seg_sq_partials": 0, "lars_update": 0}
 
 
 def test_wrapper_keeps_leaf_shape_and_counts_nothing_on_cpu():

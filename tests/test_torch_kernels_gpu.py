@@ -141,6 +141,72 @@ def test_hybrid_update_bitwise_on_card(cuda, n, wd):
         assert all(torch.equal(a, b) for a, b in zip(kern, plain))
 
 
+# leaf sizes of the multi-leaf update: one element, BN vectors, odd
+# lengths, a leaf of several chunks, one past a chunk edge
+LEAF_SIZES = [1, 64, 1000, 108, 2048, 4097, 65_543, 1_000_003, 8193]
+
+
+def _leaves(cuda, offset, seed):
+    """g as views ``offset`` elements into one stream (as ``unpack`` gives
+    the gradients), p, d and m each its own tensor."""
+    g = torch.Generator().manual_seed(seed)
+    flat = (torch.randn(offset + sum(LEAF_SIZES), generator=g)
+            * 1e-2).to(cuda)
+    bounds = torch.tensor([0] + LEAF_SIZES).cumsum(0).tolist()
+    gs = [flat[offset + lo:offset + hi] for lo, hi in zip(bounds, bounds[1:])]
+    states = [(torch.randn(n, generator=g), torch.randn(n, generator=g)
+               * 1e-3, torch.rand(n, generator=g) * 1e-4) for n in LEAF_SIZES]
+    return gs, states
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1, 2])
+def test_hybrid_update_leaves_bitwise_on_card(cuda, offset):
+    """Every leaf in one launch, bitwise equal to the plain version leaf
+    by leaf, with the gradients 0, 1 or 2 elements into one stream (the
+    vector path, and the scalar path where g's alignment differs from
+    p's)."""
+    from repro_torch.core.optimizer import HybridHyper
+    from repro_torch.kernels import fused_update as fu
+    gs, states = _leaves(cuda, offset, seed=offset)
+    wds = [1e-4 if i % 3 else 0.0 for i in range(len(gs))]
+    for a_sgd in (0.0, 0.5, 1.0):
+        h = HybridHyper(eta=0.05, alpha_sgd=a_sgd)
+        kern = [[s[j].to(cuda) for s in states] for j in range(3)]
+        plain = [[s[j].to(cuda) for s in states] for j in range(3)]
+        fu.reset_launch_counts()
+        fu.fused_hybrid_update_leaves(gs, *kern, h, wds)
+        assert fu.LAUNCHES == {"hybrid_update": 1, "seg_sq_partials": 0,
+                               "lars_update": 0}
+        for i, g in enumerate(gs):
+            fu.PLAIN["hybrid_update"](g, plain[0][i], plain[1][i],
+                                      plain[2][i], h, wds[i])
+        torch.cuda.synchronize()
+        for ka, pa in zip(kern, plain):
+            assert all(torch.equal(a, b) for a, b in zip(ka, pa))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("how", ["bf16 g", "strided p", "shape m"])
+def test_hybrid_update_leaves_raises_on_bad_leaf(cuda, how):
+    from repro_torch.core.optimizer import HybridHyper
+    from repro_torch.kernels import fused_update as fu
+    gs, states = _leaves(cuda, 0, seed=9)
+    ps, ds, ms = ([s[j].to(cuda) for s in states] for j in range(3))
+    if how == "bf16 g":
+        gs[2] = gs[2].to(torch.bfloat16)
+    elif how == "strided p":
+        ps[2] = torch.randn(2 * LEAF_SIZES[2], device=cuda)[::2]
+    else:
+        ms[2] = ms[2][:-1]
+    fu.reset_launch_counts()
+    with pytest.raises(ValueError, match="leaf 2's"):
+        fu.fused_hybrid_update_leaves(gs, ps, ds, ms,
+                                      HybridHyper(eta=0.05, alpha_sgd=0.5),
+                                      [0.0] * len(gs))
+    assert fu.LAUNCHES["hybrid_update"] == 0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n", [1, 7, 127, 8 * 4099 + 3, 25_557_032])
 def test_cast_copy_bitwise_on_card(cuda, n):
@@ -188,6 +254,35 @@ def test_fused_input_bitwise_on_card(cuda, dt):
         fi.PLAIN["input_train"](x, table, mean, inv, tdt))
     assert torch.equal(fi.fused_input_eval(x, mean, inv, out_dtype=tdt),
                        fi.PLAIN["input_eval"](x, mean, inv, tdt))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("shape,offset", [
+    ((2, 7, 5, 3), 0), ((2, 7, 5, 1), 0), ((2, 7, 5, 4), 0),
+    ((3, 9, 8, 3), 0), ((3, 9, 8, 3), 1)])
+def test_fused_input_edge_shapes_bitwise_on_card(cuda, shape, offset, dt):
+    """input_train at shapes whose rows take element or 16-byte access,
+    C = 1 and 4, an input 4 bytes off alignment, and shifts of +-W,
+    +-(W+1) and +-3H with and without flips (jnp.roll's semantics for
+    any shift)."""
+    from repro_torch.kernels import fused_input as fi
+    b, h, w, c = shape
+    rows = [[1, 3 * h, w, 0], [0, -3 * h, -w, 0], [1, h + 1, w + 1, 0],
+            [0, -(h + 1), -(w + 1), 0], [1, -3 * h, w + 1, 0],
+            [0, 3 * h + 2, -(w + 1), 0]]
+    g = torch.Generator().manual_seed(offset)
+    buf = torch.randn(offset + b * h * w * c, generator=g).to(cuda) * 50
+    x = buf[offset:].view(shape)
+    mean = torch.linspace(-1.0, 1.0, c, device=cuda)
+    inv = 1.0 / torch.linspace(0.5, 1.5, c, device=cuda)
+    tdt = {"f16": torch.float16, **DTYPES}[dt]
+    for lo in range(0, len(rows), b):
+        table = torch.tensor((rows * b)[lo:lo + b], dtype=torch.int32,
+                             device=cuda)
+        assert torch.equal(
+            fi.fused_input_train(x, table, mean, inv, out_dtype=tdt),
+            fi.PLAIN["input_train"](x, table, mean, inv, tdt))
 
 
 # ---------------------------------------------------------------------------
