@@ -13,7 +13,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      same bits on a second launch), at every BN-site shape of ResNet-50
      at batch 32 (stem 401,408 x 64 down to stage 3 1,568 x 2,048), in
      bf16 and f32, with kernel, plain and library times (CUDA events)
-     and the HBM-bytes bound of each shape;
+     and the HBM-bytes bound of each shape; the library yardsticks are
+     ``torch.var_mean`` and ``torch.batch_norm_stats`` for ``bn_stats``,
+     ``F.batch_norm`` (eval) for ``bn_apply``, the site pair against
+     ``aten::native_batch_norm`` and its backward (also with
+     ``threshold_backward`` in front at the ReLU sites), and at the
+     sites with neither ReLU nor residual ``bn_bwd_sums`` / ``bn_bwd_dx``
+     against ``torch.batch_norm_backward_reduce`` / ``_elemt``;
   3b. the fused update, the wire cast and the fused input kernels against
      their plain versions, bitwise: ``hybrid_update`` for one leaf at
      every distinct ResNet-50 leaf size and the whole 25.56 M-element
@@ -97,6 +103,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   9b. reference: the reduced llama3.2-1b in f32 with the same weights on
      the card (kernels) and on the CPU (plain versions), prefill and 6
      decode steps, logits within rtol/atol 1e-4 and the same tokens.
+  10. main path 2 with checkpoints, cuDNN deterministic: 6 steps with a
+     save every 3 and one eval batch (the best checkpoint), then a fresh
+     ``Trainer`` resumes from the step-3 checkpoint alone and runs to 6:
+     params, ``delta``, ``m``, BN state and ``opt.step`` bitwise equal to
+     the unbroken run; also 6 steps without checkpoints (every run's
+     launch counts checked); the checkpoint's bytes, the ms the loop's
+     thread blocks for the snapshot, the background write's ms, the
+     restore's ms, and the step time with saves against without;
+  10b. the sentinel on main path 2 (``sentinel=True``) with chaos
+     ``nan_grad@4,ckpt_truncate@6,nan_grad@7-8`` and a save every 3:
+     step 4 skipped with the state after it bitwise the state after
+     step 3, steps 7 and 8 skipped and rolled back past the torn step-6
+     checkpoint to step 3 (``corrupt_checkpoint_skipped``), the run
+     completes, the event log on disk equals the one in memory, every
+     call's launches counted; then 6 steps with the sentinel on and no
+     fault (its cost beside phase 10's run without it) and the device
+     time of its copy of the in-place state.
 With ``--profile``, a few more steps of each main path run under
 torch.profiler (device busy time and idle share, top host ops and
 kernels), and one prefill and four decode steps of main path 4. With
@@ -288,7 +311,11 @@ def kernel_phase(torch, fb, cfg, out_rows):
     totals = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                   "library_ms": 0.0, "max_abs_err": 0.0} for k in KERNELS}
     pair = {"fwd_ms": 0.0, "fwd_library_ms": 0.0, "bwd_ms": 0.0,
-            "bwd_library_ms": 0.0}
+            "bwd_library_ms": 0.0, "bwd_library_same_ms": 0.0,
+            # the sites with neither ReLU nor residual, where PyTorch's
+            # sync-BN pieces compute what bn_bwd_sums / bn_bwd_dx do
+            "plain_sites_bwd_sums_ms": 0.0, "backward_reduce_ms": 0.0,
+            "plain_sites_bwd_dx_ms": 0.0, "backward_elemt_ms": 0.0}
     gen = torch.Generator(device=dev).manual_seed(0)
     for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         esize = 2 if dtype == torch.bfloat16 else 4
@@ -397,10 +424,25 @@ def kernel_phase(torch, fb, cfg, out_rows):
                     "bound_ms": nbytes[k] / HBM_BYTES_PER_S * 1e3,
                     "max_abs_err": errs[k],
                 }
+            # bn_stats against the one call that computes its mean and
+            # inverse std
+            row["bn_stats"]["batch_norm_stats_ms"] = time_ms(
+                torch, lambda: torch.batch_norm_stats(x, 1e-5))
             # the site pair against PyTorch's batch norm (training) forward
-            # and its backward, one call each
+            # and its backward, one call each; the backward also with the
+            # ReLU's threshold_backward in front at the ReLU sites (the
+            # library's version of the same function: the residual's
+            # gradient is the masked dy itself)
             _, smean, sinv = torch.ops.aten.native_batch_norm(
                 x, lw, lb, None, None, True, 0.1, 1e-5)
+
+            def bwd_same():
+                g = (torch.ops.aten.threshold_backward(dy, py, 0)
+                     if relu else dy)
+                return torch.ops.aten.native_batch_norm_backward(
+                    g, x, lw, None, None, smean, sinv, True, 1e-5,
+                    [True, True, True])
+
             row["pair"] = {
                 "fwd_ms": row["bn_stats"]["ms"] + row["bn_apply"]["ms"],
                 "fwd_library_ms": time_ms(
@@ -411,7 +453,20 @@ def kernel_phase(torch, fb, cfg, out_rows):
                     torch, lambda: torch.ops.aten.native_batch_norm_backward(
                         dy, x, lw, None, None, smean, sinv, True, 1e-5,
                         [True, True, True])),
+                "bwd_library_same_ms": time_ms(torch, bwd_same),
             }
+            if not relu and not res:
+                # the sync-BN pieces: S1 / S2, then dx
+                sdy, sdx, _, _ = torch.batch_norm_backward_reduce(
+                    dy, x, smean, sinv, scale, True, False, False)
+                cnt = torch.full((1,), rows, dtype=torch.int32, device=dev)
+                row["pair"].update(
+                    backward_reduce_ms=time_ms(
+                        torch, lambda: torch.batch_norm_backward_reduce(
+                            dy, x, smean, sinv, scale, True, False, False)),
+                    backward_elemt_ms=time_ms(
+                        torch, lambda: torch.batch_norm_backward_elemt(
+                            dy, x, smean, sinv, scale, sdy, sdx, cnt)))
             out_rows.append(row)
             log(f"  {dname:4s} rows={rows:7d} C={c:5d} relu={int(relu)} "
                 f"res={int(res)} x{count:2d}  " + "  ".join(
@@ -430,8 +485,15 @@ def kernel_phase(torch, fb, cfg, out_rows):
                         None if lib is None or totals[k]["library_ms"] is None
                         else totals[k]["library_ms"] + count * lib)
             if dname == "bf16":
+                totals["bn_stats"]["batch_norm_stats_ms"] = (
+                    totals["bn_stats"].get("batch_norm_stats_ms", 0.0)
+                    + count * row["bn_stats"]["batch_norm_stats_ms"])
+                pr = dict(row["pair"])
+                if "backward_reduce_ms" in pr:
+                    pr["plain_sites_bwd_sums_ms"] = row["bn_bwd_sums"]["ms"]
+                    pr["plain_sites_bwd_dx_ms"] = row["bn_bwd_dx"]["ms"]
                 for f in pair:
-                    pair[f] += count * row["pair"][f]
+                    pair[f] += count * pr.get(f, 0.0)
     return totals, pair
 
 
@@ -1102,6 +1164,48 @@ def lars_recipe(steps: int, steps_per_epoch: int):
         0.1
 
 
+DP_WORKERS = 4  # producer threads of the DP main paths
+
+
+def dp_setup(torch, cfg, steps: int, lars: bool = False,
+             sentinel: bool = False):
+    """Main path 2's pieces (main path 3's with ``lars``), through the
+    entry points a ``torchrun`` worker calls: (state, train_step, data,
+    put_batch, state_shardings, (eval_step, val_data, finalize))."""
+    from repro_torch.configs import InputConfig, OptimizerConfig
+    from repro_torch.launch.train import build_eval_setup, build_train_setup
+
+    input_cfg = InputConfig(fused=True, num_workers=DP_WORKERS)
+    opt_cfg, smoothing = (lars_recipe(steps, steps) if lars
+                          else (OptimizerConfig(), 0.0))
+    model, state, train_step, data, put_batch, shardings = \
+        build_train_setup(
+            cfg, global_batch=BATCH, seq_len=0, opt_cfg=opt_cfg,
+            steps_per_epoch=steps, dp_mode="shardmap",
+            compute_dtype=torch.bfloat16, use_fused_kernel=True,
+            compression="bf16+bucketed", fused_bn=True, input_cfg=input_cfg,
+            label_smoothing=smoothing, sentinel=sentinel, device="cuda")
+    evals = build_eval_setup(model, cfg, global_batch=BATCH, seq_len=0,
+                             dp_mode="shardmap", input_cfg=input_cfg)
+    return state, train_step, data, put_batch, shardings, evals
+
+
+def dp_want(calls: int, evals: int, n_leaves: int, lars: bool = False):
+    """Each kernel's launches on the DP main paths for ``calls`` train
+    steps and ``evals`` eval batches of ResNet-50's 53 BN sites."""
+    from repro_torch.kernels.fused_update import MAX_LEAVES
+    sites = 53
+    return {"bn_stats": sites * calls, "bn_bwd_sums": sites * calls,
+            "bn_bwd_dx": sites * calls, "bn_apply": (calls + evals) * sites,
+            "hybrid_update": 0 if lars else calls * -(-n_leaves
+                                                      // MAX_LEAVES),
+            "seg_sq_partials": calls if lars else 0,
+            "lars_update": calls if lars else 0,
+            "cast_copy": 2 * calls,  # one pack, one unpack per step
+            "input_train": calls, "input_eval": evals,
+            "flash_attention": 0, "rmsnorm": 0}
+
+
 def dp_main_path(torch, libs, cfg, steps: int, premade: bool = False,
                  lars: bool = False):
     """Main path 2: the paper's data-parallel step at world size 1 on
@@ -1112,25 +1216,12 @@ def dp_main_path(torch, libs, cfg, steps: int, premade: bool = False,
     stream through the stream-LARS kernels."""
     import torch.distributed as dist
 
-    from repro_torch.configs import InputConfig, OptimizerConfig
-    from repro_torch.kernels.fused_update import MAX_LEAVES
-    from repro_torch.launch.train import build_eval_setup, build_train_setup
     from repro_torch.training import Trainer, TrainerConfig
 
-    workers = 4
-    input_cfg = InputConfig(fused=True, num_workers=workers)
-    opt_cfg, smoothing = (lars_recipe(steps, steps) if lars
-                          else (OptimizerConfig(), 0.0))
+    workers = DP_WORKERS
     t0 = time.perf_counter()
-    model, state, train_step, data, put_batch, _ = build_train_setup(
-        cfg, global_batch=BATCH, seq_len=0, opt_cfg=opt_cfg,
-        steps_per_epoch=steps, dp_mode="shardmap",
-        compute_dtype=torch.bfloat16, use_fused_kernel=True,
-        compression="bf16+bucketed", fused_bn=True, input_cfg=input_cfg,
-        label_smoothing=smoothing, device="cuda")
-    eval_step, val_data, finalize = build_eval_setup(
-        model, cfg, global_batch=BATCH, seq_len=0, dp_mode="shardmap",
-        input_cfg=input_cfg)
+    state, train_step, data, put_batch, _, (eval_step, val_data, finalize) \
+        = dp_setup(torch, cfg, steps, lars=lars)
     assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
     n_leaves = len(state["params"])
     log(f"  setup {time.perf_counter() - t0:.1f}s: {n_leaves} parameter "
@@ -1161,15 +1252,7 @@ def dp_main_path(torch, libs, cfg, steps: int, premade: bool = False,
     check_state(torch, state, p0)
     sites, val = len(state["model_state"]), tcfg.val_batches
     assert sites == 53, sites
-    want = {"bn_stats": sites * steps, "bn_bwd_sums": sites * steps,
-            "bn_bwd_dx": sites * steps, "bn_apply": (steps + val) * sites,
-            "hybrid_update": 0 if lars else steps * -(-n_leaves
-                                                       // MAX_LEAVES),
-            "seg_sq_partials": steps if lars else 0,
-            "lars_update": steps if lars else 0,
-            "cast_copy": 2 * steps,  # one pack, one unpack per step
-            "input_train": steps, "input_eval": val,
-            "flash_attention": 0, "rmsnorm": 0}
+    want = dp_want(steps, val, n_leaves, lars)
     log(f"  launches {launches} (want {want}); batches staged "
         f"{put_batch.staged}")
     assert launches == want, (launches, want)
@@ -1286,6 +1369,262 @@ def lars_reference_phase(torch):
     return {"kernels_on_losses": l1, "plain_losses": lp,
             "loss_rel_diff": loss_rel, "param_rel_norm": rel,
             "repeat_bitwise": repeat}
+
+
+CKPT_STEPS, CKPT_EVERY = 6, 3  # phase 10: six steps, a save every three
+# phase 10b: a NaN batch at step 4 (skipped), the newest checkpoint torn
+# after the save at step 6, then NaN batches at 7 and 8: two bad steps in
+# a row roll back, past the torn step-6 checkpoint, to step 3
+SENTINEL_STEPS, SENTINEL_CHAOS = 9, "nan_grad@4,ckpt_truncate@6,nan_grad@7-8"
+
+
+def train_state_bits(state):
+    """Clones of every tensor of a main-path-2 train state (params,
+    ``delta``, ``m``, BN state) and the optimizer's ``step``."""
+    out = {"opt/step": state["opt"]["step"]}
+    for k, t in state["params"].items():
+        out["params/" + k] = t.clone()
+    for f in ("delta", "m"):
+        for k, t in state["opt"][f].items():
+            out[f"{f}/{k}"] = t.clone()
+    for site, rec in state["model_state"].items():
+        for k, t in rec.items():
+            out[f"bn/{site}/{k}"] = t.clone()
+    return out
+
+
+def bits_differ(torch, a, b):
+    """Names of the entries of two ``train_state_bits`` that are not
+    bitwise equal."""
+    assert a.keys() == b.keys()
+    return [k for k in a if not (a[k] == b[k] if k == "opt/step"
+                                 else torch.equal(a[k], b[k]))]
+
+
+def dp_trainer(torch, libs, cfg, steps: int, sentinel: bool = False,
+               train_step=None, **kw):
+    """A ``Trainer`` over ``steps`` steps of main path 2 and one eval
+    batch (``kw`` adds checkpointing, resilience or chaos), run with the
+    kernel counts set to 0 just before: (result, run wall s, launches,
+    state_shardings, the parameter count)."""
+    from repro_torch.training import Trainer, TrainerConfig
+
+    ckpt = {k: kw.pop(k) for k in ("checkpoint_dir", "checkpoint_every")
+            if k in kw}
+    state, step, data, put_batch, shardings, (ev, vd, fin) = dp_setup(
+        torch, cfg, steps, sentinel=sentinel)
+    tcfg = TrainerConfig(epochs=1, steps_per_epoch=steps,
+                         eval_every_epochs=1, val_batches=1, log_every=1,
+                         data_workers=DP_WORKERS, **ckpt)
+    trainer = Trainer(train_step(step) if train_step else step, state, data,
+                      tcfg, eval_step=ev, val_data=vd, finalize_state=fin,
+                      put_batch=put_batch, state_shardings=shardings,
+                      metadata={"arch": "resnet50",
+                                "optimizer": "rmsprop_warmup",
+                                "opt_layout": "tree"}, **kw)
+    torch.cuda.synchronize()
+    reset_counts(libs)
+    t0 = time.perf_counter()
+    result = trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return result, wall, read_counts(libs), shardings, len(state["params"])
+
+
+def median_step_ms(result) -> float:
+    return statistics.median(h["time"] for h in result.history[1:]) * 1e3
+
+
+def ckpt_phase(torch, libs, cfg):
+    """Phase 10: main path 2 with checkpoints, cuDNN held to
+    deterministic algorithms. Six steps with a save every three and one
+    eval batch (which also writes the best checkpoint); a fresh
+    ``Trainer`` then resumes from the step-3 checkpoint alone and runs
+    to 6: params, ``delta``, ``m``, BN state and ``opt.step`` bitwise
+    equal to the unbroken run. Also six steps with no checkpointing
+    (each run's launch counts checked), and the costs of a save and a
+    restore of the final state."""
+    import shutil
+    import tempfile
+
+    from repro_torch import interop
+    from repro_torch.checkpoint import (AsyncCheckpointer,
+                                        list_checkpoints, restore)
+    from repro_torch.checkpoint.checkpointer import ARRAYS, BEST_DIR
+
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        unbroken = os.path.join(root, "unbroken")
+        runs = {}
+        for name, kw in (("no_ckpt", {}),
+                         ("ckpt", dict(checkpoint_dir=unbroken,
+                                       checkpoint_every=CKPT_EVERY))):
+            res, wall, launches, shardings, n_leaves = dp_trainer(
+                torch, libs, cfg, CKPT_STEPS, **kw)
+            want = dp_want(CKPT_STEPS, 1, n_leaves)
+            assert launches == want, (name, launches, want)
+            runs[name] = {"median_step_ms": median_step_ms(res),
+                          "run_ms_per_step": wall / CKPT_STEPS * 1e3,
+                          "step_ms": [h["time"] * 1e3 for h in res.history],
+                          "losses": [h["loss"] for h in res.history]}
+            if name == "ckpt":
+                full = train_state_bits(res.state)
+                final = res.state
+            else:
+                del res
+        steps = list_checkpoints(unbroken)
+        best = list_checkpoints(os.path.join(unbroken, BEST_DIR))
+        assert steps == [CKPT_EVERY, CKPT_STEPS] and best == [CKPT_STEPS], \
+            (steps, best)
+        first = f"step_{CKPT_EVERY:010d}"
+        resumed_dir = os.path.join(root, "resumed")
+        shutil.copytree(os.path.join(unbroken, first),
+                        os.path.join(resumed_dir, first))
+        res, _, launches, _, n_leaves = dp_trainer(
+            torch, libs, cfg, CKPT_STEPS, checkpoint_dir=resumed_dir,
+            checkpoint_every=CKPT_EVERY)
+        want = dp_want(CKPT_STEPS - CKPT_EVERY, 1, n_leaves)
+        assert res.resumed_from == CKPT_EVERY, res.resumed_from
+        assert launches == want, ("resumed", launches, want)
+        differ = bits_differ(torch, full, train_state_bits(res.state))
+        log(f"  resumed from step {res.resumed_from}: losses "
+            f"{[h['loss'] for h in res.history]} vs unbroken "
+            f"{runs['ckpt']['losses'][CKPT_EVERY:]}; {len(full)} entries, "
+            f"{len(differ)} not bitwise equal {differ[:5]}")
+        assert not differ, differ
+        del res
+        # the costs of one save (snapshot on the loop's thread, then the
+        # background write) and one restore, at the final state
+        nbytes = os.path.getsize(os.path.join(unbroken, first, ARRAYS))
+        timing = os.path.join(root, "timing")
+        ck = AsyncCheckpointer(timing, keep=1)
+        snap, write, load = [], [], []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ck.save(100 + i, interop.train_state_to_jax(final, shardings))
+            t1 = time.perf_counter()
+            ck.wait()
+            t2 = time.perf_counter()
+            arrays, _ = restore(timing)
+            interop.train_state_from_jax(arrays, final, shardings)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            snap.append((t1 - t0) * 1e3)
+            write.append((t2 - t1) * 1e3)
+            load.append((t3 - t2) * 1e3)
+        assert not bits_differ(torch, full, train_state_bits(final))
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"checkpoint_bytes": nbytes, "entries": len(full),
+           "snapshot_ms": snap, "write_ms": write, "restore_ms": load,
+           "runs": runs, "resume_bitwise": True}
+    log(f"  checkpoint {nbytes} bytes; snapshot (loop thread blocked) "
+        f"{statistics.median(snap):.1f} ms, background write "
+        f"{statistics.median(write):.1f} ms, restore "
+        f"{statistics.median(load):.1f} ms (medians of 3: {snap}, {write}, "
+        f"{load})")
+    log(f"  median step {runs['ckpt']['median_step_ms']:.2f} ms with a save "
+        f"every {CKPT_EVERY} steps vs {runs['no_ckpt']['median_step_ms']:.2f}"
+        f" ms without; whole run {runs['ckpt']['run_ms_per_step']:.1f} vs "
+        f"{runs['no_ckpt']['run_ms_per_step']:.1f} ms a step (set-up step "
+        f"and eval included)")
+    return out
+
+
+def sentinel_phase(torch, libs, cfg):
+    """Phase 10b: main path 2 with the sentinel (``--sentinel``), chaos
+    ``SENTINEL_CHAOS`` and a save every three steps. Step 4's NaN batch
+    is skipped (the state after it bitwise the state after step 3, read
+    by a probe around the step); the NaN batches at 7 and 8 roll back,
+    past the checkpoint torn after the save at 6, to step 3; the run
+    completes, every call's kernels counted. Then six steps with the
+    sentinel on and no fault, for its cost beside phase 10's run without
+    it, and the device time of its state copy."""
+    import json
+    import shutil
+    import tempfile
+
+    from repro_torch.resilience import ResilienceConfig, parse_chaos
+    from repro_torch.resilience.sentinel import _in_place_tensors
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_sentinel_")
+    calls, probe = [], {}
+
+    def probed(step):
+        def run(state, batch, controls):
+            new, metrics = step(state, batch, controls)
+            i = len(calls)
+            calls.append(bool(metrics["bad_step"]))
+            if i in (3, 4):
+                probe[i] = train_state_bits(new)
+            return new, metrics
+        return run
+
+    try:
+        log_path = os.path.join(root, "events.jsonl")
+        res, _, launches, _, n_leaves = dp_trainer(
+            torch, libs, cfg, SENTINEL_STEPS, sentinel=True,
+            train_step=probed, checkpoint_dir=os.path.join(root, "ck"),
+            checkpoint_every=CKPT_EVERY,
+            resilience=ResilienceConfig(max_consecutive_bad=2,
+                                        event_log=log_path),
+            chaos=parse_chaos(SENTINEL_CHAOS))
+        kinds = [r["kind"] for r in res.events]
+        with open(log_path) as f:
+            on_disk = [json.loads(line)["kind"] for line in f]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"  events {kinds}")
+    log(f"  bad steps by call {calls}")
+    assert on_disk == kinds, (on_disk, kinds)
+    skipped = [r["step"] for r in res.events if r["kind"] == "step_skipped"]
+    rollbacks = [(r["from_step"], r["to_step"]) for r in res.events
+                 if r["kind"] == "rollback"]
+    corrupt = [r["step"] for r in res.events
+               if r["kind"] == "corrupt_checkpoint_skipped"]
+    assert calls[4] and not calls[3], calls
+    differ = bits_differ(torch, probe[3], probe[4])
+    assert not differ, ("the skipped step changed the state", differ)
+    assert skipped == [4, 7, 8] and rollbacks == [(8, CKPT_EVERY)] \
+        and corrupt == [6], (skipped, rollbacks, corrupt)
+    # 9 steps, then steps 3..8 again after the rollback
+    assert len(calls) == SENTINEL_STEPS + SENTINEL_STEPS - CKPT_EVERY, calls
+    want = dp_want(len(calls), 1, n_leaves)
+    assert launches == want, (launches, want)
+    losses = [h["loss"] for h in res.history]
+    assert res.history[-1]["step"] == SENTINEL_STEPS - 1 and all(
+        math.isfinite(v) for v in losses), res.history
+    state = res.state
+    del res
+    # the sentinel's own cost: its copy of the in-place state, timed on
+    # the device, and six steps with the sentinel on and no fault
+    live = _in_place_tensors(state)
+    backup = [torch.empty_like(t) for t in live]
+    copy_ms = time_eager_ms(torch,
+                            lambda: torch._foreach_copy_(backup, live))
+    copy_bytes = 2 * sum(t.numel() * t.element_size() for t in live)
+    del state, live, backup
+    res, wall, launches, _, n_leaves = dp_trainer(
+        torch, libs, cfg, CKPT_STEPS, sentinel=True,
+        resilience=ResilienceConfig())
+    assert launches == dp_want(CKPT_STEPS, 1, n_leaves), launches
+    out = {"events": kinds, "bad_by_call": calls, "skip_bitwise": True,
+           "rollbacks": rollbacks, "corrupt_skipped": corrupt,
+           "losses": losses, "copy_ms": copy_ms, "copy_bytes": copy_bytes,
+           "copy_bound_ms": copy_bytes / HBM_BYTES_PER_S * 1e3,
+           "sentinel_median_step_ms": median_step_ms(res),
+           "sentinel_run_ms_per_step": wall / CKPT_STEPS * 1e3}
+    log(f"  sentinel copy of the in-place state {copy_ms:.3f} ms on the "
+        f"device ({copy_bytes} bytes moved, bound "
+        f"{out['copy_bound_ms']:.3f} ms); median step with the sentinel on "
+        f"{out['sentinel_median_step_ms']:.2f} ms, whole run "
+        f"{out['sentinel_run_ms_per_step']:.1f} ms a step")
+    return out
 
 
 # (B, Sq, Sk, Hq, Hkv, Dh, causal, window) of phase 3d: the serving
@@ -1865,7 +2204,15 @@ def main() -> int:
     log(f"  per-step site pair (bf16): fwd {pair['fwd_ms']:.3f} ms vs "
         f"aten::native_batch_norm {pair['fwd_library_ms']:.3f} ms; bwd "
         f"{pair['bwd_ms']:.3f} ms vs its backward "
-        f"{pair['bwd_library_ms']:.3f} ms "
+        f"{pair['bwd_library_ms']:.3f} ms, with threshold_backward at the "
+        f"ReLU sites {pair['bwd_library_same_ms']:.3f} ms")
+    log(f"  bn_stats {totals['bn_stats']['ms']:.3f} ms vs "
+        f"torch.batch_norm_stats {totals['bn_stats']['batch_norm_stats_ms']:.3f}"
+        f" ms; at the sites without ReLU or residual: bn_bwd_sums "
+        f"{pair['plain_sites_bwd_sums_ms']:.3f} ms vs "
+        f"batch_norm_backward_reduce {pair['backward_reduce_ms']:.3f} ms, "
+        f"bn_bwd_dx {pair['plain_sites_bwd_dx_ms']:.3f} ms vs "
+        f"batch_norm_backward_elemt {pair['backward_elemt_ms']:.3f} ms "
         f"({time.perf_counter() - t0:.1f}s)")
 
     t0 = time.perf_counter()
@@ -1971,6 +2318,20 @@ def main() -> int:
             "error feedback, kernels on twice vs the plain stream update")
         ref3 = lars_reference_phase(torch)
         log(f"  ({time.perf_counter() - t0:.1f}s)")
+
+        t0 = time.perf_counter()
+        log(f"[10] main path 2 with checkpoints: {CKPT_STEPS} steps, a save "
+            f"every {CKPT_EVERY}, one eval batch (best checkpoint); resumed "
+            f"from step {CKPT_EVERY} by a fresh Trainer, bitwise against "
+            f"the unbroken run (cuDNN deterministic)")
+        ckpt_stats = ckpt_phase(torch, libs, cfg)
+        log(f"  ({time.perf_counter() - t0:.1f}s)")
+
+        t0 = time.perf_counter()
+        log(f"[10b] the sentinel on main path 2: chaos {SENTINEL_CHAOS!r}, "
+            f"a save every {CKPT_EVERY}, {SENTINEL_STEPS} steps")
+        sentinel_stats = sentinel_phase(torch, libs, cfg)
+        log(f"  ({time.perf_counter() - t0:.1f}s)")
     finally:
         shutdown()
 
@@ -2032,7 +2393,9 @@ def main() -> int:
                        "reference_3": ref3, "turns": turns,
                        "lm_kernels": lm_totals, "lm_cases": lm_cases,
                        "lm_grads": lm_grads, "launch_floor": floor,
-                       "main_path_4": stats4, "reference_4": ref4}, f,
+                       "main_path_4": stats4, "reference_4": ref4,
+                       "checkpoint": ckpt_stats,
+                       "sentinel": sentinel_stats}, f,
                       indent=1)
     log(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -2,21 +2,32 @@
 (hybrid RMSprop warm-up, slow-start LR, the bf16 gradient wire format,
 BN without moving averages, optionally the fused BN, update and input
 kernels) on synthetic data, with held-out validation at epoch
-boundaries. On one device (``--dp-mode none``), or data-parallel with
-one process per worker (``--dp-mode shardmap``, the paper's own run).
+boundaries (``--epochs``; without it, ``--steps`` steps of the
+step-driven ``run_training``, no eval). On one device (``--dp-mode
+none``), or data-parallel with one process per worker (``--dp-mode
+shardmap``, the paper's own run).
 ``--optimizer lars`` on the bucketed DP path runs LARS on the packed
-gradient stream (the stream-LARS kernels with ``--use-fused-kernel``):
+gradient stream (the stream-LARS kernels with ``--use-fused-kernel``).
+``--ckpt-dir`` checkpoints in the JAX package's format and resumes from
+the newest intact checkpoint; ``--sentinel`` adds the divergence
+sentinel and the recovery state machine, ``--chaos`` deterministic
+fault injection:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch resnet50 \\
         --reduced --epochs 2 --steps-per-epoch 5 --global-batch 16 \\
         --fused-bn --device cuda
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --dp-mode shardmap --compression bf16+bucketed --use-fused-kernel \\
-        --fused-input --fused-bn --data-workers 4 --compute-dtype bfloat16
+        --fused-input --fused-bn --data-workers 4 --compute-dtype bfloat16 \\
+        --epochs 1 --ckpt-dir /tmp/ck --ckpt-every 10
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
         --dp-mode shardmap --compression bf16+bucketed --optimizer lars \\
         --schedule poly --label-smoothing 0.1 --use-fused-kernel \\
         --error-feedback --device cuda
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
+        --epochs 3 --steps-per-epoch 5 --global-batch 16 --sentinel \\
+        --chaos "nan_grad@7-9" --ckpt-dir /tmp/ck --ckpt-every 5 \\
+        --event-log /tmp/events.jsonl --device cpu
 """
 from __future__ import annotations
 
@@ -45,11 +56,15 @@ from repro_torch.data.pipeline import (
 )
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed import init_workers, rank, shutdown, world_size
+from repro_torch.interop import WorkerSharding
 from repro_torch.kernels.ops import fused_input_eval
 from repro_torch.models import build_model, init_model_state
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.stream import make_stream_optimizer, zero_padded_total
-from repro_torch.training import Trainer, TrainerConfig
+from repro_torch.resilience import (ResilienceConfig, parse_chaos,
+                                    wrap_step_with_sentinel)
+from repro_torch.training import (LoopConfig, Trainer, TrainerConfig,
+                                  run_training)
 from repro_torch.training.step import (
     finalize_worker_bn_stats,
     make_batch_input_transform,
@@ -80,6 +95,7 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
                       fused_bn: bool = False,
                       label_smoothing: float = 0.0,
                       input_cfg: Optional[InputConfig] = None,
+                      sentinel: bool = False,
                       device: DeviceLike = "cuda"):
     """Returns (model, state, train_step, data, put_batch,
     state_shardings).
@@ -94,8 +110,18 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
     host_id=rank)``). ``put_batch`` is then the pipeline's device stage
     (pinned memory and a side stream on a card). ``state`` is
     ``{"params", "opt", "model_state"}``; its params are the model's
-    own parameters, updated in place. ``state_shardings`` is None:
-    nothing is sharded. ``seq_len`` is unused by the conv family.
+    own parameters, updated in place. ``state_shardings`` is
+    ``interop.WorkerSharding()`` on the data-parallel path (each worker
+    keeps its own BN state and EF residual; the checkpoints stack them
+    as the JAX package does) and None on one device. ``seq_len`` is
+    unused by the conv family.
+
+    ``sentinel`` wraps the step with the divergence sentinel
+    (``resilience.wrap_step_with_sentinel``): it becomes the
+    ``(state, batch, controls)`` step the ``Trainer``'s recovery state
+    machine drives. On one device this turns on the step's
+    ``grad_norm`` (one extra reduction); the data-parallel step reports
+    it already.
 
     LARS on the bucketed DP path is the packed-stream optimizer
     (``optim/stream.py``; its state is one flat padded ``delta``), as in
@@ -167,7 +193,10 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
         parallel=ParallelConfig(compression=compression,
                                 bucket_bytes=bucket_bytes, zero_1=False,
                                 error_feedback=error_feedback),
-        input=input_cfg, label_smoothing=label_smoothing)
+        input=input_cfg, label_smoothing=label_smoothing,
+        # the sentinel's whole-gradient health flag; the DP step
+        # reports the norm of the synced gradient anyway
+        log_grad_norm=sentinel and dp_mode != "shardmap")
     model = build_model(cfg, compute_dtype=compute_dtype, seed=seed,
                         device=dev)
     params = {k: p.detach() for k, p in model.named_parameters()}
@@ -186,13 +215,14 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
              "model_state": init_model_state(model)}
     if error_feedback:
         state["ef_residual"] = init_error_feedback(params)
-    put_batch = None
+    put_batch = shardings = None
     if dp_mode == "shardmap":
         transform = make_batch_input_transform(input_cfg, seed, model, me,
                                                world)
         train_step = make_dp_shardmap_train_step(
             model, optimizer, train_cfg, input_transform=transform)
         put_batch = make_put_batch(dev)
+        shardings = WorkerSharding()
         data = make_data(cfg, shape, seed=seed, num_hosts=world,
                          host_id=me)
     else:
@@ -201,9 +231,11 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
             cfg, shape, seed=seed,
             num_hosts=input_cfg.num_hosts if input_cfg else 1,
             host_id=input_cfg.host_id if input_cfg else 0)
+    if sentinel:
+        train_step = wrap_step_with_sentinel(train_step)
     data = _wrap_train_source(data, input_cfg, seed=seed,
                               global_batch=global_batch)
-    return model, state, train_step, data, put_batch, None
+    return model, state, train_step, data, put_batch, shardings
 
 
 def _wrap_train_source(data, input_cfg, *, seed, global_batch):
@@ -258,11 +290,23 @@ def build_eval_setup(model, cfg, *, global_batch: int, seq_len: int,
     return eval_step, val_data, finalize
 
 
+def _print_history(history) -> None:
+    for h in history:
+        print(f"  step {h['step']:5d} loss {h['loss']:.4f} "
+              f"({h['time'] * 1e3:.0f} ms, data wait "
+              f"{h['data_wait'] * 1e3:.1f} ms)")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="resnet50")
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--epochs", type=int, default=1)
+    ap.add_argument("--steps", type=int, default=50,
+                    help="step-driven run (no validation); ignored when "
+                         "--epochs is given")
+    ap.add_argument("--epochs", type=int, default=None,
+                    help="epoch-driven run: epochs*steps-per-epoch steps "
+                         "with held-out validation at epoch boundaries")
     ap.add_argument("--steps-per-epoch", type=int, default=20)
     ap.add_argument("--eval-every-epochs", type=int, default=1)
     ap.add_argument("--val-batches", type=int, default=4)
@@ -305,8 +349,29 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--compute-dtype", default="float32",
                     choices=sorted(DTYPES))
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory (the JAX package's format); "
+                         "a run resumes from its newest intact checkpoint")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--sentinel", action="store_true",
+                    help="divergence sentinel + recovery state machine: "
+                         "skip non-finite/spiking steps, roll back to the "
+                         "last good checkpoint after repeated bad steps "
+                         "(needs --epochs and, for rollback, --ckpt-dir)")
+    ap.add_argument("--chaos", default=None, metavar="SPEC",
+                    help="deterministic fault injection, e.g. "
+                         "'nan_grad@6,ckpt_truncate@10,seed=3' "
+                         "(resilience/chaos.py grammar; implies "
+                         "--sentinel)")
+    ap.add_argument("--event-log", default=None,
+                    help="JSONL path for resilience events")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.chaos:
+        args.sentinel = True
+    if args.sentinel and args.epochs is None:
+        ap.error("--sentinel/--chaos need the epoch-driven loop: "
+                 "pass --epochs")
     if args.comm_plan != "flat":
         raise _unported("hierarchical collective plans (--comm-plan)", 13)
 
@@ -317,17 +382,40 @@ def main(argv=None):
     input_cfg = (InputConfig(fused=True, num_workers=args.data_workers)
                  if args.fused_input else None)
     try:
-        model, state, train_step, data, put_batch, _ = build_train_setup(
-            cfg, global_batch=args.global_batch, seq_len=0,
-            opt_cfg=opt_cfg, steps_per_epoch=args.steps_per_epoch,
-            dp_mode=args.dp_mode, compute_dtype=DTYPES[args.compute_dtype],
-            seed=args.seed, use_fused_kernel=args.use_fused_kernel,
-            sync_bn=args.sync_bn, compression=args.compression,
-            bucket_bytes=args.bucket_mib * 1024 * 1024,
-            error_feedback=args.error_feedback,
-            overlap_comm=args.overlap_comm, zero_dp=args.zero,
-            fused_bn=args.fused_bn, label_smoothing=args.label_smoothing,
-            input_cfg=input_cfg, device=args.device)
+        model, state, train_step, data, put_batch, shardings = \
+            build_train_setup(
+                cfg, global_batch=args.global_batch, seq_len=0,
+                opt_cfg=opt_cfg, steps_per_epoch=args.steps_per_epoch,
+                dp_mode=args.dp_mode,
+                compute_dtype=DTYPES[args.compute_dtype], seed=args.seed,
+                use_fused_kernel=args.use_fused_kernel,
+                sync_bn=args.sync_bn, compression=args.compression,
+                bucket_bytes=args.bucket_mib * 1024 * 1024,
+                error_feedback=args.error_feedback,
+                overlap_comm=args.overlap_comm, zero_dp=args.zero,
+                fused_bn=args.fused_bn,
+                label_smoothing=args.label_smoothing, input_cfg=input_cfg,
+                sentinel=args.sentinel, device=args.device)
+        metadata = {"arch": args.arch, "optimizer": args.optimizer,
+                    "opt_layout": "tree"}
+        t0 = time.time()
+        if args.epochs is None:  # the step-driven run, no validation
+            result = run_training(
+                train_step, state, data,
+                LoopConfig(total_steps=args.steps,
+                           checkpoint_every=args.ckpt_every,
+                           checkpoint_dir=args.ckpt_dir,
+                           data_workers=args.data_workers,
+                           log_every=max(1, args.steps // 20)),
+                put_batch=put_batch, metadata=metadata,
+                state_shardings=shardings)
+            if rank() == 0:
+                print(f"trained {args.steps} steps in "
+                      f"{time.time() - t0:.1f}s on {model.device} "
+                      f"(dp_mode={args.dp_mode}, {world_size()} worker(s), "
+                      f"resumed_from={result.resumed_from})")
+                _print_history(result.history)
+            return result
         eval_step, val_data, finalize = build_eval_setup(
             model, cfg, global_batch=args.global_batch, seq_len=0,
             dp_mode=args.dp_mode, seed=args.seed, input_cfg=input_cfg)
@@ -335,21 +423,33 @@ def main(argv=None):
             epochs=args.epochs, steps_per_epoch=args.steps_per_epoch,
             eval_every_epochs=args.eval_every_epochs,
             val_batches=args.val_batches,
+            checkpoint_every=args.ckpt_every if args.ckpt_dir else 0,
+            checkpoint_dir=args.ckpt_dir,
             log_every=max(1, args.epochs * args.steps_per_epoch // 20),
             data_workers=args.data_workers)
-        t0 = time.time()
+        resilience = chaos = None
+        if args.sentinel:
+            resilience = ResilienceConfig(event_log=args.event_log)
+            if args.chaos:
+                chaos = parse_chaos(args.chaos, seed=args.seed)
         result = Trainer(train_step, state, data, tcfg, eval_step=eval_step,
                          val_data=val_data, finalize_state=finalize,
-                         put_batch=put_batch).run()
+                         put_batch=put_batch, metadata=metadata,
+                         state_shardings=shardings, resilience=resilience,
+                         chaos=chaos).run()
         wall = time.time() - t0
         if rank() == 0:
             print(f"trained {args.epochs} epochs x {args.steps_per_epoch} "
                   f"steps in {wall:.1f}s on {model.device} "
-                  f"(dp_mode={args.dp_mode}, {world_size()} worker(s))")
-            for h in result.history:
-                print(f"  step {h['step']:5d} loss {h['loss']:.4f} "
-                      f"({h['time'] * 1e3:.0f} ms, data wait "
-                      f"{h['data_wait'] * 1e3:.1f} ms)")
+                  f"(dp_mode={args.dp_mode}, {world_size()} worker(s), "
+                  f"resumed_from={result.resumed_from})")
+            if result.events:
+                kinds: Dict[str, int] = {}
+                for r in result.events:
+                    kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
+                print("resilience events: " + ", ".join(
+                    f"{k}={v}" for k, v in sorted(kinds.items())))
+            _print_history(result.history)
             for r in result.epoch_history:
                 print(f"  epoch {r['epoch']:3d} val top1 {r['top1']:.4f} "
                       f"val loss {r['loss']:.4f}")

@@ -99,7 +99,9 @@ def _grads_of(model, train_cfg: TrainConfig, params, mstate, mbatch):
 def make_train_step(model, optimizer: Optimizer, train_cfg: TrainConfig,
                     microbatches: int = 1):
     """Train step: (state, batch) -> (state', metrics), with
-    state = {"params", "opt", "model_state"}. ``microbatches`` > 1 splits
+    state = {"params", "opt", "model_state"}. ``train_cfg.log_grad_norm``
+    adds the norm of the (wire-cast) gradients as ``grad_norm``, as in
+    the JAX package. ``microbatches`` > 1 splits
     the batch's leading dim and accumulates the mean of the microbatch
     gradients (equal to the full-batch gradient for a mean loss); the BN
     state threads through the microbatches and the last one's is kept."""
@@ -136,6 +138,10 @@ def make_train_step(model, optimizer: Optimizer, train_cfg: TrainConfig,
             params, grads, state["opt"])
         metrics = dict(metrics)
         metrics.update(opt_metrics)
+        if train_cfg.log_grad_norm:
+            # opt-in: one extra reduction over every gradient (the
+            # sentinel's whole-gradient health flag)
+            metrics["grad_norm"] = global_norm(grads)
         new_state = {"params": new_params, "opt": new_opt,
                      "model_state": new_mstate}
         return new_state, metrics

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the fused-BN kernels, the stream-LARS segment norms, flash
 attention and RMSNorm, and bitwise the fused update, the LARS update,
-the wire cast and the fused input. Every test here is marked ``gpu`` and skips
+the wire cast and the fused input; checkpoints (a bitwise resume, a card
+checkpoint restored on the CPU) and the sentinel's skip on the DP path.
+Every test here is marked ``gpu`` and skips
 without a CUDA device. The file imports neither jax nor the JAX package, so it also
 runs on a machine that has only PyTorch:
 
@@ -535,3 +537,122 @@ def test_flash_attention_gradients_on_card(cuda, dt, dh):
     for a, b in zip(gk, gp):
         assert a is not None and bool(torch.isfinite(a).all())
         assert bool((a != 0).any()) and torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# checkpoints and the sentinel on the card (phase 10 / 10b of chip_smoke.py
+# at the reduced ResNet): every kernel of the DP path on, cuDNN held to
+# deterministic algorithms
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def dp_card(cuda, tmp_path):
+    from repro_torch.distributed import init_workers, shutdown
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    init_workers("cuda", init_method=f"file://{tmp_path}/store", rank=0,
+                 world_size=1)
+    yield tmp_path
+    shutdown()
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+
+
+def _dp_card_setup(sentinel=False, error_feedback=False):
+    from repro_torch.configs import (InputConfig, OptimizerConfig,
+                                     get_config, reduced_config)
+    from repro_torch.launch.train import build_train_setup
+    return build_train_setup(
+        reduced_config(get_config("resnet50")), global_batch=16, seq_len=0,
+        opt_cfg=OptimizerConfig(), steps_per_epoch=4, dp_mode="shardmap",
+        compute_dtype=torch.bfloat16, use_fused_kernel=True,
+        compression="bf16+bucketed", fused_bn=True,
+        error_feedback=error_feedback, sentinel=sentinel,
+        input_cfg=InputConfig(fused=True, num_workers=2), device="cuda")
+
+
+def _flat_state(state, shardings):
+    from repro_torch import interop
+    from repro_torch.checkpoint import checkpointer
+    return checkpointer._flatten(interop.train_state_to_jax(state,
+                                                            shardings))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("error_feedback", [False, True])
+def test_resume_bitwise_on_card(dp_card, error_feedback):
+    from repro_torch.checkpoint import list_checkpoints
+    from repro_torch.kernels import fused_update as tfu
+    from repro_torch.training import LoopConfig, run_training
+    ckdir = str(dp_card / "ck")
+
+    def run(total, directory=None):
+        _, state, step, data, put, sh = _dp_card_setup(
+            error_feedback=error_feedback)
+        res = run_training(step, state, data,
+                           LoopConfig(total_steps=total, checkpoint_every=3,
+                                      checkpoint_dir=directory, log_every=1),
+                           put_batch=put, state_shardings=sh)
+        return res, sh
+
+    ref, sh = run(6)
+    run(3, ckdir)
+    tfu.reset_launch_counts()
+    res, _ = run(6, ckdir)
+    torch.cuda.synchronize()
+    assert res.resumed_from == 3 and list_checkpoints(ckdir) == [3, 6]
+    assert tfu.LAUNCHES["hybrid_update"] == 3
+    a, b = _flat_state(ref.state, sh), _flat_state(res.state, sh)
+    assert a.keys() == b.keys()
+    for k in a:
+        assert a[k].tobytes() == b[k].tobytes(), k
+
+
+@pytest.mark.gpu
+def test_sentinel_skips_nan_batch_bitwise_on_card(dp_card):
+    import numpy as np
+
+    from repro_torch.resilience import sentinel_controls
+    _, state, step, data, put, sh = _dp_card_setup(sentinel=True,
+                                                   error_feedback=True)
+    state, m = step(state, put(data.batch_at(0)).take(), sentinel_controls())
+    assert not m["bad_step"] and state["opt"]["step"] == 1
+    before = _flat_state(state, sh)
+    batch = dict(data.batch_at(1))
+    images = np.array(batch["images"])
+    images.reshape(-1)[11] = np.nan
+    batch["images"] = images
+    state, m = step(state, put(batch).take(), sentinel_controls())
+    assert m["bad_step"] and m["nonfinite_step"]
+    assert state["opt"]["step"] == 1
+    after = _flat_state(state, sh)
+    for k in before:
+        assert before[k].tobytes() == after[k].tobytes(), k
+
+
+@pytest.mark.gpu
+def test_card_checkpoint_restores_on_the_cpu_bitwise(dp_card):
+    from repro_torch import interop
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.configs import (OptimizerConfig, get_config,
+                                     reduced_config)
+    from repro_torch.launch.train import build_train_setup
+    _, state, step, data, put, sh = _dp_card_setup(error_feedback=True)
+    for i in range(2):
+        state, _ = step(state, put(data.batch_at(i)).take())
+    save(str(dp_card / "ck"), 2, interop.train_state_to_jax(state, sh))
+    _, cpu_state, *_ = build_train_setup(
+        reduced_config(get_config("resnet50")), global_batch=16, seq_len=0,
+        opt_cfg=OptimizerConfig(), steps_per_epoch=4, device="cpu")
+    arrays, _ = restore(str(dp_card / "ck"))
+    interop.train_state_from_jax(arrays, cpu_state, sh)  # worker 0's row
+    assert cpu_state["opt"]["step"] == 2
+    for name, t in state["params"].items():
+        assert torch.equal(cpu_state["params"][name], t.cpu()), name
+    for f in ("delta", "m"):
+        for name, t in state["opt"][f].items():
+            assert torch.equal(cpu_state["opt"][f][name], t.cpu()), name
+    for site, rec in state["model_state"].items():
+        for k, t in rec.items():
+            assert torch.equal(cpu_state["model_state"][site][k], t.cpu())

@@ -194,9 +194,11 @@ def test_unported_options_raise():
         tc, **{**kw, "opt_cfg": TOpt(kind="lars")})
     assert set(st["opt"]) == {"step", "delta"}
     assert st["opt"]["delta"].keys() == st["params"].keys()
+    # checkpointing and the resilience machinery are ported: the
+    # Trainer takes them
     _, state, step, data, _, _ = tlaunch.build_train_setup(tc, **kw)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TTrainer(step, state, data, TTCfg(checkpoint_dir="ck"))
+    TTrainer(step, state, data, TTCfg(checkpoint_dir="ck"),
+             resilience=object(), chaos=object())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tlaunch.build_train_setup(tc, **{**kw, "device": "cuda"})
