@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Variants of the port's ``bn_stats`` and ``cast_copy`` kernels on one
-card: their launch parameters, and ``bn_stats``'s chunking.
+"""Variants of the port's ``bn_stats``, ``bn_bwd_dx`` and ``cast_copy``
+kernels on one card: their launch parameters, and ``bn_stats``'s
+chunking.
 
-    python3 bn_cast_variants.py [--out DIR]
+    python3 bn_cast_variants.py [--out DIR] [--only KERNEL ...]
 
 Builds copies of ``src/repro_torch/kernels/csrc/fused_bn.cu`` and
 ``bucket_ops.cu`` that each differ from the source in its tuning
@@ -21,6 +22,13 @@ them through the same C interface:
              and summed per train step (53 sites), each result held
              against the plain version as ``chip_smoke.py``'s phase 3
              holds it;
+  bn_bwd_dx  kDxThreads (threads a block), kDxMinBlocks (the blocks per
+             SM its registers are cut for), kDxUnroll (rows a batch; a
+             thread has two batches in flight) and kDxStreaming
+             (evict-first stores of dx and dres), timed at every bf16 BN-site shape of ResNet-50 at
+             batch 32 and summed per train step (53 sites), each result
+             bitwise against the plain version, as ``chip_smoke.py``'s
+             phase 3 holds it;
   cast_copy  kCastUnroll (groups a thread has in flight) and kStreaming
              (evict-first loads and stores), timed as one pack and one
              unpack of ResNet-50's 25.56 M-element stream in bf16, each
@@ -40,7 +48,9 @@ IEEE division there, ``__fdiv_rn`` per channel, took ~4 us at the
 
 Every time is a CUDA-graph replay (``chip_smoke.time_ms``), the variants
 in turns, forward then reverse; ptxas's registers and spills are printed
-beside each. Needs one CUDA card and nvcc; exits non-zero without them.
+beside each. ``--only`` builds and times the named kernels alone (all
+three by default). Needs one CUDA card and nvcc; exits non-zero without
+them.
 """
 from __future__ import annotations
 
@@ -96,6 +106,15 @@ DIAGNOSTICS = {
     "final_no_scale": [(FINAL_DIV, "      var[c0 + j] = q[j];\n")],
     "no_fence": [(f, "") for f in FENCES],
 }
+DX_KNOBS = ("kDxThreads", "kDxMinBlocks", "kDxUnroll", "kDxStreaming")
+# (kDxThreads, kDxMinBlocks, kDxUnroll, kDxStreaming); the first is the
+# source as it stands
+DX_VARIANTS = [(128, 2, 4, "true"), (128, 2, 4, "false"),
+               (256, 1, 4, "true"), (128, 2, 3, "true"),
+               (64, 4, 4, "true"), (128, 2, 2, "true"),
+               (256, 2, 2, "true"), (128, 3, 2, "true"),
+               (128, 1, 8, "true")]
+KERNELS = ("bn_stats", "bn_bwd_dx", "cast_copy")
 # (kCastUnroll, kStreaming); the first is the source as it stands
 CAST_VARIANTS = [(2, "true"), (1, "false"), (1, "true"), (2, "false"),
                  (4, "true")]
@@ -131,7 +150,8 @@ def build(build_dir: str, name: str, src: str):
     info, kernel = {}, None
     for line in res.stderr.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"(stats_kernel|cast_kernel)(\w+)'", line)
+            m = re.search(r"(stats_kernel|dx_kernel|cast_kernel)(\w+)'",
+                          line)
             kernel = m.group(1) + m.group(2)[:24] if m else None
             if kernel:
                 info[kernel] = {}
@@ -173,66 +193,9 @@ def chunks_for(rows: int, c: int, esize: int, threads: int, chunking):
             setattr(fb, k, v)
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default=None,
-                    help="directory for bn_cast_variants.json")
-    args = ap.parse_args()
-    import torch
-    if not torch.cuda.is_available():
-        print("bn_cast_variants: no CUDA device is available",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import _build
-    from repro_torch.kernels import bucket_ops as bo
+def stats_section(torch, built, cfg, record):
+    """bn_stats: every variant x chunking at every site, in turns."""
     from repro_torch.kernels import fused_bn as fb
-    cfg = get_config("resnet50")
-    bn_src = (_build.CSRC / "fused_bn.cu").read_text()
-    cast_src = (_build.CSRC / "bucket_ops.cu").read_text()
-    as_is = tuple(int(re.search(r"= (\d+);", knob_line(k, bn_src)).group(1))
-                  for k in BN_KNOBS)
-    cast_as_is = tuple(re.search(r"= (\w+);", knob_line(k, cast_src))
-                       .group(1) for k in CAST_KNOBS)
-    if as_is != BN_VARIANTS[0] or (str(cast_as_is[0]), cast_as_is[1]) != \
-            tuple(map(str, CAST_VARIANTS[0])):
-        raise RuntimeError(f"the sources' knobs are {as_is} and "
-                           f"{cast_as_is}: update the first variants")
-    if tuple(getattr(fb, k) for k in CHUNK_KNOBS) != CHUNKINGS[0] \
-            or fb._STATS_THREADS != BN_VARIANTS[0][0]:
-        raise RuntimeError("fused_bn.stats_chunks changed: update "
-                           "CHUNKINGS[0]")
-    build_dir = str(_build.BUILD_DIR / "variants")
-    os.makedirs(build_dir, exist_ok=True)
-    card = cs.nvidia_smi_line()
-    print(f"card: {card}")
-
-    sources = {}
-    for v in BN_VARIANTS:
-        sources["bn_" + "_".join(map(str, v))] = with_knobs(
-            bn_src, dict(zip(BN_KNOBS, v)))
-    for name, edits in DIAGNOSTICS.items():
-        src = bn_src
-        for anchor, new in edits:
-            if anchor not in src:
-                raise RuntimeError(f"fused_bn.cu no longer holds {anchor!r}: "
-                                   f"update bn_cast_variants.py")
-            src = src.replace(anchor, new, 1)
-        sources["diag_" + name] = src
-    for v in CAST_VARIANTS:
-        sources["cast_" + "_".join(map(str, v))] = with_knobs(
-            cast_src, dict(zip(CAST_KNOBS, v)))
-    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
-        futures = {n: pool.submit(build, build_dir, n, s)
-                   for n, s in sources.items()}
-        built = {n: f.result() for n, f in futures.items()}
-    record = {"card": card, "ptxas": {n: b[1] for n, b in built.items()},
-              "bn_stats": {}, "cast_copy": {}}
-    for n, (_, info) in built.items():
-        print(f"{n}: {info}")
-
-    # ---- bn_stats: every variant x chunking at every site, in turns
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     fns = {n: bind(lib, "bn_stats", fb._LIB.signatures["bn_stats"])
@@ -310,7 +273,12 @@ def main() -> int:
         print(f"bn_stats {k}: {t:.4f} ms per step")
     record["bn_stats"] = {"per_step_ms": totals, "sites": per_step}
 
-    # ---- cast_copy: pack + unpack of the whole stream, in turns
+
+def cast_section(torch, built, cfg, record):
+    """cast_copy: pack + unpack of the whole stream, in turns."""
+    from repro_torch.kernels import bucket_ops as bo
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
     total = sum(p.numel() for p in cs.model_params(cfg).values())
     x = torch.randn(total, generator=gen, device=dev)
     w = x.bfloat16()
@@ -351,6 +319,154 @@ def main() -> int:
             + " ms")
     record["cast_copy"] = {"variants": ctimes, "tensor_to": lib,
                            "bound_ms": bound_ms}
+
+
+def dx_section(torch, built, cfg, record):
+    """bn_bwd_dx: every variant at every bf16 site shape, in turns, each
+    result bitwise against the plain version."""
+    from collections import Counter
+
+    from repro_torch.kernels import fused_bn as fb
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    fns = {n: bind(lib, "bn_bwd_dx", fb._LIB.signatures["bn_bwd_dx"])
+           for n, (lib, _) in built.items() if n.startswith("dx_")}
+    shapes = sorted(Counter((rows, c, relu, res) for _, rows, c, relu, res
+                            in cs.bn_sites(cfg, cs.BATCH)).items())
+    per_step = {n: [] for n in fns}
+    for (rows, c, relu, res), count in shapes:
+        def rnd(*shape, dt=torch.bfloat16):
+            return (torch.randn(*shape, generator=gen, device=dev) * 2
+                    + 0.5).to(dt)
+
+        x, dy = rnd(rows, c), rnd(rows, c)
+        scale = 1 + 0.1 * rnd(c, dt=torch.float32)
+        bias = 0.1 * rnd(c, dt=torch.float32)
+        mean, var = fb.PLAIN["bn_stats"](x)
+        rstd = torch.rsqrt(var + 1e-5)
+        a = rstd * scale
+        y = fb.PLAIN["bn_apply"](x, a, bias - mean * a, None, relu)
+        s1, s2 = fb.PLAIN["bn_bwd_sums"](dy, x, y, mean, rstd, relu)
+        args = (dy, x, y, mean, rstd, scale, s1, s2, None, None, 1.0 / rows,
+                relu, res)
+        want = fb.PLAIN["bn_bwd_dx"](*args)
+        dx = torch.empty_like(x)
+        dres = torch.empty_like(x) if res else None
+        times = {}
+        for turn in (list(fns), list(fns)[::-1]):
+            for n in turn:
+                def call(fn=fns[n]):
+                    err = fn(dy.data_ptr(), x.data_ptr(),
+                             y.data_ptr() if relu else None, mean.data_ptr(),
+                             rstd.data_ptr(), scale.data_ptr(),
+                             s1.data_ptr(), s2.data_ptr(), None, None,
+                             1.0 / rows, dx.data_ptr(),
+                             dres.data_ptr() if res else None, rows, c, 1,
+                             int(relu), torch.cuda.current_stream()
+                             .cuda_stream)
+                    if err:
+                        raise RuntimeError(f"{n}: CUDA error {err}")
+
+                dx.zero_()
+                call()
+                torch.cuda.synchronize()
+                if not torch.equal(dx, want[0]) or (
+                        res and not torch.equal(dres, want[1])):
+                    raise AssertionError(f"{n} rows={rows} C={c}: not "
+                                         f"bitwise equal to the plain version")
+                times.setdefault(n, []).append(cs.time_ms(torch, call))
+        for n, ts in times.items():
+            per_step[n].append({"rows": rows, "C": c, "relu": relu,
+                                "residual": res, "sites": count, "ms": ts})
+        nbytes = cs.site_bytes(rows, c, 2, relu, res)["bn_bwd_dx"]
+        first = list(fns)[0]
+        best = min(times, key=lambda k: min(times[k]))
+        print(f"  rows={rows:7d} C={c:5d} relu={int(relu)} res={int(res)} "
+              f"x{count:2d}: as is {min(times[first]) * 1e3:6.2f} us, best "
+              f"{best} {min(times[best]) * 1e3:6.2f} us (bound "
+              f"{nbytes / cs.HBM_BYTES_PER_S * 1e6:6.2f})")
+        del x, dy, y, dx, dres, want
+    totals = {k: sum(r["sites"] * min(r["ms"]) for r in v)
+              for k, v in per_step.items()}
+    for k, t in sorted(totals.items(), key=lambda kv: kv[1]):
+        print(f"bn_bwd_dx {k}: {t:.4f} ms per step")
+    record["bn_bwd_dx"] = {"per_step_ms": totals, "sites": per_step}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=None,
+                    help="directory for bn_cast_variants.json")
+    ap.add_argument("--only", nargs="+", choices=KERNELS, default=KERNELS,
+                    help="the kernels to build variants of and time")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("bn_cast_variants: no CUDA device is available",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_bn as fb
+    cfg = get_config("resnet50")
+    bn_src = (_build.CSRC / "fused_bn.cu").read_text()
+    cast_src = (_build.CSRC / "bucket_ops.cu").read_text()
+    as_is = tuple(int(re.search(r"= (\d+);", knob_line(k, bn_src)).group(1))
+                  for k in BN_KNOBS)
+    dx_as_is = tuple(re.search(r"= (\w+);", knob_line(k, bn_src)).group(1)
+                     for k in DX_KNOBS)
+    cast_as_is = tuple(re.search(r"= (\w+);", knob_line(k, cast_src))
+                       .group(1) for k in CAST_KNOBS)
+    if as_is != BN_VARIANTS[0] or (str(cast_as_is[0]), cast_as_is[1]) != \
+            tuple(map(str, CAST_VARIANTS[0])) or \
+            dx_as_is != tuple(map(str, DX_VARIANTS[0])):
+        raise RuntimeError(f"the sources' knobs are {as_is}, {dx_as_is} and "
+                           f"{cast_as_is}: update the first variants")
+    if tuple(getattr(fb, k) for k in CHUNK_KNOBS) != CHUNKINGS[0] \
+            or fb._STATS_THREADS != BN_VARIANTS[0][0]:
+        raise RuntimeError("fused_bn.stats_chunks changed: update "
+                           "CHUNKINGS[0]")
+    build_dir = str(_build.BUILD_DIR / "variants")
+    os.makedirs(build_dir, exist_ok=True)
+    card = cs.nvidia_smi_line()
+    print(f"card: {card}")
+
+    sources = {}
+    if "bn_stats" in args.only:
+        for v in BN_VARIANTS:
+            sources["bn_" + "_".join(map(str, v))] = with_knobs(
+                bn_src, dict(zip(BN_KNOBS, v)))
+        for name, edits in DIAGNOSTICS.items():
+            src = bn_src
+            for anchor, new in edits:
+                if anchor not in src:
+                    raise RuntimeError(f"fused_bn.cu no longer holds "
+                                       f"{anchor!r}: update "
+                                       f"bn_cast_variants.py")
+                src = src.replace(anchor, new, 1)
+            sources["diag_" + name] = src
+    if "bn_bwd_dx" in args.only:
+        for v in DX_VARIANTS:
+            sources["dx_" + "_".join(map(str, v))] = with_knobs(
+                bn_src, dict(zip(DX_KNOBS, v)))
+    if "cast_copy" in args.only:
+        for v in CAST_VARIANTS:
+            sources["cast_" + "_".join(map(str, v))] = with_knobs(
+                cast_src, dict(zip(CAST_KNOBS, v)))
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        futures = {n: pool.submit(build, build_dir, n, s)
+                   for n, s in sources.items()}
+        built = {n: f.result() for n, f in futures.items()}
+    record = {"card": card, "ptxas": {n: b[1] for n, b in built.items()}}
+    for n, (_, info) in built.items():
+        print(f"{n}: {info}")
+    if "bn_stats" in args.only:
+        stats_section(torch, built, cfg, record)
+    if "bn_bwd_dx" in args.only:
+        dx_section(torch, built, cfg, record)
+    if "cast_copy" in args.only:
+        cast_section(torch, built, cfg, record)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "bn_cast_variants.json"), "w") as f:

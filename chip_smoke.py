@@ -9,8 +9,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
      nvcc per source, all started together);
   3. kernels: each of the four fused-BN kernels against its plain
-     PyTorch version on the card (``bn_apply`` bitwise, ``bn_stats`` the
-     same bits on a second launch), at every BN-site shape of ResNet-50
+     PyTorch version on the card (``bn_apply`` and ``bn_bwd_dx``
+     bitwise, ``bn_bwd_dx`` also with non-zero mean / var cotangents and
+     in given-stats mode, ``bn_stats`` the same bits on a second launch),
+     at every BN-site shape of ResNet-50
      at batch 32 (stem 401,408 x 64 down to stage 3 1,568 x 2,048), in
      bf16 and f32, with kernel, plain and library times (CUDA events)
      and the HBM-bytes bound of each shape; the library yardsticks are
@@ -19,7 +21,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      ``aten::native_batch_norm`` and its backward (also with
      ``threshold_backward`` in front at the ReLU sites), and at the
      sites with neither ReLU nor residual ``bn_bwd_sums`` / ``bn_bwd_dx``
-     against ``torch.batch_norm_backward_reduce`` / ``_elemt``;
+     against ``torch.batch_norm_backward_reduce`` / ``_elemt`` (given
+     the same sums); and whether ATen's division of a CUDA tensor by a
+     Python float is a true division (logged);
   3b. the fused update, the wire cast and the fused input kernels against
      their plain versions, bitwise: ``hybrid_update`` for one leaf at
      every distinct ResNet-50 leaf size and the whole 25.56 M-element
@@ -71,7 +75,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      px), global batch 32, bf16, fused BN, rmsprop_warmup + slow_start,
      bf16 wire cast, driven by the ``Trainer`` for one epoch of 8
      steps and one eval batch; launch counts must be 53 per
-     train step (and 53 more per eval batch for bn_apply);
+     train step (and 53 more per eval batch for bn_apply), and one more
+     step under torch.profiler must run two ``bn_bwd_sums`` kernels and
+     one ``bn_bwd_dx`` kernel per BN site (the same in 6 and 8);
   5. reference: the reduced ResNet in f32 on the card, fused kernels vs
      the unfused plain path, three steps from the same seed;
   6. main path 2, the paper's data-parallel step at world size 1 (NCCL):
@@ -198,9 +204,8 @@ UPDATE_FLOPS, INPUT_FLOPS = 15, 2
 # LARS update g + wd*p (2), mu1*d, t*g', their difference, eta*d', p + .
 SEG_SQ_FLOPS, LARS_FLOPS = 6, 7
 BUCKET_BYTES = 64 * 1024 * 1024
-# kernel vs plain, |k - p| <= atol + rtol * |p| elementwise; the sums are
-# held relative to the sum of the magnitudes they add (reduction order)
-TOL = {"f32": dict(rtol=1e-5, atol=1e-5), "bf16": dict(rtol=1e-2, atol=2e-2)}
+# the sums are held relative to the sum of the magnitudes they add
+# (reduction order); bn_apply and bn_bwd_dx bitwise
 SUM_TOL = 1e-5
 
 
@@ -295,6 +300,7 @@ def site_bytes(rows: int, c: int, esize: int, relu: bool, res: bool):
         "bn_stats": act + 2 * c * 4,
         "bn_apply": act * (2 + res) + 4 * c * 4,
         "bn_bwd_sums": act * (2 + relu) + 4 * c * 4,
+        # mu, rstd, scale, s1, s2 (no mean / var cotangents on the path)
         "bn_bwd_dx": act * (3 + relu + res) + 5 * c * 4,
     }
 
@@ -337,11 +343,16 @@ def kernel_phase(torch, fb, cfg, out_rows):
             py = fb.PLAIN["bn_apply"](x, a, o, r, relu)
             s1, s2 = fb.bn_bwd_sums(dy, x, py, pmean, rstd, relu)
             p1, p2 = fb.PLAIN["bn_bwd_sums"](dy, x, py, pmean, rstd, relu)
-            cb, cc = a * p1 / rows, a * p2 / rows
-            dx, dres = fb.bn_bwd_dx(dy, x, py, pmean, rstd, a, cb, cc, relu,
-                                    res)
-            pdx, pdres = fb.PLAIN["bn_bwd_dx"](dy, x, py, pmean, rstd, a, cb,
-                                               cc, relu, res)
+            inv_m = 1.0 / rows
+            dx_args = (dy, x, py, pmean, rstd, scale, p1, p2, None, None,
+                       inv_m, relu, res)
+            # the same site with mean / var cotangents, and given stats
+            dx_cases = {"": dx_args,
+                        " cotangents": dx_args[:8] + (
+                            rnd(c, dt=torch.float32),
+                            rnd(c, dt=torch.float32)) + dx_args[10:],
+                        " given stats": dx_args[:6] + (None,) * 4
+                        + dx_args[10:]}
             torch.cuda.synchronize()
             # --- hold each kernel against its plain version
             x32 = x.float()
@@ -378,18 +389,21 @@ def kernel_phase(torch, fb, cfg, out_rows):
                     f" to its plain version (max error "
                     f"{(y.float() - py.float()).abs().max().item():.3g})")
             errs["bn_apply"] = 0.0
-            for name, got, want in (("bn_bwd_dx", dx, pdx),
-                                    ("bn_bwd_dx dres", dres, pdres)):
-                if got is None:
-                    continue
-                torch.testing.assert_close(
-                    got.float(), want.float(), **TOL[dname],
-                    msg=lambda m, n=name: f"{n} {dname} rows={rows} C={c}: "
-                    f"{m}")
-                key = name.split()[0]
-                errs[key] = max(errs.get(key, 0.0),
-                                (got.float() - want.float()).abs().max()
-                                .item())
+            # so does bn_bwd_dx, its coefficients included
+            for case, args in dx_cases.items():
+                got = fb.bn_bwd_dx(*args)
+                want = fb.PLAIN["bn_bwd_dx"](*args)
+                for name, g, w in (("dx", got[0], want[0]),
+                                   ("dres", got[1], want[1])):
+                    if (g is None) != (w is None) or (
+                            g is not None and not torch.equal(g, w)):
+                        err = (g.float() - w.float()).abs().max().item() \
+                            if g is not None and w is not None else None
+                        raise AssertionError(
+                            f"bn_bwd_dx {name}{case} {dname} rows={rows} "
+                            f"C={c}: not bitwise equal to its plain version "
+                            f"(max error {err})")
+            errs["bn_bwd_dx"] = 0.0
             # --- times: kernel, plain version, library yardstick
             calls = {
                 "bn_stats": (lambda: fb.bn_stats(x),
@@ -403,11 +417,8 @@ def kernel_phase(torch, fb, cfg, out_rows):
                     lambda: fb.bn_bwd_sums(dy, x, py, pmean, rstd, relu),
                     lambda: fb.PLAIN["bn_bwd_sums"](dy, x, py, pmean, rstd,
                                                     relu), None),
-                "bn_bwd_dx": (
-                    lambda: fb.bn_bwd_dx(dy, x, py, pmean, rstd, a, cb, cc,
-                                         relu, res),
-                    lambda: fb.PLAIN["bn_bwd_dx"](dy, x, py, pmean, rstd, a,
-                                                  cb, cc, relu, res), None),
+                "bn_bwd_dx": (lambda: fb.bn_bwd_dx(*dx_args),
+                              lambda: fb.PLAIN["bn_bwd_dx"](*dx_args), None),
             }
             # the yardsticks take their per-channel vectors in x's dtype
             lw, lb, lm, lv = (t.to(dtype) for t in (scale, bias, pmean,
@@ -456,9 +467,10 @@ def kernel_phase(torch, fb, cfg, out_rows):
                 "bwd_library_same_ms": time_ms(torch, bwd_same),
             }
             if not relu and not res:
-                # the sync-BN pieces: S1 / S2, then dx
-                sdy, sdx, _, _ = torch.batch_norm_backward_reduce(
-                    dy, x, smean, sinv, scale, True, False, False)
+                # the sync-BN pieces: S1 / S2, then dx from the same sums
+                # bn_bwd_dx is given (sum_dy_xmu = S2 / rstd) and the same
+                # mean, inverse std and weight
+                sdy, sdx = p1, p2 / rstd
                 cnt = torch.full((1,), rows, dtype=torch.int32, device=dev)
                 row["pair"].update(
                     backward_reduce_ms=time_ms(
@@ -466,7 +478,7 @@ def kernel_phase(torch, fb, cfg, out_rows):
                             dy, x, smean, sinv, scale, True, False, False)),
                     backward_elemt_ms=time_ms(
                         torch, lambda: torch.batch_norm_backward_elemt(
-                            dy, x, smean, sinv, scale, sdy, sdx, cnt)))
+                            dy, x, pmean, rstd, scale, sdy, sdx, cnt)))
             out_rows.append(row)
             log(f"  {dname:4s} rows={rows:7d} C={c:5d} relu={int(relu)} "
                 f"res={int(res)} x{count:2d}  " + "  ".join(
@@ -495,6 +507,26 @@ def kernel_phase(torch, fb, cfg, out_rows):
                 for f in pair:
                     pair[f] += count * pr.get(f, 0.0)
     return totals, pair
+
+
+def division_check(torch, n: int = 1 << 20):
+    """How ATen divides a CUDA f32 tensor by a Python float m (why
+    ``bn_bwd_dx`` takes 1 / m from the host, as its plain version on
+    the CPU does): the elements whose bits differ from t * f32(1 / m)
+    and from the true division t / m (by a tensor of m), at m = 401,408
+    (the stem's rows) and 1,568."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    t = torch.randn(n, generator=gen, device="cuda")
+    out = {}
+    for m in (401408, 1568):
+        by_scalar = t / float(m)
+        out[m] = {
+            "differs_from_times_reciprocal": int(
+                (by_scalar != t * (1.0 / m)).sum()),
+            "differs_from_true_division": int(
+                (by_scalar != t / torch.full_like(t, m)).sum()),
+            "elements": n}
+    return out
 
 
 def bound(nbytes: float, flops: float):
@@ -1034,6 +1066,8 @@ def main_path(torch, libs, cfg, steps: int):
                 bn_apply=sites * steps + sites * tcfg.val_batches)
     log(f"  launches {launches} (want {want})")
     assert launches == want, (launches, want)
+    state, step_kernels = backward_kernel_check(torch, train_step, state,
+                                                data, sites)
     ev = result.epoch_history[-1]
     assert math.isfinite(ev["loss"]) and 0.0 <= ev["top1"] <= 1.0, ev
     step_s = [h["time"] - h["data_wait"] for h in result.history[1:]]
@@ -1048,12 +1082,44 @@ def main_path(torch, libs, cfg, steps: int):
              "data_ms_median": statistics.median(
                  h["data_wait"] for h in result.history) * 1e3,
              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "kernels_in_a_step": step_kernels,
              "eval": {k: ev[k] for k in ("top1", "loss")}}
     log(f"  median step {stats['median_step_ms']:.2f} ms, "
         f"{stats['images_per_s']:.1f} images/s (bf16, batch {BATCH}; "
         f"host wall time of the step, batch generation excluded); peak "
         f"{stats['peak_mem_gib']:.2f} GiB; eval {stats['eval']}")
     return launches, stats, (train_step, state, data)
+
+
+# kernels per BN site per train step of the fused backward: bn_bwd_sums'
+# two, bn_bwd_dx's one (the per-channel glue is inside its launch)
+BWD_KERNELS = {"sums_partial": 1, "sums_merge": 1, "dx_kernel": 1}
+
+
+def backward_kernel_check(torch, train_step, state, data, sites: int):
+    """One more step under torch.profiler: the fused backward's kernels,
+    counted by name, must be ``BWD_KERNELS`` per site. Returns the new
+    state and the step's kernel count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = data.batch_at(2000)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, metrics = train_step(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    got = {k: sum(e.count for e in kernels if k in e.key)
+           for k in BWD_KERNELS}
+    want = {k: v * sites for k, v in BWD_KERNELS.items()}
+    total = sum(e.count for e in kernels)
+    log(f"  one more step under torch.profiler: {total} kernels, "
+        f"backward BN kernels {got} (want {want})")
+    assert got == want, (got, want)
+    return state, total
 
 
 def profile_phase(torch, train_step, state, data, steps: int = 3):
@@ -1229,6 +1295,7 @@ def dp_main_path(torch, libs, cfg, steps: int, premade: bool = False,
         f"elements, backend {dist.get_backend()}, world "
         f"{dist.get_world_size()}")
     p0 = {k: v.clone() for k, v in state["params"].items()}
+    source = data
     if premade:
         data = PremadeSource(data, steps)
     tcfg = TrainerConfig(epochs=1, steps_per_epoch=steps,
@@ -1256,6 +1323,8 @@ def dp_main_path(torch, libs, cfg, steps: int, premade: bool = False,
     log(f"  launches {launches} (want {want}); batches staged "
         f"{put_batch.staged}")
     assert launches == want, (launches, want)
+    state, step_kernels = backward_kernel_check(torch, train_step, state,
+                                                source, sites)
     ev = result.epoch_history[-1]
     assert math.isfinite(ev["loss"]) and 0.0 <= ev["top1"] <= 1.0, ev
     walls = [h["time"] for h in result.history[1:]]
@@ -1269,6 +1338,7 @@ def dp_main_path(torch, libs, cfg, steps: int, premade: bool = False,
              "median_data_wait_ms": statistics.median(waits) * 1e3,
              "first_step_ms": result.history[0]["time"] * 1e3,
              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "kernels_in_a_step": step_kernels,
              "eval": {k: ev[k] for k in ("top1", "loss")}}
     log(f"  median step {stats['median_step_ms']:.2f} ms, "
         f"{stats['images_per_s']:.1f} images/s (bf16, batch {BATCH}; host "
@@ -2214,6 +2284,8 @@ def main() -> int:
         f"bn_bwd_dx {pair['plain_sites_bwd_dx_ms']:.3f} ms vs "
         f"batch_norm_backward_elemt {pair['backward_elemt_ms']:.3f} ms "
         f"({time.perf_counter() - t0:.1f}s)")
+    division = division_check(torch)
+    log(f"  ATen t / m on the card, elements whose bits differ: {division}")
 
     t0 = time.perf_counter()
     log("[3b] fused update, wire cast and fused input vs plain versions")
@@ -2395,7 +2467,8 @@ def main() -> int:
                        "lm_grads": lm_grads, "launch_floor": floor,
                        "main_path_4": stats4, "reference_4": ref4,
                        "checkpoint": ckpt_stats,
-                       "sentinel": sentinel_stats}, f,
+                       "sentinel": sentinel_stats,
+                       "division": division}, f,
                       indent=1)
     log(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))

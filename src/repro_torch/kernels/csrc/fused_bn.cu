@@ -45,8 +45,29 @@
 //    reduces one chunk of rows and writes its partials (S1, S2) to a
 //    (chunks, C) scratch; a second launch sums the partials per channel
 //    in a fixed order.
-//  * bn_bwd_dx walks rows with 64 x 4 blocks, a warp on 32 neighbouring
-//    channels, so no element index is divided by C.
+//  * bn_bwd_dx takes bn_apply's layout (below): each thread owns one
+//    fixed 16-byte group of channels and walks rows with a grid stride,
+//    reading dy, x (and y at a ReLU site) with one 16-byte load each and
+//    writing dx (and dres at a residual site) with one 16-byte store
+//    each, two batches of kDxUnroll rows in flight (the next batch's
+//    loads go out before the current one's math); one channel per unit
+//    where C is not a multiple of the vector width or a (rows, C)
+//    pointer is not 16-byte aligned. Its prologue forms the group's
+//    per-channel coefficients in registers from the values they are
+//    made of (scalar loads, so those vectors need no alignment):
+//      A = scale * rstd
+//      B = A * s1 * inv_m  [- dmean * inv_m]
+//      C = A * s2 * inv_m  [- 2 * dvar / (m * rstd)]
+//    with B = C = 0 in given-stats mode (s1 = s2 = null) and each
+//    cotangent term skipped where its pointer is null; so the row loop
+//    reads only the (rows, C) streams, and the backward's per-channel
+//    glue is part of this launch. inv_m = 1 / m comes from the host (a
+//    division by m would differ by an ulp between devices); the dvar
+//    term divides with __fdiv_rn, as the plain version's tensor / tensor
+//    does. Every operation is an explicit _rn intrinsic in the plain
+//    version's order, x_hat = (x - mu) * rstd, then
+//    ((A * dy_m) - B) - (x_hat * C), then one _rn cast: no FMA
+//    contraction, so dx and dres are bitwise equal to the plain version.
 //  * bn_apply gives each thread one fixed group of 16 bytes of channels
 //    (8 bf16 or 4 f32): it loads that group's a and o into registers once,
 //    then walks rows with a grid stride, reading x (and the residual)
@@ -59,12 +80,11 @@
 //    then ReLU, then one _rn cast, so it is bitwise equal to the plain
 //    version.
 //  * Every kernel takes f32 or bf16 activations and does f32 math.
-// Later work: 16-byte loads in bn_bwd_sums and bn_bwd_dx, and fewer
-// launches.
 //
 // C interface (loaded with ctypes): every pointer and the stream are
 // void*, dtype is 0 for float32 and 1 for bfloat16, and each entry point
-// returns cudaGetLastError() after its launches. bn_stats takes a counter
+// returns cudaGetLastError() after its launches; bn_bwd_dx takes inv_m
+// as a float, and null for each optional pointer. bn_stats takes a counter
 // of at least ceil(C / 32) unsigned ints that is zero before the launch
 // and zero again after it (one per column group: ceil(C / 32) covers
 // every path); launches that share one must not overlap.
@@ -79,9 +99,6 @@ namespace {
 constexpr int kCh = 32;         // channels per reduction block
 constexpr int kRowLanes = 8;    // row lanes per reduction block
 constexpr int kMergeLanes = 32; // chunk lanes per merge block
-constexpr int kEltX = 64;       // channel threads per elementwise block
-constexpr int kEltY = 4;        // row threads per elementwise block
-constexpr int kEltMaxBlocks = 132 * 16;
 constexpr int kApplyThreads = 256;  // threads per bn_apply block
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -171,10 +188,10 @@ __host__ __device__ inline int stats_block_units(int units, bool vec,
 // on the scalar path; unpacked to floats only when used, so four rows in
 // flight cost 16 registers
 template <typename T, int V>
-using StatsRaw = typename std::conditional<V == 1, T, uint4>::type;
+using Raw = typename std::conditional<V == 1, T, uint4>::type;
 
 template <typename T, int V>
-__device__ __forceinline__ void to_floats(const StatsRaw<T, V>& r,
+__device__ __forceinline__ void to_floats(const Raw<T, V>& r,
                                           float (&f)[V]) {
   if constexpr (V == 1)
     f[0] = to_f32(r);
@@ -327,12 +344,12 @@ __global__ void __launch_bounds__(kStatsThreads, kStatsMinBlocks)
   if (live) {
     const long long step = (long long)lanes * kStatsUnroll;
     for (long long r = r0 + l; r < r1; r += step) {
-      StatsRaw<T, V> raw[kStatsUnroll];
+      Raw<T, V> raw[kStatsUnroll];
 #pragma unroll
       for (int i = 0; i < kStatsUnroll; ++i) {
         const long long rr = r + (long long)i * lanes;
         if (rr < r1)
-          raw[i] = *reinterpret_cast<const StatsRaw<T, V>*>(x + rr * C + c0);
+          raw[i] = *reinterpret_cast<const Raw<T, V>*>(x + rr * C + c0);
       }
 #pragma unroll
       for (int i = 0; i < kStatsUnroll; ++i)
@@ -531,34 +548,133 @@ __global__ void __launch_bounds__(kCh * kMergeLanes)
 
 // --------------------------------------------------------------- bn_bwd_dx
 
-template <typename T>
-__global__ void __launch_bounds__(kEltX * kEltY)
+// bn_cast_variants.py timed these against other choices at every bf16
+// site shape of ResNet-50 at batch 32 on an H100 (PERF.md). Two batches
+// of 4 rows take 177 registers on the bf16 vector path (8 channels x 5
+// per-channel values, 2 x 4 rows x 3 x 16 bytes), so an SM holds 2
+// blocks of 128 threads, no spill. 1 block of 256 came within 0.3% a
+// step, 4 of 64 within 1%; plain stores were 1.3% slower than streaming
+// ones (st.global.cs), 3 rows a batch 2%, 8 rows a batch (255
+// registers) 2%, 2 rows a batch 3%. One batch of 4 rows in flight (the
+// next rows' loads waiting for this batch's math) was 3% slower
+// (chip_smoke.py, PERF.md).
+constexpr int kDxThreads = 128;      // threads a block
+constexpr int kDxMinBlocks = 2;      // blocks per SM registers are cut for
+constexpr int kDxUnroll = 4;         // rows a batch (two batches in flight)
+constexpr bool kDxStreaming = true;  // evict-first stores of dx and dres
+
+template <typename T, int V>
+__device__ __forceinline__ void store_unit(T* p, const float (&f)[V]) {
+  if constexpr (V == 1) {
+    if constexpr (kDxStreaming)
+      __stcs(p, from_f32<T>(f[0]));
+    else
+      *p = from_f32<T>(f[0]);
+  } else {
+    if constexpr (kDxStreaming)
+      __stcs(reinterpret_cast<uint4*>(p), pack(f));
+    else
+      *reinterpret_cast<uint4*>(p) = pack(f);
+  }
+}
+
+// Thread i owns unit i % units of every row (V channels: 16 bytes on the
+// vector path, one channel on the scalar path) and walks rows i / units,
+// + lanes, ..., lanes = threads / units; the launch gives at least
+// `units` threads. y is null without a ReLU, dres without a residual;
+// s1 and s2 are both null in given-stats mode, dmean and dvar each null
+// for a zero cotangent.
+template <typename T, int V>
+__global__ void __launch_bounds__(kDxThreads, kDxMinBlocks)
     dx_kernel(const T* __restrict__ dy, const T* __restrict__ x,
               const T* __restrict__ y, const float* __restrict__ mu,
-              const float* __restrict__ rstd, const float* __restrict__ ca,
-              const float* __restrict__ cb, const float* __restrict__ cc,
-              T* __restrict__ dx, T* __restrict__ dres, long long rows, int C,
-              int relu) {
-  for (long long r = (long long)blockIdx.x * kEltY + threadIdx.y; r < rows;
-       r += (long long)gridDim.x * kEltY) {
-    const long long base = r * C;
-    for (int c = threadIdx.x; c < C; c += kEltX) {
-      const long long i = base + c;
-      const float d = masked_dy(dy, y, i, relu);
-      const float xhat = (to_f32(x[i]) - mu[c]) * rstd[c];
-      dx[i] = from_f32<T>(ca[c] * d - cb[c] - xhat * cc[c]);
-      if (dres != nullptr) dres[i] = from_f32<T>(d);
+              const float* __restrict__ rstd,
+              const float* __restrict__ scale, const float* __restrict__ s1,
+              const float* __restrict__ s2, const float* __restrict__ dmean,
+              const float* __restrict__ dvar, float inv_m,
+              T* __restrict__ dx, T* __restrict__ dres, long long rows,
+              int C) {
+  const int units = C / V;
+  const long long tid = (long long)blockIdx.x * kDxThreads + threadIdx.x;
+  const long long lanes = (long long)gridDim.x * kDxThreads / units;
+  if (tid >= lanes * units) return;
+  const int c0 = (int)(tid % units) * V;
+  const float m = (float)rows;
+  float mv[V], rv[V], av[V], bv[V], cv[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    mv[j] = mu[c0 + j];
+    rv[j] = rstd[c0 + j];
+    av[j] = __fmul_rn(scale[c0 + j], rv[j]);
+    bv[j] = cv[j] = 0.f;
+    if (s1 != nullptr) {
+      bv[j] = __fmul_rn(__fmul_rn(av[j], s1[c0 + j]), inv_m);
+      cv[j] = __fmul_rn(__fmul_rn(av[j], s2[c0 + j]), inv_m);
+    }
+    if (dmean != nullptr)
+      bv[j] = __fsub_rn(bv[j], __fmul_rn(dmean[c0 + j], inv_m));
+    if (dvar != nullptr)
+      cv[j] = __fsub_rn(cv[j], __fdiv_rn(__fmul_rn(2.f, dvar[c0 + j]),
+                                         __fmul_rn(m, rv[j])));
+  }
+  // two batches of kDxUnroll rows: the loads of the next batch go out
+  // before the math of the current one
+  const long long step = lanes * kDxUnroll;
+  Raw<T, V> rd[kDxUnroll], rx[kDxUnroll], ry[kDxUnroll];
+  Raw<T, V> nd[kDxUnroll], nx[kDxUnroll], ny[kDxUnroll];
+  auto load = [&](long long r0, Raw<T, V>(&ld)[kDxUnroll],
+                  Raw<T, V>(&lx)[kDxUnroll], Raw<T, V>(&ly)[kDxUnroll]) {
+#pragma unroll
+    for (int i = 0; i < kDxUnroll; ++i) {
+      const long long rr = r0 + (long long)i * lanes;
+      if (rr < rows) {
+        const long long k = rr * C + c0;
+        ld[i] = *reinterpret_cast<const Raw<T, V>*>(dy + k);
+        lx[i] = *reinterpret_cast<const Raw<T, V>*>(x + k);
+        if (y != nullptr) ly[i] = *reinterpret_cast<const Raw<T, V>*>(y + k);
+      }
+    }
+  };
+  long long r = tid / units;
+  load(r, rd, rx, ry);
+  for (; r < rows; r += step) {
+    load(r + step, nd, nx, ny);
+#pragma unroll
+    for (int i = 0; i < kDxUnroll; ++i) {
+      const long long rr = r + (long long)i * lanes;
+      if (rr < rows) {
+        const long long k = rr * C + c0;
+        float d[V], xv[V], o[V];
+        to_floats<T, V>(rd[i], d);
+        to_floats<T, V>(rx[i], xv);
+        if (y != nullptr) {
+          float yv[V];
+          to_floats<T, V>(ry[i], yv);
+#pragma unroll
+          for (int j = 0; j < V; ++j)
+            if (!(yv[j] > 0.f)) d[j] = 0.f;
+        }
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float xhat = __fmul_rn(__fsub_rn(xv[j], mv[j]), rv[j]);
+          o[j] = __fsub_rn(__fsub_rn(__fmul_rn(av[j], d[j]), bv[j]),
+                           __fmul_rn(xhat, cv[j]));
+        }
+        store_unit<T, V>(dx + k, o);
+        if (dres != nullptr) store_unit<T, V>(dres + k, d);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kDxUnroll; ++i) {
+      rd[i] = nd[i];
+      rx[i] = nx[i];
+      ry[i] = ny[i];
     }
   }
 }
 
 dim3 reduce_grid(int C, long long rows, long long rpc) {
   return dim3((C + kCh - 1) / kCh, (unsigned)((rows + rpc - 1) / rpc));
-}
-
-dim3 elementwise_grid(long long rows) {
-  long long blocks = (rows + kEltY - 1) / kEltY;
-  return dim3((unsigned)(blocks < kEltMaxBlocks ? blocks : kEltMaxBlocks));
 }
 
 bool aligned16(const void* p) { return ((unsigned long long)p & 15) == 0; }
@@ -624,6 +740,68 @@ cudaError_t apply_launch(const void* x, const void* res, const void* a,
   return cudaGetLastError();
 }
 
+// One bn_bwd_dx launch of dx_kernel<T, V>: a grid of (SMs x resident
+// blocks), fewer when the tensor needs fewer threads, never fewer than
+// one thread per unit of a row.
+template <typename T, int V>
+cudaError_t dx_launch(const T* dy, const T* x, const T* y, const float* mu,
+                      const float* rstd, const float* scale, const float* s1,
+                      const float* s2, const float* dmean, const float* dvar,
+                      float inv_m, T* dx, T* dres, long long rows, int C,
+                      cudaStream_t s) {
+  static long long full = 0;  // SMs x resident blocks, found once
+  if (full == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, dx_kernel<T, V>, kDxThreads, 0);
+    if (err != cudaSuccess) return err;
+    full = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const long long units = C / V;
+  const long long need = (rows * units + kDxThreads - 1) / kDxThreads;
+  const long long least = (units + kDxThreads - 1) / kDxThreads;
+  long long blocks = need < full ? need : full;
+  if (blocks < least) blocks = least;
+  dx_kernel<T, V><<<(unsigned)blocks, kDxThreads, 0, s>>>(
+      dy, x, y, mu, rstd, scale, s1, s2, dmean, dvar, inv_m, dx, dres, rows,
+      C);
+  return cudaGetLastError();
+}
+
+// The vector path where C and every (rows, C) pointer allow it (the
+// per-channel vectors are read with scalar loads), one channel per unit
+// otherwise.
+template <typename T>
+cudaError_t dx_dispatch(const void* dy, const void* x, const void* y,
+                        const void* mu, const void* rstd, const void* scale,
+                        const void* s1, const void* s2, const void* dmean,
+                        const void* dvar, float inv_m, void* dx, void* dres,
+                        long long rows, int C, int relu, cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  if (rows <= 0 || C <= 0 || (relu && y == nullptr) ||
+      (s1 == nullptr) != (s2 == nullptr))
+    return cudaErrorInvalidValue;
+  if (!relu) y = nullptr;
+  const bool vec = C % V == 0 && aligned16(dy) && aligned16(x) &&
+                   (y == nullptr || aligned16(y)) && aligned16(dx) &&
+                   (dres == nullptr || aligned16(dres));
+  if (vec)
+    return dx_launch<T, V>(
+        (const T*)dy, (const T*)x, (const T*)y, (const float*)mu,
+        (const float*)rstd, (const float*)scale, (const float*)s1,
+        (const float*)s2, (const float*)dmean, (const float*)dvar, inv_m,
+        (T*)dx, (T*)dres, rows, C, s);
+  return dx_launch<T, 1>(
+      (const T*)dy, (const T*)x, (const T*)y, (const float*)mu,
+      (const float*)rstd, (const float*)scale, (const float*)s1,
+      (const float*)s2, (const float*)dmean, (const float*)dvar, inv_m,
+      (T*)dx, (T*)dres, rows, C, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -679,25 +857,19 @@ int bn_bwd_sums(const void* dy, const void* x, const void* y, const void* mu,
 }
 
 int bn_bwd_dx(const void* dy, const void* x, const void* y, const void* mu,
-              const void* rstd, const void* ca, const void* cb,
-              const void* cc, void* dx, void* dres, long long rows, int C,
+              const void* rstd, const void* scale, const void* s1,
+              const void* s2, const void* dmean, const void* dvar,
+              float inv_m, void* dx, void* dres, long long rows, int C,
               int dtype, int relu, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid = elementwise_grid(rows), block(kEltX, kEltY);
   if (dtype == 0)
-    dx_kernel<float><<<grid, block, 0, s>>>(
-        (const float*)dy, (const float*)x, (const float*)y, (const float*)mu,
-        (const float*)rstd, (const float*)ca, (const float*)cb,
-        (const float*)cc, (float*)dx, (float*)dres, rows, C, relu);
-  else if (dtype == 1)
-    dx_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-        (const __nv_bfloat16*)dy, (const __nv_bfloat16*)x,
-        (const __nv_bfloat16*)y, (const float*)mu, (const float*)rstd,
-        (const float*)ca, (const float*)cb, (const float*)cc,
-        (__nv_bfloat16*)dx, (__nv_bfloat16*)dres, rows, C, relu);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return (int)dx_dispatch<float>(dy, x, y, mu, rstd, scale, s1, s2, dmean,
+                                   dvar, inv_m, dx, dres, rows, C, relu, s);
+  if (dtype == 1)
+    return (int)dx_dispatch<__nv_bfloat16>(dy, x, y, mu, rstd, scale, s1, s2,
+                                           dmean, dvar, inv_m, dx, dres,
+                                           rows, C, relu, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -10,7 +10,9 @@ fastest), in f32 or bf16 with f32 math:
   bn_apply     y = relu?(x * a + o [+ r]) in x's dtype
   bn_bwd_sums  S1 = sum(dy_m), S2 = sum(dy_m * x_hat); dy_m is dy masked
                by the saved output (y > 0) when the site has a ReLU
-  bn_bwd_dx    dx = A * dy_m - B - x_hat * C, and dres = dy_m
+  bn_bwd_dx    dx = A * dy_m - B - x_hat * C, and dres = dy_m, with the
+               per-channel A, B, C formed in the same launch from scale,
+               rstd, S1, S2 and the mean / var cotangents
 
 Each wrapper has a plain PyTorch version beside it (``_*_plain``) and a
 launch count in ``LAUNCHES``. A wrapper takes the plain version only for
@@ -29,8 +31,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels._launch import (I32, I64, P, Library, on_cpu, ptr,
-                                        stream)
+from repro_torch.kernels._launch import (F32, I32, I64, P, Library, on_cpu,
+                                        ptr, stream)
 
 Tensor = torch.Tensor
 
@@ -118,7 +120,8 @@ _LIB = Library("fused_bn", {
     "bn_stats": [P, I64, I32, I32, I64, P, P, P, P, P, P],
     "bn_apply": [P, P, P, P, P, I64, I32, I32, I32, P],
     "bn_bwd_sums": [P, P, P, P, P, I64, I32, I32, I32, I64, P, P, P, P, P],
-    "bn_bwd_dx": [P, P, P, P, P, P, P, P, P, P, I64, I32, I32, I32, P],
+    "bn_bwd_dx": [P, P, P, P, P, P, P, P, P, P, F32, P, P, I64, I32, I32,
+                  I32, P],
 })
 LAUNCHES: Dict[str, int] = _LIB.launches
 reset_launch_counts = _LIB.reset
@@ -266,30 +269,51 @@ def bn_bwd_sums(dy: Tensor, x: Tensor, y: Tensor, mu: Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _bn_bwd_dx_plain(dy, x, y, mu, rstd, ca, cb, cc, relu, with_dres):
+def _bn_bwd_dx_plain(dy, x, y, mu, rstd, scale, s1, s2, dmean, dvar, inv_m,
+                     relu, with_dres):
+    # the kernel's per-channel coefficients, each op in its order
+    a = scale * rstd
+    zero = torch.zeros_like(a)
+    b = zero if s1 is None else a * s1 * inv_m
+    c = zero if s2 is None else a * s2 * inv_m
+    if dmean is not None:
+        b = b - dmean * inv_m
+    if dvar is not None:
+        c = c - 2.0 * dvar / (float(x.shape[0]) * rstd)
     dym = _masked_dy(dy, y, relu)
     xhat = (x.float() - mu) * rstd
-    dx = (ca * dym - cb - xhat * cc).to(x.dtype)
+    dx = (a * dym - b - xhat * c).to(x.dtype)
     return dx, (dym.to(x.dtype) if with_dres else None)
 
 
 def bn_bwd_dx(dy: Tensor, x: Tensor, y: Tensor, mu: Tensor, rstd: Tensor,
-              ca: Tensor, cb: Tensor, cc: Tensor, relu: bool,
-              with_dres: bool = False) -> Tuple[Tensor, Optional[Tensor]]:
-    """dx = ca * dy_m - cb - x_hat * cc in x's dtype, and, with
-    ``with_dres``, the residual gradient dres = dy_m in the same dtype."""
-    if _on_cpu(dy, x, y, mu, rstd, ca, cb, cc):
-        return _bn_bwd_dx_plain(dy, x, y, mu, rstd, ca, cb, cc, relu,
-                                with_dres)
+              scale: Tensor, s1: Optional[Tensor], s2: Optional[Tensor],
+              dmean: Optional[Tensor], dvar: Optional[Tensor], inv_m: float,
+              relu: bool, with_dres: bool = False
+              ) -> Tuple[Tensor, Optional[Tensor]]:
+    """dx = A * dy_m - B - x_hat * C in x's dtype, and, with
+    ``with_dres``, the residual gradient dres = dy_m in the same dtype.
+    A, B and C are formed per channel from the f32 (C,) ``scale``,
+    ``rstd``, the sums ``s1`` / ``s2`` of ``bn_bwd_sums`` (both None in
+    given-stats mode: B = C = 0) and the mean / var cotangents ``dmean``
+    / ``dvar`` (each None for a zero cotangent); ``inv_m`` is 1 / rows.
+    """
+    if (s1 is None) != (s2 is None):
+        raise ValueError("bn_bwd_dx takes s1 and s2 both or neither")
+    if _on_cpu(dy, x, y, mu, rstd, scale, s1, s2, dmean, dvar):
+        return _bn_bwd_dx_plain(dy, x, y, mu, rstd, scale, s1, s2, dmean,
+                                dvar, inv_m, relu, with_dres)
     rows, c = x.shape
     dtype = _check_rows(c, x, dy, y)
-    _check_channel(c, mu, rstd, ca, cb, cc)
+    _check_channel(c, *(v for v in (mu, rstd, scale, s1, s2, dmean, dvar)
+                        if v is not None))
     dx = torch.empty_like(x)
     dres = torch.empty_like(x) if with_dres else None
     _launch("bn_bwd_dx", dy.data_ptr(), x.data_ptr(),
             ptr(y if relu else None), mu.data_ptr(), rstd.data_ptr(),
-            ca.data_ptr(), cb.data_ptr(), cc.data_ptr(), dx.data_ptr(),
-            ptr(dres), rows, c, _DTYPE_CODE[dtype], int(relu), stream())
+            scale.data_ptr(), ptr(s1), ptr(s2), ptr(dmean), ptr(dvar),
+            float(inv_m), dx.data_ptr(), ptr(dres), rows, c,
+            _DTYPE_CODE[dtype], int(relu), stream())
     return dx, dres
 
 
@@ -313,10 +337,18 @@ def _residual_rows(x: Tensor, residual: Optional[Tensor]):
     return rows_view(residual)
 
 
+def _channel(v: Optional[Tensor]) -> Optional[Tensor]:
+    """A (C,) cotangent as the kernel takes it: f32 and contiguous (a
+    copy only where it is not: a sum's cotangent is an expanded view)."""
+    return None if v is None else v.float().contiguous()
+
+
 class _TrainFn(torch.autograd.Function):
     """Train-mode fused BN: (x, scale, bias[, residual]) -> (y, mean,
     var) from one stats pass and one normalize/epilogue pass; the
-    backward is one sums pass and one dx pass."""
+    backward is one sums pass and one dx pass, which also folds in the
+    per-channel glue. Cotangents are not materialised, so a detached
+    mean / var costs nothing (None, a zero cotangent)."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, residual, relu: bool, eps: float):
@@ -327,27 +359,25 @@ class _TrainFn(torch.autograd.Function):
         off = bias.float() - mean * a
         y = bn_apply(x2, a, off, _residual_rows(x, residual),
                      relu).view(x.shape)
-        ctx.save_for_backward(x, y, mean, var, scale)
-        ctx.relu, ctx.eps, ctx.has_res = relu, eps, residual is not None
+        ctx.save_for_backward(x, y, mean, rstd, scale)
+        ctx.set_materialize_grads(False)
+        ctx.relu, ctx.has_res = relu, residual is not None
         return y, mean, var
 
     @staticmethod
     def backward(ctx, dy, dmean, dvar):
-        x, y, mean, var, scale = ctx.saved_tensors
+        x, y, mean, rstd, scale = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(y)
         x2, y2 = rows_view(x), rows_view(y)
         # cotangents arrive in whatever layout the next op produced
         dy2 = rows_view(dy.contiguous())
-        rstd = torch.rsqrt(var + ctx.eps)
         s1, s2 = bn_bwd_sums(dy2, x2, y2, mean, rstd, ctx.relu)
-        m = float(x2.shape[0])
-        a_coef = scale.float() * rstd
-        # the stats-output cotangents (zero in the train step, where the
-        # new BN state is aux) fold into the two per-channel offsets:
-        # dmean adds dmean/M, dvar adds 2*dvar*(x-mu)/M
-        b_coef = a_coef * s1 / m - dmean / m
-        c_coef = a_coef * s2 / m - 2.0 * dvar / (m * rstd)
-        dx2, dr2 = bn_bwd_dx(dy2, x2, y2, mean, rstd, a_coef, b_coef,
-                             c_coef, ctx.relu, ctx.has_res)
+        # the stats-output cotangents (None in the train step, where the
+        # new BN state is aux) fold into B and C inside the dx launch
+        dx2, dr2 = bn_bwd_dx(dy2, x2, y2, mean, rstd, scale.float(), s1, s2,
+                             _channel(dmean), _channel(dvar),
+                             1.0 / x2.shape[0], ctx.relu, ctx.has_res)
         dres = dr2.view(x.shape) if dr2 is not None else None
         return (dx2.view(x.shape), s2.to(scale.dtype), s1.to(scale.dtype),
                 dres, None, None)
@@ -361,31 +391,32 @@ class _ApplyFn(torch.autograd.Function):
     def forward(ctx, x, mean, var, scale, bias, residual, relu: bool,
                 eps: float):
         x2 = rows_view(x)
+        mean32 = mean.float()
         rstd = torch.rsqrt(var.float() + eps)
         a = rstd * scale.float()
-        off = bias.float() - mean.float() * a
+        off = bias.float() - mean32 * a
         y = bn_apply(x2, a, off, _residual_rows(x, residual),
                      relu).view(x.shape)
-        ctx.save_for_backward(x, y, mean, var, scale)
-        ctx.relu, ctx.eps, ctx.has_res = relu, eps, residual is not None
+        ctx.save_for_backward(x, y, mean32, rstd, scale)
+        ctx.relu, ctx.has_res = relu, residual is not None
+        ctx.stat_dtypes = (mean.dtype, var.dtype)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, y, mean, var, scale = ctx.saved_tensors
+        x, y, mean32, rstd, scale = ctx.saved_tensors
         x2, y2 = rows_view(x), rows_view(y)
         dy2 = rows_view(dy.contiguous())
-        mean32 = mean.float()
-        rstd = torch.rsqrt(var.float() + ctx.eps)
         s1, s2 = bn_bwd_sums(dy2, x2, y2, mean32, rstd, ctx.relu)
         g32 = scale.float()
-        a_coef = g32 * rstd
-        zero = torch.zeros_like(a_coef)
-        dx2, dr2 = bn_bwd_dx(dy2, x2, y2, mean32, rstd, a_coef, zero, zero,
-                             ctx.relu, ctx.has_res)
+        dx2, dr2 = bn_bwd_dx(dy2, x2, y2, mean32, rstd, g32, None, None,
+                             None, None, 1.0 / x2.shape[0], ctx.relu,
+                             ctx.has_res)
         dres = dr2.view(x.shape) if dr2 is not None else None
-        dmean = (-a_coef * s1).to(mean.dtype)
-        dvar = (-0.5 * g32 * rstd.square() * s2).to(var.dtype)
+        a_coef = g32 * rstd
+        mean_dtype, var_dtype = ctx.stat_dtypes
+        dmean = (-a_coef * s1).to(mean_dtype)
+        dvar = (-0.5 * g32 * rstd.square() * s2).to(var_dtype)
         return (dx2.view(x.shape), dmean, dvar, s2.to(scale.dtype),
                 s1.to(scale.dtype), dres, None, None)
 

@@ -200,3 +200,151 @@ def test_stats_chunks_cover_rows(rows, c, esize):
     assert 1 <= chunks <= 65535
     assert (chunks - 1) * rpc < rows <= chunks * rpc
     assert chunks <= tfb._STATS_TARGET_BLOCKS
+
+
+# ---------------------------------------------------------------------------
+# bn_bwd_dx forms its per-channel coefficients itself (scale, rstd, S1, S2
+# and the mean / var cotangents in, A, B, C inside the launch)
+# ---------------------------------------------------------------------------
+
+
+def _train_grads(x, scale, bias, res, relu, cts):
+    """(dx, dscale, dbias[, dres]) of ``fused_bn_train`` under the
+    cotangents ``cts`` of (y, mean, var); a None entry leaves that output
+    out of the backward (detached)."""
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (x, scale, bias, res) if t is not None]
+    y, mean, var = tops.fused_bn_train(
+        leaves[0], leaves[1], leaves[2],
+        residual=leaves[3] if res is not None else None, relu=relu)
+    outs, grads = zip(*[(o, g) for o, g in zip((y, mean, var), cts)
+                        if g is not None])
+    return torch.autograd.grad(outs, leaves, grads)
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("epi", sorted(EPILOGUES))
+def test_detached_stats_equal_zero_cotangents(epi, dt):
+    """Backward with mean / var left out (None cotangents: the dx launch
+    skips their terms) equals the backward with explicit zero
+    cotangents, bitwise: B - 0 * inv_m and C - 2 * 0 / (m * rstd) are B
+    and C."""
+    relu, has_res = EPILOGUES[epi]
+    tdt = DTYPES[dt][1]
+    d = _inputs(SHAPE, 4, has_res)
+    x, res, dy = _t(d["x"], tdt), _t(d["res"], tdt), _t(d["dy"], tdt)
+    scale, bias = _t(d["scale"]), _t(d["bias"])
+    zero = torch.zeros(SHAPE[-1])
+    detached = _train_grads(x, scale, bias, res, relu, (dy, None, None))
+    zeros = _train_grads(x, scale, bias, res, relu, (dy, zero, zero))
+    for a, b, name in zip(detached, zeros, ("dx", "dscale", "dbias",
+                                            "dres")):
+        assert torch.equal(a, b), name
+
+
+def test_no_output_cotangent_gives_zero_dx():
+    """Only the mean's cotangent flows back (dy is None): dx is
+    dmean / m, the right result, and with all cotangents zero a zero dx
+    and zero parameter gradients."""
+    d = _inputs(SHAPE, 5, False)
+    x, scale, bias = _t(d["x"]), _t(d["scale"]), _t(d["bias"])
+    dmean = _t(d["dmean"])
+    dx, dscale, dbias = _train_grads(x, scale, bias, None, False,
+                                     (None, dmean, None))
+    rows = x.numel() // SHAPE[-1]
+    torch.testing.assert_close(dx, (dmean / rows).expand(SHAPE),
+                               rtol=1e-6, atol=1e-7)
+    assert not dscale.any() and not dbias.any()
+    zero = torch.zeros(SHAPE[-1])
+    dx, dscale, dbias = _train_grads(x, scale, bias, None, False,
+                                     (None, zero, zero))
+    assert not dx.any() and not dscale.any() and not dbias.any()
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("epi", sorted(EPILOGUES))
+def test_given_stats_dx_is_the_old_composition(epi, dt):
+    """Given-stats mode (s1 = s2 = None) keeps the zero terms: bitwise
+    ``a * dy_m - 0 - x_hat * 0``, so even the sign of a zero dx is the
+    old composition's."""
+    relu, has_res = EPILOGUES[epi]
+    tdt = DTYPES[dt][1]
+    d = _inputs(SHAPE, 6, has_res)
+    x2 = _t(d["x"], tdt).view(-1, SHAPE[-1])
+    dy2 = _t(d["dy"], tdt).view(-1, SHAPE[-1])
+    mean, scale = _t(d["mean"]), _t(d["scale"])
+    rstd = torch.rsqrt(_t(d["var"]) + 1e-5)
+    a = scale * rstd
+    y2 = tfb.bn_apply(x2, a, _t(d["bias"]) - mean * a, relu=relu)
+    dx, dres = tfb.bn_bwd_dx(dy2, x2, y2, mean, rstd, scale, None, None,
+                             None, None, 1.0 / x2.shape[0], relu, has_res)
+    dym = tfb._masked_dy(dy2, y2, relu)
+    xhat = (x2.float() - mean) * rstd
+    zero = torch.zeros_like(a)
+    assert torch.equal(dx, (a * dym - zero - xhat * zero).to(tdt))
+    assert (dres is None) == (not has_res)
+    if has_res:
+        assert torch.equal(dres, dym.to(tdt))
+
+
+def test_bn_bwd_dx_takes_both_sums_or_neither():
+    x = torch.randn(6, 8)
+    v = torch.ones(8)
+    with pytest.raises(ValueError):
+        tfb.bn_bwd_dx(x, x, x, v, v, v, v, None, None, None, 1 / 6, False)
+
+
+@pytest.mark.parametrize("mode", ["train", "given_stats"])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("epi", ["identity", "res_relu"])
+@pytest.mark.parametrize("c", [64, 100])
+def test_bn_bwd_dx_plain_matches_jax_vjp(c, epi, dt, mode):
+    """``_bn_bwd_dx_plain`` with its coefficients formed from (scale,
+    rstd, S1, S2, dmean, dvar, 1 / m) against dx (and dres) of JAX's
+    ``fused_bn_train`` / ``fused_bn_apply`` VJP, at a C that is a
+    multiple of the kernel's vector width (64) and one that is not
+    (100), within the file's tolerances."""
+    relu, has_res = EPILOGUES[epi]
+    jdt, tdt = DTYPES[dt]
+    shape = (2, 3, 5, c)
+    d = _inputs(shape, 7, has_res)
+    if mode == "train":
+        def jf(x, r):
+            return jops.fused_bn_train(x, _j(d["scale"]), _j(d["bias"]),
+                                       residual=r, relu=relu)
+        cts = (_j(d["dy"], jdt), _j(d["dmean"]), _j(d["dvar"]))
+    else:
+        def jf(x, r):
+            return jops.fused_bn_apply(x, _j(d["mean"]), _j(d["var"]),
+                                       _j(d["scale"]), _j(d["bias"]),
+                                       residual=r, relu=relu)
+        cts = _j(d["dy"], jdt)
+    jx, jr = _j(d["x"], jdt), _j(d["res"], jdt)
+    if has_res:
+        _, vjp = jax.vjp(jf, jx, jr)
+        jdx, jdres = vjp(cts)
+    else:
+        _, vjp = jax.vjp(lambda x: jf(x, None), jx)
+        (jdx,), jdres = vjp(cts), None
+
+    x2 = _t(d["x"], tdt).view(-1, c)
+    dy2 = _t(d["dy"], tdt).view(-1, c)
+    r2 = _t(d["res"], tdt).view(-1, c) if has_res else None
+    scale, bias = _t(d["scale"]), _t(d["bias"])
+    if mode == "train":
+        mean, var = tfb.bn_stats(x2)
+    else:
+        mean, var = _t(d["mean"]), _t(d["var"])
+    rstd = torch.rsqrt(var + 1e-5)
+    a = rstd * scale
+    y2 = tfb.bn_apply(x2, a, bias - mean * a, r2, relu)
+    if mode == "train":
+        s1, s2 = tfb.bn_bwd_sums(dy2, x2, y2, mean, rstd, relu)
+        extra = (s1, s2, _t(d["dmean"]), _t(d["dvar"]))
+    else:
+        extra = (None,) * 4
+    dx, dres = tfb.PLAIN["bn_bwd_dx"](dy2, x2, y2, mean, rstd, scale, *extra,
+                                      1.0 / x2.shape[0], relu, has_res)
+    _close(jnp.reshape(jdx, (-1, c)), dx, dt, "dx")
+    if has_res:
+        _close(jnp.reshape(jdres, (-1, c)), dres, dt, "dres")

@@ -10,8 +10,10 @@ runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest --noconftest -p no:cacheprovider \
         tests/test_torch_kernels_gpu.py
 
-Tolerances: ``bn_apply`` bitwise (each op rounded once, in the plain
-version's order); the other f32 outputs rtol/atol 1e-5 (FMA contraction
+Tolerances: ``bn_apply`` and ``bn_bwd_dx`` bitwise (each op rounded
+once, in the plain version's order; ``bn_bwd_dx`` against its plain
+version on the CPU too, which forms B and C with the same reciprocal
+1 / m); the other f32 outputs rtol/atol 1e-5 (FMA contraction
 and reduction order); bf16 outputs rtol 1e-2 / atol 2e-2 (one bf16 ulp
 where the f32 values before rounding differ in their last bits); sums
 rtol 1e-4; the
@@ -74,10 +76,12 @@ def test_kernels_match_plain_on_card(cuda, rows, c, dt):
         torch.testing.assert_close(s2.cpu(), p2, rtol=1e-4, atol=1e-3)
         dx, dr = tfb.bn_bwd_dx(dy.to(cuda), x.to(cuda), py.to(cuda),
                                pm.to(cuda), rstd.to(cuda), a.to(cuda),
-                               o.to(cuda), a.to(cuda), relu, True)
-        pdx, pdr = tfb.bn_bwd_dx(dy, x, py, pm, rstd, a, o, a, relu, True)
-        torch.testing.assert_close(dx.cpu().float(), pdx.float(), **tol)
-        torch.testing.assert_close(dr.cpu(), pdr, rtol=0, atol=0)
+                               p1.to(cuda), p2.to(cuda), None, None,
+                               1.0 / rows, relu, True)
+        pdx, pdr = tfb.bn_bwd_dx(dy, x, py, pm, rstd, a, p1, p2, None, None,
+                                 1.0 / rows, relu, True)
+        assert torch.equal(dx.cpu(), pdx)
+        assert torch.equal(dr.cpu(), pdr)
     torch.cuda.synchronize()
     assert tfb.LAUNCHES == {"bn_stats": 1, "bn_apply": 2, "bn_bwd_sums": 2,
                             "bn_bwd_dx": 2}
@@ -109,6 +113,126 @@ def test_bn_stats_unaligned_rows_on_card(cuda, dt):
     torch.testing.assert_close(v.cpu(), pv, rtol=1e-4, atol=1e-5)
     again = tfb.bn_stats(xc)
     assert torch.equal(again[0], m) and torch.equal(again[1], v)
+
+
+def _dx_case(rows, c, dt, seed):
+    """(dy, x, y, mu, rstd, scale, s1, s2, dmean, dvar) of one ReLU BN
+    site on the CPU, from a seed."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, dtype=DTYPES[dt]):
+        return (torch.randn(*shape, generator=g) * 2 + 0.5).to(dtype)
+
+    x, dy = rnd(rows, c), rnd(rows, c)
+    scale, bias = rnd(c, dtype=torch.float32), rnd(c, dtype=torch.float32)
+    mu, var = tfb.bn_stats(x)
+    rstd = torch.rsqrt(var + 1e-5)
+    a = rstd * scale
+    y = tfb.bn_apply(x, a, bias - mu * a, relu=True)
+    s1, s2 = tfb.bn_bwd_sums(dy, x, y, mu, rstd, True)
+    return (dy, x, y, mu, rstd, scale, s1, s2, rnd(c, dtype=torch.float32),
+            rnd(c, dtype=torch.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["offset dy", "bf16 C=100", "cotangents",
+                                  "given stats", "unaligned channel vectors"])
+def test_bn_bwd_dx_bitwise_on_card(cuda, case):
+    """``bn_bwd_dx`` (dx and dres) bitwise against its plain version on
+    the CPU: a dy view 1 element into its buffer and C = 100 in bf16
+    (the scalar path), non-zero mean / var cotangents, given-stats mode
+    (s1 = s2 = None), and per-channel vectors 1 element into theirs
+    (read with scalar loads on the vector path)."""
+    dt = "bf16" if case == "bf16 C=100" else "f32"
+    rows, c = (777, 100) if case == "bf16 C=100" else (6272, 256)
+    dy, x, y, mu, rstd, scale, s1, s2, dmean, dvar = _dx_case(rows, c, dt,
+                                                              11)
+    if case != "cotangents":
+        dmean = dvar = None
+    if case == "given stats":
+        s1 = s2 = None
+    cpu = (dy, x, y, mu, rstd, scale, s1, s2, dmean, dvar)
+    dev = [None if t is None else t.to(cuda) for t in cpu]
+    if case == "offset dy":
+        buf = torch.empty(rows * c + 1, dtype=dy.dtype, device=cuda)
+        dev[0] = buf[1:].view(rows, c)
+        dev[0].copy_(dy)
+        assert dev[0].data_ptr() % 16 != 0
+    if case == "unaligned channel vectors":
+        for i in (3, 4, 5):
+            buf = torch.empty(c + 1, device=cuda)
+            buf[1:].copy_(cpu[i])
+            dev[i] = buf[1:]
+    want = tfb.bn_bwd_dx(*cpu, 1.0 / rows, True, True)
+    got = tfb.bn_bwd_dx(*dev, 1.0 / rows, True, True)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.gpu
+def test_bn_bwd_dx_in_a_cuda_graph_on_card(cuda):
+    """A capture of ``bn_bwd_dx`` (no allocation beyond its outputs, no
+    synchronisation), replayed, gives the eager result's bits."""
+    args = [t.to(cuda) for t in _dx_case(100352, 64, "bf16", 12)]
+    eager = tfb.bn_bwd_dx(*args, 1.0 / 100352, True, True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tfb.bn_bwd_dx(*args, 1.0 / 100352, True, True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tfb.bn_bwd_dx(*args, 1.0 / 100352, True, True)
+    for t in out:
+        t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], eager[0]) and torch.equal(out[1], eager[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("relu,res", [(False, False), (True, True)])
+def test_train_backward_is_three_kernels_on_card(cuda, relu, res):
+    """One train-mode site's backward with mean / var detached launches
+    ``bn_bwd_sums``' two kernels and one ``bn_bwd_dx``, and no other
+    kernel (torch.profiler); its dx and dres are the plain version's
+    bits given the same sums, and dscale / dbias are the sums."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops as tops
+    g = torch.Generator().manual_seed(13)
+    shape = (32, 28, 28, 64)
+    x = torch.randn(shape, generator=g).bfloat16().to(cuda)
+    dy = torch.randn(shape, generator=g).bfloat16().to(cuda)
+    r = torch.randn(shape, generator=g).bfloat16().to(cuda) if res else None
+    scale = (1 + 0.1 * torch.randn(64, generator=g)).to(cuda)
+    bias = (0.1 * torch.randn(64, generator=g)).to(cuda)
+    leaves = [t.requires_grad_(True) for t in (x, scale, bias, r)
+              if t is not None]
+    y, mean, var = tops.fused_bn_train(x, scale, bias, residual=r,
+                                       relu=relu)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = torch.autograd.grad(y, leaves, dy)
+        torch.cuda.synchronize()
+    ours = ("dx_kernel", "sums_merge", "sums_partial")
+    names = sorted(next((k for k in ours if k in e.key), e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   for _ in range(e.count))
+    assert names == list(ours), names
+    x2, y2, dy2 = (t.detach().view(-1, 64) for t in (x, y, dy))
+    rstd = torch.rsqrt(var + 1e-5)
+    s1, s2 = tfb.bn_bwd_sums(dy2, x2, y2, mean, rstd, relu)
+    want = tfb.PLAIN["bn_bwd_dx"](dy2, x2, y2, mean, rstd, scale.detach(),
+                                  s1, s2, None, None, 1.0 / x2.shape[0],
+                                  relu, res)
+    assert torch.equal(got[0].view(-1, 64), want[0])
+    assert torch.equal(got[1], s2) and torch.equal(got[2], s1)
+    if res:
+        assert torch.equal(got[3].view(-1, 64), want[1])
 
 
 # ---------------------------------------------------------------------------
