@@ -360,7 +360,7 @@ def dx_section(torch, built, cfg, record):
                              y.data_ptr() if relu else None, mean.data_ptr(),
                              rstd.data_ptr(), scale.data_ptr(),
                              s1.data_ptr(), s2.data_ptr(), None, None,
-                             1.0 / rows, dx.data_ptr(),
+                             1.0 / rows, float(rows), dx.data_ptr(),
                              dres.data_ptr() if res else None, rows, c, 1,
                              int(relu), torch.cuda.current_stream()
                              .cuda_stream)

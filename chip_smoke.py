@@ -10,8 +10,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      nvcc per source, all started together);
   3. kernels: each of the four fused-BN kernels against its plain
      PyTorch version on the card (``bn_apply`` and ``bn_bwd_dx``
-     bitwise, ``bn_bwd_dx`` also with non-zero mean / var cotangents and
-     in given-stats mode, ``bn_stats`` the same bits on a second launch),
+     bitwise, ``bn_bwd_dx`` also with non-zero mean / var cotangents, in
+     given-stats mode and with a two-worker cross-replica site's count of
+     2 x rows, ``bn_stats`` the same bits on a second launch),
      at every BN-site shape of ResNet-50
      at batch 32 (stem 401,408 x 64 down to stage 3 1,568 x 2,048), in
      bf16 and f32, with kernel, plain and library times (CUDA events)
@@ -63,8 +64,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      within two bf16 ulps: it rounds twice); with kernel, plain and
      library times (``F.scaled_dot_product_attention``, ``F.rms_norm``,
      every rmsnorm call given the same bf16 scale as the serving path's
-     parameters are) and the bound of each case; an empty kernel timed
-     the same way (the launch floor) at rmsnorm's decode grid;
+     parameters are; ``F.rms_norm`` also logged at the decode site) and
+     the bound of each case; an empty kernel timed the same way (the
+     launch floor) at rmsnorm's decode grid;
   3e. gradients through the LM kernels' autograd Functions: rmsnorm in
      both orders and dtypes, flash at Dh 64 and 96 in both dtypes; every
      gradient (x and scale; q, k and v) present, finite, not all zero,
@@ -126,18 +128,42 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      call's launches counted; then 6 steps with the sentinel on and no
      fault (its cost beside phase 10's run without it) and the device
      time of its copy of the in-place state.
+  11. main path 5, cross-replica BN: main path 2 with ``sync_bn=True``
+     beside main path 2 itself, both cuDNN deterministic; the launch
+     counts equal, the state after the steps bitwise equal (at world
+     size 1 every all-reduce is a sum of one), and one more step of each
+     counting ``dist.all_reduce`` calls: 3 more a BN site (159), with the
+     profiler's all-reduce ops and NCCL kernels logged beside; the step
+     times side by side;
+  11b. the cross-worker sums on the card: two processes share the card
+     over gloo (a ``file://`` store), the reduced ResNet in f32 with
+     fused BN and ``sync_bn=True``, three steps, against the same two
+     workers on the CPU: losses within rtol 2e-5, parameters within a
+     relative norm of 2e-4 (``bn_bwd_dx`` with the count 2 x rows);
+  12. main path 6, the overlapped sync: main path 2 with
+     ``overlap_comm=True`` (16 MiB buckets) bitwise equal to phase 11's
+     main path 2, then main path 3 with and without it, bitwise equal
+     (losses, parameters, ``delta``, BN state); ``cast_copy`` launched
+     once a segment and once for the unpack; whether the first bucket is
+     launched (host) and its NCCL kernel starts (device) before the last
+     BN backward, logged; the step times side by side;
+  12b. reference: the reduced ResNet in f32, the overlapped step with
+     error feedback and every kernel on against the per-leaf step with
+     them off, three steps, bitwise (losses, parameters, residual); and
+     stream-LARS with error feedback, overlapped against bucketed,
+     bitwise (losses, parameters, ``delta``, residual).
 With ``--profile``, a few more steps of each main path run under
 torch.profiler (device busy time and idle share, top host ops and
 kernels), and one prefill and four decode steps of main path 4. With
 ``--turns N``, phase 7 runs the main paths again in turns, N times: main
-path 2, main path 2 fed pre-made batches (its producer threads then only
-hand them over), main path 1 twice, then the two variants of main path 2
-in reverse, for their wall step times side by side. Then a ``{"kernels":
+paths 2, 5 and 6, main path 2 fed pre-made batches (its producer threads
+then only hand them over), main path 1 twice, then the others in
+reverse, for their wall step times side by side. Then a ``{"kernels":
 [...]}`` line (launches from main path 2 for its eight kernels, from
 main path 3 for the two stream-LARS kernels, from main path 4 for
 flash_attention and rmsnorm, whose times are per prefill;
-``launches_by_path`` holds all three), the card's name and power limit,
-and last the ``{"ok": true, "device": ...}`` line. ``--out DIR`` also
+``launches_by_path`` holds every main path's), the card's name and power
+limit, and last the ``{"ok": true, "device": ...}`` line. ``--out DIR`` also
 writes the per-shape kernel tables to ``DIR/chip_smoke_kernels.json``.
 
 It exits non-zero before printing any result when no CUDA device is
@@ -346,13 +372,18 @@ def kernel_phase(torch, fb, cfg, out_rows):
             inv_m = 1.0 / rows
             dx_args = (dy, x, py, pmean, rstd, scale, p1, p2, None, None,
                        inv_m, relu, res)
-            # the same site with mean / var cotangents, and given stats
-            dx_cases = {"": dx_args,
-                        " cotangents": dx_args[:8] + (
-                            rnd(c, dt=torch.float32),
-                            rnd(c, dt=torch.float32)) + dx_args[10:],
-                        " given stats": dx_args[:6] + (None,) * 4
-                        + dx_args[10:]}
+            cot = (rnd(c, dt=torch.float32), rnd(c, dt=torch.float32))
+            # the same site with mean / var cotangents, in given-stats
+            # mode, and as one of two workers' cross-replica site (the
+            # count 2 x rows, with cotangents: the dvar term divides by it)
+            dx_cases = {"": (dx_args, {}),
+                        " cotangents": (dx_args[:8] + cot + dx_args[10:],
+                                        {}),
+                        " given stats": (dx_args[:6] + (None,) * 4
+                                         + dx_args[10:], {}),
+                        " count 2m": (dx_args[:8] + cot
+                                      + (1.0 / (2 * rows), relu, res),
+                                      {"count": 2 * rows})}
             torch.cuda.synchronize()
             # --- hold each kernel against its plain version
             x32 = x.float()
@@ -390,9 +421,9 @@ def kernel_phase(torch, fb, cfg, out_rows):
                     f"{(y.float() - py.float()).abs().max().item():.3g})")
             errs["bn_apply"] = 0.0
             # so does bn_bwd_dx, its coefficients included
-            for case, args in dx_cases.items():
-                got = fb.bn_bwd_dx(*args)
-                want = fb.PLAIN["bn_bwd_dx"](*args)
+            for case, (args, kw) in dx_cases.items():
+                got = fb.bn_bwd_dx(*args, **kw)
+                want = fb.PLAIN["bn_bwd_dx"](*args, **kw)
                 for name, g, w in (("dx", got[0], want[0]),
                                    ("dres", got[1], want[1])):
                     if (g is None) != (w is None) or (
@@ -1234,10 +1265,11 @@ DP_WORKERS = 4  # producer threads of the DP main paths
 
 
 def dp_setup(torch, cfg, steps: int, lars: bool = False,
-             sentinel: bool = False):
-    """Main path 2's pieces (main path 3's with ``lars``), through the
-    entry points a ``torchrun`` worker calls: (state, train_step, data,
-    put_batch, state_shardings, (eval_step, val_data, finalize))."""
+             sentinel: bool = False, build=None):
+    """Main path 2's pieces (main path 3's with ``lars``; ``build`` adds
+    ``build_train_setup`` options: sync-BN, the overlapped sync), through
+    the entry points a ``torchrun`` worker calls: (state, train_step,
+    data, put_batch, state_shardings, (eval_step, val_data, finalize))."""
     from repro_torch.configs import InputConfig, OptimizerConfig
     from repro_torch.launch.train import build_eval_setup, build_train_setup
 
@@ -1250,15 +1282,19 @@ def dp_setup(torch, cfg, steps: int, lars: bool = False,
             steps_per_epoch=steps, dp_mode="shardmap",
             compute_dtype=torch.bfloat16, use_fused_kernel=True,
             compression="bf16+bucketed", fused_bn=True, input_cfg=input_cfg,
-            label_smoothing=smoothing, sentinel=sentinel, device="cuda")
+            label_smoothing=smoothing, sentinel=sentinel, device="cuda",
+            **(build or {}))
     evals = build_eval_setup(model, cfg, global_batch=BATCH, seq_len=0,
                              dp_mode="shardmap", input_cfg=input_cfg)
     return state, train_step, data, put_batch, shardings, evals
 
 
-def dp_want(calls: int, evals: int, n_leaves: int, lars: bool = False):
+def dp_want(calls: int, evals: int, n_leaves: int, lars: bool = False,
+            segments: int = 0):
     """Each kernel's launches on the DP main paths for ``calls`` train
-    steps and ``evals`` eval batches of ResNet-50's 53 BN sites."""
+    steps and ``evals`` eval batches of ResNet-50's 53 BN sites; the
+    overlapped sync (``segments`` > 0) casts each segment's gradients on
+    their own."""
     from repro_torch.kernels.fused_update import MAX_LEAVES
     sites = 53
     return {"bn_stats": sites * calls, "bn_bwd_sums": sites * calls,
@@ -1267,19 +1303,23 @@ def dp_want(calls: int, evals: int, n_leaves: int, lars: bool = False):
                                                       // MAX_LEAVES),
             "seg_sq_partials": calls if lars else 0,
             "lars_update": calls if lars else 0,
-            "cast_copy": 2 * calls,  # one pack, one unpack per step
+            # one pack (or one a segment) and one unpack per step
+            "cast_copy": (max(segments, 1) + 1) * calls,
             "input_train": calls, "input_eval": evals,
             "flash_attention": 0, "rmsnorm": 0}
 
 
 def dp_main_path(torch, libs, cfg, steps: int, premade: bool = False,
-                 lars: bool = False):
+                 lars: bool = False, build=None, keep_bits: bool = False):
     """Main path 2: the paper's data-parallel step at world size 1 on
     NCCL, with every kernel of the slice on, through the same entry
     points a ``torchrun`` worker calls. ``premade`` feeds it batches
     made before the run (``PremadeSource``). ``lars`` makes it main path
     3: the ``lars_ls_poly`` recipe, whose update runs on the packed
-    stream through the stream-LARS kernels."""
+    stream through the stream-LARS kernels. ``build`` adds options
+    (main paths 5 and 6: sync-BN, the overlapped sync); ``keep_bits``
+    keeps the state's bits after the Trainer's run in ``stats["bits"]``
+    (before the profiled step that follows it)."""
     import torch.distributed as dist
 
     from repro_torch.training import Trainer, TrainerConfig
@@ -1287,7 +1327,7 @@ def dp_main_path(torch, libs, cfg, steps: int, premade: bool = False,
     workers = DP_WORKERS
     t0 = time.perf_counter()
     state, train_step, data, put_batch, _, (eval_step, val_data, finalize) \
-        = dp_setup(torch, cfg, steps, lars=lars)
+        = dp_setup(torch, cfg, steps, lars=lars, build=build)
     assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
     n_leaves = len(state["params"])
     log(f"  setup {time.perf_counter() - t0:.1f}s: {n_leaves} parameter "
@@ -1319,10 +1359,15 @@ def dp_main_path(torch, libs, cfg, steps: int, premade: bool = False,
     check_state(torch, state, p0)
     sites, val = len(state["model_state"]), tcfg.val_batches
     assert sites == 53, sites
-    want = dp_want(steps, val, n_leaves, lars)
+    segments = (2 + len(cfg.conv_stages)
+                if (build or {}).get("overlap_comm") else 0)
+    want = dp_want(steps, val, n_leaves, lars, segments)
     log(f"  launches {launches} (want {want}); batches staged "
         f"{put_batch.staged}")
     assert launches == want, (launches, want)
+    bits = None
+    if keep_bits:
+        bits = train_state_bits(state)
     state, step_kernels = backward_kernel_check(torch, train_step, state,
                                                 source, sites)
     ev = result.epoch_history[-1]
@@ -1339,7 +1384,10 @@ def dp_main_path(torch, libs, cfg, steps: int, premade: bool = False,
              "first_step_ms": result.history[0]["time"] * 1e3,
              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
              "kernels_in_a_step": step_kernels,
+             "losses": losses,
              "eval": {k: ev[k] for k in ("top1", "loss")}}
+    if keep_bits:
+        stats["bits"] = bits
     log(f"  median step {stats['median_step_ms']:.2f} ms, "
         f"{stats['images_per_s']:.1f} images/s (bf16, batch {BATCH}; host "
         f"wall time of the whole step, the wait for its batch included); "
@@ -1449,14 +1497,17 @@ SENTINEL_STEPS, SENTINEL_CHAOS = 9, "nan_grad@4,ckpt_truncate@6,nan_grad@7-8"
 
 
 def train_state_bits(state):
-    """Clones of every tensor of a main-path-2 train state (params,
-    ``delta``, ``m``, BN state) and the optimizer's ``step``."""
+    """Clones of every tensor of a main-path-2 or -3 train state (params,
+    ``delta`` and ``m`` per leaf or the flat stream ``delta``, BN state)
+    and the optimizer's ``step``."""
     out = {"opt/step": state["opt"]["step"]}
     for k, t in state["params"].items():
         out["params/" + k] = t.clone()
-    for f in ("delta", "m"):
-        for k, t in state["opt"][f].items():
-            out[f"{f}/{k}"] = t.clone()
+    for f, v in state["opt"].items():
+        if isinstance(v, dict):
+            out.update({f"{f}/{k}": t.clone() for k, t in v.items()})
+        elif f != "step":
+            out[f] = v.clone()
     for site, rec in state["model_state"].items():
         for k, t in rec.items():
             out[f"bn/{site}/{k}"] = t.clone()
@@ -1697,6 +1748,347 @@ def sentinel_phase(torch, libs, cfg):
     return out
 
 
+# main path 6: the overlapped step's buckets. ResNet-50's 51 MB bf16
+# gradient stream is one bucket at path 2's 64 MiB, which only the stem
+# segment's backward can close; at 16 MiB it is four, the first closed by
+# the stage-3 segment's backward
+OVERLAP_BUCKET_MIB = 16
+# all-reduces a sync-BN site adds to a train step: the mean and the
+# variance in the forward, S1 and S2 stacked in the backward
+SYNC_CALLS_PER_SITE = 3
+
+
+def allreduce_check(torch, train_step, state, data):
+    """One more DP step under torch.profiler with ``dist.all_reduce``
+    counted by a wrapper (the async bucket launches inside a
+    ``record_function`` span). Returns (new state, record): the calls by
+    kind, the profiler's all-reduce ops and NCCL kernels, and where they
+    exist whether the first bucket launch on the host comes before the
+    last BN backward (``_TrainFnBackward``) begins, and whether the first
+    NCCL kernel starts before the last ``dx_kernel`` ends."""
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    real = dist.all_reduce
+    calls = {"blocking": 0, "async": 0}
+
+    def counted(t, *a, **kw):
+        if kw.get("async_op"):
+            calls["async"] += 1
+            with record_function("bucket_all_reduce"):
+                return real(t, *a, **kw)
+        calls["blocking"] += 1
+        return real(t, *a, **kw)
+
+    batch = data.batch_at(3000)
+    torch.cuda.synchronize()
+    dist.all_reduce = counted
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, metrics = train_step(state, batch)
+            float(metrics["loss"])
+            torch.cuda.synchronize()
+    finally:
+        dist.all_reduce = real
+    events = prof.events()
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    kern = [e for e in events if e.device_type == DeviceType.CUDA]
+
+    def first_start(evs):
+        return min((e.time_range.start for e in evs), default=None)
+
+    def last(evs, attr):
+        return max((getattr(e.time_range, attr) for e in evs), default=None)
+
+    ops = [e for e in host if e.name == "c10d::allreduce_"]
+    buckets = [e for e in host if e.name == "bucket_all_reduce"]
+    bn_bwd = [e for e in host if e.name == "_TrainFnBackward"]
+    nccl = [e for e in kern if "nccl" in e.name.lower()]
+    dx = [e for e in kern if "dx_kernel" in e.name]
+    rec = {"calls": calls["blocking"] + calls["async"], **calls,
+           "c10d_allreduce_ops": len(ops),
+           # the host time inside the all-reduce calls, children included
+           "allreduce_host_ms": sum(e.cpu_time_total for e in ops) / 1e3,
+           "nccl_all_reduce_ops": sum(e.name == "nccl:all_reduce"
+                                      for e in host),
+           "nccl_kernels": len(nccl),
+           "first_bucket_before_last_bn_backward_host": None,
+           "first_nccl_kernel_before_last_dx_end": None}
+    if buckets and bn_bwd:
+        rec["first_bucket_before_last_bn_backward_host"] = \
+            first_start(buckets) < last(bn_bwd, "start")
+    if nccl and dx:
+        rec["first_nccl_kernel_before_last_dx_end"] = \
+            first_start(nccl) < last(dx, "end")
+    log(f"  one more step under torch.profiler: all-reduces {rec}")
+    return state, rec
+
+
+def sync_bn_phase(torch, libs, cfg):
+    """Phase 11: main path 5, main path 2 with ``sync_bn=True``, beside
+    main path 2 itself, cuDNN held to deterministic algorithms. At world
+    size 1 every all-reduce is a sum of one and each site's mean -
+    global mean is exactly 0, so the launches are path 2's and the state
+    after the steps is bitwise path 2's; one more step of each counts
+    the all-reduces (3 a BN site more). Returns (record, path 2's
+    bits, for phase 12)."""
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    runs = {}
+    try:
+        for name, build in (("path2", {}), ("path5", {"sync_bn": True})):
+            launches, stats, live = dp_main_path(torch, libs, cfg, STEPS,
+                                                 build=build,
+                                                 keep_bits=True)
+            _, stats["allreduce"] = allreduce_check(torch, *live)
+            runs[name] = (launches, stats)
+            del live
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    (l2, s2), (l5, s5) = runs["path2"], runs["path5"]
+    assert l5 == l2, (l5, l2)
+    bits2 = s2.pop("bits")
+    differ = bits_differ(torch, bits2, s5.pop("bits"))
+    extra = s5["allreduce"]["calls"] - s2["allreduce"]["calls"]
+    sites = 53
+    log(f"  path 5 vs path 2: {len(bits2)} entries, {len(differ)} not "
+        f"bitwise equal {differ[:5]}; losses {s5['losses']} vs "
+        f"{s2['losses']}")
+    log(f"  median step {s5['median_step_ms']:.2f} ms (sync-BN) vs "
+        f"{s2['median_step_ms']:.2f} ms (path 2), same run, cuDNN "
+        f"deterministic; all-reduces a step {s5['allreduce']['calls']} vs "
+        f"{s2['allreduce']['calls']}: {extra} for {sites} sites")
+    assert not differ, differ
+    assert extra == SYNC_CALLS_PER_SITE * sites, extra
+    return {"path2": s2, "path5": s5, "path5_launches": l5,
+            "bitwise": True, "sync_allreduces_per_step": extra}, bits2
+
+
+def sync_bn_cards_worker(rank: int, out_dir: str) -> None:
+    """One of phase 11b's two workers, both on the one card, joined over
+    gloo: three sync-BN DP steps of the reduced ResNet in f32 on the card
+    (kernels), then the same on the CPU (plain versions)."""
+    sys.path.insert(0, SRC)
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import (InputConfig, OptimizerConfig,
+                                     get_config, reduced_config)
+    from repro_torch.kernels import fused_bn as fb
+    from repro_torch.launch.train import build_train_setup
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/store",
+                            rank=rank, world_size=2)
+    try:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            fb.reset_launch_counts()
+            _, state, step, data, put, _ = build_train_setup(
+                reduced_config(get_config("resnet50")), global_batch=16,
+                seq_len=0, opt_cfg=OptimizerConfig(), steps_per_epoch=4,
+                dp_mode="shardmap", compute_dtype=torch.float32,
+                use_fused_kernel=True, compression="bf16+bucketed",
+                fused_bn=True, sync_bn=True,
+                input_cfg=InputConfig(fused=True, augment=False), seed=3,
+                device=dev)
+            for i in range(3):
+                batch = put(data.batch_at(i))
+                state, metrics = step(state, batch.take()
+                                      if hasattr(batch, "take") else batch)
+                out[f"{dev}/loss{i}"] = np.float64(metrics["loss"])
+            for k, v in state["params"].items():
+                out[f"{dev}/p/{k}"] = v.detach().cpu().numpy()
+            out[f"{dev}/bn_bwd_dx"] = np.int64(fb.LAUNCHES["bn_bwd_dx"])
+            out[f"{dev}/sites"] = np.int64(len(state["model_state"]))
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def sync_bn_cards_phase(torch):
+    """Phase 11b: the cross-worker sums on the card. Two processes share
+    the card over gloo (a ``file://`` store; NCCL refuses two ranks on
+    one device): the reduced ResNet in f32 with fused BN and sync-BN,
+    three steps, on the card against the same two workers on the CPU:
+    losses within rtol 2e-5, parameters within a relative norm of 2e-4
+    (ROADMAP's DP tolerances), the two workers' parameters bitwise equal
+    on each device, and ``bn_bwd_dx`` launched at every site of every
+    step on the card with the count 2 x rows."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_sync_")
+    try:
+        mp.spawn(sync_bn_cards_worker, args=(root,), nprocs=2)
+        ranks = [dict(np.load(os.path.join(root, f"rank{r}.npz")))
+                 for r in (0, 1)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    def params(d, dev):
+        pre = f"{dev}/p/"
+        return {k[len(pre):]: torch.from_numpy(v) for k, v in d.items()
+                if k.startswith(pre)}
+
+    losses = {dev: [float(ranks[0][f"{dev}/loss{i}"]) for i in range(3)]
+              for dev in ("cuda", "cpu")}
+    rel = param_rel_norm(params(ranks[0], "cuda"), params(ranks[0], "cpu"))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                       losses["cpu"]))
+    same = all(torch.equal(v, params(ranks[1], dev)[k])
+               for dev in ("cuda", "cpu")
+               for k, v in params(ranks[0], dev).items())
+    dx = [int(r["cuda/bn_bwd_dx"]) for r in ranks]
+    sites = int(ranks[0]["cuda/sites"])
+    log(f"  card {losses['cuda']} vs CPU {losses['cpu']}: loss rel diff "
+        f"{loss_rel:.3g}, param rel-norm diff {rel:.3g}; workers' params "
+        f"bitwise equal {same}; bn_bwd_dx launches per worker {dx} "
+        f"({sites} sites x 3 steps)")
+    assert all(math.isfinite(v) for v in losses["cuda"]), losses
+    assert loss_rel <= 2e-5 and rel < 2e-4, (losses, rel)
+    assert same and dx == [3 * sites] * 2, (same, dx)
+    return {"card_losses": losses["cuda"], "cpu_losses": losses["cpu"],
+            "loss_rel_diff": loss_rel, "param_rel_norm": rel,
+            "bn_bwd_dx_launches": dx}
+
+
+def overlap_phase(torch, libs, cfg, bits2, path2_ms: float):
+    """Phase 12: main path 6, main paths 2 and 3 with ``overlap_comm=True``
+    (buckets of ``OVERLAP_BUCKET_MIB``), cuDNN held to deterministic
+    algorithms, ``cast_copy`` launched once a segment and once for the
+    unpack. Path 2 overlapped must be bitwise path 2 (phase 11's run,
+    same seed), and path 3 overlapped bitwise path 3 (both run here):
+    losses, parameters, the optimizer state (path 3's flat ``delta``:
+    the overlapped step puts the synced stream back in the bucketed
+    step's leaf order before the update) and the BN state."""
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    build = {"overlap_comm": True, "bucket_bytes": OVERLAP_BUCKET_MIB << 20}
+    try:
+        l6, s6, live = dp_main_path(torch, libs, cfg, STEPS, build=build,
+                                    keep_bits=True)
+        _, s6["allreduce"] = allreduce_check(torch, *live)
+        del live
+        differ = bits_differ(torch, bits2, s6.pop("bits"))
+        log(f"  path 2 overlapped vs path 2: {len(differ)} of {len(bits2)} "
+            f"entries not bitwise equal {differ[:5]}; median step "
+            f"{s6['median_step_ms']:.2f} ms vs {path2_ms:.2f} ms (phase 11,"
+            f" same run)")
+        assert not differ, differ
+        runs = {}
+        for name, b in (("path3", None), ("path3_overlap", build)):
+            launches, st, live = dp_main_path(torch, libs, cfg, STEPS,
+                                              lars=True, build=b,
+                                              keep_bits=True)
+            del live
+            runs[name] = (launches, st)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    (_, s3), (l6b, s6b) = runs["path3"], runs["path3_overlap"]
+    b3, b6b = s3.pop("bits"), s6b.pop("bits")
+    differ3 = bits_differ(torch, b3, b6b)
+    log(f"  path 3 overlapped vs path 3: losses {s6b['losses']} vs "
+        f"{s3['losses']}; {len(differ3)} of {len(b3)} entries not bitwise "
+        f"equal {differ3[:5]}; median step {s6b['median_step_ms']:.2f} ms "
+        f"vs {s3['median_step_ms']:.2f} ms")
+    assert s6b["losses"] == s3["losses"] and not differ3, differ3[:5]
+    return {"path6": s6, "path6_launches": l6, "bitwise_vs_path2": True,
+            "path3": s3, "path3_overlap": s6b, "path3_overlap_launches": l6b,
+            "path3_bitwise": True, "bucket_mib": OVERLAP_BUCKET_MIB}
+
+
+def overlap_reference_phase(torch):
+    """Phase 12b: the reduced ResNet in f32 on the card, cuDNN held to
+    deterministic algorithms: the overlapped step with error feedback
+    and every kernel on (fused update, ready-order buckets cast per
+    segment, fused input) against the per-leaf error-feedback step with
+    them off (plain update, per-leaf all-reduce, host normalize), three
+    steps from one seed: bitwise (6b's tolerance), losses, parameters
+    and the residual. Then stream-LARS with error feedback, overlapped
+    against bucketed, kernels on in both: bitwise, losses, parameters,
+    ``delta`` and the residual."""
+    from repro_torch.configs import (InputConfig, OptimizerConfig,
+                                     get_config, reduced_config)
+    from repro_torch.launch.train import build_train_setup
+
+    cfg = reduced_config(get_config("resnet50"))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for on in (True, False):
+            _, state, step, data, put, _ = build_train_setup(
+                cfg, global_batch=16, seq_len=0, opt_cfg=OptimizerConfig(),
+                steps_per_epoch=4, dp_mode="shardmap",
+                compute_dtype=torch.float32, fused_bn=True,
+                use_fused_kernel=on,
+                compression="bf16+bucketed" if on else "bf16",
+                overlap_comm=on, bucket_bytes=16384, error_feedback=True,
+                input_cfg=InputConfig(fused=on, augment=False), seed=3,
+                device="cuda")
+            losses = []
+            for i in range(3):
+                state, metrics = step(state, put(data.batch_at(i)).take())
+                losses.append(float(metrics["loss"]))
+            runs[on] = (losses, state)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (lk, sk), (lp, sp) = runs[True], runs[False]
+    rel = param_rel_norm(sk["params"], sp["params"])
+    bitwise = lk == lp and all(
+        torch.equal(sk[f][k], sp[f][k]) for f in ("params", "ef_residual")
+        for k in sk[f])
+    nz = max(float(v.abs().max()) for v in sk["ef_residual"].values())
+    log(f"  overlapped, kernels on {lk} vs per-leaf, off {lp}; param "
+        f"rel-norm diff {rel:.3g}; bitwise {bitwise}; residual max {nz:.3g}")
+    assert all(math.isfinite(v) for v in lk) and bitwise and nz > 0, \
+        (lk, lp, rel)
+    opt_cfg, smoothing = lars_recipe(3, 4)
+    lars = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for overlap in (True, False):
+            _, state, step, data, put, _ = build_train_setup(
+                cfg, global_batch=16, seq_len=0, opt_cfg=opt_cfg,
+                steps_per_epoch=4, dp_mode="shardmap",
+                compute_dtype=torch.float32, fused_bn=True,
+                use_fused_kernel=True, compression="bf16+bucketed",
+                overlap_comm=overlap, bucket_bytes=16384,
+                error_feedback=True, label_smoothing=smoothing,
+                input_cfg=InputConfig(fused=True, augment=False), seed=3,
+                device="cuda")
+            losses = []
+            for i in range(3):
+                state, metrics = step(state, put(data.batch_at(i)).take())
+                losses.append(float(metrics["loss"]))
+            bits = train_state_bits(state)
+            bits.update({"ef/" + k: v.clone()
+                         for k, v in state["ef_residual"].items()})
+            lars[overlap] = (losses, bits)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (lo, bo), (lb, bb) = lars[True], lars[False]
+    lars_differ = bits_differ(torch, bb, bo)
+    log(f"  stream-LARS overlapped {lo} vs bucketed {lb}: "
+        f"{len(lars_differ)} of {len(bb)} entries not bitwise equal "
+        f"{lars_differ[:5]}")
+    assert lo == lb and not lars_differ, (lo, lb, lars_differ[:5])
+    return {"kernels_on_losses": lk, "kernels_off_losses": lp,
+            "param_rel_norm": rel, "bitwise": bitwise,
+            "lars_overlap_losses": lo, "lars_bucketed_losses": lb,
+            "lars_bitwise": True}
+
+
 # (B, Sq, Sk, Hq, Hkv, Dh, causal, window) of phase 3d: the serving
 # path's prefill first, then lengths 1 and 1000, Sq != Sk, non-causal, a
 # causal window of 256, groups 1, 4 and 8, Dh 32 and 128, the 64-row
@@ -1894,6 +2286,8 @@ def lm_kernel_phase(torch):
     dec = next(r for r in records["rmsnorm"]
                if r["dtype"] == "bf16" and r["rows"] == SERVE_BATCH)
     totals["rmsnorm"]["decode_launch_ms"] = dec["ms"]
+    totals["rmsnorm"]["decode_library_ms"] = dec["library_ms"]
+    totals["rmsnorm"]["decode_bound_ms"] = dec["bound_ms"]
     totals["rmsnorm"]["decode_step_ms"] = per_prefill["rmsnorm"] * dec["ms"]
     totals["rmsnorm"]["decode_step_bound_ms"] = \
         per_prefill["rmsnorm"] * dec["bound_ms"]
@@ -2232,9 +2626,9 @@ def main() -> int:
                          "(torch.profiler: device busy share, top ops)")
     ap.add_argument("--turns", type=int, default=0,
                     help="then run the main paths again in turns "
-                         "(2, 2 pre-made, 1, 1, 2 pre-made, 2) this many "
-                         "times, to compare their step times within one "
-                         "run")
+                         "(2, 5, 6, 2 pre-made, 1, 1, 2 pre-made, 6, 5, 2) "
+                         "this many times, to compare their step times "
+                         "within one run")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2314,7 +2708,10 @@ def main() -> int:
     rms["launch_floor_ms"] = floor["decode_grid_ms"]
     log(f"  rmsnorm at a decode site {rms['decode_launch_ms'] * 1e3:.2f} "
         f"us a launch, {rms['decode_launch_ms'] / floor['decode_grid_ms']:.2f}"
-        f"x the empty kernel on its grid")
+        f"x the empty kernel on its grid; F.rms_norm at the same "
+        f"{SERVE_BATCH} x 2048 bf16 {rms['decode_library_ms'] * 1e3:.2f} us,"
+        f" bound {rms['decode_bound_ms'] * 1e3:.4f} us, empty kernel "
+        f"{floor['decode_grid_ms'] * 1e3:.2f} us")
     log(f"  ({time.perf_counter() - t0:.1f}s)")
 
     t0 = time.perf_counter()
@@ -2356,8 +2753,11 @@ def main() -> int:
         ref2 = dp_reference_phase(torch)
         log(f"  ({time.perf_counter() - t0:.1f}s)")
 
-        order = ("path2", "path2_premade", "path1", "path1",
-                 "path2_premade", "path2")
+        builds = {"path5": {"sync_bn": True},
+                  "path6": {"overlap_comm": True,
+                            "bucket_bytes": OVERLAP_BUCKET_MIB << 20}}
+        order = ("path2", "path5", "path6", "path2_premade", "path1",
+                 "path1", "path2_premade", "path6", "path5", "path2")
         turns = {f"{k}_median_wall_ms": [] for k in order}
         if args.turns:
             log(f"[7] main paths in turns {order} x {args.turns}")
@@ -2367,7 +2767,8 @@ def main() -> int:
                     st = main_path(torch, libs, cfg, STEPS)[1]
                 else:
                     st = dp_main_path(torch, libs, cfg, STEPS,
-                                      premade=which.endswith("premade"))[1]
+                                      premade=which.endswith("premade"),
+                                      build=builds.get(which))[1]
                 turns[f"{which}_median_wall_ms"].append(st["median_wall_ms"])
         if args.turns:
             log(f"  {turns}")
@@ -2404,6 +2805,35 @@ def main() -> int:
             f"a save every {CKPT_EVERY}, {SENTINEL_STEPS} steps")
         sentinel_stats = sentinel_phase(torch, libs, cfg)
         log(f"  ({time.perf_counter() - t0:.1f}s)")
+
+        t0 = time.perf_counter()
+        log(f"[11] main path 5: main path 2 with sync_bn=True at world size "
+            f"1 (NCCL), beside main path 2, {STEPS} steps + 1 eval batch "
+            f"each, cuDNN deterministic: bitwise, launches and all-reduces")
+        sync_stats, bits2 = sync_bn_phase(torch, libs, cfg)
+        log(f"  ({time.perf_counter() - t0:.1f}s)")
+
+        t0 = time.perf_counter()
+        log("[11b] cross-worker sums on the card: two processes on the one "
+            "card over gloo, reduced ResNet f32, fused BN, sync_bn=True, 3 "
+            "steps, card vs CPU")
+        sync_cards = sync_bn_cards_phase(torch)
+        log(f"  ({time.perf_counter() - t0:.1f}s)")
+
+        t0 = time.perf_counter()
+        log(f"[12] main path 6: main paths 2 and 3 with overlap_comm=True "
+            f"({OVERLAP_BUCKET_MIB} MiB buckets) at world size 1 (NCCL), "
+            f"{STEPS} steps + 1 eval batch each, cuDNN deterministic")
+        overlap_stats = overlap_phase(torch, libs, cfg, bits2,
+                                      sync_stats["path2"]["median_step_ms"])
+        del bits2
+        log(f"  ({time.perf_counter() - t0:.1f}s)")
+
+        t0 = time.perf_counter()
+        log("[12b] reference: reduced ResNet f32, the overlapped step with "
+            "error feedback, kernels on vs the per-leaf step with them off")
+        ref6 = overlap_reference_phase(torch)
+        log(f"  ({time.perf_counter() - t0:.1f}s)")
     finally:
         shutdown()
 
@@ -2420,8 +2850,13 @@ def main() -> int:
     ref4 = serve_reference_phase(torch)
     log(f"  ({time.perf_counter() - t0:.1f}s)")
 
+    launches5 = sync_stats["path5_launches"]
+    launches6 = overlap_stats["path6_launches"]
     by_path = {k: {"path2": launches[k], "path3": launches3[k],
-                   "path4": launches4[k]} for k in launches}
+                   "path4": launches4[k], "path5": launches5[k],
+                   "path6": launches6[k],
+                   "path6_lars": overlap_stats["path3_overlap_launches"][k]}
+               for k in launches}
     kernels = [{"name": k, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[k], "launches": launches[k],
                 "launches_by_path": by_path[k],
@@ -2468,6 +2903,8 @@ def main() -> int:
                        "main_path_4": stats4, "reference_4": ref4,
                        "checkpoint": ckpt_stats,
                        "sentinel": sentinel_stats,
+                       "sync_bn": sync_stats, "sync_bn_cards": sync_cards,
+                       "overlap": overlap_stats, "reference_6": ref6,
                        "division": division}, f,
                       indent=1)
     log(f"total {time.perf_counter() - t_all:.1f}s")

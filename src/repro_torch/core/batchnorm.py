@@ -4,7 +4,9 @@ The model keeps only the last minibatch's statistics as state. This is
 the plain path of every BN site; ``kernels/fused_bn.py`` fuses the same
 math into the CUDA kernels. In the data-parallel step every worker keeps
 the statistics of its own minibatch; before validation they are
-all-reduced moment-correctly (``finalize_bn_stats``, paper §2).
+all-reduced moment-correctly (``finalize_bn_stats``, paper §2). With a
+process group, ``bn_batch_stats`` is cross-replica BN (sync-BN): the
+statistics of the workers' concatenated batches.
 """
 from __future__ import annotations
 
@@ -16,14 +18,46 @@ import torch.distributed as dist
 F32 = torch.float32
 
 
-def bn_batch_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over a process group, differentiable: its gradient is the
+    sum of the workers' cotangents (the transpose of a psum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def _pmean(x: torch.Tensor, group) -> torch.Tensor:
+    return _AllReduceSum.apply(x, group) / dist.get_world_size(group)
+
+
+def bn_batch_stats(x: torch.Tensor, group=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean and **centered** variance E[(x - mu)^2] over all but the
     channel (last) axis, fp32 accumulation: the uncentered
-    E[x^2] - mu^2 cancels almost every bit for a large-mean activation."""
+    E[x^2] - mu^2 cancels almost every bit for a large-mean activation.
+
+    ``group``: a process group for cross-replica BN. The mean is
+    averaged over it first, then each worker's second moment about the
+    *global* mean is averaged (the JAX package's two pmeans, in its
+    order): the statistics of the concatenated batches."""
     dims = tuple(range(x.dim() - 1))
     x32 = x.to(F32)
     mean = x32.mean(dim=dims)
+    if group is not None:
+        mean = _pmean(mean, group)
     var = (x32 - mean).square().mean(dim=dims)
+    if group is not None:
+        var = _pmean(var, group)
     return mean, var
 
 

@@ -23,9 +23,14 @@ The stream-LARS path adds the leaf-segment map of the stream
 kernel) and a worker's 1/N slice of it (``local_shard``), and
 ``bucketed_psum_ef`` threads error feedback through the bucketed sync.
 
-Not ported yet: the ready-order plans of the overlapped step, the shard
-layouts of ZeRO (``shard_perm`` and the rest) and the hierarchical
-schedules (ROADMAP queue 1, items 10, 11 and 13).
+The overlapped step lays the stream out in backward-completion order
+instead (``plan_ready_buckets``): the segments' gradients in the order
+the backward produces them, so a bucket closes as soon as the segment
+holding its last element is done, and ``pack_bucket`` casts each
+segment's gradients as they come and hands out the buckets they close.
+
+Not ported yet: the shard layouts of ZeRO (``shard_perm`` and the rest)
+and the hierarchical schedules (ROADMAP queue 1, items 11 and 13).
 """
 from __future__ import annotations
 
@@ -119,7 +124,12 @@ def plan_buckets(grads: Dict[str, Tensor],
     an ``align`` multiple."""
     if not grads:
         raise ValueError("cannot plan buckets for an empty gradient dict")
-    names = leaf_order(grads)
+    return _plan(leaf_order(grads), grads, bucket_bytes, wire, align)
+
+
+def _plan(names: List[str], grads: Dict[str, Tensor], bucket_bytes: int,
+          wire: Optional[str], align: int) -> BucketPlan:
+    """The plan of the leaves ``names`` of ``grads``, in that order."""
     wdt = _wire(wire)
     if wdt is None:
         dtypes = {grads[k].dtype for k in names}
@@ -294,3 +304,125 @@ def segment_sq_partials(x: Tensor, seg_ids: Tensor, num_segments: int
         seg, torch.arange(num_segments + 1, device=seg.device)).tolist()
     return torch.stack([sq[lo:hi].sum() for lo, hi in
                         zip(bounds[:-1], bounds[1:])])
+
+
+# ---------------------------------------------------------------------------
+# ready-order buckets (the backward-overlapped sync)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ReadyBucketPlan:
+    """A ``BucketPlan`` whose stream is laid out in backward-completion
+    order: the stage trees (segments) in the order the backward produces
+    them, last forward segment first, each stage's leaves in
+    ``leaf_order``. ``ready_stage[b]`` is the stage (in that order)
+    whose gradients complete bucket ``b``; it never decreases in ``b``."""
+
+    base: BucketPlan
+    stage_ends: Tuple[int, ...]  # cumulative element end of each stage
+    ready_stage: Tuple[int, ...]  # per bucket
+
+    @property
+    def n_buckets(self) -> int:
+        return self.base.n_buckets
+
+    def buckets_ready_at(self, stage_idx: int) -> Tuple[int, ...]:
+        return tuple(b for b, s in enumerate(self.ready_stage)
+                     if s == stage_idx)
+
+
+def plan_ready_buckets(stage_trees: Sequence[Dict[str, Tensor]],
+                       bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+                       wire: Optional[str] = "bf16",
+                       align: int = 1) -> ReadyBucketPlan:
+    """Lay out per-stage gradient dicts, given in backward-completion
+    order, as one stream cut into fixed-size buckets. Only where a leaf
+    sits changes against ``plan_buckets``, and the sync is elementwise
+    (cast, sum, cast back, divide), so the values cannot change. The
+    shard-aligned zero tail (``align > 1``) belongs to the last bucket,
+    which closes with the last real element."""
+    stage_trees = list(stage_trees)
+    if not stage_trees or not any(stage_trees):
+        raise ValueError("need at least one stage with gradients")
+    names = [k for t in stage_trees for k in leaf_order(t)]
+    if len(set(names)) != len(names):
+        raise ValueError("a leaf name appears in more than one stage")
+    merged = {k: v for t in stage_trees for k, v in t.items()}
+    base = _plan(names, merged, bucket_bytes, wire, align)
+    ends: List[int] = []
+    off = 0
+    for t in stage_trees:
+        off += sum(v.numel() for v in t.values())
+        ends.append(off)
+    assert off == base.total_elems
+    ready = []
+    for b in range(base.n_buckets):
+        # the stage that holds the bucket's last real element (the zero
+        # tail of a shard-aligned plan needs no stage)
+        hi_real = min(base.bucket_bounds(b)[1], base.total_elems)
+        ready.append(next(i for i, e in enumerate(ends) if e >= hi_real))
+    return ReadyBucketPlan(base=base, stage_ends=tuple(ends),
+                           ready_stage=tuple(ready))
+
+
+def pack_bucket(plan: ReadyBucketPlan, stage_idx: int,
+                stage_tree: Dict[str, Tensor],
+                carry: Optional[Tensor] = None
+                ) -> Tuple[List[Tuple[int, Tensor]], Tensor]:
+    """Feed stage ``stage_idx``'s gradients, stages in ready order
+    (0, 1, ...): they are concatenated in ``leaf_order`` and cast to the
+    wire dtype in one pass (the ``cast_copy`` kernel on the card).
+    Returns ``(ready, carry')``: the ``(bucket id, wire tensor)`` of the
+    buckets this stage closed, and the unemitted tail for the next
+    stage. A bucket that lies inside this stage is a view of its cast
+    stream; one that begins in the carry is a new tensor."""
+    base = plan.base
+    leaves = [stage_tree[k].reshape(-1) for k in leaf_order(stage_tree)]
+    flat = (torch.cat(leaves) if leaves else torch.empty(
+        (0,), dtype=base.stream_dtype,
+        device=None if carry is None else carry.device))
+    if flat.dtype != base.stream_dtype:
+        flat = pack_cast(flat, base.stream_dtype)
+    carry_len = 0 if carry is None else carry.numel()
+    fed_end = plan.stage_ends[stage_idx]
+    flat_start = fed_end - flat.numel()
+    stream_start = flat_start - carry_len
+    joined: Optional[Tensor] = None
+
+    def view(lo: int, hi: int) -> Tensor:
+        nonlocal joined
+        if lo >= flat_start:
+            return flat[lo - flat_start:hi - flat_start]
+        if joined is None:
+            joined = torch.cat([carry, flat])
+        return joined[lo - stream_start:hi - stream_start]
+
+    ready = []
+    emitted_end = stream_start
+    for b in plan.buckets_ready_at(stage_idx):
+        lo, hi = base.bucket_bounds(b)
+        # only a shard-aligned plan's final tail may be zero-filled: a
+        # bucket marked ready before its last real element is fed must
+        # trip the assert, never sync zeros in its place
+        hi_real = min(hi, base.total_elems)
+        assert lo >= stream_start and hi_real <= fed_end, (b, lo, hi)
+        arr = view(lo, hi_real)
+        if hi > hi_real:
+            arr = torch.cat([arr, arr.new_zeros(hi - hi_real)])
+        ready.append((b, arr))
+        emitted_end = hi_real
+    return ready, view(emitted_end, fed_end)
+
+
+def reorder_stream(stream: Tensor, src: BucketPlan, dst: BucketPlan
+                   ) -> Tensor:
+    """A packed stream laid out by ``src``, laid out by ``dst`` instead
+    (the same leaves and padded length, in another order; the zero tail
+    stays last): one copy, no arithmetic."""
+    slots = dict(zip(src.names, src.slots))
+    assert set(slots) == set(dst.names), "plans of different leaves"
+    assert src.padded_total == dst.padded_total == stream.numel()
+    parts = [stream[s.offset:s.offset + s.size]
+             for s in (slots[k] for k in dst.names)]
+    return torch.cat(parts + [stream[src.total_elems:]])

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Any, Dict, List, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -159,43 +159,58 @@ def load_reference_arrays(arrays: Mapping[str, np.ndarray],
     return params_from_jax(_unflatten(flat), device)
 
 
-def _restream(flat, params: Mapping[str, torch.Tensor], to_port: bool):
-    """Reorder each conv leaf's elements inside a flat packed stream
-    between HWIO (JAX) and OIHW (port); the other leaves and the pad
-    tail keep their places. ``flat`` is a tensor (the result stays on
-    its device) or a numpy array (the result is one)."""
+def _restream(flat, params: Mapping[str, torch.Tensor], to_port: bool,
+              order: Optional[Sequence[str]] = None):
+    """Carry a flat packed stream between the port's layout (the leaves
+    in ``leaf_order``, conv leaves OIHW) and the JAX package's (the
+    leaves in ``order``, ``leaf_order`` when None; conv leaves HWIO);
+    the pad tail keeps its place. ``flat`` is a tensor (the result stays
+    on its device) or a numpy array (the result is one)."""
     src = flat if torch.is_tensor(flat) else torch.from_numpy(np.array(flat))
+    port_order = leaf_order(params)
+    jax_order = port_order if order is None else list(order)
+    if sorted(jax_order) != port_order:
+        raise ValueError("the stream order must name every parameter once")
+    sizes = {k: int(np.prod(tuple(params[k].shape))) for k in port_order}
+    port_off = dict(zip(port_order, np.cumsum(
+        [0] + [sizes[k] for k in port_order[:-1]]).tolist()))
+    jax_off = dict(zip(jax_order, np.cumsum(
+        [0] + [sizes[k] for k in jax_order[:-1]]).tolist()))
     out = src.clone()
-    off = 0
-    for name in leaf_order(params):
-        shape = tuple(params[name].shape)
-        size = int(np.prod(shape))
+    for name in port_order:
+        shape, size = tuple(params[name].shape), sizes[name]
+        lo, to = ((jax_off[name], port_off[name]) if to_port
+                  else (port_off[name], jax_off[name]))
+        seg = src[lo:lo + size]
         if len(shape) == 4:
             o, i, h, w = shape
-            seg = src[off:off + size]
             seg = (seg.view(h, w, i, o).permute(3, 2, 0, 1) if to_port
                    else seg.view(o, i, h, w).permute(2, 3, 1, 0))
-            out[off:off + size] = seg.reshape(-1)
-        off += size
+        out[to:to + size] = seg.reshape(-1)
     return out if torch.is_tensor(flat) else out.numpy()
 
 
 def stream_opt_state_from_jax(opt: Mapping, params: Mapping[str, torch.Tensor],
-                              device: DeviceLike = "cuda") -> Dict[str, Any]:
+                              device: DeviceLike = "cuda",
+                              order: Optional[Sequence[str]] = None
+                              ) -> Dict[str, Any]:
     """The JAX package's stream optimizer state (``step``, the flat padded
-    ``delta``) -> the port's, for the parameters ``params`` (the port's
-    own, which give the leaves' names and shapes)."""
+    ``delta``, its leaves in ``order``: see ``_restream``) -> the port's,
+    for the parameters ``params`` (the port's own, which give the
+    leaves' names and shapes)."""
     dev = resolve_device(device)
-    delta = _restream(np.asarray(opt["delta"]), params, to_port=True)
+    delta = _restream(np.asarray(opt["delta"]), params, to_port=True,
+                      order=order)
     return {"step": int(opt["step"]),
             "delta": torch.from_numpy(delta).to(dev)}
 
 
-def stream_opt_state_to_jax(opt: Mapping, params: Mapping[str, torch.Tensor]
+def stream_opt_state_to_jax(opt: Mapping, params: Mapping[str, torch.Tensor],
+                            order: Optional[Sequence[str]] = None
                             ) -> Dict[str, np.ndarray]:
     delta = opt["delta"].detach().cpu().numpy()
     return {"step": np.int32(opt["step"]),
-            "delta": _restream(delta, params, to_port=False)}
+            "delta": _restream(delta, params, to_port=False, order=order)}
 
 
 def ef_residual_from_jax(residual: Mapping, worker: int,
@@ -225,9 +240,14 @@ class WorkerSharding:
     """The data-parallel path's state layout: ``model_state`` and
     ``ef_residual`` are each worker's own (one per rank of ``group``;
     None is the default group), which the JAX package keeps under a
-    leading worker dim; everything else is replicated."""
+    leading worker dim; everything else is replicated.
+    ``stream_order`` is the leaf order of the JAX package's stream
+    optimizer state: None for ``leaf_order`` (the bucketed step's, and
+    the port's always), the ready order under ``overlap_comm``
+    (``training.step.overlap_stream_order``)."""
 
     group: Any = None
+    stream_order: Optional[Tuple[str, ...]] = None
 
     def world(self) -> int:
         return dist.get_world_size(self.group)
@@ -277,7 +297,7 @@ def train_state_to_jax(state: Mapping, shardings: Optional[WorkerSharding]
     numpy arrays, in its layout: conv leaves of the parameters, of every
     per-leaf optimizer tree and of the EF residuals as HWIO; a stream
     optimizer state (a flat tensor) reordered to the JAX stream
-    (``_restream``); the host ``step`` counter as a 0-d int32 array, as
+    (``_restream``, its leaves in ``shardings.stream_order``); the host ``step`` counter as a 0-d int32 array, as
     the JAX optimizers keep it. The tensors are copied to the host here,
     once (the checkpoint snapshot).
 
@@ -298,7 +318,9 @@ def train_state_to_jax(state: Mapping, shardings: Optional[WorkerSharding]
         if key == "params":
             tree[key] = params_to_jax(sub)
         elif key == "opt":
-            tree[key] = {k: _opt_leaf_to_jax(v, state["params"])
+            order = shardings.stream_order if shardings is not None \
+                else None
+            tree[key] = {k: _opt_leaf_to_jax(v, state["params"], order)
                          for k, v in sub.items()}
         elif key == "model_state":
             tree[key] = {site: {k: to_numpy(rows.get((key, site, k), t))
@@ -326,11 +348,11 @@ def _worker_leaves(state: Mapping) -> List[tuple]:
     return out
 
 
-def _opt_leaf_to_jax(v, params):
+def _opt_leaf_to_jax(v, params, order):
     if isinstance(v, Mapping):
         return params_to_jax(v)
     if torch.is_tensor(v):  # the flat stream of a stream optimizer
-        return to_numpy(_restream(v, params, to_port=False))
+        return to_numpy(_restream(v, params, to_port=False, order=order))
     return np.asarray(v, np.int32)
 
 
@@ -350,6 +372,7 @@ def train_state_from_jax(arrays: Mapping, target: Dict[str, Any],
         arrays = _keyed_arrays(arrays)
     row = shardings.rank() if shardings is not None else None
     world = shardings.world() if shardings is not None else None
+    order = shardings.stream_order if shardings is not None else None
 
     def fetch(path: tuple, shape: tuple) -> np.ndarray:
         key = keystr(path)
@@ -385,7 +408,8 @@ def train_state_from_jax(arrays: Mapping, target: Dict[str, Any],
                     elif torch.is_tensor(v):
                         v.copy_(to_tensor(_restream(
                             fetch((key, k), tuple(v.shape)),
-                            target["params"], to_port=True), v))
+                            target["params"], to_port=True,
+                            order=order), v))
                     else:
                         sub[k] = int(fetch((key, k), ()))
             elif key == "model_state":

@@ -61,8 +61,11 @@
 //    with B = C = 0 in given-stats mode (s1 = s2 = null) and each
 //    cotangent term skipped where its pointer is null; so the row loop
 //    reads only the (rows, C) streams, and the backward's per-channel
-//    glue is part of this launch. inv_m = 1 / m comes from the host (a
-//    division by m would differ by an ulp between devices); the dvar
+//    glue is part of this launch. m is the count the statistics were
+//    taken over: the rows here, or rows x workers under cross-replica
+//    BN, where s1, s2 and the cotangents are the all-reduced ones; rows
+//    stays the loop bound. inv_m = 1 / m and m itself come from the host
+//    (a division by m would differ by an ulp between devices); the dvar
 //    term divides with __fdiv_rn, as the plain version's tensor / tensor
 //    does. Every operation is an explicit _rn intrinsic in the plain
 //    version's order, x_hat = (x - mu) * rstd, then
@@ -84,10 +87,11 @@
 // C interface (loaded with ctypes): every pointer and the stream are
 // void*, dtype is 0 for float32 and 1 for bfloat16, and each entry point
 // returns cudaGetLastError() after its launches; bn_bwd_dx takes inv_m
-// as a float, and null for each optional pointer. bn_stats takes a counter
-// of at least ceil(C / 32) unsigned ints that is zero before the launch
-// and zero again after it (one per column group: ceil(C / 32) covers
-// every path); launches that share one must not overlap.
+// and the count m as floats, and null for each optional pointer.
+// bn_stats takes a counter of at least ceil(C / 32) unsigned ints that
+// is zero before the launch and zero again after it (one per column
+// group: ceil(C / 32) covers every path); launches that share one must
+// not overlap.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -591,7 +595,7 @@ __global__ void __launch_bounds__(kDxThreads, kDxMinBlocks)
               const float* __restrict__ rstd,
               const float* __restrict__ scale, const float* __restrict__ s1,
               const float* __restrict__ s2, const float* __restrict__ dmean,
-              const float* __restrict__ dvar, float inv_m,
+              const float* __restrict__ dvar, float inv_m, float count,
               T* __restrict__ dx, T* __restrict__ dres, long long rows,
               int C) {
   const int units = C / V;
@@ -599,7 +603,6 @@ __global__ void __launch_bounds__(kDxThreads, kDxMinBlocks)
   const long long lanes = (long long)gridDim.x * kDxThreads / units;
   if (tid >= lanes * units) return;
   const int c0 = (int)(tid % units) * V;
-  const float m = (float)rows;
   float mv[V], rv[V], av[V], bv[V], cv[V];
 #pragma unroll
   for (int j = 0; j < V; ++j) {
@@ -615,7 +618,7 @@ __global__ void __launch_bounds__(kDxThreads, kDxMinBlocks)
       bv[j] = __fsub_rn(bv[j], __fmul_rn(dmean[c0 + j], inv_m));
     if (dvar != nullptr)
       cv[j] = __fsub_rn(cv[j], __fdiv_rn(__fmul_rn(2.f, dvar[c0 + j]),
-                                         __fmul_rn(m, rv[j])));
+                                         __fmul_rn(count, rv[j])));
   }
   // two batches of kDxUnroll rows: the loads of the next batch go out
   // before the math of the current one
@@ -747,8 +750,8 @@ template <typename T, int V>
 cudaError_t dx_launch(const T* dy, const T* x, const T* y, const float* mu,
                       const float* rstd, const float* scale, const float* s1,
                       const float* s2, const float* dmean, const float* dvar,
-                      float inv_m, T* dx, T* dres, long long rows, int C,
-                      cudaStream_t s) {
+                      float inv_m, float count, T* dx, T* dres,
+                      long long rows, int C, cudaStream_t s) {
   static long long full = 0;  // SMs x resident blocks, found once
   if (full == 0) {
     int dev = 0, sms = 0, per_sm = 0;
@@ -767,8 +770,8 @@ cudaError_t dx_launch(const T* dy, const T* x, const T* y, const float* mu,
   long long blocks = need < full ? need : full;
   if (blocks < least) blocks = least;
   dx_kernel<T, V><<<(unsigned)blocks, kDxThreads, 0, s>>>(
-      dy, x, y, mu, rstd, scale, s1, s2, dmean, dvar, inv_m, dx, dres, rows,
-      C);
+      dy, x, y, mu, rstd, scale, s1, s2, dmean, dvar, inv_m, count, dx, dres,
+      rows, C);
   return cudaGetLastError();
 }
 
@@ -779,8 +782,9 @@ template <typename T>
 cudaError_t dx_dispatch(const void* dy, const void* x, const void* y,
                         const void* mu, const void* rstd, const void* scale,
                         const void* s1, const void* s2, const void* dmean,
-                        const void* dvar, float inv_m, void* dx, void* dres,
-                        long long rows, int C, int relu, cudaStream_t s) {
+                        const void* dvar, float inv_m, float count, void* dx,
+                        void* dres, long long rows, int C, int relu,
+                        cudaStream_t s) {
   constexpr int V = 16 / sizeof(T);
   if (rows <= 0 || C <= 0 || (relu && y == nullptr) ||
       (s1 == nullptr) != (s2 == nullptr))
@@ -794,12 +798,12 @@ cudaError_t dx_dispatch(const void* dy, const void* x, const void* y,
         (const T*)dy, (const T*)x, (const T*)y, (const float*)mu,
         (const float*)rstd, (const float*)scale, (const float*)s1,
         (const float*)s2, (const float*)dmean, (const float*)dvar, inv_m,
-        (T*)dx, (T*)dres, rows, C, s);
+        count, (T*)dx, (T*)dres, rows, C, s);
   return dx_launch<T, 1>(
       (const T*)dy, (const T*)x, (const T*)y, (const float*)mu,
       (const float*)rstd, (const float*)scale, (const float*)s1,
       (const float*)s2, (const float*)dmean, (const float*)dvar, inv_m,
-      (T*)dx, (T*)dres, rows, C, s);
+      count, (T*)dx, (T*)dres, rows, C, s);
 }
 
 }  // namespace
@@ -859,16 +863,17 @@ int bn_bwd_sums(const void* dy, const void* x, const void* y, const void* mu,
 int bn_bwd_dx(const void* dy, const void* x, const void* y, const void* mu,
               const void* rstd, const void* scale, const void* s1,
               const void* s2, const void* dmean, const void* dvar,
-              float inv_m, void* dx, void* dres, long long rows, int C,
-              int dtype, int relu, void* stream) {
+              float inv_m, float count, void* dx, void* dres, long long rows,
+              int C, int dtype, int relu, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return (int)dx_dispatch<float>(dy, x, y, mu, rstd, scale, s1, s2, dmean,
-                                   dvar, inv_m, dx, dres, rows, C, relu, s);
+                                   dvar, inv_m, count, dx, dres, rows, C, relu,
+                                   s);
   if (dtype == 1)
     return (int)dx_dispatch<__nv_bfloat16>(dy, x, y, mu, rstd, scale, s1, s2,
-                                           dmean, dvar, inv_m, dx, dres,
-                                           rows, C, relu, s);
+                                           dmean, dvar, inv_m, count, dx,
+                                           dres, rows, C, relu, s);
   return (int)cudaErrorInvalidValue;
 }
 

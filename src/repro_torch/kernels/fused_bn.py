@@ -12,7 +12,8 @@ fastest), in f32 or bf16 with f32 math:
                by the saved output (y > 0) when the site has a ReLU
   bn_bwd_dx    dx = A * dy_m - B - x_hat * C, and dres = dy_m, with the
                per-channel A, B, C formed in the same launch from scale,
-               rstd, S1, S2 and the mean / var cotangents
+               rstd, S1, S2, the mean / var cotangents and the count the
+               statistics were taken over
 
 Each wrapper has a plain PyTorch version beside it (``_*_plain``) and a
 launch count in ``LAUNCHES``. A wrapper takes the plain version only for
@@ -23,13 +24,17 @@ copying, so the model keeps its activations NHWC-contiguous.
 ``_TrainFn`` and ``_ApplyFn`` are the autograd functions of the
 train-mode (batch statistics) and given-statistics sites, mirroring
 ``_train_fn`` and ``_apply_fn`` of the JAX package with the full mean /
-var cotangents.
+var cotangents. With a process group, ``_TrainFn`` is cross-replica BN
+(sync-BN): the statistics of the workers' concatenated batches, from the
+local moments combined moment-correctly (two all-reduces), and in the
+backward the all-reduced sums over the global count (one all-reduce).
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels._launch import (F32, I32, I64, P, Library, on_cpu,
                                         ptr, stream)
@@ -120,8 +125,8 @@ _LIB = Library("fused_bn", {
     "bn_stats": [P, I64, I32, I32, I64, P, P, P, P, P, P],
     "bn_apply": [P, P, P, P, P, I64, I32, I32, I32, P],
     "bn_bwd_sums": [P, P, P, P, P, I64, I32, I32, I32, I64, P, P, P, P, P],
-    "bn_bwd_dx": [P, P, P, P, P, P, P, P, P, P, F32, P, P, I64, I32, I32,
-                  I32, P],
+    "bn_bwd_dx": [P, P, P, P, P, P, P, P, P, P, F32, F32, P, P, I64, I32,
+                  I32, I32, P],
 })
 LAUNCHES: Dict[str, int] = _LIB.launches
 reset_launch_counts = _LIB.reset
@@ -270,8 +275,9 @@ def bn_bwd_sums(dy: Tensor, x: Tensor, y: Tensor, mu: Tensor,
 
 
 def _bn_bwd_dx_plain(dy, x, y, mu, rstd, scale, s1, s2, dmean, dvar, inv_m,
-                     relu, with_dres):
+                     relu, with_dres, count=None):
     # the kernel's per-channel coefficients, each op in its order
+    count = float(x.shape[0]) if count is None else float(count)
     a = scale * rstd
     zero = torch.zeros_like(a)
     b = zero if s1 is None else a * s1 * inv_m
@@ -279,7 +285,7 @@ def _bn_bwd_dx_plain(dy, x, y, mu, rstd, scale, s1, s2, dmean, dvar, inv_m,
     if dmean is not None:
         b = b - dmean * inv_m
     if dvar is not None:
-        c = c - 2.0 * dvar / (float(x.shape[0]) * rstd)
+        c = c - 2.0 * dvar / (count * rstd)
     dym = _masked_dy(dy, y, relu)
     xhat = (x.float() - mu) * rstd
     dx = (a * dym - b - xhat * c).to(x.dtype)
@@ -289,20 +295,24 @@ def _bn_bwd_dx_plain(dy, x, y, mu, rstd, scale, s1, s2, dmean, dvar, inv_m,
 def bn_bwd_dx(dy: Tensor, x: Tensor, y: Tensor, mu: Tensor, rstd: Tensor,
               scale: Tensor, s1: Optional[Tensor], s2: Optional[Tensor],
               dmean: Optional[Tensor], dvar: Optional[Tensor], inv_m: float,
-              relu: bool, with_dres: bool = False
+              relu: bool, with_dres: bool = False,
+              count: Optional[float] = None
               ) -> Tuple[Tensor, Optional[Tensor]]:
     """dx = A * dy_m - B - x_hat * C in x's dtype, and, with
     ``with_dres``, the residual gradient dres = dy_m in the same dtype.
     A, B and C are formed per channel from the f32 (C,) ``scale``,
     ``rstd``, the sums ``s1`` / ``s2`` of ``bn_bwd_sums`` (both None in
     given-stats mode: B = C = 0) and the mean / var cotangents ``dmean``
-    / ``dvar`` (each None for a zero cotangent); ``inv_m`` is 1 / rows.
+    / ``dvar`` (each None for a zero cotangent). ``count`` is the number
+    of rows the statistics were taken over (None: these rows; rows x
+    workers under cross-replica BN, whose ``s1`` / ``s2`` / cotangents
+    are then the all-reduced ones) and ``inv_m`` is 1 / count.
     """
     if (s1 is None) != (s2 is None):
         raise ValueError("bn_bwd_dx takes s1 and s2 both or neither")
     if _on_cpu(dy, x, y, mu, rstd, scale, s1, s2, dmean, dvar):
         return _bn_bwd_dx_plain(dy, x, y, mu, rstd, scale, s1, s2, dmean,
-                                dvar, inv_m, relu, with_dres)
+                                dvar, inv_m, relu, with_dres, count)
     rows, c = x.shape
     dtype = _check_rows(c, x, dy, y)
     _check_channel(c, *(v for v in (mu, rstd, scale, s1, s2, dmean, dvar)
@@ -312,7 +322,8 @@ def bn_bwd_dx(dy: Tensor, x: Tensor, y: Tensor, mu: Tensor, rstd: Tensor,
     _launch("bn_bwd_dx", dy.data_ptr(), x.data_ptr(),
             ptr(y if relu else None), mu.data_ptr(), rstd.data_ptr(),
             scale.data_ptr(), ptr(s1), ptr(s2), ptr(dmean), ptr(dvar),
-            float(inv_m), dx.data_ptr(), ptr(dres), rows, c,
+            float(inv_m), float(rows if count is None else count),
+            dx.data_ptr(), ptr(dres), rows, c,
             _DTYPE_CODE[dtype], int(relu), stream())
     return dx, dres
 
@@ -343,17 +354,41 @@ def _channel(v: Optional[Tensor]) -> Optional[Tensor]:
     return None if v is None else v.float().contiguous()
 
 
+def _sync_moments(mean: Tensor, var: Tensor, group) -> Tuple[Tensor,
+                                                                Tensor]:
+    """The moment-correct combine of the workers' local (mean, var):
+    the global mean, then each worker's variance re-centered about it,
+    averaged (the JAX package's two pmeans)."""
+    n = dist.get_world_size(group)
+    mean_g = mean.clone()
+    dist.all_reduce(mean_g, group=group)
+    mean_g = mean_g / n
+    var_g = var + (mean - mean_g).square()
+    dist.all_reduce(var_g, group=group)
+    return mean_g, var_g / n
+
+
 class _TrainFn(torch.autograd.Function):
     """Train-mode fused BN: (x, scale, bias[, residual]) -> (y, mean,
     var) from one stats pass and one normalize/epilogue pass; the
     backward is one sums pass and one dx pass, which also folds in the
     per-channel glue. Cotangents are not materialised, so a detached
-    mean / var costs nothing (None, a zero cotangent)."""
+    mean / var costs nothing (None, a zero cotangent).
+
+    With a process ``group`` (cross-replica BN) the forward combines the
+    local moments over the group (two all-reduces), and the backward
+    all-reduces S1, S2 and any mean / var cotangents in one collective
+    and takes dx over the global count; dscale / dbias stay the local
+    S2 / S1, which the data-parallel gradient sync averages like any
+    other gradient."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, residual, relu: bool, eps: float):
+    def forward(ctx, x, scale, bias, residual, relu: bool, eps: float,
+                group):
         x2 = rows_view(x)
         mean, var = bn_stats(x2)
+        if group is not None:
+            mean, var = _sync_moments(mean, var, group)
         rstd = torch.rsqrt(var + eps)
         a = rstd * scale.float()
         off = bias.float() - mean * a
@@ -362,6 +397,7 @@ class _TrainFn(torch.autograd.Function):
         ctx.save_for_backward(x, y, mean, rstd, scale)
         ctx.set_materialize_grads(False)
         ctx.relu, ctx.has_res = relu, residual is not None
+        ctx.group = group
         return y, mean, var
 
     @staticmethod
@@ -375,12 +411,24 @@ class _TrainFn(torch.autograd.Function):
         s1, s2 = bn_bwd_sums(dy2, x2, y2, mean, rstd, ctx.relu)
         # the stats-output cotangents (None in the train step, where the
         # new BN state is aux) fold into B and C inside the dx launch
-        dx2, dr2 = bn_bwd_dx(dy2, x2, y2, mean, rstd, scale.float(), s1, s2,
-                             _channel(dmean), _channel(dvar),
-                             1.0 / x2.shape[0], ctx.relu, ctx.has_res)
+        dm, dv = _channel(dmean), _channel(dvar)
+        s1g, s2g, count = s1, s2, x2.shape[0]
+        if ctx.group is not None:
+            # the global sums over the global count: one collective for
+            # S1, S2 and whichever cotangents are present
+            parts = [s1, s2] + [v for v in (dm, dv) if v is not None]
+            both = torch.stack(parts)
+            dist.all_reduce(both, group=ctx.group)
+            s1g, s2g, rest = both[0], both[1], list(both[2:])
+            dm = rest.pop(0) if dm is not None else None
+            dv = rest.pop(0) if dv is not None else None
+            count *= dist.get_world_size(ctx.group)
+        dx2, dr2 = bn_bwd_dx(dy2, x2, y2, mean, rstd, scale.float(), s1g,
+                             s2g, dm, dv, 1.0 / count, ctx.relu, ctx.has_res,
+                             count=count)
         dres = dr2.view(x.shape) if dr2 is not None else None
         return (dx2.view(x.shape), s2.to(scale.dtype), s1.to(scale.dtype),
-                dres, None, None)
+                dres, None, None, None)
 
 
 class _ApplyFn(torch.autograd.Function):
@@ -423,9 +471,13 @@ class _ApplyFn(torch.autograd.Function):
 
 def fused_bn_train(x: Tensor, scale: Tensor, bias: Tensor, *,
                    residual: Optional[Tensor] = None, relu: bool = False,
-                   eps: float = 1e-5) -> Tuple[Tensor, Tensor, Tensor]:
-    """Train-mode fused BN over the last axis: (y, mean, var)."""
-    return _TrainFn.apply(x, scale, bias, residual, bool(relu), float(eps))
+                   eps: float = 1e-5, group=None
+                   ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Train-mode fused BN over the last axis: (y, mean, var). With a
+    process ``group``, cross-replica BN over its workers: the statistics
+    of their concatenated batches."""
+    return _TrainFn.apply(x, scale, bias, residual, bool(relu), float(eps),
+                          group)
 
 
 def fused_bn_apply(x: Tensor, mean: Tensor, var: Tensor, scale: Tensor,

@@ -8,6 +8,9 @@ none``), or data-parallel with one process per worker (``--dp-mode
 shardmap``, the paper's own run).
 ``--optimizer lars`` on the bucketed DP path runs LARS on the packed
 gradient stream (the stream-LARS kernels with ``--use-fused-kernel``).
+``--sync-bn`` makes every BN site cross-replica over the workers, and
+``--overlap-comm`` starts the bucketed gradient all-reduces during the
+backward pass (both ``--dp-mode shardmap``).
 ``--ckpt-dir`` checkpoints in the JAX package's format and resumes from
 the newest intact checkpoint; ``--sentinel`` adds the divergence
 sentinel and the recovery state machine, ``--chaos`` deterministic
@@ -24,6 +27,10 @@ fault injection:
         --dp-mode shardmap --compression bf16+bucketed --optimizer lars \\
         --schedule poly --label-smoothing 0.1 --use-fused-kernel \\
         --error-feedback --device cuda
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --reduced --dp-mode shardmap --compression bf16+bucketed \\
+        --sync-bn --overlap-comm --fused-bn --epochs 1 --steps-per-epoch 2 \\
+        --global-batch 16 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
         --epochs 3 --steps-per-epoch 5 --global-batch 16 --sentinel \\
         --chaos "nan_grad@7-9" --ckpt-dir /tmp/ck --ckpt-every 5 \\
@@ -37,6 +44,7 @@ import time
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import (
     InputConfig,
@@ -71,6 +79,7 @@ from repro_torch.training.step import (
     make_dp_shardmap_train_step,
     make_eval_step,
     make_train_step,
+    overlap_stream_order,
     to_device,
 )
 
@@ -129,6 +138,13 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
     ``error_feedback`` (DP path only, with a wire dtype) adds each
     worker's residual to the state as ``ef_residual``.
 
+    ``sync_bn`` on the data-parallel path of the conv family builds the
+    ResNet with cross-replica BN over the worker group (as the JAX
+    package, it changes nothing elsewhere: one device's statistics are
+    already the whole batch's). ``overlap_comm`` (data-parallel path
+    only) takes ``make_dp_overlap_train_step``, which starts each
+    bucket's all-reduce during the backward pass.
+
     ``input_cfg`` turns on per-sample augmentation; with ``fused=True``
     augment + normalize + cast run on the device in the fused input
     kernel inside the DP step (``dp_mode="shardmap"`` and the conv
@@ -147,10 +163,11 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
     if error_feedback and wire is None:
         raise ValueError("error_feedback requires a wire dtype "
                          f"(compression={compression!r})")
-    if sync_bn:
-        raise _unported("cross-replica BN (sync-BN)", 6)
-    if overlap_comm:
-        raise _unported("overlapped gradient sync (--overlap-comm)", 10)
+    if overlap_comm and dp_mode != "shardmap":
+        raise ValueError(
+            "overlap_comm launches explicit per-bucket collectives inside "
+            "the backward pass, which only the data-parallel step has: "
+            "pass dp_mode='shardmap'")
     if zero_dp:
         raise _unported("ZeRO sync (--zero)", 11)
     if bucketed and dp_mode != "shardmap":
@@ -192,16 +209,20 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
         optimizer=opt_cfg,
         parallel=ParallelConfig(compression=compression,
                                 bucket_bytes=bucket_bytes, zero_1=False,
-                                error_feedback=error_feedback),
+                                error_feedback=error_feedback,
+                                overlap_comm=overlap_comm),
         input=input_cfg, label_smoothing=label_smoothing,
         # the sentinel's whole-gradient health flag; the DP step
         # reports the norm of the synced gradient anyway
         log_grad_norm=sentinel and dp_mode != "shardmap")
+    sync = cfg.family == "conv" and dp_mode == "shardmap" and sync_bn
     model = build_model(cfg, compute_dtype=compute_dtype, seed=seed,
-                        device=dev)
+                        device=dev,
+                        bn_group=dist.group.WORLD if sync else None)
     params = {k: p.detach() for k, p in model.named_parameters()}
     # the packed-stream layout: LARS on the bucketed DP path
-    if opt_cfg.kind == "lars" and dp_mode == "shardmap" and bucketed:
+    stream = opt_cfg.kind == "lars" and dp_mode == "shardmap" and bucketed
+    if stream:
         optimizer = make_stream_optimizer(opt_cfg, steps_per_epoch,
                                           global_batch,
                                           use_fused=use_fused_kernel)
@@ -222,7 +243,10 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
         train_step = make_dp_shardmap_train_step(
             model, optimizer, train_cfg, input_transform=transform)
         put_batch = make_put_batch(dev)
-        shardings = WorkerSharding()
+        # the JAX package's stream-LARS delta is in ready order under
+        # overlap_comm: its checkpoints are read and written so
+        shardings = WorkerSharding(stream_order=overlap_stream_order(
+            model, params) if stream and overlap_comm else None)
         data = make_data(cfg, shape, seed=seed, num_hosts=world,
                          host_id=me)
     else:

@@ -11,7 +11,14 @@ symmetric ``padding=`` would differ.
 BatchNorm follows the paper's §2 variant: no moving averages. The last
 minibatch's statistics are the model state, and eval normalizes with
 them. Each BN site carries its epilogue (ReLU, residual add) so the
-fused kernels (``kernels/fused_bn.py``) can fold it in.
+fused kernels (``kernels/fused_bn.py``) can fold it in. ``bn_group`` (a
+process group) makes every train-mode site cross-replica BN (sync-BN)
+over its workers; given-statistics (eval) sites are unchanged.
+
+``apply`` composes three per-segment forwards (stem, each stage, the
+head); ``loss_segments`` hands the same forwards to the overlapped
+data-parallel step as a chain of K = 2 + stages segments, so both
+paths run the same ops.
 
 Parameters are named after the JAX package's paths
 (``stage1/block0/proj_bn/scale``); conv weights are OIHW and the fc
@@ -21,7 +28,7 @@ the compute dtype first; ``forward`` uses the module's own parameters.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -31,6 +38,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.batchnorm import bn_apply_stats, bn_batch_stats
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import common
+from repro_torch.models.common import StagedLoss
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
@@ -80,20 +88,22 @@ class ResNet50(nn.Module):
 
     def __init__(self, cfg: ModelConfig, compute_dtype=torch.bfloat16,
                  fused_bn: Optional[bool] = None, *, seed: int = 0,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", bn_group=None):
         super().__init__()
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         self.fused_bn = (bool(cfg.fused_bn) if fused_bn is None
                          else bool(fused_bn))
+        self.bn_group = bn_group
         self.device = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         for name, value in self._init_values(gen).items():
             self.register_parameter(name, nn.Parameter(value.to(self.device)))
 
     # ------------------------------------------------------------- init
-    def _blocks(self):
-        """(stage, block, c_in, mid, c_out, stride) for every block."""
+    def _blocks(self, stage: Optional[int] = None):
+        """(stage, block, c_in, mid, c_out, stride) for every block (of
+        ``stage`` alone, if given)."""
         w = self.cfg.conv_width
         c_in = w
         for si, blocks in enumerate(self.cfg.conv_stages):
@@ -101,7 +111,8 @@ class ResNet50(nn.Module):
             c_out = mid * 4
             for bi in range(blocks):
                 stride = 2 if (bi == 0 and si > 0) else 1
-                yield si, bi, c_in, mid, c_out, stride
+                if stage is None or stage == si:
+                    yield si, bi, c_in, mid, c_out, stride
                 c_in = c_out
 
     def _init_values(self, gen: torch.Generator) -> Params:
@@ -164,10 +175,11 @@ class ResNet50(nn.Module):
             if self.fused_bn:
                 from repro_torch.kernels.ops import fused_bn_train
                 y, mean, var = fused_bn_train(x, scale, bias,
-                                              residual=residual, relu=relu)
+                                              residual=residual, relu=relu,
+                                              group=self.bn_group)
                 new_state[name] = _stat_record(mean, var)
                 return y
-            mean, var = bn_batch_stats(x)
+            mean, var = bn_batch_stats(x, group=self.bn_group)
             new_state[name] = _stat_record(mean, var)
         else:
             mean, var = state[name]["mean"], state[name]["var"]
@@ -182,16 +194,18 @@ class ResNet50(nn.Module):
             y = F.relu(y)
         return y
 
-    def apply(self, p: Params, state: State, images: Tensor,
-              train: bool = True) -> Tuple[Tensor, State]:
-        """Logits (f32) and the new BN state (``state`` itself in eval).
-        ``images`` are NHWC."""
-        new_state: Optional[State] = {} if train else None
+    # per-segment forwards: ``apply`` composes them, ``loss_segments``
+    # chains them for the overlapped step
+    def _stem_fwd(self, p: Params, images: Tensor, state: State,
+                  new_state: Optional[State]) -> Tensor:
         x = images.to(self.compute_dtype)
         x = conv(x, p["stem/conv"], stride=2)
         x = self._bn(p, x, "stem/bn", state, new_state, relu=True)
-        x = max_pool_3x3_s2(x)
-        for si, bi, _, _, _, stride in self._blocks():
+        return max_pool_3x3_s2(x)
+
+    def _stage_fwd(self, si: int, p: Params, x: Tensor, state: State,
+                   new_state: Optional[State]) -> Tensor:
+        for _, bi, _, _, _, stride in self._blocks(si):
             pre = f"stage{si}/block{bi}"
             if bi == 0:
                 sc = conv(x, p[f"{pre}/proj"], stride=stride)
@@ -206,9 +220,23 @@ class ResNet50(nn.Module):
             # block output: BN + residual add + ReLU, one fused site
             x = self._bn(p, out, f"{pre}/bn3", state, new_state, relu=True,
                          residual=sc)
+        return x
+
+    @staticmethod
+    def _head_logits(p: Params, x: Tensor) -> Tensor:
         x = x.mean(dim=(1, 2))
         logits = x @ p["fc/w"].to(x.dtype) + p["fc/b"].to(x.dtype)
-        return logits.float(), (new_state if train else state)
+        return logits.float()
+
+    def apply(self, p: Params, state: State, images: Tensor,
+              train: bool = True) -> Tuple[Tensor, State]:
+        """Logits (f32) and the new BN state (``state`` itself in eval).
+        ``images`` are NHWC."""
+        new_state: Optional[State] = {} if train else None
+        x = self._stem_fwd(p, images, state, new_state)
+        for si in range(len(self.cfg.conv_stages)):
+            x = self._stage_fwd(si, p, x, state, new_state)
+        return self._head_logits(p, x), (new_state if train else state)
 
     def forward(self, images: Tensor, state: State,
                 train: bool = False) -> Tuple[Tensor, State]:
@@ -237,6 +265,60 @@ class ResNet50(nn.Module):
                                        label_smoothing)
         return loss, (new_state, {"loss": loss.detach(),
                                   "accuracy": acc})
+
+    def segment_names(self) -> Tuple[str, ...]:
+        """The staged loss's segments, forward order: stem /
+        stage0..stageN / fc."""
+        return (("stem",) + tuple(f"stage{si}" for si in
+                                  range(len(self.cfg.conv_stages)))
+                + ("fc",))
+
+    def segment_trees(self, tree: Dict) -> List[Dict]:
+        """A parameter-shaped dict cut into the staged loss's segments
+        (forward order): a segment holds the names whose first component
+        is its own."""
+        return [{k: v for k, v in tree.items()
+                 if k.split("/", 1)[0] == name}
+                for name in self.segment_names()]
+
+    def loss_segments(self, p: Params, model_state: State, batch,
+                      label_smoothing: float = 0.0) -> StagedLoss:
+        """The loss as K = 2 + stages chained segments
+        (``segment_names``), each over its ``segment_trees`` share of the
+        parameters; each segment's aux is its BN state fragment (the
+        head's: ``({}, metrics)``)."""
+        n_stages = len(self.cfg.conv_stages)
+
+        def stem_fn(sp, images):
+            frag: State = {}
+            return self._stem_fwd(sp, images, model_state, frag), frag
+
+        def make_stage_fn(si):
+            def stage_fn(sp, x):
+                frag: State = {}
+                return self._stage_fwd(si, sp, x, model_state, frag), frag
+            return stage_fn
+
+        def head_fn(sp, x):
+            loss, acc = self._softmax_xent(self._head_logits(sp, x),
+                                           batch["labels"], label_smoothing)
+            return loss, ({}, {"loss": loss.detach(), "accuracy": acc})
+
+        seg_fns = (stem_fn,) + tuple(make_stage_fn(si)
+                                     for si in range(n_stages)) + (head_fn,)
+
+        def finalize_aux(auxes):
+            new_state: State = {}
+            for frag in auxes[:-1]:
+                new_state.update(frag)
+            frag, metrics = auxes[-1]
+            new_state.update(frag)
+            return new_state, metrics
+
+        return StagedLoss(names=self.segment_names(),
+                          seg_params=tuple(self.segment_trees(p)),
+                          seg_fns=seg_fns, x0=batch["images"],
+                          finalize_aux=finalize_aux)
 
     def eval_fn(self, p: Params, model_state: State, batch):
         """Validation metrics with frozen (last-minibatch) BN stats."""

@@ -20,13 +20,20 @@ the parameters. A packed-stream optimizer (stream-LARS,
 update runs on the flat synced stream, and the LARS trust norms are
 reduced on each worker's 1/N slice of it.
 
+``make_dp_overlap_train_step`` is the same step with the gradient
+all-reduces started during the backward pass: the loss runs as a chain
+of segments (``model.loss_segments``), the segments' backwards run last
+segment first, and each bucket of a stream laid out in that order is
+all-reduced asynchronously as soon as the segment holding its last
+gradient is done, while the earlier segments' backwards compute.
+
 ``make_prefill_step`` and ``make_decode_step`` are the serving steps of
 an LM, thin wrappers around the model's ``prefill`` and ``decode_step``
 as in the JAX package.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,12 +50,18 @@ from repro_torch.core.compression import (
 )
 from repro_torch.distributed.bucketing import (
     BucketPlan,
+    ReadyBucketPlan,
     bucketed_psum,
     bucketed_psum_ef,
+    leaf_order,
     local_shard,
     pack,
+    pack_bucket,
     plan_buckets,
+    plan_ready_buckets,
+    reorder_stream,
     segment_ids_stream,
+    unpack,
 )
 from repro_torch.kernels.ops import (
     fused_input_eval,
@@ -56,6 +69,7 @@ from repro_torch.kernels.ops import (
     input_augment_params,
     unpack_cast,
 )
+from repro_torch.models.common import staged_forward
 from repro_torch.optim.interface import Optimizer
 from repro_torch.optim.stream import trust_mask_segments
 
@@ -241,17 +255,14 @@ def make_dp_shardmap_train_step(model, optimizer: Optimizer,
     ``error_feedback=True`` threads each worker's rounding residual
     through either sync path (the state gains ``ef_residual``, one per
     worker like the BN statistics). An optimizer with ``update_shard``
-    (stream-LARS) takes the packed-stream step. ZeRO, overlap and
-    hierarchical schedules are not ported yet (ROADMAP queue 1, items
-    11, 10 and 13)."""
+    (stream-LARS) takes the packed-stream step. ``overlap_comm`` takes
+    ``make_dp_overlap_train_step``. ZeRO and hierarchical schedules are
+    not ported yet (ROADMAP queue 1, items 11 and 13)."""
     parallel = train_cfg.parallel
-    for flag, what, item in (
-            (parallel.zero_dp, "ZeRO sync (--zero)", 11),
-            (parallel.overlap_comm, "overlapped sync (--overlap-comm)", 10),
-            (parallel.hier_split is not None, "hierarchical sync", 13)):
-        if flag:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP queue 1, item {item})")
+    if parallel.overlap_comm:
+        return make_dp_overlap_train_step(model, optimizer, train_cfg, group,
+                                          input_transform)
+    _unported_sync(parallel, "")
     wire, bucketed = parse_compression(parallel.compression)
     use_ef = parallel.error_feedback
     if use_ef and wire is None:
@@ -293,12 +304,8 @@ def make_dp_shardmap_train_step(model, optimizer: Optimizer,
         # ---- the paper's technique: fp16/bf16 compressed all-reduce ----
         grads, new_residual, sq_norm = sync_grads(
             grads, state.get("ef_residual"))
-        metrics = _pmean_metrics(metrics, group)
-        new_params, new_opt, opt_metrics = optimizer.update(
-            params, grads, state["opt"])
-        metrics.update(opt_metrics)
-        metrics["grad_norm"] = (torch.sqrt(sq_norm) if sq_norm is not None
-                                else global_norm(grads))
+        new_params, new_opt, metrics = _synced_update(
+            optimizer, params, grads, state["opt"], metrics, sq_norm, group)
         new_state = {"params": new_params, "opt": new_opt,
                      "model_state": new_mstate}
         if use_ef:
@@ -308,9 +315,42 @@ def make_dp_shardmap_train_step(model, optimizer: Optimizer,
     return train_step
 
 
+def _synced_update(optimizer, params, grads, opt, metrics: Dict,
+                   sq_norm: Optional[torch.Tensor], group=None):
+    """The replicated update from the synced gradients, and the step's
+    metrics: averaged over the workers, with the optimizer's and the
+    norm of the synced gradient (from ``sq_norm`` when the sync gave
+    it). Returns ``(params', opt', metrics)``."""
+    metrics = _pmean_metrics(metrics, group)
+    new_params, new_opt, opt_metrics = optimizer.update(params, grads, opt)
+    metrics.update(opt_metrics)
+    metrics["grad_norm"] = (torch.sqrt(sq_norm) if sq_norm is not None
+                            else global_norm(grads))
+    return new_params, new_opt, metrics
+
+
 # ---------------------------------------------------------------------------
 # the packed-stream step (stream-LARS)
 # ---------------------------------------------------------------------------
+
+
+def _unported_sync(parallel, under: str) -> None:
+    for flag, what, item in (
+            (parallel.zero_dp, "ZeRO sync (--zero)", 11),
+            (parallel.hier_split is not None, "hierarchical sync", 13)):
+        if flag:
+            raise NotImplementedError(
+                f"{what}{under} is not ported yet (ROADMAP queue 1, item "
+                f"{item})")
+
+
+def _stream_checks(parallel, bucketed: bool) -> None:
+    if not bucketed:
+        raise ValueError(
+            "the packed-stream optimizer updates a contiguous stream, "
+            "which requires bucketed compression (e.g. "
+            "compression='bf16+bucketed', got "
+            f"{parallel.compression!r})")
 
 
 def _stream_aux(optimizer, plan: BucketPlan, params, n: int, w: int,
@@ -370,6 +410,22 @@ def _stream_full_update(optimizer, plan: BucketPlan, params, g_stream, opt,
     return opt_metrics, local_sq
 
 
+def _stream_synced_update(optimizer, plan: BucketPlan, params, buckets,
+                          opt, n: int, w: int, aux, metrics: Dict,
+                          group=None) -> Dict:
+    """The stream update from the all-reduced wire buckets (in plan
+    order), and the step's metrics: averaged over the workers, with the
+    global gradient norm and the optimizer's."""
+    g_stream = _cast_divide_stream(
+        buckets[0] if len(buckets) == 1 else torch.cat(buckets), plan, n)
+    opt_metrics, local_sq = _stream_full_update(
+        optimizer, plan, params, g_stream, opt, n, w, aux, group)
+    metrics["grad_sq_local"] = local_sq
+    metrics = _zero_grad_norm(_pmean_metrics(metrics, group), n)
+    metrics.update(opt_metrics)
+    return metrics
+
+
 def _zero_grad_norm(metrics: Dict, n: int) -> Dict:
     """The global gradient norm from the averaged per-worker partial sums
     (exact when n is a power of two)."""
@@ -390,12 +446,7 @@ def _make_dp_stream_train_step(model, optimizer, train_cfg: TrainConfig,
     first step and kept."""
     parallel = train_cfg.parallel
     use_ef = parallel.error_feedback
-    if not bucketed:
-        raise ValueError(
-            "the packed-stream optimizer updates a contiguous stream, "
-            "which requires bucketed compression (e.g. "
-            "compression='bf16+bucketed', got "
-            f"{parallel.compression!r})")
+    _stream_checks(parallel, bucketed)
     n, w = dist.get_world_size(group), dist.get_rank(group)
     device = model.device
     plan: Optional[BucketPlan] = None
@@ -420,14 +471,9 @@ def _make_dp_stream_train_step(model, optimizer, train_cfg: TrainConfig,
         buckets = pack(quant, plan)
         for b in buckets:
             dist.all_reduce(b, group=group)
-        g_stream = _cast_divide_stream(
-            buckets[0] if len(buckets) == 1 else torch.cat(buckets), plan, n)
-        opt_metrics, local_sq = _stream_full_update(
-            optimizer, plan, params, g_stream, state["opt"], n, w, aux,
-            group)
-        metrics["grad_sq_local"] = local_sq
-        metrics = _zero_grad_norm(_pmean_metrics(metrics, group), n)
-        metrics.update(opt_metrics)
+        metrics = _stream_synced_update(optimizer, plan, params, buckets,
+                                        state["opt"], n, w, aux, metrics,
+                                        group)
         new_state = {"params": params, "opt": state["opt"],
                      "model_state": new_mstate}
         if use_ef:
@@ -435,6 +481,151 @@ def _make_dp_stream_train_step(model, optimizer, train_cfg: TrainConfig,
         return new_state, metrics
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# the backward-overlapped step
+# ---------------------------------------------------------------------------
+
+
+def make_dp_overlap_train_step(model, optimizer: Optimizer,
+                               train_cfg: TrainConfig, group=None,
+                               input_transform=None):
+    """The bucketed DP step with the gradient all-reduces overlapped with
+    the backward pass; its state after a step is bitwise that of
+    ``make_dp_shardmap_train_step``'s bucketed step (plain, with error
+    feedback, or stream-LARS).
+
+    The model's loss runs as K chained segments (``loss_segments``,
+    ``models/common.py:staged_forward``) and their backwards run last
+    segment first. The gradient stream is laid out in that order
+    (``plan_ready_buckets``), so a bucket is complete as soon as the
+    segment holding its last element is done: each such bucket is cast
+    to the wire dtype (``pack_bucket``, one ``cast_copy`` a segment) and
+    all-reduced with ``async_op=True`` right after that segment's
+    backward, and waited for two segments later, so at most two
+    segments' collectives are in flight (the JAX package's
+    ``optimization_barrier`` pipeline). Error feedback runs per segment
+    before packing. The update is the optimizer's on the unpacked
+    stream, or, for a packed-stream optimizer (stream-LARS), the
+    bucketed step's stream update, on the synced stream put back in
+    that step's leaf order (``reorder_stream``): its trust norms are
+    summed in the same order, and ``delta`` keeps the bucketed layout
+    (the JAX package keeps it in ready order, ``overlap_stream_order``,
+    which its checkpoints carry). ZeRO and hierarchical sync raise
+    (ROADMAP queue 1, items 11 and 13)."""
+    parallel = train_cfg.parallel
+    wire, bucketed = parse_compression(parallel.compression)
+    use_ef = parallel.error_feedback
+    if use_ef and wire is None:
+        raise ValueError("error_feedback requires a wire dtype "
+                         f"(compression={parallel.compression!r})")
+    if not hasattr(model, "loss_segments"):
+        raise ValueError(
+            f"{type(model).__name__} has no loss_segments(); overlap_comm "
+            "needs a staged model (ResNet50)")
+    _unported_sync(parallel, " under overlap_comm")
+    use_stream = hasattr(optimizer, "update_shard")
+    if use_stream:
+        _stream_checks(parallel, bucketed)
+    n, w = dist.get_world_size(group), dist.get_rank(group)
+    device = model.device
+    plan: Optional[ReadyBucketPlan] = None
+    stream_plan: Optional[BucketPlan] = None  # stream-LARS, leaf order
+    aux: Dict[str, torch.Tensor] = {}
+
+    def train_step(state: Tree, batch: Tree):
+        nonlocal plan, stream_plan, aux
+        batch = to_device(batch, device)
+        if input_transform is not None:
+            batch = input_transform(batch)
+        params = state["params"]
+        pc = {k: v.detach().to(model.compute_dtype).requires_grad_(True)
+              for k, v in params.items()}
+        staged = model.loss_segments(pc, state["model_state"], batch,
+                                     train_cfg.label_smoothing)
+        loss, vjps, auxes = staged_forward(staged)
+        if plan is None:
+            # the f32 gradients' layout, segments in backward order (the
+            # stream-LARS plan shard-aligned as the bucketed step's)
+            shapes = {k: torch.empty(v.shape, dtype=torch.float32,
+                                     device="meta")
+                      for k, v in params.items()}
+            align = n if use_stream else 1
+            plan = plan_ready_buckets(_ready_stages(model, shapes),
+                                      parallel.bucket_bytes, wire, align)
+            if use_stream:
+                stream_plan = plan_buckets(shapes, parallel.bucket_bytes,
+                                           wire, align)
+                aux = _stream_aux(optimizer, stream_plan, params, n, w,
+                                  device)
+        res_rev = (_ready_stages(model, state["ef_residual"]) if use_ef
+                   else None)
+        ct = torch.ones_like(loss)
+        synced: Dict[int, torch.Tensor] = {}
+        works: Dict[int, Any] = {}
+        pending = []  # bucket ids launched after each segment, oldest first
+        carry = None
+        new_residual: Dict[str, torch.Tensor] = {}
+        for ridx, i in enumerate(reversed(range(len(vjps)))):
+            if len(pending) >= 2:
+                for b in pending.pop(0):
+                    works.pop(b).wait()
+            g_seg, ct = vjps[i](ct)
+            g_seg = {k: g.float() for k, g in g_seg.items()}
+            if use_ef:
+                g_seg, r_new = apply_error_feedback(g_seg, res_rev[ridx],
+                                                    wire)
+                new_residual.update(r_new)
+            ready, carry = pack_bucket(plan, ridx, g_seg, carry)
+            for b, arr in ready:
+                # the bucket stays referenced here until its wait
+                synced[b] = arr
+                works[b] = dist.all_reduce(arr, group=group, async_op=True)
+            pending.append([b for b, _ in ready])
+        for ids in pending:
+            for b in ids:
+                works.pop(b).wait()
+        assert len(synced) == plan.n_buckets, (len(synced), plan.n_buckets)
+        new_mstate, metrics = staged.finalize_aux(auxes)
+        buckets = [synced[b] for b in range(plan.n_buckets)]
+        if use_stream:
+            # back in the bucketed step's leaf order, the update, its
+            # trust norms and ``delta`` are that step's, bit for bit
+            g_wire = reorder_stream(torch.cat(buckets), plan.base,
+                                    stream_plan)
+            metrics = _stream_synced_update(
+                optimizer, stream_plan, params, [g_wire], state["opt"], n,
+                w, aux, metrics, group)
+            new_params, new_opt = params, state["opt"]
+        else:
+            grads, sq_norm = unpack(buckets, plan.base, denom=n,
+                                    with_sq_norm=True)
+            new_params, new_opt, metrics = _synced_update(
+                optimizer, params, {k: grads[k] for k in params},
+                state["opt"], metrics, sq_norm, group)
+        new_state = {"params": new_params, "opt": new_opt,
+                     "model_state": new_mstate}
+        if use_ef:
+            new_state["ef_residual"] = {k: new_residual[k] for k in params}
+        return new_state, metrics
+
+    return train_step
+
+
+def _ready_stages(model, tree: Dict) -> List[Dict]:
+    """A parameter-shaped dict cut into the staged loss's segments, in
+    the order their backwards run: last segment first."""
+    return list(reversed(model.segment_trees(tree)))
+
+
+def overlap_stream_order(model, params: Dict) -> Tuple[str, ...]:
+    """The leaf order of the overlapped step's wire stream
+    (``plan_ready_buckets`` of ``_ready_stages``), which is also the
+    layout of the JAX package's stream-LARS ``delta`` under
+    ``overlap_comm`` (``interop.WorkerSharding.stream_order``)."""
+    return tuple(k for t in _ready_stages(model, params)
+                 for k in leaf_order(t))
 
 
 def finalize_worker_bn_stats(model_state, group=None):

@@ -14,7 +14,10 @@ state in the JAX package's checkpoint layout (``interop.train_state_to_jax``
    bitwise equal to the ``interop`` conversion of the JAX state, a port
    checkpoint restores in JAX (``restore(target=jax_state)``) bitwise
    equal to it, and both packages' files of the same state have the same
-   keys, dtypes and crc32s.
+   keys, dtypes and crc32s. Under overlap_comm, where the two packages
+   lay the stream-LARS ``delta`` out in different orders, the port's
+   ``delta`` after two steps is the JAX package's leaf by leaf, and
+   files cross both ways.
 3. Resume: 3 steps, then a fresh setup resumes from the step-3 checkpoint
    for 3 more, bitwise equal to 6 unbroken steps (single-device step, DP
    step on one gloo worker with error feedback, stream-LARS). JAX resumes
@@ -38,6 +41,8 @@ import torch.multiprocessing as mp
 from repro.checkpoint import checkpointer as jck
 from repro.configs import OptimizerConfig as JOpt
 from repro.configs import get_config as jget, reduced_config as jreduced
+from repro.distributed.bucketing import (
+    plan_ready_buckets as jplan_ready_buckets)
 from repro.launch.train import build_train_setup as jsetup
 from repro.training import LoopConfig as JLoopConfig
 from repro.training import run_training as jrun_training
@@ -57,6 +62,7 @@ from repro_torch.checkpoint.checkpointer import (
 )
 from repro_torch.configs import OptimizerConfig as TOpt
 from repro_torch.configs import get_config as tget, reduced_config as treduced
+from repro_torch.distributed import bucketing as tb
 from repro_torch.distributed import init_workers, shutdown
 from repro_torch.launch import train as tlaunch
 from repro_torch.training import LoopConfig, run_training
@@ -443,6 +449,104 @@ def test_checkpoints_cross_between_packages(tmp_path, request, layout):
         # the same state: the same keys, dtypes and crc32s in both files
         assert _file_facts(tmp_path / "jax", 2) == \
             _file_facts(tmp_path / "port", 2)
+    finally:
+        shutdown()
+
+
+def _rel(a, b) -> float:
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _jax_ready_leaves(model, params, model_state, bucket_bytes):
+    """The JAX package's overlapped stream layout of ``params``, from its
+    own staged loss and ready plan: ``[(name, slot)]`` in stream order
+    (names joined with "/" as the port's)."""
+    dummy = {"images": jnp.zeros((BATCH, 32, 32, 3)),
+             "labels": jnp.zeros((BATCH,), jnp.int32)}
+    staged = model.loss_segments(
+        params, jax.tree.map(lambda x: x[0], model_state), dummy, 0.0)
+    stages = list(reversed(staged.seg_params))
+    plan = jplan_ready_buckets(stages, bucket_bytes, "bf16").base
+    names = ["/".join((seg,) + tuple(str(k.key) for k in path))
+             for seg, t in zip(reversed(staged.names), stages)
+             for path, _ in jax.tree_util.tree_flatten_with_path(t)[0]]
+    return list(zip(names, plan.slots))
+
+
+def test_overlap_stream_lars_checkpoint_crosses_packages(tmp_path):
+    """Under overlap_comm the JAX package keeps the stream-LARS ``delta``
+    in ready order and the port in leaf order. After the same two steps
+    from the same state, the port's ``delta`` written in the JAX layout
+    is the JAX package's own, leaf by leaf (each cut by the JAX
+    package's ready plan); a JAX file restores in the port bitwise leaf
+    by leaf; the port's save of it restores in JAX bitwise.
+
+    The per-leaf tolerance is the one the JAX package holds its own
+    bucketed / overlapped stream-LARS pair to (``tests/test_lars_stream.py``
+    ``assert_state``: rtol 1e-2, atol 1e-4, elementwise), since that is
+    the difference here: the port's overlapped update is its bucketed
+    one. The whole stream is also held to the DP tolerance of ROADMAP
+    queue 3 (relative norm 2e-4), and a control shows that the
+    comparison sees a ``delta`` written in the wrong order."""
+    bucket = 8192
+    init_workers("cpu", init_method=f"file://{tmp_path}/store", rank=0,
+                 world_size=1)
+    kw = dict(global_batch=BATCH, seq_len=0, steps_per_epoch=SPE,
+              dp_mode="shardmap", compression="bf16+bucketed",
+              bucket_bytes=bucket, overlap_comm=True, fused_bn=True)
+    try:
+        jmodel, js, jstep, jdata, jput, _ = jsetup(
+            jreduced(jget("resnet50")), opt_cfg=JOpt(**LARS),
+            mesh=jax.make_mesh((1, 1), ("data", "model")), **kw)
+        js0 = jax.tree.map(np.array, js)
+        fresh = [tlaunch.build_train_setup(
+            treduced(tget("resnet50")), opt_cfg=TOpt(**LARS), device="cpu",
+            **kw) for _ in range(2)]
+        _, ts, tstep, _, tput, sh = fresh[0]
+        leaves = _jax_ready_leaves(jmodel, js["params"],
+                                   js["model_state"], bucket)
+        assert list(sh.stream_order) == [k for k, _ in leaves]
+        interop.train_state_from_jax(js0, ts, sh)
+        for i in range(2):
+            batch = jdata.batch_at(i)
+            js, _ = jstep(js, jput(batch))
+            ts, _ = tstep(ts, tput(batch))
+        jdelta = np.asarray(js["opt"]["delta"])
+        tdelta = interop.train_state_to_jax(ts, sh)["opt"]["delta"]
+        for name, sl in leaves:
+            np.testing.assert_allclose(tdelta[sl.offset:sl.offset + sl.size],
+                                       jdelta[sl.offset:sl.offset + sl.size],
+                                       rtol=1e-2, atol=1e-4, err_msg=name)
+        end = leaves[-1][1].offset + leaves[-1][1].size
+        assert not tdelta[end:].any() and not jdelta[end:].any()
+        assert _rel(tdelta, jdelta) < 2e-4
+        # the control: the same delta written in leaf order is not it
+        assert _rel(interop.stream_opt_state_to_jax(
+            ts["opt"], ts["params"])["delta"], jdelta) > 0.5
+        # JAX file -> port: the leaf-order delta, bitwise leaf by leaf
+        jck.save(str(tmp_path / "jax"), 2, js, metadata={"from": "jax"})
+        arrays, manifest = restore(str(tmp_path / "jax"))
+        target = fresh[1][1]
+        interop.train_state_from_jax(arrays, target, sh)
+        got = target["opt"]["delta"]
+        off = 0
+        for name in tb.leaf_order(target["params"]):
+            shape = tuple(target["params"][name].shape)
+            size = int(np.prod(shape))
+            sl = dict(leaves)[name]
+            want = jdelta[sl.offset:sl.offset + sl.size].reshape(sl.shape)
+            if want.ndim == 4:  # HWIO -> OIHW
+                want = want.transpose(3, 2, 0, 1)
+            assert np.array_equal(got[off:off + size].numpy().reshape(shape),
+                                  want), name
+            off += size
+        # port save -> JAX restore: the JAX state, bitwise
+        save(str(tmp_path / "port"), 2,
+             interop.train_state_to_jax(target, sh),
+             metadata=manifest["metadata"])
+        back, _ = jck.restore(str(tmp_path / "port"), target=js)
+        assert np.asarray(back["opt"]["delta"]).tobytes() == \
+            jdelta.tobytes()
     finally:
         shutdown()
 

@@ -27,6 +27,11 @@ step and against the JAX package's shard_map step.
    ``combine_worker_bn_stats``; the two workers' parameters are bitwise
    equal, and their finalized statistics equal the port's own host
    combine bitwise (a sum of two, halved).
+4. The options: cross-replica BN and the overlapped sync build and step
+   through ``build_train_setup`` and the CLI, apart and together; ZeRO
+   raises, also under the overlapped sync, as does hierarchical sync
+   there (ROADMAP queue 1, items 11 and 13). ``test_torch_sync_bn.py``
+   and ``test_torch_overlap.py`` hold the two against JAX.
 """
 import os
 import subprocess
@@ -307,9 +312,8 @@ def test_cli_runs_the_dp_path_on_cpu(capsys):
     # correct, and raises as the JAX package does
     (dict(error_feedback=True, compression="none"), ValueError,
      "requires a wire dtype"),
-    (dict(sync_bn=True), NotImplementedError, "item 6"),
-    (dict(overlap_comm=True), NotImplementedError, "item 10"),
-    (dict(zero_dp=True), NotImplementedError, "item 11")])
+    (dict(zero_dp=True), NotImplementedError, "item 11"),
+    (dict(zero_dp=True, overlap_comm=True), NotImplementedError, "item 11")])
 def test_unported_dp_options_raise(kw, exc, match):
     with pytest.raises(exc, match=match):
         tlaunch.build_train_setup(
@@ -318,3 +322,60 @@ def test_unported_dp_options_raise(kw, exc, match):
             device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="item 13"):
         tlaunch.main(["--reduced", "--comm-plan", "auto", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("kw", [dict(sync_bn=True), dict(overlap_comm=True),
+                                dict(sync_bn=True, overlap_comm=True)],
+                         ids=["sync_bn", "overlap_comm", "both"])
+def test_sync_bn_and_overlap_build_and_step(kw):
+    try:
+        model, s, step, data, put, _ = tlaunch.build_train_setup(
+            treduced(tget("resnet50")), global_batch=BATCH, seq_len=0,
+            opt_cfg=TOpt(), steps_per_epoch=SPE, dp_mode="shardmap",
+            compression="bf16+bucketed", fused_bn=True, device="cpu", **kw)
+        assert (model.bn_group is not None) == bool(kw.get("sync_bn"))
+        assert (step.__qualname__.startswith("make_dp_overlap_train_step")
+                == bool(kw.get("overlap_comm")))
+        p0 = {k: v.clone() for k, v in s["params"].items()}
+        for i in range(2):
+            s, met = step(s, put(data.batch_at(i)))
+            assert np.isfinite(float(met["loss"]))
+        assert all(not torch.equal(p0[k], v) for k, v in s["params"].items())
+    finally:
+        shutdown()
+
+
+@pytest.mark.parametrize("kw,item", [(dict(zero_dp=True), 11),
+                                     (dict(hier_split=1), 13)],
+                         ids=["zero", "hierarchical"])
+def test_overlap_with_zero_or_hierarchical_sync_raises(kw, item):
+    from repro_torch.configs import ParallelConfig, TrainConfig
+    from repro_torch.models.resnet import ResNet50
+    from repro_torch.training.step import make_dp_shardmap_train_step
+    cfg = TrainConfig(optimizer=TOpt(), parallel=ParallelConfig(
+        compression="bf16+bucketed", overlap_comm=True, **kw))
+    model = ResNet50(treduced(tget("resnet50")), device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match=f"under overlap_comm.*item {item}"):
+        make_dp_shardmap_train_step(model, None, cfg)
+
+
+def test_overlap_needs_the_data_parallel_step():
+    with pytest.raises(ValueError, match="dp_mode='shardmap'"):
+        tlaunch.build_train_setup(
+            treduced(tget("resnet50")), global_batch=BATCH, seq_len=0,
+            opt_cfg=TOpt(), steps_per_epoch=SPE, overlap_comm=True,
+            device="cpu")
+
+
+def test_cli_runs_sync_bn_with_overlap_on_cpu(capsys):
+    res = tlaunch.main([
+        "--reduced", "--dp-mode", "shardmap", "--compression",
+        "bf16+bucketed", "--sync-bn", "--overlap-comm", "--fused-bn",
+        "--error-feedback", "--bucket-mib", "1", "--epochs", "1",
+        "--steps-per-epoch", "2", "--global-batch", "8", "--val-batches",
+        "1", "--device", "cpu"])
+    assert len(res.history) == 2 and len(res.epoch_history) == 1
+    assert all(np.isfinite(h["loss"]) for h in res.history)
+    assert "dp_mode=shardmap, 1 worker(s)" in capsys.readouterr().out
+    assert not torch.distributed.is_initialized()

@@ -170,6 +170,57 @@ def test_bn_bwd_dx_bitwise_on_card(cuda, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_bn_bwd_dx_global_count_bitwise_on_card(cuda, k, dt):
+    """``bn_bwd_dx`` with the count of a k-worker cross-replica site (k x
+    rows, and inv_m = 1 / that) and non-zero mean / var cotangents,
+    bitwise against its plain version on the card and on the CPU."""
+    rows, c = 6272, 256
+    cpu = _dx_case(rows, c, dt, 14 + k)
+    dev = [t.to(cuda) for t in cpu]
+    m = k * rows
+    want = tfb.bn_bwd_dx(*cpu, 1.0 / m, True, True, count=m)
+    plain = tfb.PLAIN["bn_bwd_dx"](*dev, 1.0 / m, True, True, count=m)
+    got = tfb.bn_bwd_dx(*dev, 1.0 / m, True, True, count=m)
+    for g, p, w in zip(got, plain, want):
+        assert torch.equal(g, p) and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("relu,res", [(False, False), (True, True)])
+def test_sync_train_fn_at_world_size_one_is_bitwise_on_card(dp_card, relu,
+                                                           res):
+    """The cross-replica ``_TrainFn`` over a group of one (NCCL): its
+    outputs and every gradient, with and without mean / var cotangents,
+    are the bits of the plain ``_TrainFn``'s."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops as tops
+    g = torch.Generator().manual_seed(15)
+    shape = (8, 14, 14, 128)
+    base = [torch.randn(shape, generator=g).bfloat16(),
+            1 + 0.1 * torch.randn(128, generator=g),
+            0.1 * torch.randn(128, generator=g),
+            torch.randn(shape, generator=g).bfloat16() if res else None]
+    cts = [torch.randn(shape, generator=g).bfloat16().to("cuda"),
+           torch.randn(128, generator=g).to("cuda"),
+           torch.randn(128, generator=g).to("cuda")]
+    runs = []
+    for group in (dist.group.WORLD, None):
+        ins = [None if t is None else t.to("cuda").requires_grad_(True)
+               for t in base]
+        outs = tops.fused_bn_train(ins[0], ins[1], ins[2], residual=ins[3],
+                                   relu=relu, group=group)
+        leaves = [t for t in ins if t is not None]
+        full = torch.autograd.grad(outs, leaves, cts, retain_graph=True)
+        only_y = torch.autograd.grad(outs[0], leaves, cts[0])
+        runs.append([t.detach() for t in outs] + list(full) + list(only_y))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
 def test_bn_bwd_dx_in_a_cuda_graph_on_card(cuda):
     """A capture of ``bn_bwd_dx`` (no allocation beyond its outputs, no
     synchronisation), replayed, gives the eager result's bits."""
