@@ -152,6 +152,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      them off, three steps, bitwise (losses, parameters, residual); and
      stream-LARS with error feedback, overlapped against bucketed,
      bitwise (losses, parameters, ``delta``, residual).
+  13. main path 7, ZeRO: two processes share the card over gloo, each
+     with 32 images (64 in all) of full-width ResNet-50, bf16, fused BN,
+     update and input, ``bf16+bucketed`` (64 MiB), rmsprop_warmup +
+     slow_start and ``zero_dp=True``: 8 steps and one eval batch through
+     the ``Trainer``, then main path 2's configuration at 2 workers from
+     the same seed, bitwise (losses, parameters, BN state, ``opt.step``,
+     and ``delta`` / ``m``, the per-leaf state packed into the stream and
+     cut to the worker's shard); launches a step as main path 2's, with
+     ``hybrid_update`` through its decay-stream entry; one more step
+     counting one reduce-scatter and one all-gather a bucket and one
+     all-reduce (the metrics); a save every 3 of 6 steps, resumed from
+     step 3 alone, and the step-3 checkpoint restored into main path 2's
+     per-leaf state (``make_zero_restore_transform``), both bitwise the
+     unbroken run; the step times (gloo on one card: not a user's
+     figure), peak memory and optimizer-state bytes a worker; then
+     ``hybrid_update`` at the worker's shard (12,778,516 elements, decay
+     stream), bitwise and timed against its bound;
+  13b. in the same two processes, the reduced ResNet in f32 with every
+     kernel on: ZeRO + overlap (16 KiB buckets, error feedback) against
+     overlap, ZeRO stream-LARS and ZeRO ``momentum_sgd`` against their
+     bucketed steps (bitwise), and ZeRO + overlap stream-LARS against
+     overlapped stream-LARS within rtol 1e-2 / atol 1e-4 (a ZeRO worker
+     sums its trust norms over its ready-order shard).
 With ``--profile``, a few more steps of each main path run under
 torch.profiler (device busy time and idle share, top host ops and
 kernels), and one prefill and four decode steps of main path 4. With
@@ -162,7 +185,9 @@ reverse, for their wall step times side by side. Then a ``{"kernels":
 [...]}`` line (launches from main path 2 for its eight kernels, from
 main path 3 for the two stream-LARS kernels, from main path 4 for
 flash_attention and rmsnorm, whose times are per prefill;
-``launches_by_path`` holds every main path's), the card's name and power
+``launches_by_path`` holds every main path's, main path 7's from its
+first worker; ``hybrid_update`` also carries its time at main path 7's
+shard), the card's name and power
 limit, and last the ``{"ok": true, "device": ...}`` line. ``--out DIR`` also
 writes the per-shape kernel tables to ``DIR/chip_smoke_kernels.json``.
 
@@ -2089,6 +2114,501 @@ def overlap_reference_phase(torch):
             "lars_bitwise": True}
 
 
+ZERO_WORKERS = 2  # main path 7: two processes share the one card
+ZERO_CKPT_STEPS, ZERO_CKPT_EVERY = 6, 3
+ZERO_SMALL_BUCKET = 16384  # 13b: several ready-order buckets (as 12b)
+# bytes an element of the hybrid update with the decay stream: g, p, d,
+# m and wd read, p, d and m written, f32
+ZERO_UPDATE_BYTES = 32
+
+
+def as_zero_shard(torch, field, params, plan, n: int, w: int):
+    """A run's optimizer field in ZeRO's layout: a per-leaf dict, or a
+    flat leaf-order stream, packed into the stream of ``plan`` (+ the
+    zero pad), and block ``w`` of its shard layout
+    (``stream_to_shard_layout``)."""
+    from repro_torch.distributed.bucketing import (leaf_order, shard_size,
+                                                   stream_to_shard_layout)
+    if isinstance(field, dict):
+        leaves = field
+    else:
+        leaves, off = {}, 0
+        for k in leaf_order(params):
+            leaves[k] = field[off:off + params[k].numel()]
+            off += params[k].numel()
+    pad = torch.zeros(plan.pad_elems, device=params[plan.names[0]].device)
+    stream = torch.cat([leaves[k].reshape(-1).float() for k in plan.names]
+                       + [pad])
+    size = shard_size(plan, n)
+    return stream_to_shard_layout(stream, plan, n)[w * size:(w + 1) * size]
+
+
+def zero_bits(torch, state, plan, n: int, w: int):
+    """``train_state_bits`` with each flat optimizer field as worker
+    ``w``'s ZeRO shard (a ZeRO run's own; another run's converted by
+    ``as_zero_shard``)."""
+    from repro_torch.distributed.bucketing import shard_size
+    out = train_state_bits({**state, "opt": {"step": state["opt"]["step"]}})
+    for f, v in state["opt"].items():
+        if f == "step":
+            continue
+        mine = torch.is_tensor(v) and v.numel() == shard_size(plan, n)
+        out["opt/" + f] = (v.float().clone() if mine else
+                           as_zero_shard(torch, v, state["params"], plan, n,
+                                         w))
+    return out
+
+
+def zero_differ(torch, a, b):
+    """``bits_differ`` over the entries two runs share; a ZeRO
+    ``momentum_sgd`` run's ``m`` (zeros) has no per-leaf counterpart."""
+    a = dict(a)
+    if "opt/m" in a and "opt/m" not in b:
+        assert not bool(a.pop("opt/m").any())
+    return bits_differ(torch, a, b)
+
+
+def zero_setup(torch, cfg, steps: int, zero: bool, **build):
+    """Main path 7's pieces (``zero`` False: main path 2's configuration
+    at 2 workers) for one of the two workers: 32 images a worker."""
+    from repro_torch.configs import InputConfig, OptimizerConfig
+    from repro_torch.launch.train import build_eval_setup, build_train_setup
+
+    input_cfg = InputConfig(fused=True, num_workers=DP_WORKERS // 2)
+    model, state, step, data, put, shardings = build_train_setup(
+        cfg, global_batch=BATCH * ZERO_WORKERS, seq_len=0,
+        opt_cfg=OptimizerConfig(), steps_per_epoch=steps,
+        dp_mode="shardmap", compute_dtype=torch.bfloat16,
+        use_fused_kernel=True, compression="bf16+bucketed", fused_bn=True,
+        input_cfg=input_cfg, zero_dp=zero, device="cuda", **build)
+    evals = build_eval_setup(model, cfg, global_batch=BATCH * ZERO_WORKERS,
+                             seq_len=0, dp_mode="shardmap",
+                             input_cfg=input_cfg)
+    return state, step, data, put, shardings, evals
+
+
+def zero_trainer(torch, libs, cfg, steps: int, zero: bool, **tkw):
+    """A ``Trainer`` over ``steps`` steps and one eval batch, the launch
+    counts set to 0 just before it and read just after: (result, state
+    shardings, train step, data, put_batch, launches, entry launches of
+    ``fused_update``, peak GiB)."""
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.training import Trainer, TrainerConfig
+
+    ckpt = {k: tkw.pop(k) for k in ("checkpoint_dir", "checkpoint_every")
+            if k in tkw}
+    state, step, data, put, sh, (ev, vd, fin) = zero_setup(torch, cfg, steps,
+                                                           zero)
+    tcfg = TrainerConfig(epochs=1, steps_per_epoch=steps,
+                         eval_every_epochs=1, val_batches=1, log_every=1,
+                         data_workers=DP_WORKERS // 2, **ckpt)
+    trainer = Trainer(step, state, data, tcfg, eval_step=ev, val_data=vd,
+                      finalize_state=fin, put_batch=put, state_shardings=sh,
+                      metadata={"arch": "resnet50",
+                                "optimizer": "rmsprop_warmup",
+                                "opt_layout": "zero_stream" if zero
+                                else "tree"})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(libs)
+    res = trainer.run()
+    torch.cuda.synchronize()
+    return (res, sh, step, data, put, read_counts(libs),
+            dict(fu.ENTRY_LAUNCHES), torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def collective_check(torch, train_step, state, data):
+    """One more step with ``reduce_scatter_tensor``,
+    ``all_gather_into_tensor`` and ``all_reduce`` counted (calls and
+    elements)."""
+    import torch.distributed as dist
+    names = ("reduce_scatter_tensor", "all_gather_into_tensor", "all_reduce")
+    real = {k: getattr(dist, k) for k in names}
+    calls = {k: [] for k in names}
+
+    def counted(name):
+        def call(*a, **kw):
+            t = a[1] if name != "all_reduce" else a[0]
+            calls[name].append(t.numel())
+            return real[name](*a, **kw)
+        return call
+
+    for k in names:
+        setattr(dist, k, counted(k))
+    try:
+        state, metrics = train_step(state, data.batch_at(3000))
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+    finally:
+        for k in names:
+            setattr(dist, k, real[k])
+    return state, calls
+
+
+def param_digest(state) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(state["params"]):
+        h.update(state["params"][k].detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def zero_path7(torch, libs, rank: int):
+    """Phase 13 in one worker: main path 7 (ZeRO) and then main path 2's
+    configuration at 2 workers from the same seed, through the
+    ``Trainer``; the first run's launches and collectives."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.bucketing import shard_size
+
+    cfg = get_config("resnet50")
+    runs = {}
+    for zero in (True, False):
+        res, sh, step, data, put, launches, entries, peak = zero_trainer(
+            torch, libs, cfg, STEPS, zero)
+        state = res.state
+        if zero:
+            plan = sh.zero_plan
+        bits = zero_bits(torch, state, plan, ZERO_WORKERS, rank)
+        opt_bytes = sum(
+            t.numel() * t.element_size() for v in state["opt"].values()
+            for t in (v.values() if isinstance(v, dict) else
+                      [v] if torch.is_tensor(v) else []))
+        walls = [h["time"] * 1e3 for h in res.history[1:]]
+        rec = {"losses": [h["loss"] for h in res.history],
+               "step_ms": walls, "median_step_ms": statistics.median(walls),
+               "peak_gib": peak, "opt_state_bytes": opt_bytes,
+               "launches": launches, "entry_launches": entries,
+               "eval": {k: res.epoch_history[-1][k] for k in ("top1", "loss")},
+               "digest": param_digest(state)}
+        if zero:
+            state, calls = collective_check(torch, step, state, data)
+            rec["collectives_a_step"] = {k: len(v) for k, v in calls.items()}
+            rec["collective_elements"] = calls
+            rec["n_buckets"] = plan.n_buckets
+            rec["shard_elements"] = shard_size(plan, ZERO_WORKERS)
+            rec["plan"] = plan.describe()
+        runs[zero] = (rec, bits)
+        del res, state, step, data, put
+    (zrec, zbits), (brec, bbits) = runs[True], runs[False]
+    differ = zero_differ(torch, zbits, bbits)
+    return {"zero": zrec, "bucketed": brec, "entries": len(zbits),
+            "differ": differ[:10], "n_differ": len(differ)}
+
+
+def zero_ckpt(torch, libs, rank: int, root: str):
+    """Phase 13's checkpoints: ZeRO with a save every 3 of 6 steps, a
+    fresh ``Trainer`` resumed from the step-3 checkpoint alone (bitwise
+    the unbroken run), and the step-3 ZeRO checkpoint restored into main
+    path 2's configuration through ``make_zero_restore_transform``,
+    which then runs steps 3-5 (bitwise the unbroken ZeRO run)."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch import interop
+    from repro_torch.checkpoint import list_checkpoints, restore
+    from repro_torch.configs import OptimizerConfig, get_config
+    from repro_torch.optim import stream as tstream
+
+    cfg = get_config("resnet50")
+    unbroken = os.path.join(root, "unbroken")
+    resumed = os.path.join(root, "resumed")
+    res, sh, *_ = zero_trainer(torch, libs, cfg, ZERO_CKPT_STEPS, True,
+                               checkpoint_dir=unbroken,
+                               checkpoint_every=ZERO_CKPT_EVERY)
+    plan = sh.zero_plan
+    full = zero_bits(torch, res.state, plan, ZERO_WORKERS, rank)
+    unbroken_losses = [h["loss"] for h in res.history]
+    del res
+    first = f"step_{ZERO_CKPT_EVERY:010d}"
+    if rank == 0:
+        assert list_checkpoints(unbroken) == [ZERO_CKPT_EVERY,
+                                              ZERO_CKPT_STEPS]
+        shutil.copytree(os.path.join(unbroken, first),
+                        os.path.join(resumed, first))
+    dist.barrier()
+    res, _, _, _, _, launches, _, _ = zero_trainer(
+        torch, libs, cfg, ZERO_CKPT_STEPS, True, checkpoint_dir=resumed,
+        checkpoint_every=ZERO_CKPT_EVERY)
+    resumed_from = res.resumed_from
+    differ = zero_differ(torch, zero_bits(torch, res.state, plan,
+                                          ZERO_WORKERS, rank), full)
+    del res
+    # the ZeRO checkpoint in main path 2's configuration (per-leaf state)
+    state, step, data, put, bsh, _ = zero_setup(torch, cfg,
+                                                ZERO_CKPT_STEPS, False)
+    hook = tstream.make_zero_restore_transform(
+        plan, tstream.param_key_tree(state["params"]), ZERO_WORKERS,
+        to_zero=False, fields=tstream.make_stream_optimizer(
+            OptimizerConfig(), 1, 1).state_fields)
+    arrays, manifest = restore(unbroken, step=ZERO_CKPT_EVERY, transform=hook)
+    interop.train_state_from_jax(arrays, state, bsh)
+    losses = []
+    for i in range(ZERO_CKPT_EVERY, ZERO_CKPT_STEPS):
+        state, met = step(state, put(data.batch_at(i)).take())
+        losses.append(float(met["loss"]))
+    to_tree = zero_differ(torch, full, zero_bits(torch, state, plan,
+                                                 ZERO_WORKERS, rank))
+    return {"resumed_from": resumed_from, "resume_differ": differ[:10],
+            "entries": len(full), "unbroken_losses": unbroken_losses,
+            "to_tree_losses": losses, "to_tree_differ": to_tree[:10],
+            "to_tree_unbroken_losses": unbroken_losses[ZERO_CKPT_EVERY:],
+            "opt_layout": manifest["metadata"]["opt_layout"],
+            "resumed_launches": launches}
+
+
+ZERO_PAIRS = {  # phase 13b: (build options, bitwise)
+    "overlap_ef": (dict(overlap_comm=True, error_feedback=True,
+                        bucket_bytes=ZERO_SMALL_BUCKET), True),
+    "lars": (dict(lars=True), True),
+    "momentum": (dict(opt="momentum_sgd"), True),
+    "lars_overlap": (dict(lars=True, overlap_comm=True,
+                          bucket_bytes=ZERO_SMALL_BUCKET), False),
+}
+ZERO_PAIR_TOL = dict(rtol=1e-2, atol=1e-4)
+
+
+def zero_reduced_pairs(torch, libs, rank: int):
+    """Phase 13b in one worker: the reduced ResNet in f32, every kernel
+    on, three steps of each pair from one seed."""
+    from repro_torch.configs import (InputConfig, OptimizerConfig,
+                                     get_config, reduced_config)
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.launch.train import build_train_setup
+
+    cfg = reduced_config(get_config("resnet50"))
+    out = {}
+    for name, (kw, bitwise) in ZERO_PAIRS.items():
+        kw = dict(kw)
+        opt_cfg, smoothing = (lars_recipe(3, 4) if kw.pop("lars", False)
+                              else (OptimizerConfig(kind=kw.pop(
+                                  "opt", "rmsprop_warmup")), 0.0))
+        runs = {}
+        for zero in (True, False):
+            _, state, step, data, put, sh = build_train_setup(
+                cfg, global_batch=16, seq_len=0, opt_cfg=opt_cfg,
+                steps_per_epoch=4, dp_mode="shardmap",
+                compute_dtype=torch.float32, fused_bn=True,
+                use_fused_kernel=True, compression="bf16+bucketed",
+                label_smoothing=smoothing, zero_dp=zero,
+                input_cfg=InputConfig(fused=True, augment=False), seed=3,
+                device="cuda", **kw)
+            plan = sh.zero_plan if zero else plan
+            reset_counts(libs)
+            losses = []
+            for i in range(3):
+                state, metrics = step(state, put(data.batch_at(i)).take())
+                losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            runs[zero] = (losses, zero_bits(torch, state, plan, ZERO_WORKERS,
+                                            rank), read_counts(libs),
+                          dict(fu.ENTRY_LAUNCHES))
+        (lz, bz, cz, ez), (lb, bb, _, _) = runs[True], runs[False]
+        rec = {"zero_losses": lz, "losses": lb, "launches": cz,
+               "entry_launches": ez, "entries": len(bz)}
+        if bitwise:
+            differ = zero_differ(torch, bz, bb)
+            rec.update(differ=differ[:10], n_differ=len(differ),
+                       bitwise=lz == lb and not differ)
+        else:
+            worst = {}
+            for k, v in bz.items():
+                if k in bb and k.startswith(("params/", "opt/")) \
+                        and k != "opt/step":
+                    ref = bb[k].double()
+                    excess = ((v.double() - ref).abs()
+                              - ZERO_PAIR_TOL["atol"]
+                              - ZERO_PAIR_TOL["rtol"] * ref.abs())
+                    worst[k] = float(excess.max())
+            rec.update(max_excess=max(worst.values()),
+                       worst=max(worst, key=worst.get),
+                       loss_rel=max(abs(a - b) / abs(b)
+                                    for a, b in zip(lz, lb)),
+                       differ_bitwise=sum(not torch.equal(bz[k], bb[k])
+                                          for k in worst))
+        out[name] = rec
+    return out
+
+
+def zero_cards_worker(rank: int, out_dir: str) -> None:
+    """One of phase 13's two workers, both on the one card, joined over
+    gloo: main path 7 against main path 2's configuration, ZeRO's
+    checkpoints (13), and the reduced pairs (13b), cuDNN deterministic.
+    Writes ``rank{rank}.json``."""
+    sys.path.insert(0, SRC)
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import bucket_ops as bo
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_bn as fb
+    from repro_torch.kernels import fused_input as fi
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import rmsnorm as rn
+    libs = (fb, fu, bo, fi, fa, rn)
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/store",
+                            rank=rank, world_size=ZERO_WORKERS)
+    try:
+        t0 = time.perf_counter()
+        out = {"path7": zero_path7(torch, libs, rank)}
+        out["path7_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["ckpt"] = zero_ckpt(torch, libs, rank,
+                                os.path.join(out_dir, "ckpt"))
+        out["ckpt_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["reduced"] = zero_reduced_pairs(torch, libs, rank)
+        out["reduced_s"] = time.perf_counter() - t0
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def zero_update_timing(torch, n: int):
+    """``hybrid_update`` through the decay-stream entry at a ZeRO worker's
+    shard of ``n`` elements (decay 0 on a third, in runs), against its
+    plain version: bitwise, the kernel's and plain version's device ms
+    and the bytes bound."""
+    from repro_torch.core.optimizer import HybridHyper
+    from repro_torch.kernels import fused_update as fu
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    g = torch.randn(n, device="cuda", generator=gen) * 1e-2
+    p = torch.randn(n, device="cuda", generator=gen)
+    d = torch.randn(n, device="cuda", generator=gen) * 1e-3
+    m = torch.rand(n, device="cuda", generator=gen) * 1e-4
+    runs = (torch.rand(n // 512 + 1, device="cuda", generator=gen)
+            < 1 / 3).repeat_interleave(512)[:n]
+    wd = torch.where(runs, 0.0, 5e-5)
+    h = HybridHyper(eta=0.05, alpha_sgd=0.5)
+    kern = [t.clone() for t in (p, d, m)]
+    plain = [t.clone() for t in (p, d, m)]
+    fu.fused_hybrid_update(g, *kern, h, wd)
+    fu.PLAIN["hybrid_update"](g, *plain, h, wd)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(kern, plain))
+    ms = time_ms(torch, lambda: fu.fused_hybrid_update(g, *kern, h, wd))
+    plain_ms = time_ms(torch, lambda: fu.PLAIN["hybrid_update"](
+        g, *plain, h, wd))
+    nbytes = ZERO_UPDATE_BYTES * n
+    ms_bound, by = bound(nbytes, UPDATE_FLOPS * n)
+    return {"elements": n, "bitwise": bitwise, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": ms_bound, "bound_by": by,
+            "bytes": nbytes}
+
+
+def zero_phase(torch):
+    """Phases 13 and 13b: two processes share the card over gloo (NCCL
+    refuses two ranks on one device). 13, main path 7: ResNet-50 at full
+    width, 32 images a worker (64 in all), bf16, fused BN, update and
+    input, ``bf16+bucketed`` (64 MiB), rmsprop_warmup + slow_start, ZeRO:
+    8 steps and one eval batch through the ``Trainer``, bitwise main path
+    2's configuration at 2 workers from the same seed (losses,
+    parameters, BN state, ``opt.step``, ``delta`` / ``m`` as this
+    worker's shard); launches a step as path 2's, ``hybrid_update``
+    through its decay-stream entry; one reduce-scatter and one all-gather
+    a bucket and one all-reduce (the metrics) a step; a save every 3 of
+    6 steps resumed from step 3 alone and the step-3 checkpoint carried
+    into main path 2's per-leaf state, both bitwise the unbroken run.
+    13b: the reduced ResNet in f32, every kernel on: ZeRO + overlap
+    against overlap, ZeRO stream-LARS and ``momentum_sgd`` against their
+    bucketed steps (bitwise), ZeRO + overlap stream-LARS against
+    overlapped stream-LARS (rtol 1e-2 / atol 1e-4). Then, in this
+    process, ``hybrid_update`` at the worker's shard shape, timed.
+    Returns (record, rank 0's launches on main path 7)."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_zero_")
+    try:
+        mp.spawn(zero_cards_worker, args=(root,), nprocs=ZERO_WORKERS)
+        ranks = []
+        for r in range(ZERO_WORKERS):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    from repro_torch.kernels.fused_update import MAX_LEAVES
+    n_leaves = 161
+    for r, rec in enumerate(ranks):
+        p7, z = rec["path7"], rec["path7"]["zero"]
+        b = p7["bucketed"]
+        log(f"  worker {r}: ZeRO losses {z['losses']} vs bucketed "
+            f"{b['losses']}; {p7['n_differ']} of {p7['entries']} entries "
+            f"not bitwise equal {p7['differ'][:5]}")
+        assert z["losses"] == b["losses"] and not p7["n_differ"], p7["differ"]
+        want = dp_want(STEPS, 1, n_leaves)
+        assert z["launches"] == want, (z["launches"], want)
+        assert b["launches"] == want, (b["launches"], want)
+        assert z["entry_launches"]["hybrid_update"] == STEPS
+        assert z["entry_launches"]["hybrid_update_leaves"] == 0
+        assert b["entry_launches"]["hybrid_update_leaves"] == \
+            STEPS * -(-n_leaves // MAX_LEAVES)
+        nb = z["n_buckets"]
+        calls = z["collectives_a_step"]
+        assert calls["reduce_scatter_tensor"] == nb, calls
+        assert calls["all_gather_into_tensor"] == nb, calls
+        # the one all-reduce is the stacked scalar metrics, not a gradient
+        assert calls["all_reduce"] == 1, calls
+        assert max(z["collective_elements"]["all_reduce"]) < 64, calls
+        ck = rec["ckpt"]
+        log(f"  worker {r}: resumed from {ck['resumed_from']}, "
+            f"{len(ck['resume_differ'])} of {ck['entries']} entries differ "
+            f"{ck['resume_differ'][:5]}; the step-{ZERO_CKPT_EVERY} ZeRO "
+            f"checkpoint in the per-leaf run: losses {ck['to_tree_losses']}"
+            f" vs {ck['to_tree_unbroken_losses']}, "
+            f"{len(ck['to_tree_differ'])} entries differ")
+        assert ck["resumed_from"] == ZERO_CKPT_EVERY
+        assert not ck["resume_differ"] and not ck["to_tree_differ"]
+        assert ck["to_tree_losses"] == ck["to_tree_unbroken_losses"]
+        assert ck["opt_layout"] == "zero_stream"
+        for name, pair in rec["reduced"].items():
+            if ZERO_PAIRS[name][1]:
+                log(f"  worker {r} 13b {name}: ZeRO {pair['zero_losses']} "
+                    f"vs {pair['losses']}, {pair['n_differ']} of "
+                    f"{pair['entries']} entries not bitwise equal "
+                    f"{pair['differ'][:5]}")
+                assert pair["bitwise"], (name, pair["differ"])
+            else:
+                log(f"  worker {r} 13b {name}: ZeRO {pair['zero_losses']} "
+                    f"vs {pair['losses']} (loss rel {pair['loss_rel']:.3g});"
+                    f" worst excess over rtol 1e-2 / atol 1e-4 "
+                    f"{pair['max_excess']:.3g} at {pair['worst']}; "
+                    f"{pair['differ_bitwise']} entries not bitwise")
+                assert pair["max_excess"] <= 0 and \
+                    pair["loss_rel"] <= ZERO_PAIR_TOL["rtol"], (name, pair)
+        lars = rec["reduced"]["lars"]["entry_launches"]
+        assert lars["seg_sq_partials"] == 3 and lars["lars_update"] == 3, lars
+        assert lars["hybrid_update"] == 0, lars
+    assert len({rec["path7"]["zero"]["digest"] for rec in ranks}) == 1
+    z0, b0 = ranks[0]["path7"]["zero"], ranks[0]["path7"]["bucketed"]
+    log(f"  main path 7 ({z0['plan']}, {z0['shard_elements']} elements a "
+        f"worker): median step {z0['median_step_ms']:.2f} ms (ZeRO) vs "
+        f"{b0['median_step_ms']:.2f} ms (bucketed), two processes on one "
+        f"card over gloo: not a user's figure; peak "
+        f"{[rec['path7']['zero']['peak_gib'] for rec in ranks]} GiB (ZeRO) "
+        f"vs {[rec['path7']['bucketed']['peak_gib'] for rec in ranks]} GiB; "
+        f"optimizer state {z0['opt_state_bytes']} vs "
+        f"{b0['opt_state_bytes']} bytes a worker; collectives a step "
+        f"{z0['collectives_a_step']}")
+    upd = zero_update_timing(torch, z0["shard_elements"])
+    log(f"  hybrid_update (decay stream) at the shard, {upd['elements']} "
+        f"elements: {upd['ms']:.4f} ms vs bound {upd['bound_ms']:.4f} ms "
+        f"({upd['bound_ms'] / upd['ms']:.0%}), plain {upd['plain_ms']:.4f} "
+        f"ms, bitwise {upd['bitwise']}")
+    assert upd["bitwise"], upd
+    log(f"  worker seconds: path 7 {ranks[0]['path7_s']:.1f}, checkpoints "
+        f"{ranks[0]['ckpt_s']:.1f}, 13b {ranks[0]['reduced_s']:.1f}")
+    return {"workers": ranks, "hybrid_update_shard": upd}, z0["launches"]
+
+
 # (B, Sq, Sk, Hq, Hkv, Dh, causal, window) of phase 3d: the serving
 # path's prefill first, then lengths 1 and 1000, Sq != Sk, non-causal, a
 # causal window of 256, groups 1, 4 and 8, Dh 32 and 128, the 64-row
@@ -2834,6 +3354,19 @@ def main() -> int:
             "error feedback, kernels on vs the per-leaf step with them off")
         ref6 = overlap_reference_phase(torch)
         log(f"  ({time.perf_counter() - t0:.1f}s)")
+
+        t0 = time.perf_counter()
+        log(f"[13] main path 7: ZeRO on the DP step, two processes on the one "
+            f"card over gloo, ResNet-50 full width, {BATCH} images a worker, "
+            f"bf16, fused BN, bf16+bucketed, fused update, fused input, "
+            f"{STEPS} steps + 1 eval batch, beside main path 2's "
+            f"configuration at 2 workers (cuDNN deterministic); a save every "
+            f"{ZERO_CKPT_EVERY} of {ZERO_CKPT_STEPS} steps, resumed; [13b] "
+            f"the reduced ResNet f32: ZeRO + overlap, stream-LARS, "
+            f"momentum_sgd and ZeRO + overlap stream-LARS against their "
+            f"all-reduce paths")
+        zero_stats, launches7 = zero_phase(torch)
+        log(f"  ({time.perf_counter() - t0:.1f}s)")
     finally:
         shutdown()
 
@@ -2855,7 +3388,8 @@ def main() -> int:
     by_path = {k: {"path2": launches[k], "path3": launches3[k],
                    "path4": launches4[k], "path5": launches5[k],
                    "path6": launches6[k],
-                   "path6_lars": overlap_stats["path3_overlap_launches"][k]}
+                   "path6_lars": overlap_stats["path3_overlap_launches"][k],
+                   "path7": launches7[k]}
                for k in launches}
     kernels = [{"name": k, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[k], "launches": launches[k],
@@ -2876,6 +3410,11 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
         if k == "hybrid_update":  # the earlier design, timed in this run
             kernels[-1]["per_leaf_ms"] = t["per_leaf_ms"]
+            # _kernel_wd through the decay-stream entry, at main path 7's
+            # shard (one launch a step there)
+            kernels[-1]["zero_shard"] = {
+                key: zero_stats["hybrid_update_shard"][key]
+                for key in ("elements", "ms", "plain_ms", "bound_ms")}
     for k, (src, replaces) in LM_KERNELS.items():
         t = lm_totals[k]
         kernels.append({
@@ -2905,6 +3444,7 @@ def main() -> int:
                        "sentinel": sentinel_stats,
                        "sync_bn": sync_stats, "sync_bn_cards": sync_cards,
                        "overlap": overlap_stats, "reference_6": ref6,
+                       "zero": zero_stats,
                        "division": division}, f,
                       indent=1)
     log(f"total {time.perf_counter() - t_all:.1f}s")

@@ -59,11 +59,13 @@ def hybrid_update(g, theta, delta, m, h: HybridHyper,
 
 
 def momentum_sgd_update(g, theta, delta, h: HybridHyper,
-                        weight_decay: float = 0.0) -> Tuple:
-    """Goyal et al. baseline: the a_sgd = 1 special case, no m state."""
+                        weight_decay=0.0) -> Tuple:
+    """Goyal et al. baseline: the a_sgd = 1 special case, no m state.
+    ``weight_decay`` is a scalar or a per-element tensor, as in
+    ``hybrid_update``."""
     g = g.to(F32)
     theta32 = theta.to(F32)
-    if weight_decay:
+    if torch.is_tensor(weight_decay) or weight_decay:
         g = g + weight_decay * theta32
     delta_new = h.mu1 * delta - g
     theta_new = theta32 + h.eta * delta_new

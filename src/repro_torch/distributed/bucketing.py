@@ -29,8 +29,13 @@ the backward produces them, so a bucket closes as soon as the segment
 holding its last element is done, and ``pack_bucket`` casts each
 segment's gradients as they come and hands out the buckets they close.
 
-Not ported yet: the shard layouts of ZeRO (``shard_perm`` and the rest)
-and the hierarchical schedules (ROADMAP queue 1, items 11 and 13).
+ZeRO (``--zero``) keeps its optimizer state in the *shard layout* of the
+stream: worker-major, each worker's chunks in bucket order
+(``shard_perm``, ``stream_to_shard_layout`` and its inverse), so worker
+w's state is block w of it. ``split_shard`` cuts a shard back into its
+per-bucket chunks.
+
+Not ported yet: the hierarchical schedules (ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -266,6 +271,49 @@ def local_shard(stream: Tensor, plan: BucketPlan, n_shards: int,
         lo, _ = plan.bucket_bounds(b)
         parts.append(stream[lo + shard_idx * c:lo + (shard_idx + 1) * c])
     return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+
+def split_shard(shard: Tensor, plan: BucketPlan, n_shards: int
+                ) -> List[Tensor]:
+    """The inverse of ``local_shard``'s concatenation: a worker shard cut
+    back into its per-bucket chunks (views)."""
+    out, off = [], 0
+    for c in shard_chunks(plan, n_shards):
+        out.append(shard[off:off + c])
+        off += c
+    return out
+
+
+def shard_perm(plan: BucketPlan, n_shards: int) -> np.ndarray:
+    """Gather indices ``perm`` with ``shard_layout = stream[perm]``:
+    worker-major, bucket order within each worker. A plan constant, used
+    on the host by the checkpoint path."""
+    idx = []
+    chunks = shard_chunks(plan, n_shards)
+    for w in range(n_shards):
+        for b, c in enumerate(chunks):
+            lo, _ = plan.bucket_bounds(b)
+            idx.append(np.arange(lo + w * c, lo + (w + 1) * c))
+    return np.concatenate(idx)
+
+
+def stream_to_shard_layout(arr, plan: BucketPlan, n_shards: int):
+    """A padded-stream-order array (numpy, or a tensor) in shard layout:
+    block w of the result is worker w's ``local_shard``."""
+    return arr[_index(shard_perm(plan, n_shards), arr)]
+
+
+def shard_layout_to_stream(arr, plan: BucketPlan, n_shards: int):
+    """The inverse of ``stream_to_shard_layout``."""
+    perm = shard_perm(plan, n_shards)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.size)
+    return arr[_index(inv, arr)]
+
+
+def _index(idx: np.ndarray, arr):
+    return (torch.from_numpy(idx).to(arr.device) if torch.is_tensor(arr)
+            else idx)
 
 
 def segment_ids_stream(plan: BucketPlan) -> np.ndarray:

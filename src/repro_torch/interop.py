@@ -14,9 +14,10 @@ have the same layout in both packages and are only renamed.
 
 ``train_state_to_jax`` / ``train_state_from_jax`` carry a whole train
 state (parameters, optimizer state in the per-leaf or the stream layout,
-BN state, error-feedback residuals) both ways, in the key strings and
-layout of the JAX package's checkpoints, so the port's checkpoints are
-that package's checkpoints (``checkpoint/checkpointer.py``).
+or ZeRO's shards of the stream, BN state, error-feedback residuals) both
+ways, in the key strings and layout of the JAX package's checkpoints, so
+the port's checkpoints are that package's checkpoints
+(``checkpoint/checkpointer.py``).
 """
 from __future__ import annotations
 
@@ -31,7 +32,13 @@ import torch.distributed as dist
 from repro_torch.checkpoint.checkpointer import _flatten as _keyed_arrays
 from repro_torch.checkpoint.checkpointer import keystr, to_numpy, to_tensor
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed.bucketing import leaf_order
+from repro_torch.distributed.bucketing import (
+    BucketPlan,
+    leaf_order,
+    shard_layout_to_stream,
+    shard_size,
+    stream_to_shard_layout,
+)
 
 _KEY = re.compile(r"\['([^']*)'\]")
 
@@ -160,16 +167,19 @@ def load_reference_arrays(arrays: Mapping[str, np.ndarray],
 
 
 def _restream(flat, params: Mapping[str, torch.Tensor], to_port: bool,
-              order: Optional[Sequence[str]] = None):
+              order: Optional[Sequence[str]] = None,
+              port_order: Optional[Sequence[str]] = None):
     """Carry a flat packed stream between the port's layout (the leaves
-    in ``leaf_order``, conv leaves OIHW) and the JAX package's (the
-    leaves in ``order``, ``leaf_order`` when None; conv leaves HWIO);
-    the pad tail keeps its place. ``flat`` is a tensor (the result stays
-    on its device) or a numpy array (the result is one)."""
+    in ``port_order``, ``leaf_order`` when None; conv leaves OIHW) and
+    the JAX package's (the leaves in ``order``, ``leaf_order`` when
+    None; conv leaves HWIO); the pad tail keeps its place. ``flat`` is a
+    tensor (the result stays on its device) or a numpy array (the result
+    is one)."""
     src = flat if torch.is_tensor(flat) else torch.from_numpy(np.array(flat))
-    port_order = leaf_order(params)
-    jax_order = port_order if order is None else list(order)
-    if sorted(jax_order) != port_order:
+    names = leaf_order(params)
+    port_order = names if port_order is None else list(port_order)
+    jax_order = names if order is None else list(order)
+    if sorted(jax_order) != names or sorted(port_order) != names:
         raise ValueError("the stream order must name every parameter once")
     sizes = {k: int(np.prod(tuple(params[k].shape))) for k in port_order}
     port_off = dict(zip(port_order, np.cumsum(
@@ -243,11 +253,22 @@ class WorkerSharding:
     leading worker dim; everything else is replicated.
     ``stream_order`` is the leaf order of the JAX package's stream
     optimizer state: None for ``leaf_order`` (the bucketed step's, and
-    the port's always), the ready order under ``overlap_comm``
-    (``training.step.overlap_stream_order``)."""
+    the port's without ZeRO), the ready order under ``overlap_comm``
+    (``training.step.overlap_stream_order``).
+
+    ``zero_plan`` (ZeRO) says that the flat fields of ``opt`` are
+    sharded: each worker holds its block of the shard layout
+    (``bucketing.stream_to_shard_layout``) of the port's stream under
+    this plan, whose ``names`` give the port's leaf order (the ready
+    order under ``overlap_comm``). The JAX package holds the same fields
+    as one global shard-layout array of its own stream; the bucket
+    bounds depend only on the stream's length, the bucket bytes, the
+    wire itemsize and the alignment, so one plan's ``shard_perm`` serves
+    both streams."""
 
     group: Any = None
     stream_order: Optional[Tuple[str, ...]] = None
+    zero_plan: Optional[BucketPlan] = None
 
     def world(self) -> int:
         return dist.get_world_size(self.group)
@@ -258,6 +279,15 @@ class WorkerSharding:
 
 def _path(name: str) -> tuple:
     return tuple(name.split("/"))
+
+
+def hwio_shape(shape: Sequence[int]) -> tuple:
+    """A leaf's shape in the JAX package's layout: a conv weight's OIHW
+    as HWIO, any other shape as it is."""
+    if len(shape) == 4:
+        o, i, h, w = shape
+        return (h, w, i, o)
+    return tuple(shape)
 
 
 def _jax_shape(t: torch.Tensor) -> tuple:
@@ -274,6 +304,8 @@ def _gather_rows(tensors: List[torch.Tensor], shardings: WorkerSharding
     if world == 1:
         return [t.unsqueeze(0) for t in tensors]
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    if dist.get_backend(shardings.group) == "gloo":
+        flat = flat.cpu()  # gloo gathers host tensors
     first = shardings.rank() == 0
     rows = [torch.empty_like(flat) for _ in range(world)] if first else None
     dst = (dist.get_global_rank(shardings.group, 0)
@@ -305,10 +337,16 @@ def train_state_to_jax(state: Mapping, shardings: Optional[WorkerSharding]
     every worker calls it, the per-worker BN state and EF residuals are
     gathered to the group's first rank under a leading worker dim (the
     JAX package's per-worker layout), and the tree is returned there and
-    None on the other ranks."""
+    None on the other ranks. Under ZeRO (``shardings.zero_plan``) the
+    workers' shards of each flat ``opt`` field are gathered in rank order
+    too, which gives the global shard layout of the port's stream; it
+    becomes the JAX package's through the whole stream:
+    ``shard_layout_to_stream``, ``_restream``, ``stream_to_shard_layout``
+    (a worker's port shard and its JAX shard hold different elements:
+    the conv leaves are laid out differently)."""
     rows: Dict[tuple, torch.Tensor] = {}
     if shardings is not None:
-        leaves = _worker_leaves(state)
+        leaves = _worker_leaves(state, shardings.zero_plan is not None)
         gathered = _gather_rows([t for _, t in leaves], shardings)
         if gathered is None:
             return None
@@ -321,6 +359,9 @@ def train_state_to_jax(state: Mapping, shardings: Optional[WorkerSharding]
             order = shardings.stream_order if shardings is not None \
                 else None
             tree[key] = {k: _opt_leaf_to_jax(v, state["params"], order)
+                         if ("opt", k) not in rows else
+                         _zero_field_to_jax(rows[("opt", k)], state["params"],
+                                            order, shardings.zero_plan)
                          for k, v in sub.items()}
         elif key == "model_state":
             tree[key] = {site: {k: to_numpy(rows.get((key, site, k), t))
@@ -334,10 +375,14 @@ def train_state_to_jax(state: Mapping, shardings: Optional[WorkerSharding]
     return tree
 
 
-def _worker_leaves(state: Mapping) -> List[tuple]:
+def _worker_leaves(state: Mapping, zero: bool = False) -> List[tuple]:
     """(path, tensor) of every per-worker tensor: the BN state's
-    ``(site, field)`` and the EF residual's leaves."""
+    ``(site, field)``, the EF residual's leaves and, under ZeRO, the
+    flat ``opt`` fields (each worker's shard)."""
     out = []
+    if zero:
+        out += [(("opt", k), t) for k, t in state["opt"].items()
+                if torch.is_tensor(t)]
     if "model_state" in state:
         out += [(("model_state", site, k), t)
                 for site, rec in state["model_state"].items()
@@ -346,6 +391,27 @@ def _worker_leaves(state: Mapping) -> List[tuple]:
         out += [(("ef_residual", n), t)
                 for n, t in state["ef_residual"].items()]
     return out
+
+
+def _zero_field_to_jax(rows: torch.Tensor, params, order,
+                       plan: BucketPlan) -> np.ndarray:
+    """The workers' shards of a ZeRO field (``rows``, one per rank) as
+    the JAX package's global shard-layout array of its own stream."""
+    n = rows.shape[0]
+    stream = _restream(shard_layout_to_stream(rows.reshape(-1), plan, n),
+                       params, to_port=False, order=order,
+                       port_order=plan.names)
+    return to_numpy(stream_to_shard_layout(stream, plan, n))
+
+
+def _zero_field_from_jax(arr: np.ndarray, params, order, plan: BucketPlan,
+                         n: int, w: int) -> np.ndarray:
+    """Worker ``w``'s shard of a ZeRO field out of the JAX package's
+    global shard-layout array (the inverse of ``_zero_field_to_jax``)."""
+    stream = _restream(shard_layout_to_stream(arr, plan, n), params,
+                       to_port=True, order=order, port_order=plan.names)
+    size = shard_size(plan, n)
+    return stream_to_shard_layout(stream, plan, n)[w * size:(w + 1) * size]
 
 
 def _opt_leaf_to_jax(v, params, order):
@@ -367,12 +433,14 @@ def train_state_from_jax(arrays: Mapping, target: Dict[str, Any],
     shape ``ValueError``. Every tensor of ``target`` is overwritten in
     place (a model's own parameters stay bound to it), the host ``step``
     counter is set, and ``target`` is returned. With ``shardings`` each
-    worker takes its own row of the per-worker entries."""
+    worker takes its own row of the per-worker entries, and under ZeRO
+    its own shard of the flat ``opt`` fields."""
     if any(isinstance(v, Mapping) for v in arrays.values()):
         arrays = _keyed_arrays(arrays)
     row = shardings.rank() if shardings is not None else None
     world = shardings.world() if shardings is not None else None
     order = shardings.stream_order if shardings is not None else None
+    zero_plan = shardings.zero_plan if shardings is not None else None
 
     def fetch(path: tuple, shape: tuple) -> np.ndarray:
         key = keystr(path)
@@ -405,6 +473,11 @@ def train_state_from_jax(arrays: Mapping, target: Dict[str, Any],
                         for n, t in v.items():
                             load(t, fetch((key, k) + _path(n),
                                           _jax_shape(t)))
+                    elif torch.is_tensor(v) and zero_plan is not None:
+                        v.copy_(to_tensor(_zero_field_from_jax(
+                            fetch((key, k), (v.numel() * world,)),
+                            target["params"], order, zero_plan, world, row),
+                            v))
                     elif torch.is_tensor(v):
                         v.copy_(to_tensor(_restream(
                             fetch((key, k), tuple(v.shape)),

@@ -17,8 +17,9 @@ F32 = ctypes.c_float
 
 class Library:
     """The C entry points of ``csrc/<name>.cu``, bound with their
-    argument types at first use (the source is built then), and one
-    launch count per entry point."""
+    argument types at first use (the source is built then), one launch
+    count per kernel (``launches``) and one per entry point
+    (``entry_launches``)."""
 
     def __init__(self, name: str, signatures: Dict[str, Sequence],
                  counts_as: Optional[Dict[str, str]] = None):
@@ -29,6 +30,7 @@ class Library:
         self.counts_as = counts_as or {}
         self.launches: Dict[str, int] = {
             k: 0 for k in signatures if k not in self.counts_as}
+        self.entry_launches: Dict[str, int] = {k: 0 for k in signatures}
         self._fns: Dict[str, object] = {}
 
     def _fn(self, sym: str):
@@ -50,10 +52,12 @@ class Library:
             raise RuntimeError(f"{sym} kernel launch failed: CUDA error "
                                f"{err}")
         self.launches[self.counts_as.get(sym, sym)] += 1
+        self.entry_launches[sym] += 1
 
     def reset(self) -> None:
-        for k in self.launches:
-            self.launches[k] = 0
+        for counts in (self.launches, self.entry_launches):
+            for k in counts:
+                counts[k] = 0
 
 
 def on_cpu(what: str, *ts: Optional[torch.Tensor]) -> bool:

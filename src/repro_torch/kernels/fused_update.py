@@ -47,6 +47,9 @@ SEG_CHUNK = 4096
 # the largest trust vector lars_update stages in shared memory (48 KB)
 MAX_SEGMENTS = 12288
 LAUNCHES: Dict[str, int] = _LIB.launches
+# per C entry: "hybrid_update" (one leaf or stream, the decay-stream entry
+# ZeRO runs) apart from "hybrid_update_leaves" (the per-leaf optimizer's)
+ENTRY_LAUNCHES: Dict[str, int] = _LIB.entry_launches
 reset_launch_counts = _LIB.reset
 
 

@@ -10,7 +10,9 @@ shardmap``, the paper's own run).
 gradient stream (the stream-LARS kernels with ``--use-fused-kernel``).
 ``--sync-bn`` makes every BN site cross-replica over the workers, and
 ``--overlap-comm`` starts the bucketed gradient all-reduces during the
-backward pass (both ``--dp-mode shardmap``).
+backward pass, and ``--zero`` reduce-scatters the buckets and shards
+the optimizer update and state over the workers (all three ``--dp-mode
+shardmap``; ``--zero`` needs two workers or more).
 ``--ckpt-dir`` checkpoints in the JAX package's format and resumes from
 the newest intact checkpoint; ``--sentinel`` adds the divergence
 sentinel and the recovery state machine, ``--chaos`` deterministic
@@ -31,6 +33,10 @@ fault injection:
         --reduced --dp-mode shardmap --compression bf16+bucketed \\
         --sync-bn --overlap-comm --fused-bn --epochs 1 --steps-per-epoch 2 \\
         --global-batch 16 --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --reduced --dp-mode shardmap --compression bf16+bucketed --zero \\
+        --use-fused-kernel --epochs 1 --steps-per-epoch 2 --global-batch 16 \\
+        --ckpt-dir /tmp/ck_zero --ckpt-every 2 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
         --epochs 3 --steps-per-epoch 5 --global-batch 16 --sentinel \\
         --chaos "nan_grad@7-9" --ckpt-dir /tmp/ck --ckpt-every 5 \\
@@ -68,6 +74,7 @@ from repro_torch.interop import WorkerSharding
 from repro_torch.kernels.ops import fused_input_eval
 from repro_torch.models import build_model, init_model_state
 from repro_torch.optim import make_optimizer
+from repro_torch.distributed.bucketing import shard_size
 from repro_torch.optim.stream import make_stream_optimizer, zero_padded_total
 from repro_torch.resilience import (ResilienceConfig, parse_chaos,
                                     wrap_step_with_sentinel)
@@ -81,6 +88,7 @@ from repro_torch.training.step import (
     make_train_step,
     overlap_stream_order,
     to_device,
+    zero_stream_plan,
 )
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -134,7 +142,12 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
 
     LARS on the bucketed DP path is the packed-stream optimizer
     (``optim/stream.py``; its state is one flat padded ``delta``), as in
-    the JAX package; elsewhere it is the per-leaf LARS.
+    the JAX package; elsewhere it is the per-leaf LARS. ``zero_dp``
+    (``--zero``, the DP path with bucketed compression and two workers
+    or more) takes the packed-stream optimizer for every kind, and each
+    worker's state is its shard of the stream (``shard_size`` elements
+    a field); the ``WorkerSharding`` says so, so checkpoints gather the
+    shards into the JAX package's global shard-layout arrays.
     ``error_feedback`` (DP path only, with a wire dtype) adds each
     worker's residual to the state as ``ef_residual``.
 
@@ -168,8 +181,12 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
             "overlap_comm launches explicit per-bucket collectives inside "
             "the backward pass, which only the data-parallel step has: "
             "pass dp_mode='shardmap'")
-    if zero_dp:
-        raise _unported("ZeRO sync (--zero)", 11)
+    if zero_dp and dp_mode != "shardmap":
+        raise ValueError(
+            "--zero reduce-scatters explicit per-bucket collectives, "
+            "which only exist in the shard_map DP mode "
+            "(dp_mode='shardmap'; GSPMD has zero_1 sharding constraints "
+            "instead, DESIGN.md §9)")
     if bucketed and dp_mode != "shardmap":
         raise ValueError(
             "bucketed gradient sync all-reduces explicit buckets, which "
@@ -210,7 +227,7 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
         parallel=ParallelConfig(compression=compression,
                                 bucket_bytes=bucket_bytes, zero_1=False,
                                 error_feedback=error_feedback,
-                                overlap_comm=overlap_comm),
+                                overlap_comm=overlap_comm, zero_dp=zero_dp),
         input=input_cfg, label_smoothing=label_smoothing,
         # the sentinel's whole-gradient health flag; the DP step
         # reports the norm of the synced gradient anyway
@@ -220,14 +237,21 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
                         device=dev,
                         bn_group=dist.group.WORLD if sync else None)
     params = {k: p.detach() for k, p in model.named_parameters()}
-    # the packed-stream layout: LARS on the bucketed DP path
-    stream = opt_cfg.kind == "lars" and dp_mode == "shardmap" and bucketed
+    # the packed-stream layout: always under --zero, and LARS on the
+    # bucketed DP path
+    stream = zero_dp or (opt_cfg.kind == "lars" and dp_mode == "shardmap"
+                         and bucketed)
+    zero_plan = None
     if stream:
         optimizer = make_stream_optimizer(opt_cfg, steps_per_epoch,
                                           global_batch,
                                           use_fused=use_fused_kernel)
-        opt_state = optimizer.init(zero_padded_total(
-            params, compression, bucket_bytes, world), dev)
+        if zero_dp:  # this worker's shard of the stream
+            zero_plan = zero_stream_plan(model, params, train_cfg, world)
+            opt_state = optimizer.init(shard_size(zero_plan, world), dev)
+        else:
+            opt_state = optimizer.init(zero_padded_total(
+                params, compression, bucket_bytes, world), dev)
     else:
         optimizer = make_optimizer(opt_cfg, steps_per_epoch, global_batch,
                                    use_fused=use_fused_kernel)
@@ -243,10 +267,11 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
         train_step = make_dp_shardmap_train_step(
             model, optimizer, train_cfg, input_transform=transform)
         put_batch = make_put_batch(dev)
-        # the JAX package's stream-LARS delta is in ready order under
+        # the JAX package's stream state is in ready order under
         # overlap_comm: its checkpoints are read and written so
-        shardings = WorkerSharding(stream_order=overlap_stream_order(
-            model, params) if stream and overlap_comm else None)
+        shardings = WorkerSharding(
+            stream_order=overlap_stream_order(model, params)
+            if stream and overlap_comm else None, zero_plan=zero_plan)
         data = make_data(cfg, shape, seed=seed, num_hosts=world,
                          host_id=me)
     else:
@@ -364,7 +389,10 @@ def main(argv=None):
                     help="carry each worker's wire rounding residual into "
                          "its next step (shardmap only)")
     ap.add_argument("--overlap-comm", action="store_true")
-    ap.add_argument("--zero", action="store_true")
+    ap.add_argument("--zero", action="store_true",
+                    help="reduce-scatter the buckets and shard the "
+                         "optimizer update and state over the workers "
+                         "(shardmap, bucketed compression, >= 2 workers)")
     ap.add_argument("--sync-bn", action="store_true")
     ap.add_argument("--comm-plan", default="flat")
     ap.add_argument("--label-smoothing", type=float, default=0.0,
@@ -421,7 +449,7 @@ def main(argv=None):
                 label_smoothing=args.label_smoothing, input_cfg=input_cfg,
                 sentinel=args.sentinel, device=args.device)
         metadata = {"arch": args.arch, "optimizer": args.optimizer,
-                    "opt_layout": "tree"}
+                    "opt_layout": "zero_stream" if args.zero else "tree"}
         t0 = time.time()
         if args.epochs is None:  # the step-driven run, no validation
             result = run_training(

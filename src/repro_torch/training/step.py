@@ -20,12 +20,19 @@ the parameters. A packed-stream optimizer (stream-LARS,
 update runs on the flat synced stream, and the LARS trust norms are
 reduced on each worker's 1/N slice of it.
 
+ZeRO (``zero_dp``, ``_make_dp_zero_train_step``) reduce-scatters each
+bucket instead of all-reducing it: every worker updates only its shard
+of the packed stream with a stream optimizer, keeps only that shard of
+the optimizer state, and all-gathers the updated parameter slices back.
+Its end state is bitwise that of the all-reduce paths.
+
 ``make_dp_overlap_train_step`` is the same step with the gradient
-all-reduces started during the backward pass: the loss runs as a chain
-of segments (``model.loss_segments``), the segments' backwards run last
-segment first, and each bucket of a stream laid out in that order is
-all-reduced asynchronously as soon as the segment holding its last
-gradient is done, while the earlier segments' backwards compute.
+all-reduces (or ZeRO's reduce-scatters) started during the backward
+pass: the loss runs as a chain of segments (``model.loss_segments``),
+the segments' backwards run last segment first, and each bucket of a
+stream laid out in that order is synced asynchronously as soon as the
+segment holding its last gradient is done, while the earlier segments'
+backwards compute.
 
 ``make_prefill_step`` and ``make_decode_step`` are the serving steps of
 an LM, thin wrappers around the model's ``prefill`` and ``decode_step``
@@ -61,6 +68,8 @@ from repro_torch.distributed.bucketing import (
     plan_ready_buckets,
     reorder_stream,
     segment_ids_stream,
+    shard_chunks,
+    split_shard,
     unpack,
 )
 from repro_torch.kernels.ops import (
@@ -255,9 +264,10 @@ def make_dp_shardmap_train_step(model, optimizer: Optimizer,
     ``error_feedback=True`` threads each worker's rounding residual
     through either sync path (the state gains ``ef_residual``, one per
     worker like the BN statistics). An optimizer with ``update_shard``
-    (stream-LARS) takes the packed-stream step. ``overlap_comm`` takes
-    ``make_dp_overlap_train_step``. ZeRO and hierarchical schedules are
-    not ported yet (ROADMAP queue 1, items 11 and 13)."""
+    (stream-LARS) takes the packed-stream step. ``zero_dp`` (``--zero``)
+    takes ``_make_dp_zero_train_step``, and ``overlap_comm``
+    ``make_dp_overlap_train_step``. Hierarchical schedules are not
+    ported yet (ROADMAP queue 1, item 13)."""
     parallel = train_cfg.parallel
     if parallel.overlap_comm:
         return make_dp_overlap_train_step(model, optimizer, train_cfg, group,
@@ -268,6 +278,9 @@ def make_dp_shardmap_train_step(model, optimizer: Optimizer,
     if use_ef and wire is None:
         raise ValueError("error_feedback requires a wire dtype "
                          f"(compression={parallel.compression!r})")
+    if parallel.zero_dp:
+        return _make_dp_zero_train_step(model, optimizer, train_cfg, wire,
+                                        bucketed, group, input_transform)
     if hasattr(optimizer, "update_shard"):
         return _make_dp_stream_train_step(model, optimizer, train_cfg, wire,
                                           bucketed, group, input_transform)
@@ -335,37 +348,63 @@ def _synced_update(optimizer, params, grads, opt, metrics: Dict,
 
 
 def _unported_sync(parallel, under: str) -> None:
-    for flag, what, item in (
-            (parallel.zero_dp, "ZeRO sync (--zero)", 11),
-            (parallel.hier_split is not None, "hierarchical sync", 13)):
-        if flag:
-            raise NotImplementedError(
-                f"{what}{under} is not ported yet (ROADMAP queue 1, item "
-                f"{item})")
+    if parallel.hier_split is not None:
+        raise NotImplementedError(
+            f"hierarchical sync{under} is not ported yet (ROADMAP queue 1, "
+            "item 13)")
 
 
-def _stream_checks(parallel, bucketed: bool) -> None:
+def _stream_checks(parallel, optimizer, bucketed: bool) -> None:
+    """Validate a packed-stream step without ZeRO (stream-LARS)."""
     if not bucketed:
         raise ValueError(
             "the packed-stream optimizer updates a contiguous stream, "
             "which requires bucketed compression (e.g. "
             "compression='bf16+bucketed', got "
             f"{parallel.compression!r})")
+    if optimizer.kind != "lars":
+        raise ValueError(
+            "non-zero packed-stream updates exist for kind='lars' only "
+            "(rmsprop_warmup uses the replicated tree update unless "
+            f"--zero shards it); got kind={optimizer.kind!r}")
+
+
+def _zero_checks(parallel, optimizer, bucketed: bool, group=None) -> int:
+    """Validate a ZeRO step request; returns the worker count."""
+    if not bucketed:
+        raise ValueError(
+            "zero_dp reduce-scatters packed buckets, which requires "
+            "bucketed compression (e.g. compression='bf16+bucketed', "
+            f"got {parallel.compression!r})")
+    if not hasattr(optimizer, "update_shard"):
+        raise ValueError(
+            "zero_dp needs a packed-stream optimizer "
+            "(optim/stream.py:make_stream_optimizer), got "
+            f"{type(optimizer).__name__}")
+    n = dist.get_world_size(group)
+    if n < 2:
+        raise ValueError(f"zero_dp needs DP degree >= 2, got {n}")
+    return n
 
 
 def _stream_aux(optimizer, plan: BucketPlan, params, n: int, w: int,
-                device) -> Dict[str, torch.Tensor]:
+                device, sharded: bool = False) -> Dict[str, torch.Tensor]:
     """The static per-element side inputs of the stream update, built
     once and kept on the device: the weight-decay and segment-id streams
     (whole, for the update; worker ``w``'s slice, for the norms) and the
-    per-segment trust mask."""
+    per-segment trust mask. ``sharded`` (ZeRO) keeps only worker ``w``'s
+    block of each stream's shard layout (its ``local_shard``), as
+    ``wd`` and ``seg``: the side inputs of its shard of the update."""
     wd = torch.from_numpy(optimizer.wd_stream(params, plan)).to(device)
     seg = torch.from_numpy(segment_ids_stream(plan)).to(device)
-    return {"wd": wd, "seg": seg,
-            "wd_loc": local_shard(wd, plan, n, w),
-            "seg_loc": local_shard(seg, plan, n, w),
-            "trust_mask": torch.from_numpy(
-                trust_mask_segments(params, plan)).to(device)}
+    mask = torch.from_numpy(trust_mask_segments(params, plan)).to(device)
+    wd_loc, seg_loc = (local_shard(wd, plan, n, w),
+                       local_shard(seg, plan, n, w))
+    if sharded:
+        return {"wd": wd_loc.clone(), "seg": seg_loc.clone(),
+                "trust_mask": mask}
+    return {"wd": wd, "seg": seg, "wd_loc": wd_loc, "seg_loc": seg_loc,
+            "trust_mask": mask}
 
 
 def _cast_divide_stream(stream: torch.Tensor, plan: BucketPlan, n: int
@@ -426,6 +465,74 @@ def _stream_synced_update(optimizer, plan: BucketPlan, params, buckets,
     return metrics
 
 
+def _param_shard(params, plan: BucketPlan, n: int, w: int) -> torch.Tensor:
+    """Worker ``w``'s shard of the f32 parameter stream of ``plan`` (its
+    chunk of every bucket, in bucket order; the pad as zeros), copied
+    from the leaves that overlap it."""
+    parts = []
+    for b, c in enumerate(shard_chunks(plan, n)):
+        lo = plan.bucket_bounds(b)[0] + w * c
+        hi = lo + c
+        for k, s in zip(plan.names, plan.slots):
+            a, z = max(lo, s.offset), min(hi, s.offset + s.size)
+            if a < z:
+                parts.append(params[k].reshape(-1)[a - s.offset:z - s.offset])
+        if hi > plan.total_elems:
+            parts.append(params[plan.names[0]].new_zeros(
+                hi - max(lo, plan.total_elems)))
+    return torch.cat(parts)
+
+
+def _zero_sharded_update(optimizer, plan: BucketPlan, params, g_shard, opt,
+                         n: int, w: int, aux, group=None):
+    """The worker-local half of the ZeRO step: update this worker's
+    shard of the f32 parameter stream against its shard of the optimizer
+    state (``g_shard`` already cast and divided), all-gather the updated
+    slices bucket by bucket, and copy them back into the parameters, in
+    place. LARS's trust norms are the shard's per-segment partials
+    summed with one all-reduce (a leaf may span shards). Returns
+    ``(opt_metrics, local squared gradient norm)``."""
+    local_sq = g_shard.square().sum()
+    p_shard = _param_shard(params, plan, n, w)
+    if optimizer.kind == "lars":
+        partials = optimizer.segment_partials(
+            p_shard, g_shard, aux["wd"], aux["seg"], len(plan.slots) + 1)
+        dist.all_reduce(partials, group=group)
+        trust = optimizer.trust_ratios(partials, aux["trust_mask"])
+        _, _, opt_metrics = optimizer.update_shard(
+            p_shard, g_shard, opt["delta"], opt["step"], aux["wd"],
+            aux["seg"], trust)
+    else:
+        _, _, _, opt_metrics = optimizer.update_shard(
+            p_shard, g_shard, opt["delta"], opt["m"], opt["step"],
+            aux["wd"])
+    opt["step"] += 1
+    full = p_shard.new_empty(plan.padded_total)
+    for b, piece in enumerate(split_shard(p_shard, plan, n)):
+        lo, hi = plan.bucket_bounds(b)
+        dist.all_gather_into_tensor(full[lo:hi], piece, group=group)
+    torch._foreach_copy_(
+        [params[k] for k in plan.names],
+        [full[s.offset:s.offset + s.size].view(s.shape) for s in plan.slots])
+    return opt_metrics, local_sq
+
+
+def _zero_synced_update(optimizer, plan: BucketPlan, params, shards, opt,
+                        n: int, w: int, aux, metrics: Dict,
+                        group=None) -> Dict:
+    """The ZeRO update from this worker's reduce-scattered wire chunks
+    (in bucket order), and the step's metrics: averaged over the
+    workers, with the global gradient norm and the optimizer's."""
+    g_shard = _cast_divide_stream(
+        shards[0] if len(shards) == 1 else torch.cat(shards), plan, n)
+    opt_metrics, local_sq = _zero_sharded_update(
+        optimizer, plan, params, g_shard, opt, n, w, aux, group)
+    metrics["grad_sq_local"] = local_sq
+    metrics = _zero_grad_norm(_pmean_metrics(metrics, group), n)
+    metrics.update(opt_metrics)
+    return metrics
+
+
 def _zero_grad_norm(metrics: Dict, n: int) -> Dict:
     """The global gradient norm from the averaged per-worker partial sums
     (exact when n is a power of two)."""
@@ -446,7 +553,7 @@ def _make_dp_stream_train_step(model, optimizer, train_cfg: TrainConfig,
     first step and kept."""
     parallel = train_cfg.parallel
     use_ef = parallel.error_feedback
-    _stream_checks(parallel, bucketed)
+    _stream_checks(parallel, optimizer, bucketed)
     n, w = dist.get_world_size(group), dist.get_rank(group)
     device = model.device
     plan: Optional[BucketPlan] = None
@@ -483,6 +590,78 @@ def _make_dp_stream_train_step(model, optimizer, train_cfg: TrainConfig,
     return train_step
 
 
+def _make_dp_zero_train_step(model, optimizer, train_cfg: TrainConfig,
+                             wire, bucketed: bool, group=None,
+                             input_transform=None):
+    """ZeRO on the bucketed DP step (the JAX package's DESIGN.md §9):
+    pack -> one reduce-scatter per bucket -> the update of this worker's
+    shard of the stream (``_zero_sharded_update``) -> one all-gather of
+    the updated parameter slices per bucket. The optimizer state holds
+    this worker's shard only. Error feedback stays with the worker and
+    runs on its whole gradient tree before packing, as in
+    ``bucketed_psum_ef``, so the residuals, and everything after them,
+    are bitwise those of the all-reduce path. The plan (``align`` = the
+    worker count) and the side streams are built at the first step.
+    gloo takes CUDA tensors for both collectives, and its reduce-scatter
+    gives each worker the bits of its slice of the all-reduce (checked
+    with two processes on one H100, torch 2.11, bf16 / f16 / f32)."""
+    parallel = train_cfg.parallel
+    use_ef = parallel.error_feedback
+    n = _zero_checks(parallel, optimizer, bucketed, group)
+    w = dist.get_rank(group)
+    device = model.device
+    plan: Optional[BucketPlan] = None
+    aux: Dict[str, torch.Tensor] = {}
+
+    def train_step(state: Tree, batch: Tree):
+        nonlocal plan, aux
+        batch = to_device(batch, device)
+        if input_transform is not None:
+            batch = input_transform(batch)
+        params = state["params"]
+        new_mstate, metrics, grads = _grads_of(
+            model, train_cfg, params, state["model_state"], batch)
+        if use_ef:
+            quant, new_residual = apply_error_feedback(
+                grads, state["ef_residual"], wire)
+        else:
+            quant = grads
+        if plan is None:
+            plan = plan_buckets(quant, parallel.bucket_bytes, wire, align=n)
+            aux = _stream_aux(optimizer, plan, params, n, w, device,
+                              sharded=True)
+        shards = []
+        for b in pack(quant, plan):
+            shards.append(b.new_empty(b.numel() // n))
+            dist.reduce_scatter_tensor(shards[-1], b, group=group)
+        metrics = _zero_synced_update(optimizer, plan, params, shards,
+                                      state["opt"], n, w, aux, metrics,
+                                      group)
+        new_state = {"params": params, "opt": state["opt"],
+                     "model_state": new_mstate}
+        if use_ef:
+            new_state["ef_residual"] = new_residual
+        return new_state, metrics
+
+    return train_step
+
+
+def zero_stream_plan(model, params, train_cfg: TrainConfig, n: int
+                     ) -> BucketPlan:
+    """The stream plan a ZeRO step of ``n`` workers builds for ``params``
+    (the ready-order plan's base under ``overlap_comm``): the layout of
+    its sharded optimizer state, which checkpoints are converted
+    through (``interop.WorkerSharding.zero_plan``)."""
+    parallel = train_cfg.parallel
+    wire, _ = parse_compression(parallel.compression)
+    shapes = {k: torch.empty(v.shape, dtype=torch.float32, device="meta")
+              for k, v in params.items()}
+    if parallel.overlap_comm:
+        return plan_ready_buckets(_ready_stages(model, shapes),
+                                  parallel.bucket_bytes, wire, n).base
+    return plan_buckets(shapes, parallel.bucket_bytes, wire, align=n)
+
+
 # ---------------------------------------------------------------------------
 # the backward-overlapped step
 # ---------------------------------------------------------------------------
@@ -512,8 +691,17 @@ def make_dp_overlap_train_step(model, optimizer: Optimizer,
     that step's leaf order (``reorder_stream``): its trust norms are
     summed in the same order, and ``delta`` keeps the bucketed layout
     (the JAX package keeps it in ready order, ``overlap_stream_order``,
-    which its checkpoints carry). ZeRO and hierarchical sync raise
-    (ROADMAP queue 1, items 11 and 13)."""
+    which its checkpoints carry).
+
+    With ``zero_dp`` each ready bucket is reduce-scattered instead
+    (``async_op=True``, in the same pipeline), and the update is
+    ``_make_dp_zero_train_step``'s on this worker's shard of the
+    ready-order stream, as the JAX package's is. A ZeRO worker holds only
+    its shard, so stream-LARS cannot be put back in leaf order there: its
+    trust norms are summed over ready-order shards, and it agrees with
+    the overlapped stream-LARS step to rounding, not bitwise. The
+    elementwise updates (rmsprop_warmup, momentum_sgd) stay bitwise.
+    Hierarchical sync raises (ROADMAP queue 1, item 13)."""
     parallel = train_cfg.parallel
     wire, bucketed = parse_compression(parallel.compression)
     use_ef = parallel.error_feedback
@@ -525,9 +713,12 @@ def make_dp_overlap_train_step(model, optimizer: Optimizer,
             f"{type(model).__name__} has no loss_segments(); overlap_comm "
             "needs a staged model (ResNet50)")
     _unported_sync(parallel, " under overlap_comm")
+    use_zero = parallel.zero_dp
     use_stream = hasattr(optimizer, "update_shard")
-    if use_stream:
-        _stream_checks(parallel, bucketed)
+    if use_zero:
+        _zero_checks(parallel, optimizer, bucketed, group)
+    elif use_stream:
+        _stream_checks(parallel, optimizer, bucketed)
     n, w = dist.get_world_size(group), dist.get_rank(group)
     device = model.device
     plan: Optional[ReadyBucketPlan] = None
@@ -554,7 +745,10 @@ def make_dp_overlap_train_step(model, optimizer: Optimizer,
             align = n if use_stream else 1
             plan = plan_ready_buckets(_ready_stages(model, shapes),
                                       parallel.bucket_bytes, wire, align)
-            if use_stream:
+            if use_zero:
+                aux = _stream_aux(optimizer, plan.base, params, n, w, device,
+                                  sharded=True)
+            elif use_stream:
                 stream_plan = plan_buckets(shapes, parallel.bucket_bytes,
                                            wire, align)
                 aux = _stream_aux(optimizer, stream_plan, params, n, w,
@@ -563,6 +757,7 @@ def make_dp_overlap_train_step(model, optimizer: Optimizer,
                    else None)
         ct = torch.ones_like(loss)
         synced: Dict[int, torch.Tensor] = {}
+        sent: Dict[int, torch.Tensor] = {}  # a reduce-scatter's input
         works: Dict[int, Any] = {}
         pending = []  # bucket ids launched after each segment, oldest first
         carry = None
@@ -571,6 +766,7 @@ def make_dp_overlap_train_step(model, optimizer: Optimizer,
             if len(pending) >= 2:
                 for b in pending.pop(0):
                     works.pop(b).wait()
+                    sent.pop(b, None)
             g_seg, ct = vjps[i](ct)
             g_seg = {k: g.float() for k, g in g_seg.items()}
             if use_ef:
@@ -580,16 +776,31 @@ def make_dp_overlap_train_step(model, optimizer: Optimizer,
             ready, carry = pack_bucket(plan, ridx, g_seg, carry)
             for b, arr in ready:
                 # the bucket stays referenced here until its wait
-                synced[b] = arr
-                works[b] = dist.all_reduce(arr, group=group, async_op=True)
+                if use_zero:
+                    sent[b] = arr
+                    synced[b] = arr.new_empty(arr.numel() // n)
+                    works[b] = dist.reduce_scatter_tensor(
+                        synced[b], arr, group=group, async_op=True)
+                else:
+                    synced[b] = arr
+                    works[b] = dist.all_reduce(arr, group=group,
+                                               async_op=True)
             pending.append([b for b, _ in ready])
         for ids in pending:
             for b in ids:
                 works.pop(b).wait()
+                sent.pop(b, None)
         assert len(synced) == plan.n_buckets, (len(synced), plan.n_buckets)
         new_mstate, metrics = staged.finalize_aux(auxes)
         buckets = [synced[b] for b in range(plan.n_buckets)]
-        if use_stream:
+        if use_zero:
+            # this worker's shard of the ready-order stream, updated as
+            # the JAX package's zero-overlap step updates it
+            metrics = _zero_synced_update(
+                optimizer, plan.base, params, buckets, state["opt"], n, w,
+                aux, metrics, group)
+            new_params, new_opt = params, state["opt"]
+        elif use_stream:
             # back in the bucketed step's leaf order, the update, its
             # trust norms and ``delta`` are that step's, bit for bit
             g_wire = reorder_stream(torch.cat(buckets), plan.base,

@@ -312,14 +312,21 @@ def test_cli_runs_the_dp_path_on_cpu(capsys):
     # correct, and raises as the JAX package does
     (dict(error_feedback=True, compression="none"), ValueError,
      "requires a wire dtype"),
-    (dict(zero_dp=True), NotImplementedError, "item 11"),
-    (dict(zero_dp=True, overlap_comm=True), NotImplementedError, "item 11")])
+    # ZeRO is ported; with one worker it has nothing to shard, and its
+    # step raises as the JAX package's does
+    (dict(zero_dp=True, compression="bf16+bucketed"), ValueError,
+     "DP degree >= 2"),
+    (dict(zero_dp=True, overlap_comm=True, compression="bf16+bucketed"),
+     ValueError, "DP degree >= 2")])
 def test_unported_dp_options_raise(kw, exc, match):
-    with pytest.raises(exc, match=match):
-        tlaunch.build_train_setup(
-            treduced(tget("resnet50")), global_batch=BATCH, seq_len=0,
-            opt_cfg=TOpt(), steps_per_epoch=SPE, dp_mode="shardmap",
-            device="cpu", **kw)
+    try:
+        with pytest.raises(exc, match=match):
+            tlaunch.build_train_setup(
+                treduced(tget("resnet50")), global_batch=BATCH, seq_len=0,
+                opt_cfg=TOpt(), steps_per_epoch=SPE, dp_mode="shardmap",
+                device="cpu", **kw)
+    finally:
+        shutdown()
     with pytest.raises(NotImplementedError, match="item 13"):
         tlaunch.main(["--reduced", "--comm-plan", "auto", "--device", "cpu"])
 
@@ -345,18 +352,20 @@ def test_sync_bn_and_overlap_build_and_step(kw):
         shutdown()
 
 
-@pytest.mark.parametrize("kw,item", [(dict(zero_dp=True), 11),
-                                     (dict(hier_split=1), 13)],
-                         ids=["zero", "hierarchical"])
-def test_overlap_with_zero_or_hierarchical_sync_raises(kw, item):
+@pytest.mark.parametrize("kw,exc,match", [
+    # ZeRO under overlap is ported: it validates its optimizer as the
+    # JAX package does (a per-leaf one is refused)
+    (dict(zero_dp=True), ValueError, "packed-stream optimizer"),
+    (dict(hier_split=1), NotImplementedError,
+     "under overlap_comm.*item 13")], ids=["zero", "hierarchical"])
+def test_overlap_with_zero_or_hierarchical_sync_raises(kw, exc, match):
     from repro_torch.configs import ParallelConfig, TrainConfig
     from repro_torch.models.resnet import ResNet50
     from repro_torch.training.step import make_dp_shardmap_train_step
     cfg = TrainConfig(optimizer=TOpt(), parallel=ParallelConfig(
         compression="bf16+bucketed", overlap_comm=True, **kw))
     model = ResNet50(treduced(tget("resnet50")), device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match=f"under overlap_comm.*item {item}"):
+    with pytest.raises(exc, match=match):
         make_dp_shardmap_train_step(model, None, cfg)
 
 

@@ -318,6 +318,38 @@ def test_hybrid_update_bitwise_on_card(cuda, n, wd):
         assert all(torch.equal(a, b) for a, b in zip(kern, plain))
 
 
+# ResNet-50's 25,557,032-element stream over 2 ZeRO workers (no pad)
+ZERO_SHARD = 12_778_516
+
+
+@pytest.mark.gpu
+def test_hybrid_update_decay_stream_at_the_zero_shard_bitwise_on_card(cuda):
+    """ZeRO's update (``optim/stream.py``, ``--use-fused-kernel``): one
+    launch of the decay-stream entry over a worker's shard, bitwise its
+    plain version; the decay is 0 on runs of no-decay elements."""
+    from repro_torch.core.optimizer import HybridHyper
+    from repro_torch.kernels import fused_update as fu
+    g = torch.Generator().manual_seed(11)
+    n = ZERO_SHARD
+    grad = (torch.randn(n, generator=g) * 1e-2).to(cuda)
+    p, d = torch.randn(n, generator=g), torch.randn(n, generator=g) * 1e-3
+    m = torch.rand(n, generator=g) * 1e-4
+    runs = (torch.rand(n // 512 + 1, generator=g) < 0.3).repeat_interleave(
+        512)[:n]  # no-decay leaves: runs of elements
+    wd = torch.where(runs, 0.0, 5e-5).to(cuda)
+    h = HybridHyper(eta=0.05, alpha_sgd=0.5)
+    kern = [t.to(cuda) for t in (p, d, m)]
+    plain = [t.to(cuda) for t in (p, d, m)]
+    fu.reset_launch_counts()
+    fu.fused_hybrid_update(grad, *kern, h, wd)
+    fu.PLAIN["hybrid_update"](grad, *plain, h, wd)
+    torch.cuda.synchronize()
+    assert fu.ENTRY_LAUNCHES == {"hybrid_update": 1,
+                                 "hybrid_update_leaves": 0,
+                                 "seg_sq_partials": 0, "lars_update": 0}
+    assert all(torch.equal(a, b) for a, b in zip(kern, plain))
+
+
 # leaf sizes of the multi-leaf update: one element, BN vectors, odd
 # lengths, a leaf of several chunks, one past a chunk edge
 LEAF_SIZES = [1, 64, 1000, 108, 2048, 4097, 65_543, 1_000_003, 8193]
