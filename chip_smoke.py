@@ -175,6 +175,39 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      bucketed steps (bitwise), and ZeRO + overlap stream-LARS against
      overlapped stream-LARS within rtol 1e-2 / atol 1e-4 (a ZeRO worker
      sums its trust norms over its ready-order shard).
+  14. main path 8, the hierarchical schedule: four processes share the
+     card over gloo as a 2x2 layout (``--mesh 2x2 --comm-plan hier:1``:
+     a reduce-scatter inside each pair, an all-reduce of the half shard
+     across the pairs, an all-gather inside the pair), each with 32
+     images (128 in all) of full-width ResNet-50, bf16, fused BN, update
+     and input, ``bf16+bucketed`` (64 MiB), rmsprop_warmup + slow_start:
+     (A) bucketed + hier, (B) ZeRO + hier (the double scatter and the
+     two-level all-gather) and (C) the flat bucketed step at 4 workers,
+     8 steps and one eval batch each through the ``Trainer`` from one
+     seed: B bitwise A (parameters, BN state, ``opt.step``, ``delta`` /
+     ``m`` as the worker's shard; the losses within 2.4e-7, ZeRO's
+     metrics carrying one more entry through gloo's ring); C's first
+     loss bitwise A's and its loss after the first update within rtol
+     1e-3 (the flat sum rounds after each add; the tolerance of
+     ``tests/test_torch_hierarchical.py``), the later losses and the
+     parameters' relative differences logged; one more step of A and of B
+     counting the collectives per group (A: per bucket one inner
+     reduce-scatter, one outer all-reduce, one inner all-gather; B: two
+     reduce-scatters and two all-gathers; each one all-reduce of the
+     metrics); launches a step as main path 2's (A, C) and main path 7's
+     (B); the step times (gloo on one card: not a user's figure) and
+     peak memory a worker; the primitives on CUDA tensors (4 M elements
+     a worker, bf16 and f16): the hierarchical all-reduce and
+     reduce-scatter bitwise the flat ones on exact data, the all-gather
+     bitwise on normal data, the all-reduce's chunk bitwise the double
+     scatter's;
+  14b. in the same four processes, the reduced ResNet in f32 with every
+     kernel on, each under hier:1: overlap against bucketed, plain and
+     with error feedback, ZeRO + overlap against overlap, ZeRO
+     stream-LARS and ZeRO ``momentum_sgd`` against their bucketed steps
+     (the state bitwise; ZeRO's losses within 2.4e-7), and ZeRO +
+     overlap stream-LARS against overlapped stream-LARS within rtol 1e-2
+     / atol 1e-4.
 With ``--profile``, a few more steps of each main path run under
 torch.profiler (device busy time and idle share, top host ops and
 kernels), and one prefill and four decode steps of main path 4. With
@@ -185,9 +218,9 @@ reverse, for their wall step times side by side. Then a ``{"kernels":
 [...]}`` line (launches from main path 2 for its eight kernels, from
 main path 3 for the two stream-LARS kernels, from main path 4 for
 flash_attention and rmsnorm, whose times are per prefill;
-``launches_by_path`` holds every main path's, main path 7's from its
-first worker; ``hybrid_update`` also carries its time at main path 7's
-shard), the card's name and power
+``launches_by_path`` holds every main path's, main paths 7's and 8's
+from their first worker, ``path8`` run A and ``path8_zero`` run B;
+``hybrid_update`` also carries its time at main path 7's shard), the card's name and power
 limit, and last the ``{"ok": true, "device": ...}`` line. ``--out DIR`` also
 writes the per-shape kernel tables to ``DIR/chip_smoke_kernels.json``.
 
@@ -1523,9 +1556,12 @@ SENTINEL_STEPS, SENTINEL_CHAOS = 9, "nan_grad@4,ckpt_truncate@6,nan_grad@7-8"
 
 def train_state_bits(state):
     """Clones of every tensor of a main-path-2 or -3 train state (params,
-    ``delta`` and ``m`` per leaf or the flat stream ``delta``, BN state)
-    and the optimizer's ``step``."""
+    ``delta`` and ``m`` per leaf or the flat stream ``delta``, BN state,
+    the error-feedback residual where there is one) and the optimizer's
+    ``step``."""
     out = {"opt/step": state["opt"]["step"]}
+    for k, t in state.get("ef_residual", {}).items():
+        out["ef/" + k] = t.clone()
     for k, t in state["params"].items():
         out["params/" + k] = t.clone()
     for f, v in state["opt"].items():
@@ -2168,26 +2204,30 @@ def zero_differ(torch, a, b):
     return bits_differ(torch, a, b)
 
 
-def zero_setup(torch, cfg, steps: int, zero: bool, **build):
+def zero_setup(torch, cfg, steps: int, zero: bool,
+               workers: int = ZERO_WORKERS, **build):
     """Main path 7's pieces (``zero`` False: main path 2's configuration
-    at 2 workers) for one of the two workers: 32 images a worker."""
+    at 2 workers) for one of the two workers: 32 images a worker.
+    ``workers`` and ``build`` (``build_train_setup`` options) give main
+    path 8's at 4 workers."""
     from repro_torch.configs import InputConfig, OptimizerConfig
     from repro_torch.launch.train import build_eval_setup, build_train_setup
 
     input_cfg = InputConfig(fused=True, num_workers=DP_WORKERS // 2)
     model, state, step, data, put, shardings = build_train_setup(
-        cfg, global_batch=BATCH * ZERO_WORKERS, seq_len=0,
+        cfg, global_batch=BATCH * workers, seq_len=0,
         opt_cfg=OptimizerConfig(), steps_per_epoch=steps,
         dp_mode="shardmap", compute_dtype=torch.bfloat16,
         use_fused_kernel=True, compression="bf16+bucketed", fused_bn=True,
         input_cfg=input_cfg, zero_dp=zero, device="cuda", **build)
-    evals = build_eval_setup(model, cfg, global_batch=BATCH * ZERO_WORKERS,
+    evals = build_eval_setup(model, cfg, global_batch=BATCH * workers,
                              seq_len=0, dp_mode="shardmap",
                              input_cfg=input_cfg)
     return state, step, data, put, shardings, evals
 
 
-def zero_trainer(torch, libs, cfg, steps: int, zero: bool, **tkw):
+def zero_trainer(torch, libs, cfg, steps: int, zero: bool,
+                 workers: int = ZERO_WORKERS, build=None, **tkw):
     """A ``Trainer`` over ``steps`` steps and one eval batch, the launch
     counts set to 0 just before it and read just after: (result, state
     shardings, train step, data, put_batch, launches, entry launches of
@@ -2197,8 +2237,8 @@ def zero_trainer(torch, libs, cfg, steps: int, zero: bool, **tkw):
 
     ckpt = {k: tkw.pop(k) for k in ("checkpoint_dir", "checkpoint_every")
             if k in tkw}
-    state, step, data, put, sh, (ev, vd, fin) = zero_setup(torch, cfg, steps,
-                                                           zero)
+    state, step, data, put, sh, (ev, vd, fin) = zero_setup(
+        torch, cfg, steps, zero, workers, **(build or {}))
     tcfg = TrainerConfig(epochs=1, steps_per_epoch=steps,
                          eval_every_epochs=1, val_batches=1, log_every=1,
                          data_workers=DP_WORKERS // 2, **ckpt)
@@ -2607,6 +2647,425 @@ def zero_phase(torch):
     log(f"  worker seconds: path 7 {ranks[0]['path7_s']:.1f}, checkpoints "
         f"{ranks[0]['ckpt_s']:.1f}, 13b {ranks[0]['reduced_s']:.1f}")
     return {"workers": ranks, "hybrid_update_shard": upd}, z0["launches"]
+
+
+HIER_WORKERS = 4  # main path 8: four processes share the one card, 2x2
+HIER_MESH = (2, 2)
+HIER_BUILD = dict(hier_split=1, dp_axes=("data", "model"),
+                  mesh_shape=HIER_MESH)
+# ZeRO's stacked metrics carry one more entry: gloo's ring at 4 workers
+# may add the workers' losses in another order (test_torch_zero_dp.py)
+HIER_LOSS_RTOL_ZERO = 2.4e-7
+# flat at 4 workers against the hierarchical step: the first loss
+# bitwise (no update yet), the loss after the first update within this
+# (tests/test_torch_hierarchical.py); later steps only logged: at full
+# width and 128 images the warm-up's loss climbs from 7.5 to ~25 in two
+# steps, and the rounding differences grow with it
+HIER_FLAT_FIRST_RTOL = 1e-3
+HIER_PRIM_ELEMS = 1 << 22  # the primitives' bucket, elements a worker
+# 14b: the reduced model's runs, each under hier:1 at 2x2 ...
+HIER_RUNS = {
+    "bucketed": {},
+    "overlap": dict(overlap_comm=True, bucket_bytes=ZERO_SMALL_BUCKET),
+    "bucketed_ef": dict(error_feedback=True),
+    "overlap_ef": dict(overlap_comm=True, error_feedback=True,
+                       bucket_bytes=ZERO_SMALL_BUCKET),
+    "zero_overlap_ef": dict(zero_dp=True, overlap_comm=True,
+                            error_feedback=True,
+                            bucket_bytes=ZERO_SMALL_BUCKET),
+    "lars": dict(lars=True),
+    "zero_lars": dict(lars=True, zero_dp=True),
+    "momentum": dict(opt="momentum_sgd"),
+    "zero_momentum": dict(opt="momentum_sgd", zero_dp=True),
+    "overlap_lars": dict(lars=True, overlap_comm=True,
+                         bucket_bytes=ZERO_SMALL_BUCKET),
+    "zero_overlap_lars": dict(lars=True, overlap_comm=True, zero_dp=True,
+                              bucket_bytes=ZERO_SMALL_BUCKET),
+}
+# ... and its pairs: (run, reference, loss rtol; None: the pair
+# tolerance, not bitwise)
+HIER_PAIRS = {
+    "overlap": ("overlap", "bucketed", 0.0),
+    "overlap_ef": ("overlap_ef", "bucketed_ef", 0.0),
+    "zero_overlap_ef": ("zero_overlap_ef", "overlap_ef",
+                        HIER_LOSS_RTOL_ZERO),
+    "zero_lars": ("zero_lars", "lars", HIER_LOSS_RTOL_ZERO),
+    "zero_momentum": ("zero_momentum", "momentum", HIER_LOSS_RTOL_ZERO),
+    "zero_overlap_lars": ("zero_overlap_lars", "overlap_lars", None),
+}
+
+
+def hier_groups():
+    """This worker's hierarchy of main path 8, with the process groups
+    its steps use (made once per worker group, so these are the same
+    groups)."""
+    from repro_torch.distributed.bucketing import (hierarchy_groups,
+                                                   make_hierarchy)
+    return hierarchy_groups(make_hierarchy(
+        ("data", "model"), dict(zip(("data", "model"), HIER_MESH)), 1))
+
+
+def group_collective_check(torch, train_step, state, data, hier):
+    """One more step with ``all_reduce``, ``reduce_scatter_tensor`` and
+    ``all_gather_into_tensor`` counted by the group they ran in (inner,
+    outer or world)."""
+    import torch.distributed as dist
+    names = ("reduce_scatter_tensor", "all_gather_into_tensor", "all_reduce")
+    real = {k: getattr(dist, k) for k in names}
+    calls = {}
+
+    def counted(name):
+        def call(*a, **kw):
+            g = kw.get("group")
+            where = ("inner" if g is hier.inner_group else
+                     "outer" if g is hier.outer_group else "world")
+            calls[f"{name}/{where}"] = calls.get(f"{name}/{where}", 0) + 1
+            return real[name](*a, **kw)
+        return call
+
+    for k in names:
+        setattr(dist, k, counted(k))
+    try:
+        state, metrics = train_step(state, data.batch_at(3000))
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+    finally:
+        for k in names:
+            setattr(dist, k, real[k])
+    return calls
+
+
+def hier_path8(torch, libs, rank: int):
+    """Phase 14 in one worker: (B) ZeRO + hier, (A) bucketed + hier and
+    (C) flat bucketed at 4 workers, each through the ``Trainer`` from one
+    seed; the collectives of a step per group for A and B."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("resnet50")
+    hier = hier_groups()
+    runs = {}
+    for name, zero, build in (("B", True, HIER_BUILD),
+                              ("A", False, HIER_BUILD), ("C", False, {})):
+        res, sh, step, data, put, launches, entries, peak = zero_trainer(
+            torch, libs, cfg, STEPS, zero, workers=HIER_WORKERS,
+            build=build)
+        state = res.state
+        if zero:
+            plan = sh.zero_plan
+        walls = [h["time"] * 1e3 for h in res.history[1:]]
+        rec = {"losses": [h["loss"] for h in res.history],
+               "step_ms": walls, "median_step_ms": statistics.median(walls),
+               "peak_gib": peak, "launches": launches,
+               "entry_launches": entries,
+               "eval": {k: res.epoch_history[-1][k] for k in ("top1", "loss")},
+               "digest": param_digest(state)}
+        if name in ("A", "B"):
+            runs[name + "_bits"] = zero_bits(torch, state, plan,
+                                             HIER_WORKERS, rank)
+            rec["collectives_a_step"] = group_collective_check(
+                torch, step, state, data, hier)
+            rec["n_buckets"] = plan.n_buckets
+        if name == "A":
+            params_a = {k: v.detach().clone()
+                        for k, v in state["params"].items()}
+        if name == "C":
+            rel = {k: float((v.double() - params_a[k].double()).norm()
+                            / params_a[k].double().norm().clamp_min(1e-30))
+                   for k, v in state["params"].items()}
+            rec["param_rel_max"] = max(rel.values())
+            rec["param_rel_worst"] = max(rel, key=rel.get)
+            num = sum(float((v.double() - params_a[k].double()).square()
+                            .sum()) for k, v in state["params"].items())
+            den = sum(float(v.double().square().sum())
+                      for v in params_a.values())
+            rec["param_rel_norm"] = (num / den) ** 0.5
+        runs[name] = rec
+        del res, state, step, data, put
+    differ = zero_differ(torch, runs.pop("B_bits"), runs.pop("A_bits"))
+    return {**runs, "n_differ": len(differ), "differ": differ[:10],
+            "plan": plan.describe()}
+
+
+def hier_primitives(torch, rank: int):
+    """The hierarchical primitives on the card against the flat gloo
+    collectives, on CUDA tensors of ``HIER_PRIM_ELEMS`` elements a worker,
+    bf16 and f16: the all-reduce and the reduce-scatter bitwise on exact
+    data (integers in [-64, 64]: every partial sum is exact in the wire
+    dtype, and gloo's flat sum rounds each add), the all-gather bitwise
+    on normal data, and the two-level all-reduce's chunk bitwise the
+    double scatter's on normal data; host ms of each, gloo. Also the
+    flat sum's divergence by design on normal data: gloo rounds to the
+    wire dtype after each add, the two-level schedule (the JAX package's
+    bits) once: the elements that differ, and the largest difference in
+    ulps of the wire dtype at the sum of the four magnitudes."""
+    import torch.distributed as dist
+    from repro_torch.distributed.bucketing import (
+        hierarchical_all_gather, hierarchical_psum, hierarchical_psum_scatter)
+
+    hier = hier_groups()
+    n, w = HIER_PRIM_ELEMS, HIER_WORKERS
+    c = n // w
+    gen = torch.Generator(device="cuda").manual_seed(17 + rank)
+    out = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    for dt in (torch.bfloat16, torch.float16):
+        exact = torch.randint(-64, 65, (n,), generator=gen,
+                              device="cuda").to(dt)
+        fuzzy = torch.randn(n, generator=gen, device="cuda").to(dt)
+        h, flat = exact.clone(), exact.clone()
+        ms_h = timed(lambda: hierarchical_psum(h, hier))
+        ms_f = timed(lambda: dist.all_reduce(flat))
+        sc_h, sc_f = exact.new_empty(c), exact.new_empty(c)
+        ms_sh = timed(lambda: hierarchical_psum_scatter(sc_h, exact, hier))
+        ms_sf = timed(lambda: dist.reduce_scatter_tensor(sc_f, exact))
+        hf = fuzzy.clone()
+        hierarchical_psum(hf, hier)
+        scf = fuzzy.new_empty(c)
+        hierarchical_psum_scatter(scf, fuzzy, hier)
+        ag_h, ag_f = fuzzy.new_empty(n), fuzzy.new_empty(n)
+        ms_gh = timed(lambda: hierarchical_all_gather(ag_h, scf, hier))
+        ms_gf = timed(lambda: dist.all_gather_into_tensor(ag_f, scf))
+        ff = fuzzy.clone()
+        dist.all_reduce(ff)
+        mag = fuzzy.float().abs()
+        dist.all_reduce(mag)
+        mant = 7 if dt == torch.bfloat16 else 10
+        ulp = torch.pow(2.0, torch.floor(torch.log2(
+            mag.clamp_min(2.0 ** -14))) - mant)
+        flat_ulps = ((ff.float() - hf.float()).abs() / ulp).max()
+        out[str(dt).split(".")[-1]] = {
+            "flat_differ": int((ff != hf).sum()),
+            "flat_max_ulps": float(flat_ulps),
+            "psum_exact_bitwise": torch.equal(h, flat),
+            "scatter_exact_bitwise": torch.equal(sc_h, sc_f),
+            "gather_bitwise": torch.equal(ag_h, ag_f),
+            "chunk_bitwise": torch.equal(scf, hf[rank * c:(rank + 1) * c]),
+            "on_card": all(t.device.type == "cuda" for t in (h, sc_h, ag_h)),
+            "host_ms": {"psum": ms_h, "all_reduce": ms_f,
+                        "psum_scatter": ms_sh, "reduce_scatter": ms_sf,
+                        "all_gather_hier": ms_gh, "all_gather": ms_gf}}
+    return out
+
+
+def hier_reduced_pairs(torch, libs, rank: int):
+    """Phase 14b in one worker: the reduced ResNet in f32, every kernel
+    on, three steps of each run of ``HIER_RUNS`` under hier:1 at 2x2 from
+    one seed, compared pair by pair (``HIER_PAIRS``)."""
+    from repro_torch.configs import (InputConfig, OptimizerConfig,
+                                     get_config, reduced_config)
+    from repro_torch.launch.train import build_train_setup
+
+    cfg = reduced_config(get_config("resnet50"))
+    runs = {}
+    for name, kw in HIER_RUNS.items():
+        kw = dict(kw)
+        opt_cfg, smoothing = (lars_recipe(3, 4) if kw.pop("lars", False)
+                              else (OptimizerConfig(kind=kw.pop(
+                                  "opt", "rmsprop_warmup")), 0.0))
+        _, state, step, data, put, sh = build_train_setup(
+            cfg, global_batch=8 * HIER_WORKERS, seq_len=0, opt_cfg=opt_cfg,
+            steps_per_epoch=4, dp_mode="shardmap",
+            compute_dtype=torch.float32, fused_bn=True,
+            use_fused_kernel=True, compression="bf16+bucketed",
+            label_smoothing=smoothing,
+            input_cfg=InputConfig(fused=True, augment=False), seed=3,
+            device="cuda", **HIER_BUILD, **kw)
+        losses = []
+        for i in range(3):
+            state, metrics = step(state, put(data.batch_at(i)).take())
+            losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        runs[name] = (losses, state, sh.zero_plan)
+    out = {}
+    for pair, (a, b, loss_rtol) in HIER_PAIRS.items():
+        (la, sa, plan), (lb, sb, _) = runs[a], runs[b]
+        if plan is not None:
+            ba = zero_bits(torch, sa, plan, HIER_WORKERS, rank)
+            bb = zero_bits(torch, sb, plan, HIER_WORKERS, rank)
+        else:
+            ba, bb = train_state_bits(sa), train_state_bits(sb)
+        loss_rel = max(abs(x - y) / abs(y) for x, y in zip(la, lb))
+        rec = {"losses": la, "ref_losses": lb, "loss_rel": loss_rel,
+               "entries": len(ba)}
+        if loss_rtol is not None:
+            differ = zero_differ(torch, ba, bb)
+            rec.update(differ=differ[:10], n_differ=len(differ),
+                       ok=not differ and loss_rel <= loss_rtol,
+                       losses_bitwise=la == lb)
+        else:
+            worst = {}
+            for k, v in ba.items():
+                if k in bb and k.startswith(("params/", "opt/")) \
+                        and k != "opt/step":
+                    ref = bb[k].double()
+                    excess = ((v.double() - ref).abs()
+                              - ZERO_PAIR_TOL["atol"]
+                              - ZERO_PAIR_TOL["rtol"] * ref.abs())
+                    worst[k] = float(excess.max())
+            rec.update(max_excess=max(worst.values()),
+                       worst=max(worst, key=worst.get),
+                       ok=max(worst.values()) <= 0
+                       and loss_rel <= ZERO_PAIR_TOL["rtol"],
+                       differ_bitwise=sum(not torch.equal(ba[k], bb[k])
+                                          for k in worst))
+        out[pair] = rec
+    return out
+
+
+def hier_cards_worker(rank: int, out_dir: str) -> None:
+    """One of phase 14's four workers, all on the one card, joined over
+    gloo as a 2x2 layout: main path 8 (14), the primitives and the
+    reduced pairs (14b), cuDNN deterministic. Writes ``rank{rank}.json``."""
+    sys.path.insert(0, SRC)
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import bucket_ops as bo
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_bn as fb
+    from repro_torch.kernels import fused_input as fi
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import rmsnorm as rn
+    libs = (fb, fu, bo, fi, fa, rn)
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/store",
+                            rank=rank, world_size=HIER_WORKERS)
+    try:
+        t0 = time.perf_counter()
+        out = {"path8": hier_path8(torch, libs, rank)}
+        out["path8_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["primitives"] = hier_primitives(torch, rank)
+        out["reduced"] = hier_reduced_pairs(torch, libs, rank)
+        out["reduced_s"] = time.perf_counter() - t0
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        from repro_torch.distributed import shutdown
+        shutdown()  # the subgroups too
+
+
+def hier_phase(torch):
+    """Phases 14 and 14b: four processes share the card over gloo as a
+    2x2 layout (``--mesh 2x2 --comm-plan hier:1``). 14, main path 8:
+    ResNet-50 at full width, 32 images a worker (128 in all), bf16, fused
+    BN, update and input, ``bf16+bucketed`` (64 MiB), rmsprop_warmup +
+    slow_start: (A) bucketed + hier, (B) ZeRO + hier and (C) flat
+    bucketed at 4 workers, 8 steps and one eval batch each through the
+    ``Trainer`` from one seed. B is bitwise A (parameters, BN state,
+    ``opt.step``, ``delta`` / ``m`` as the worker's shard; the losses
+    within 2.4e-7); C's first loss bitwise A's, the loss after the
+    first update within rtol 1e-3, the rest and the parameters'
+    relative difference logged; collectives a step per group;
+    launches a step as path 2's (A) and path 7's (B); the primitives on
+    the card. 14b: the reduced ResNet in f32, every kernel on, the pairs
+    of ``HIER_PAIRS``. Returns (record, rank 0's launches of A and B)."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_hier_")
+    try:
+        mp.spawn(hier_cards_worker, args=(root,), nprocs=HIER_WORKERS)
+        ranks = []
+        for r in range(HIER_WORKERS):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    from repro_torch.kernels.fused_update import MAX_LEAVES
+    n_leaves = 161
+    want = dp_want(STEPS, 1, n_leaves)
+    for r, rec in enumerate(ranks):
+        p8 = rec["path8"]
+        a, b, c = p8["A"], p8["B"], p8["C"]
+        loss_rel = max(abs(x - y) / abs(y)
+                       for x, y in zip(b["losses"], a["losses"]))
+        log(f"  worker {r}: ZeRO + hier losses {b['losses']} vs bucketed + "
+            f"hier {a['losses']} (largest rel {loss_rel:.3g}); "
+            f"{p8['n_differ']} entries not bitwise equal {p8['differ'][:5]}")
+        assert not p8["n_differ"], p8["differ"]
+        assert loss_rel <= HIER_LOSS_RTOL_ZERO, (a["losses"], b["losses"])
+        flat_rel = [abs(x - y) / abs(y)
+                    for x, y in zip(c["losses"], a["losses"])]
+        log(f"  worker {r}: flat at 4 workers losses {c['losses']}, rel "
+            f"against A by step {[f'{x:.3g}' for x in flat_rel]}; "
+            f"parameters after the run: relative norm "
+            f"{c['param_rel_norm']:.3g}, largest relative leaf difference "
+            f"{c['param_rel_max']:.3g} at {c['param_rel_worst']}")
+        assert c["losses"][0] == a["losses"][0], (a["losses"], c["losses"])
+        assert flat_rel[1] <= HIER_FLAT_FIRST_RTOL, (a["losses"],
+                                                     c["losses"])
+        for run in (a, b, c):
+            assert run["launches"] == want, (run["launches"], want)
+        assert b["entry_launches"]["hybrid_update"] == STEPS
+        assert b["entry_launches"]["hybrid_update_leaves"] == 0
+        assert a["entry_launches"]["hybrid_update_leaves"] == \
+            STEPS * -(-n_leaves // MAX_LEAVES)
+        nb = a["n_buckets"]
+        assert a["collectives_a_step"] == {
+            "reduce_scatter_tensor/inner": nb, "all_reduce/outer": nb,
+            "all_gather_into_tensor/inner": nb,
+            "all_reduce/world": 1}, a["collectives_a_step"]
+        assert b["collectives_a_step"] == {
+            "reduce_scatter_tensor/inner": nb,
+            "reduce_scatter_tensor/outer": nb,
+            "all_gather_into_tensor/outer": nb,
+            "all_gather_into_tensor/inner": nb,
+            "all_reduce/world": 1}, b["collectives_a_step"]
+        for dt, prim in rec["primitives"].items():
+            checks = {k: v for k, v in prim.items()
+                      if not k.startswith(("host_ms", "flat_"))}
+            assert all(checks.values()), (r, dt, checks)
+        for name, pair in rec["reduced"].items():
+            if "n_differ" in pair:
+                log(f"  worker {r} 14b {name}: {pair['losses']} vs "
+                    f"{pair['ref_losses']} (losses bitwise "
+                    f"{pair['losses_bitwise']}); {pair['n_differ']} of "
+                    f"{pair['entries']} entries not bitwise equal "
+                    f"{pair['differ'][:5]}")
+            else:
+                log(f"  worker {r} 14b {name}: {pair['losses']} vs "
+                    f"{pair['ref_losses']} (loss rel {pair['loss_rel']:.3g});"
+                    f" worst excess over rtol 1e-2 / atol 1e-4 "
+                    f"{pair['max_excess']:.3g} at {pair['worst']}; "
+                    f"{pair['differ_bitwise']} entries not bitwise")
+            assert pair["ok"], (name, pair)
+    for run in ("A", "B", "C"):
+        assert len({rec["path8"][run]["digest"] for rec in ranks}) == 1, run
+    p0 = ranks[0]["path8"]
+    log(f"  main path 8 ({p0['plan']}): median step A (bucketed + hier) "
+        f"{p0['A']['median_step_ms']:.2f} ms, B (ZeRO + hier) "
+        f"{p0['B']['median_step_ms']:.2f} ms, C (flat, 4 workers) "
+        f"{p0['C']['median_step_ms']:.2f} ms: four processes on one card "
+        f"over gloo, not a user's figure; peak GiB a worker A "
+        f"{[rec['path8']['A']['peak_gib'] for rec in ranks]}, B "
+        f"{[rec['path8']['B']['peak_gib'] for rec in ranks]}, C "
+        f"{[rec['path8']['C']['peak_gib'] for rec in ranks]}; collectives a "
+        f"step A {p0['A']['collectives_a_step']}, B "
+        f"{p0['B']['collectives_a_step']}")
+    for dt, prim in ranks[0]["primitives"].items():
+        log(f"  primitives {dt} ({HIER_PRIM_ELEMS} elements a worker, "
+            f"gloo host ms): " + ", ".join(
+                f"{k} {v:.1f}" for k, v in prim["host_ms"].items())
+            + f"; the flat sum differs from the two-level one in "
+            f"{prim['flat_differ']} elements, at most "
+            f"{prim['flat_max_ulps']:.2f} ulps at the sum of magnitudes")
+    log(f"  worker seconds: path 8 {ranks[0]['path8_s']:.1f}, primitives "
+        f"and 14b {ranks[0]['reduced_s']:.1f}")
+    return {"workers": ranks}, (p0["A"]["launches"], p0["B"]["launches"])
 
 
 # (B, Sq, Sk, Hq, Hkv, Dh, causal, window) of phase 3d: the serving
@@ -3367,6 +3826,19 @@ def main() -> int:
             f"all-reduce paths")
         zero_stats, launches7 = zero_phase(torch)
         log(f"  ({time.perf_counter() - t0:.1f}s)")
+
+        t0 = time.perf_counter()
+        log(f"[14] main path 8: the hierarchical schedule on the DP step, "
+            f"four processes on the one card over gloo as a 2x2 layout "
+            f"(--mesh 2x2 --comm-plan hier:1), ResNet-50 full width, "
+            f"{BATCH} images a worker, bf16, fused BN, bf16+bucketed, fused "
+            f"update, fused input, {STEPS} steps + 1 eval batch: (A) "
+            f"bucketed + hier, (B) ZeRO + hier, (C) flat at 4 workers "
+            f"(cuDNN deterministic); the primitives on the card; [14b] the "
+            f"reduced ResNet f32 under hier:1: overlap, error feedback, "
+            f"ZeRO + overlap, stream-LARS and momentum_sgd pairs")
+        hier_stats, (launches8, launches8_zero) = hier_phase(torch)
+        log(f"  ({time.perf_counter() - t0:.1f}s)")
     finally:
         shutdown()
 
@@ -3389,7 +3861,8 @@ def main() -> int:
                    "path4": launches4[k], "path5": launches5[k],
                    "path6": launches6[k],
                    "path6_lars": overlap_stats["path3_overlap_launches"][k],
-                   "path7": launches7[k]}
+                   "path7": launches7[k], "path8": launches8[k],
+                   "path8_zero": launches8_zero[k]}
                for k in launches}
     kernels = [{"name": k, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[k], "launches": launches[k],
@@ -3444,7 +3917,7 @@ def main() -> int:
                        "sentinel": sentinel_stats,
                        "sync_bn": sync_stats, "sync_bn_cards": sync_cards,
                        "overlap": overlap_stats, "reference_6": ref6,
-                       "zero": zero_stats,
+                       "zero": zero_stats, "hierarchical": hier_stats,
                        "division": division}, f,
                       indent=1)
     log(f"total {time.perf_counter() - t_all:.1f}s")

@@ -35,13 +35,18 @@ stream: worker-major, each worker's chunks in bucket order
 w's state is block w of it. ``split_shard`` cuts a shard back into its
 per-bucket chunks.
 
-Not ported yet: the hierarchical schedules (ROADMAP queue 1, item 13).
+The hierarchical schedules (``Hierarchy``, ``hierarchical_psum``,
+``hierarchical_psum_scatter``, ``hierarchical_all_gather``) run each
+bucket's collective in two levels over a DP layout split into an outer
+(inter-node) and an inner (intra-node) stage, so the expensive link
+carries 1/inner of the bucket; ``bucketed_psum(..., hierarchy=)`` takes
+them in place of the flat all-reduce.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -200,16 +205,25 @@ def unpack(buckets: Sequence[Tensor], plan: BucketPlan,
 def bucketed_psum(grads: Dict[str, Tensor], wire: Optional[str] = "bf16",
                   bucket_bytes: int = DEFAULT_BUCKET_BYTES,
                   mean: bool = True, plan: Optional[BucketPlan] = None,
-                  with_sq_norm: bool = False, group=None):
+                  with_sq_norm: bool = False, group=None,
+                  hierarchy: Optional["Hierarchy"] = None):
     """Drop-in for ``compressed_psum`` issuing one all-reduce per bucket
     instead of one per leaf. ``with_sq_norm=True`` returns ``(grads,
-    sq_norm)``."""
+    sq_norm)``. ``hierarchy`` (with its process groups,
+    ``hierarchy_groups``) runs each bucket through the two-level
+    ``hierarchical_psum`` instead; the plan is then shard-aligned
+    (``align = hierarchy.n_workers``) so every bucket splits evenly over
+    the inner stage."""
     if plan is None:
-        plan = plan_buckets(grads, bucket_bytes, wire)
+        align = hierarchy.n_workers if hierarchy is not None else 1
+        plan = plan_buckets(grads, bucket_bytes, wire, align=align)
     n = dist.get_world_size(group)
     buckets = pack(grads, plan)
     for b in buckets:
-        dist.all_reduce(b, group=group)
+        if hierarchy is not None:
+            hierarchical_psum(b, hierarchy)
+        else:
+            dist.all_reduce(b, group=group)
     return unpack(buckets, plan, denom=n if mean else None,
                   with_sq_norm=with_sq_norm)
 
@@ -218,7 +232,8 @@ def bucketed_psum_ef(grads: Dict[str, Tensor], residual: Dict[str, Tensor],
                      wire: str = "bf16",
                      bucket_bytes: int = DEFAULT_BUCKET_BYTES,
                      mean: bool = True, plan: Optional[BucketPlan] = None,
-                     with_sq_norm: bool = False, group=None):
+                     with_sq_norm: bool = False, group=None,
+                     hierarchy: Optional["Hierarchy"] = None):
     """``bucketed_psum`` with error feedback threaded through: q = Q(g +
     r) is packed and reduced, r' stays with the worker. Error feedback
     runs before packing, so its residuals are those of the per-leaf
@@ -226,7 +241,8 @@ def bucketed_psum_ef(grads: Dict[str, Tensor], residual: Dict[str, Tensor],
     ``(synced, new_residual, sq_norm)`` with ``with_sq_norm``."""
     quant, new_residual = apply_error_feedback(grads, residual, wire)
     out = bucketed_psum(quant, wire, bucket_bytes, mean=mean, plan=plan,
-                        with_sq_norm=with_sq_norm, group=group)
+                        with_sq_norm=with_sq_norm, group=group,
+                        hierarchy=hierarchy)
     if with_sq_norm:
         synced, sq_norm = out
         return synced, new_residual, sq_norm
@@ -314,6 +330,224 @@ def shard_layout_to_stream(arr, plan: BucketPlan, n_shards: int):
 def _index(idx: np.ndarray, arr):
     return (torch.from_numpy(idx).to(arr.device) if torch.is_tensor(arr)
             else idx)
+
+
+# ---------------------------------------------------------------------------
+# hierarchical collective schedules
+# ---------------------------------------------------------------------------
+#
+# At the paper's scale the expensive link sits between nodes. Per bucket,
+# the two-level schedule runs an intra-node reduce-scatter (the whole
+# bucket, on cheap links), an inter-node all-reduce of the 1/inner shard,
+# and an intra-node all-gather, so the inter-node link carries 1/inner of
+# the bucket. Workers are ranked row-major over the DP axes, w = outer_idx
+# * inner_size + inner_idx, as the JAX package's ``_dp_linear_index``
+# ranks its devices: the inner group of worker w is {n*I + d' : d'}, its
+# outer group {n'*I + d : n'}. Both stages accumulate in f32 and round to
+# the wire dtype once, as the JAX package does: on the same inputs the
+# result is its bits.
+
+
+@dataclasses.dataclass(frozen=True)
+class Hierarchy:
+    """A two-level schedule over the DP axes: ``outer`` the inter-node
+    axes, ``inner`` the intra-node ones. ``make_hierarchy`` makes the
+    spec; ``hierarchy_groups`` adds this worker's two process groups,
+    which the collectives below need."""
+
+    outer: Tuple[str, ...]
+    inner: Tuple[str, ...]
+    outer_size: int
+    inner_size: int
+    inner_group: Any = dataclasses.field(default=None, compare=False,
+                                         repr=False)
+    outer_group: Any = dataclasses.field(default=None, compare=False,
+                                         repr=False)
+
+    @property
+    def n_workers(self) -> int:
+        return self.outer_size * self.inner_size
+
+    def describe(self) -> str:
+        return (f"hier[{'x'.join(self.outer)}({self.outer_size}) | "
+                f"{'x'.join(self.inner)}({self.inner_size})]")
+
+
+def make_hierarchy(dp_axes: Sequence[str], mesh_shape: Mapping[str, int],
+                   split: int) -> Hierarchy:
+    """Split ``dp_axes`` into outer ``dp_axes[:split]`` and inner
+    ``dp_axes[split:]``; ``mesh_shape`` maps an axis name to its size.
+    Both stages must have two workers or more: a stage of one is the
+    flat collective, which the caller should use instead."""
+    dp_axes = tuple(dp_axes)
+    if not 1 <= split < len(dp_axes):
+        raise ValueError(
+            f"hier_split must be in [1, {len(dp_axes) - 1}] for dp_axes "
+            f"{dp_axes}, got {split}")
+    outer, inner = dp_axes[:split], dp_axes[split:]
+    outer_size = math.prod(int(mesh_shape[a]) for a in outer)
+    inner_size = math.prod(int(mesh_shape[a]) for a in inner)
+    if outer_size < 2 or inner_size < 2:
+        raise ValueError(
+            f"hierarchical schedule needs both stages >= 2 ranks, got "
+            f"outer={outer}:{outer_size} inner={inner}:{inner_size}; "
+            "use the flat schedule on this mesh")
+    return Hierarchy(outer=outer, inner=inner, outer_size=outer_size,
+                     inner_size=inner_size)
+
+
+# (outer size, inner size) -> (the default group they were built in,
+# this worker's inner group, its outer group)
+_GROUPS: Dict[Tuple[int, int], Tuple[Any, Any, Any]] = {}
+
+
+def hierarchy_groups(hier: Hierarchy) -> Hierarchy:
+    """``hier`` with this worker's inner and outer process groups, made
+    with ``dist.new_group`` the first time a layout is asked for in this
+    worker group and kept. Every worker makes every subgroup, all in the
+    same order (or the run deadlocks), so every worker must call this at
+    the same point: the step builders do, once."""
+    world = dist.group.WORLD
+    n = dist.get_world_size()
+    if n != hier.n_workers:
+        raise ValueError(
+            f"{hier.describe()} lays out {hier.n_workers} workers, the "
+            f"worker group has {n}")
+    key = (hier.outer_size, hier.inner_size)
+    got = _GROUPS.get(key)
+    if got is None or got[0] is not world:
+        o_n, i_n = key
+        inner = [dist.new_group([o * i_n + d for d in range(i_n)])
+                 for o in range(o_n)]
+        outer = [dist.new_group([o * i_n + d for o in range(o_n)])
+                 for d in range(i_n)]
+        w = dist.get_rank()
+        got = _GROUPS[key] = (world, inner[w // i_n], outer[w % i_n])
+    return dataclasses.replace(hier, inner_group=got[1], outer_group=got[2])
+
+
+def forget_hierarchy_groups() -> None:
+    """Drop the kept subgroups (``process_group.shutdown`` calls this
+    after leaving the worker group)."""
+    _GROUPS.clear()
+
+
+def inner_major_perm(x, outer_size: int, inner_size: int):
+    """The stream re-laid inner-major, so that the inner-then-outer
+    double reduce-scatter hands worker ``w = n*inner_size + d`` the chunk
+    the flat reduce-scatter would: viewed as ``n_workers`` chunks, chunk
+    ``w`` moves to inner position ``d``, outer position ``n``. A reshape
+    and a transpose: numpy arrays and tensors alike."""
+    a, b = outer_size, inner_size
+    c = x.shape[0] // (a * b)
+    return x.reshape(a, b, c).swapaxes(0, 1).reshape(-1)
+
+
+def inner_major_unperm(x, outer_size: int, inner_size: int):
+    """The inverse of ``inner_major_perm``."""
+    a, b = outer_size, inner_size
+    c = x.shape[0] // (a * b)
+    return x.reshape(b, a, c).swapaxes(0, 1).reshape(-1)
+
+
+class ChainedWork:
+    """The handle of an asynchronous two-level collective. torch gives
+    one handle per call and a later stage needs the earlier one's
+    output, so only the first stage runs asynchronously; ``wait()``
+    waits for it and runs the rest. ``keep`` holds the first stage's
+    tensors until then."""
+
+    def __init__(self, first, rest, keep=()):
+        self._first, self._rest, self._keep = first, rest, keep
+
+    def wait(self) -> bool:
+        self._first.wait()
+        self._rest()
+        self._keep = ()
+        return True
+
+
+def _chain(first, rest, async_op: bool, keep=()):
+    if async_op:
+        return ChainedWork(first, rest, keep)
+    rest()
+    return None
+
+
+def _need_groups(hier: Hierarchy) -> None:
+    if hier.inner_group is None or hier.outer_group is None:
+        raise ValueError(f"{hier.describe()} has no process groups: pass "
+                         "it through hierarchy_groups first")
+
+
+def hierarchical_psum(bucket: Tensor, hier: Hierarchy,
+                      async_op: bool = False) -> Optional[ChainedWork]:
+    """The two-level all-reduce of one packed bucket, in place, as
+    ``dist.all_reduce``: an f32 reduce-scatter over the inner group, an
+    f32 all-reduce of the 1/inner shard over the outer group, one
+    rounding to the bucket's dtype, an all-gather over the inner group.
+    The bucket's length must split over the inner group (a plan with
+    ``align = hier.n_workers`` does). ``async_op`` returns a
+    ``ChainedWork`` whose ``wait()`` runs the last two stages."""
+    _need_groups(hier)
+    if bucket.numel() % hier.inner_size:
+        raise ValueError(
+            f"bucket of {bucket.numel()} elements does not split over "
+            f"{hier.inner_size} inner ranks; plan with "
+            f"align={hier.n_workers}")
+    f = bucket.float()
+    shard = f.new_empty(f.numel() // hier.inner_size)
+    first = dist.reduce_scatter_tensor(shard, f, group=hier.inner_group,
+                                       async_op=async_op)
+
+    def rest():
+        dist.all_reduce(shard, group=hier.outer_group)
+        dist.all_gather_into_tensor(bucket, shard.to(bucket.dtype),
+                                    group=hier.inner_group)
+
+    return _chain(first, rest, async_op, (f,))
+
+
+def hierarchical_psum_scatter(output: Tensor, bucket: Tensor,
+                              hier: Hierarchy, async_op: bool = False
+                              ) -> Optional[ChainedWork]:
+    """The two-level reduce-scatter of one packed bucket (ZeRO), as
+    ``dist.reduce_scatter_tensor``: after ``inner_major_perm``, an f32
+    reduce-scatter over the inner group and one over the outer group
+    leave worker ``w`` holding chunk ``w`` of the summed bucket, the
+    chunk the flat reduce-scatter gives it, rounded to ``output``'s
+    dtype once. Shard ownership, and so the optimizer state's layout and
+    the checkpoints, do not change under a hierarchy."""
+    _need_groups(hier)
+    if bucket.numel() % hier.n_workers:
+        raise ValueError(
+            f"bucket of {bucket.numel()} elements does not split over "
+            f"{hier.n_workers} ranks; plan with align={hier.n_workers}")
+    f = inner_major_perm(bucket.float(), hier.outer_size, hier.inner_size)
+    mid = f.new_empty(f.numel() // hier.inner_size)
+    first = dist.reduce_scatter_tensor(mid, f, group=hier.inner_group,
+                                       async_op=async_op)
+
+    def rest():
+        s = mid.new_empty(mid.numel() // hier.outer_size)
+        dist.reduce_scatter_tensor(s, mid, group=hier.outer_group)
+        output.copy_(s)
+
+    return _chain(first, rest, async_op, (f,))
+
+
+def hierarchical_all_gather(output: Tensor, shard: Tensor,
+                            hier: Hierarchy) -> None:
+    """The two-level inverse of the flat all-gather, as
+    ``dist.all_gather_into_tensor``: gather over the outer group, then
+    the inner group, then undo the inner-major layout. It only moves
+    data, so it is bitwise the flat gather on any input."""
+    _need_groups(hier)
+    g = shard.new_empty(shard.numel() * hier.outer_size)
+    dist.all_gather_into_tensor(g, shard, group=hier.outer_group)
+    full = shard.new_empty(g.numel() * hier.inner_size)
+    dist.all_gather_into_tensor(full, g, group=hier.inner_group)
+    output.copy_(inner_major_unperm(full, hier.outer_size, hier.inner_size))
 
 
 def segment_ids_stream(plan: BucketPlan) -> np.ndarray:

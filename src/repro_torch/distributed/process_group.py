@@ -71,10 +71,15 @@ def rank() -> int:
 
 
 def shutdown() -> None:
-    """Leave the worker group and remove the single worker's store."""
+    """Leave the worker group (and the subgroups of a hierarchical
+    schedule) and remove the single worker's store."""
     global _STORE_DIR
     if dist.is_initialized():
         dist.destroy_process_group()
+    # the subgroups die here, not when the interpreter exits (a gloo
+    # group destroyed then may abort the process)
+    from repro_torch.distributed.bucketing import forget_hierarchy_groups
+    forget_hierarchy_groups()
     if _STORE_DIR is not None:
         shutil.rmtree(_STORE_DIR, ignore_errors=True)
         _STORE_DIR = None

@@ -12,7 +12,13 @@ gradient stream (the stream-LARS kernels with ``--use-fused-kernel``).
 ``--overlap-comm`` starts the bucketed gradient all-reduces during the
 backward pass, and ``--zero`` reduce-scatters the buckets and shards
 the optimizer update and state over the workers (all three ``--dp-mode
-shardmap``; ``--zero`` needs two workers or more).
+shardmap``; ``--zero`` needs two workers or more). ``--mesh DxM`` lays
+the workers out over ("data", "model") and ``--comm-plan hier:1`` runs
+every bucket's collective in two levels over it: a reduce-scatter
+inside each group of M workers (a node), an all-reduce of the 1/M shard
+across the D groups, an all-gather inside the group
+(``distributed/comm_plan.py`` has the grammar: flat | hier[:k] | auto
+| <path>).
 ``--ckpt-dir`` checkpoints in the JAX package's format and resumes from
 the newest intact checkpoint; ``--sentinel`` adds the divergence
 sentinel and the recovery state machine, ``--chaos`` deterministic
@@ -37,6 +43,10 @@ fault injection:
         --reduced --dp-mode shardmap --compression bf16+bucketed --zero \\
         --use-fused-kernel --epochs 1 --steps-per-epoch 2 --global-batch 16 \\
         --ckpt-dir /tmp/ck_zero --ckpt-every 2 --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --reduced --dp-mode shardmap --compression bf16+bucketed \\
+        --mesh 2x2 --comm-plan hier:1 --zero --epochs 1 --steps-per-epoch 2 \\
+        --global-batch 32 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
         --epochs 3 --steps-per-epoch 5 --global-batch 16 --sentinel \\
         --chaos "nan_grad@7-9" --ckpt-dir /tmp/ck --ckpt-every 5 \\
@@ -46,8 +56,10 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
+import os
 import time
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -93,11 +105,8 @@ from repro_torch.training.step import (
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 DP_MODES = ("none", "shardmap")
-
-
-def _unported(what: str, item: int):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1, item {item})")
+# the axes of a --mesh DxM worker layout, as the JAX launcher names them
+MESH_AXES = ("data", "model")
 
 
 def build_train_setup(cfg, *, global_batch: int, seq_len: int,
@@ -113,6 +122,9 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
                       label_smoothing: float = 0.0,
                       input_cfg: Optional[InputConfig] = None,
                       sentinel: bool = False,
+                      dp_axes: Tuple[str, ...] = ("data",),
+                      hier_split: Optional[int] = None,
+                      mesh_shape: Optional[Tuple[int, ...]] = None,
                       device: DeviceLike = "cuda"):
     """Returns (model, state, train_step, data, put_batch,
     state_shardings).
@@ -162,11 +174,42 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
     augment + normalize + cast run on the device in the fused input
     kernel inside the DP step (``dp_mode="shardmap"`` and the conv
     family only, as in the JAX package), else on the host feed
-    (``AugmentedSource``)."""
+    (``AugmentedSource``).
+
+    ``mesh_shape`` lays the workers out over ``MESH_AXES`` (the JAX
+    package's ``mesh``; None: all of them on "data"), rank ``w`` at row
+    ``w // M``, column ``w % M``. ``hier_split`` (the DP path with
+    bucketed compression) splits ``dp_axes`` into the two stages of the
+    hierarchical schedule, ``dp_axes[:hier_split]`` across nodes and the
+    rest inside them; with ``dp_axes=MESH_AXES`` the workers are data
+    parallel over the whole mesh. A mesh axis outside ``dp_axes`` of
+    more than one worker would be tensor parallel, which is not
+    ported."""
     del seq_len
     if dp_mode not in DP_MODES:
         raise ValueError(f"dp_mode must be one of {DP_MODES}, got "
                          f"{dp_mode!r}")
+    if hier_split is not None and dp_mode != "shardmap":
+        raise ValueError(
+            "hier_split reschedules explicit per-bucket collectives, "
+            "which only exist in the shard_map DP mode "
+            "(dp_mode='shardmap')")
+    mesh = None
+    if mesh_shape is not None:
+        if dp_mode != "shardmap":
+            raise ValueError("a worker mesh lays out the data-parallel "
+                             "workers: pass dp_mode='shardmap'")
+        if len(mesh_shape) != len(MESH_AXES):
+            raise ValueError(f"mesh_shape {tuple(mesh_shape)} must give "
+                             f"a size for each of {MESH_AXES}")
+        mesh = dict(zip(MESH_AXES, (int(s) for s in mesh_shape)))
+        tp = [a for a, s in mesh.items() if a not in dp_axes and s > 1]
+        if tp:
+            raise NotImplementedError(
+                f"mesh axis {tp[0]!r} of {mesh[tp[0]]} workers outside "
+                f"dp_axes {tuple(dp_axes)} is tensor parallelism, which "
+                "is not ported (ROADMAP queue 1, item 15.6); the port's "
+                "mesh is pure DP: pass a hierarchical --comm-plan")
     if error_feedback and dp_mode != "shardmap":
         raise ValueError(
             "error_feedback is only implemented for the explicit DP step "
@@ -215,6 +258,10 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
                              "be 1")
         dev = init_workers(device)
         world, me = world_size(), rank()
+        if mesh is not None and math.prod(mesh.values()) != world:
+            raise ValueError(
+                f"mesh {'x'.join(map(str, mesh.values()))} lays out "
+                f"{math.prod(mesh.values())} workers, this run has {world}")
         if global_batch % world:
             raise ValueError(f"global batch {global_batch} must divide "
                              f"evenly over {world} workers")
@@ -224,10 +271,12 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
     shape = ShapeConfig("train", 0, global_batch, "train")
     train_cfg = TrainConfig(
         optimizer=opt_cfg,
-        parallel=ParallelConfig(compression=compression,
+        parallel=ParallelConfig(dp_axes=tuple(dp_axes),
+                                compression=compression,
                                 bucket_bytes=bucket_bytes, zero_1=False,
                                 error_feedback=error_feedback,
-                                overlap_comm=overlap_comm, zero_dp=zero_dp),
+                                overlap_comm=overlap_comm, zero_dp=zero_dp,
+                                hier_split=hier_split),
         input=input_cfg, label_smoothing=label_smoothing,
         # the sentinel's whole-gradient health flag; the DP step
         # reports the norm of the synced gradient anyway
@@ -265,7 +314,8 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
         transform = make_batch_input_transform(input_cfg, seed, model, me,
                                                world)
         train_step = make_dp_shardmap_train_step(
-            model, optimizer, train_cfg, input_transform=transform)
+            model, optimizer, train_cfg, input_transform=transform,
+            mesh_shape=mesh)
         put_batch = make_put_batch(dev)
         # the JAX package's stream state is in ready order under
         # overlap_comm: its checkpoints are read and written so
@@ -394,7 +444,18 @@ def main(argv=None):
                          "optimizer update and state over the workers "
                          "(shardmap, bucketed compression, >= 2 workers)")
     ap.add_argument("--sync-bn", action="store_true")
-    ap.add_argument("--comm-plan", default="flat")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="the workers laid out over (data, model), D x M "
+                         "of them (shardmap; pure DP: needs a "
+                         "hierarchical --comm-plan when M > 1)")
+    ap.add_argument("--comm-plan", default="flat",
+                    help="collective schedule: flat | hier[:k] | auto | "
+                         "<path>. 'hier:k' splits the mesh's axes at k "
+                         "into an intra-node reduce-scatter -> "
+                         "inter-node all-reduce -> intra-node all-gather "
+                         "per bucket; 'auto' loads "
+                         "results/comm_plan_{arch}_{DxM}.json and a plan "
+                         "file applies its whole wire configuration")
     ap.add_argument("--label-smoothing", type=float, default=0.0,
                     help="label smoothing epsilon (large-batch recipes "
                          "pair it with --schedule poly)")
@@ -424,8 +485,39 @@ def main(argv=None):
     if args.sentinel and args.epochs is None:
         ap.error("--sentinel/--chaos need the epoch-driven loop: "
                  "pass --epochs")
+    mesh_shape = None
+    if args.mesh:
+        try:
+            mesh_shape = tuple(int(x) for x in args.mesh.split("x"))
+        except ValueError:
+            ap.error("--mesh expects DxM, e.g. 2x2")
+        if len(mesh_shape) != 2:
+            ap.error("--mesh expects DxM, e.g. 2x2")
+    # --comm-plan: the grammar forms (flat / hier[:k]) only reschedule;
+    # a plan loaded from disk (auto / path) carries its wire config
+    dp_axes, hier_split, plan = ("data",), None, None
+    compression = args.compression
+    bucket_bytes = args.bucket_mib * 1024 * 1024
+    overlap_comm, zero_dp = args.overlap_comm, args.zero
     if args.comm_plan != "flat":
-        raise _unported("hierarchical collective plans (--comm-plan)", 13)
+        if args.dp_mode != "shardmap":
+            ap.error("--comm-plan reschedules explicit per-bucket "
+                     "collectives: pass --dp-mode shardmap")
+        from repro_torch.distributed.comm_plan import resolve_comm_plan
+        world = (world_size() if dist.is_initialized()
+                 else int(os.environ.get("WORLD_SIZE", 1)))
+        plan = resolve_comm_plan(args.comm_plan, arch=args.arch,
+                                 mesh_shape=mesh_shape or (world, 1),
+                                 dp_axes=MESH_AXES)
+        if plan is not None:
+            hier_split = plan.hier_split
+            if hier_split is not None:
+                dp_axes = plan.dp_axes  # pure DP over the whole mesh
+            if plan.bucket_bytes:  # a loaded plan: its wire config
+                compression = plan.compression
+                bucket_bytes = plan.bucket_bytes
+                overlap_comm = plan.sync_mode in ("overlap", "zero_overlap")
+                zero_dp = plan.sync_mode in ("zero", "zero_overlap")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -441,15 +533,19 @@ def main(argv=None):
                 dp_mode=args.dp_mode,
                 compute_dtype=DTYPES[args.compute_dtype], seed=args.seed,
                 use_fused_kernel=args.use_fused_kernel,
-                sync_bn=args.sync_bn, compression=args.compression,
-                bucket_bytes=args.bucket_mib * 1024 * 1024,
+                sync_bn=args.sync_bn, compression=compression,
+                bucket_bytes=bucket_bytes,
                 error_feedback=args.error_feedback,
-                overlap_comm=args.overlap_comm, zero_dp=args.zero,
+                overlap_comm=overlap_comm, zero_dp=zero_dp,
                 fused_bn=args.fused_bn,
                 label_smoothing=args.label_smoothing, input_cfg=input_cfg,
-                sentinel=args.sentinel, device=args.device)
+                sentinel=args.sentinel, dp_axes=dp_axes,
+                hier_split=hier_split, mesh_shape=mesh_shape,
+                device=args.device)
+        if plan is not None and rank() == 0:
+            print(f"comm plan: {plan.describe()}")
         metadata = {"arch": args.arch, "optimizer": args.optimizer,
-                    "opt_layout": "zero_stream" if args.zero else "tree"}
+                    "opt_layout": "zero_stream" if zero_dp else "tree"}
         t0 = time.time()
         if args.epochs is None:  # the step-driven run, no validation
             result = run_training(

@@ -34,6 +34,14 @@ stream laid out in that order is synced asynchronously as soon as the
 segment holding its last gradient is done, while the earlier segments'
 backwards compute.
 
+A hierarchical schedule (``parallel.hier_split`` over a DP layout of two
+stages, ``mesh_shape``) runs every bucketed path's per-bucket collective
+in two levels (``distributed/bucketing.py``): the all-reduce as
+``hierarchical_psum``, ZeRO's reduce-scatter and all-gather as
+``hierarchical_psum_scatter`` and ``hierarchical_all_gather``. The
+scalar metrics and the LARS trust-norm partials stay one flat
+all-reduce each, as in the JAX package.
+
 ``make_prefill_step`` and ``make_decode_step`` are the serving steps of
 an LM, thin wrappers around the model's ``prefill`` and ``decode_step``
 as in the JAX package.
@@ -57,10 +65,16 @@ from repro_torch.core.compression import (
 )
 from repro_torch.distributed.bucketing import (
     BucketPlan,
+    Hierarchy,
     ReadyBucketPlan,
     bucketed_psum,
     bucketed_psum_ef,
+    hierarchical_all_gather,
+    hierarchical_psum,
+    hierarchical_psum_scatter,
+    hierarchy_groups,
     leaf_order,
+    make_hierarchy,
     local_shard,
     pack,
     pack_bucket,
@@ -249,7 +263,8 @@ def make_batch_input_transform(input_cfg, seed: int, model, rank: int,
 
 def make_dp_shardmap_train_step(model, optimizer: Optimizer,
                                 train_cfg: TrainConfig, group=None,
-                                input_transform=None):
+                                input_transform=None,
+                                mesh_shape: Optional[Dict[str, int]] = None):
     """The paper's synchronous data-parallel step, as each worker runs
     it: forward and backward on the local batch with the worker's own
     BN statistics, the **half-precision all-reduce of the gradients**,
@@ -266,24 +281,30 @@ def make_dp_shardmap_train_step(model, optimizer: Optimizer,
     worker like the BN statistics). An optimizer with ``update_shard``
     (stream-LARS) takes the packed-stream step. ``zero_dp`` (``--zero``)
     takes ``_make_dp_zero_train_step``, and ``overlap_comm``
-    ``make_dp_overlap_train_step``. Hierarchical schedules are not
-    ported yet (ROADMAP queue 1, item 13)."""
+    ``make_dp_overlap_train_step``.
+
+    ``parallel.hier_split`` runs each bucket's collective through the
+    two-level schedule over the DP layout ``mesh_shape`` (DP axis name
+    -> workers; None is the pure-DP default, every worker on the first
+    axis), on every bucketed path (``_hier_or_none``)."""
     parallel = train_cfg.parallel
     if parallel.overlap_comm:
         return make_dp_overlap_train_step(model, optimizer, train_cfg, group,
-                                          input_transform)
-    _unported_sync(parallel, "")
+                                          input_transform, mesh_shape)
     wire, bucketed = parse_compression(parallel.compression)
     use_ef = parallel.error_feedback
     if use_ef and wire is None:
         raise ValueError("error_feedback requires a wire dtype "
                          f"(compression={parallel.compression!r})")
+    hier = _hier_or_none(parallel, mesh_shape, bucketed, group)
     if parallel.zero_dp:
         return _make_dp_zero_train_step(model, optimizer, train_cfg, wire,
-                                        bucketed, group, input_transform)
+                                        bucketed, group, input_transform,
+                                        hier)
     if hasattr(optimizer, "update_shard"):
         return _make_dp_stream_train_step(model, optimizer, train_cfg, wire,
-                                          bucketed, group, input_transform)
+                                          bucketed, group, input_transform,
+                                          hier)
     device = model.device
     plan = None
 
@@ -292,17 +313,21 @@ def make_dp_shardmap_train_step(model, optimizer: Optimizer,
         paths: (synced, new residual or None, squared norm or None)."""
         nonlocal plan
         if bucketed and plan is None:
-            plan = plan_buckets(grads, parallel.bucket_bytes, wire)
+            # a hierarchy splits every bucket over the inner group
+            plan = plan_buckets(grads, parallel.bucket_bytes, wire,
+                                align=hier.n_workers if hier else 1)
         if use_ef:
             if bucketed:
                 return bucketed_psum_ef(grads, residual, wire, plan=plan,
-                                        with_sq_norm=True, group=group)
+                                        with_sq_norm=True, group=group,
+                                        hierarchy=hier)
             synced, new_residual = compressed_psum_ef(grads, residual, wire,
                                                       group=group)
             return synced, new_residual, None
         if bucketed:
             synced, sq = bucketed_psum(grads, wire, plan=plan, mean=True,
-                                       with_sq_norm=True, group=group)
+                                       with_sq_norm=True, group=group,
+                                       hierarchy=hier)
             return synced, None, sq
         return compressed_psum(grads, wire, mean=True, group=group), None, \
             None
@@ -347,11 +372,51 @@ def _synced_update(optimizer, params, grads, opt, metrics: Dict,
 # ---------------------------------------------------------------------------
 
 
-def _unported_sync(parallel, under: str) -> None:
-    if parallel.hier_split is not None:
-        raise NotImplementedError(
-            f"hierarchical sync{under} is not ported yet (ROADMAP queue 1, "
-            "item 13)")
+def _hier_or_none(parallel, mesh_shape: Optional[Dict[str, int]],
+                  bucketed: bool, group=None) -> Optional[Hierarchy]:
+    """The ``Hierarchy`` of ``parallel.hier_split`` with this worker's
+    process groups, or None for the flat schedule (the JAX package's
+    ``_hier_or_none``). It reschedules packed buckets, so it needs
+    bucketed compression; ``make_hierarchy`` validates the split (a DP
+    layout of two stages of two workers or more). ``mesh_shape`` None is
+    the pure-DP layout: every worker on the first DP axis."""
+    if parallel.hier_split is None:
+        return None
+    if not bucketed:
+        raise ValueError(
+            "hier_split reschedules packed buckets, which requires "
+            "bucketed compression (e.g. compression='bf16+bucketed', "
+            f"got {parallel.compression!r})")
+    dp_axes = tuple(parallel.dp_axes)
+    if mesh_shape is None:
+        mesh_shape = {a: 1 for a in dp_axes}
+        mesh_shape[dp_axes[0]] = dist.get_world_size(group)
+    hier = make_hierarchy(dp_axes, mesh_shape, parallel.hier_split)
+    if group is not None and group is not dist.group.WORLD:
+        raise ValueError("a hierarchical schedule splits the default "
+                         "worker group: pass group=None")
+    return hierarchy_groups(hier)
+
+
+def _all_reduce(bucket, hier: Optional[Hierarchy], group=None,
+                async_op: bool = False):
+    """One bucket's all-reduce, in place: flat, or the two-level
+    ``hierarchical_psum``."""
+    if hier is not None:
+        return hierarchical_psum(bucket, hier, async_op=async_op)
+    return dist.all_reduce(bucket, group=group, async_op=async_op)
+
+
+def _reduce_scatter(out, bucket, hier: Optional[Hierarchy], group=None,
+                    async_op: bool = False):
+    """One bucket's reduce-scatter into ``out`` (ZeRO): flat, or the
+    two-level ``hierarchical_psum_scatter``, which hands this worker the
+    same chunk."""
+    if hier is not None:
+        return hierarchical_psum_scatter(out, bucket, hier,
+                                         async_op=async_op)
+    return dist.reduce_scatter_tensor(out, bucket, group=group,
+                                      async_op=async_op)
 
 
 def _stream_checks(parallel, optimizer, bucketed: bool) -> None:
@@ -484,12 +549,14 @@ def _param_shard(params, plan: BucketPlan, n: int, w: int) -> torch.Tensor:
 
 
 def _zero_sharded_update(optimizer, plan: BucketPlan, params, g_shard, opt,
-                         n: int, w: int, aux, group=None):
+                         n: int, w: int, aux, group=None,
+                         hier: Optional[Hierarchy] = None):
     """The worker-local half of the ZeRO step: update this worker's
     shard of the f32 parameter stream against its shard of the optimizer
     state (``g_shard`` already cast and divided), all-gather the updated
-    slices bucket by bucket, and copy them back into the parameters, in
-    place. LARS's trust norms are the shard's per-segment partials
+    slices bucket by bucket (``hierarchical_all_gather`` under a
+    hierarchy: the same bits), and copy them back into the parameters,
+    in place. LARS's trust norms are the shard's per-segment partials
     summed with one all-reduce (a leaf may span shards). Returns
     ``(opt_metrics, local squared gradient norm)``."""
     local_sq = g_shard.square().sum()
@@ -510,7 +577,10 @@ def _zero_sharded_update(optimizer, plan: BucketPlan, params, g_shard, opt,
     full = p_shard.new_empty(plan.padded_total)
     for b, piece in enumerate(split_shard(p_shard, plan, n)):
         lo, hi = plan.bucket_bounds(b)
-        dist.all_gather_into_tensor(full[lo:hi], piece, group=group)
+        if hier is not None:
+            hierarchical_all_gather(full[lo:hi], piece, hier)
+        else:
+            dist.all_gather_into_tensor(full[lo:hi], piece, group=group)
     torch._foreach_copy_(
         [params[k] for k in plan.names],
         [full[s.offset:s.offset + s.size].view(s.shape) for s in plan.slots])
@@ -519,14 +589,15 @@ def _zero_sharded_update(optimizer, plan: BucketPlan, params, g_shard, opt,
 
 def _zero_synced_update(optimizer, plan: BucketPlan, params, shards, opt,
                         n: int, w: int, aux, metrics: Dict,
-                        group=None) -> Dict:
+                        group=None, hier: Optional[Hierarchy] = None
+                        ) -> Dict:
     """The ZeRO update from this worker's reduce-scattered wire chunks
     (in bucket order), and the step's metrics: averaged over the
     workers, with the global gradient norm and the optimizer's."""
     g_shard = _cast_divide_stream(
         shards[0] if len(shards) == 1 else torch.cat(shards), plan, n)
     opt_metrics, local_sq = _zero_sharded_update(
-        optimizer, plan, params, g_shard, opt, n, w, aux, group)
+        optimizer, plan, params, g_shard, opt, n, w, aux, group, hier)
     metrics["grad_sq_local"] = local_sq
     metrics = _zero_grad_norm(_pmean_metrics(metrics, group), n)
     metrics.update(opt_metrics)
@@ -542,7 +613,8 @@ def _zero_grad_norm(metrics: Dict, n: int) -> Dict:
 
 def _make_dp_stream_train_step(model, optimizer, train_cfg: TrainConfig,
                                wire, bucketed: bool, group=None,
-                               input_transform=None):
+                               input_transform=None,
+                               hier: Optional[Hierarchy] = None):
     """The bucketed DP step with a packed-stream optimizer (stream-LARS):
     pack -> one all-reduce per bucket -> the replicated update over the
     full f32 stream, trust norms reduced worker by worker
@@ -577,7 +649,7 @@ def _make_dp_stream_train_step(model, optimizer, train_cfg: TrainConfig,
             aux = _stream_aux(optimizer, plan, params, n, w, device)
         buckets = pack(quant, plan)
         for b in buckets:
-            dist.all_reduce(b, group=group)
+            _all_reduce(b, hier, group)
         metrics = _stream_synced_update(optimizer, plan, params, buckets,
                                         state["opt"], n, w, aux, metrics,
                                         group)
@@ -592,7 +664,8 @@ def _make_dp_stream_train_step(model, optimizer, train_cfg: TrainConfig,
 
 def _make_dp_zero_train_step(model, optimizer, train_cfg: TrainConfig,
                              wire, bucketed: bool, group=None,
-                             input_transform=None):
+                             input_transform=None,
+                             hier: Optional[Hierarchy] = None):
     """ZeRO on the bucketed DP step (the JAX package's DESIGN.md §9):
     pack -> one reduce-scatter per bucket -> the update of this worker's
     shard of the stream (``_zero_sharded_update``) -> one all-gather of
@@ -604,7 +677,9 @@ def _make_dp_zero_train_step(model, optimizer, train_cfg: TrainConfig,
     worker count) and the side streams are built at the first step.
     gloo takes CUDA tensors for both collectives, and its reduce-scatter
     gives each worker the bits of its slice of the all-reduce (checked
-    with two processes on one H100, torch 2.11, bf16 / f16 / f32)."""
+    with two processes on one H100, torch 2.11, bf16 / f16 / f32).
+    Under a hierarchy both collectives are the two-level ones, and the
+    shard a worker owns is the same."""
     parallel = train_cfg.parallel
     use_ef = parallel.error_feedback
     n = _zero_checks(parallel, optimizer, bucketed, group)
@@ -633,10 +708,10 @@ def _make_dp_zero_train_step(model, optimizer, train_cfg: TrainConfig,
         shards = []
         for b in pack(quant, plan):
             shards.append(b.new_empty(b.numel() // n))
-            dist.reduce_scatter_tensor(shards[-1], b, group=group)
+            _reduce_scatter(shards[-1], b, hier, group)
         metrics = _zero_synced_update(optimizer, plan, params, shards,
                                       state["opt"], n, w, aux, metrics,
-                                      group)
+                                      group, hier)
         new_state = {"params": params, "opt": state["opt"],
                      "model_state": new_mstate}
         if use_ef:
@@ -669,7 +744,8 @@ def zero_stream_plan(model, params, train_cfg: TrainConfig, n: int
 
 def make_dp_overlap_train_step(model, optimizer: Optimizer,
                                train_cfg: TrainConfig, group=None,
-                               input_transform=None):
+                               input_transform=None,
+                               mesh_shape: Optional[Dict[str, int]] = None):
     """The bucketed DP step with the gradient all-reduces overlapped with
     the backward pass; its state after a step is bitwise that of
     ``make_dp_shardmap_train_step``'s bucketed step (plain, with error
@@ -701,7 +777,13 @@ def make_dp_overlap_train_step(model, optimizer: Optimizer,
     trust norms are summed over ready-order shards, and it agrees with
     the overlapped stream-LARS step to rounding, not bitwise. The
     elementwise updates (rmsprop_warmup, momentum_sgd) stay bitwise.
-    Hierarchical sync raises (ROADMAP queue 1, item 13)."""
+
+    Under a hierarchy (``mesh_shape``, ``parallel.hier_split``) every
+    plan is shard-aligned and each ready bucket launches its two-level
+    collective at the same point: only the first stage (the inner
+    reduce-scatter) runs asynchronously, behind the next segment's
+    backward; the pipeline's wait, two segments later, runs the rest
+    (``bucketing.ChainedWork``). The numbers are the bucketed step's."""
     parallel = train_cfg.parallel
     wire, bucketed = parse_compression(parallel.compression)
     use_ef = parallel.error_feedback
@@ -712,7 +794,7 @@ def make_dp_overlap_train_step(model, optimizer: Optimizer,
         raise ValueError(
             f"{type(model).__name__} has no loss_segments(); overlap_comm "
             "needs a staged model (ResNet50)")
-    _unported_sync(parallel, " under overlap_comm")
+    hier = _hier_or_none(parallel, mesh_shape, bucketed, group)
     use_zero = parallel.zero_dp
     use_stream = hasattr(optimizer, "update_shard")
     if use_zero:
@@ -742,7 +824,7 @@ def make_dp_overlap_train_step(model, optimizer: Optimizer,
             shapes = {k: torch.empty(v.shape, dtype=torch.float32,
                                      device="meta")
                       for k, v in params.items()}
-            align = n if use_stream else 1
+            align = n if use_stream or hier is not None else 1
             plan = plan_ready_buckets(_ready_stages(model, shapes),
                                       parallel.bucket_bytes, wire, align)
             if use_zero:
@@ -779,12 +861,11 @@ def make_dp_overlap_train_step(model, optimizer: Optimizer,
                 if use_zero:
                     sent[b] = arr
                     synced[b] = arr.new_empty(arr.numel() // n)
-                    works[b] = dist.reduce_scatter_tensor(
-                        synced[b], arr, group=group, async_op=True)
+                    works[b] = _reduce_scatter(synced[b], arr, hier, group,
+                                               async_op=True)
                 else:
                     synced[b] = arr
-                    works[b] = dist.all_reduce(arr, group=group,
-                                               async_op=True)
+                    works[b] = _all_reduce(arr, hier, group, async_op=True)
             pending.append([b for b, _ in ready])
         for ids in pending:
             for b in ids:
@@ -798,7 +879,7 @@ def make_dp_overlap_train_step(model, optimizer: Optimizer,
             # the JAX package's zero-overlap step updates it
             metrics = _zero_synced_update(
                 optimizer, plan.base, params, buckets, state["opt"], n, w,
-                aux, metrics, group)
+                aux, metrics, group, hier)
             new_params, new_opt = params, state["opt"]
         elif use_stream:
             # back in the bucketed step's leaf order, the update, its

@@ -29,9 +29,11 @@ step and against the JAX package's shard_map step.
    combine bitwise (a sum of two, halved).
 4. The options: cross-replica BN and the overlapped sync build and step
    through ``build_train_setup`` and the CLI, apart and together; ZeRO
-   raises, also under the overlapped sync, as does hierarchical sync
-   there (ROADMAP queue 1, items 11 and 13). ``test_torch_sync_bn.py``
-   and ``test_torch_overlap.py`` hold the two against JAX.
+   at one worker raises, also under the overlapped sync, and so does a
+   hierarchical split of a one-axis DP layout, and ``--comm-plan``
+   outside the DP step. ``test_torch_sync_bn.py`` and
+   ``test_torch_overlap.py`` hold the two against JAX;
+   ``test_torch_hierarchical.py`` the hierarchical schedules.
 """
 import os
 import subprocess
@@ -327,7 +329,9 @@ def test_unported_dp_options_raise(kw, exc, match):
                 device="cpu", **kw)
     finally:
         shutdown()
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # a comm plan reschedules the DP step's collectives: without the DP
+    # step the CLI refuses it
+    with pytest.raises(SystemExit):
         tlaunch.main(["--reduced", "--comm-plan", "auto", "--device", "cpu"])
 
 
@@ -356,8 +360,10 @@ def test_sync_bn_and_overlap_build_and_step(kw):
     # ZeRO under overlap is ported: it validates its optimizer as the
     # JAX package does (a per-leaf one is refused)
     (dict(zero_dp=True), ValueError, "packed-stream optimizer"),
-    (dict(hier_split=1), NotImplementedError,
-     "under overlap_comm.*item 13")], ids=["zero", "hierarchical"])
+    # the hierarchical schedule is ported: it needs a DP layout of two
+    # stages, and the default dp_axes ("data",) has one
+    (dict(hier_split=1), ValueError, "hier_split must be in")],
+    ids=["zero", "hierarchical"])
 def test_overlap_with_zero_or_hierarchical_sync_raises(kw, exc, match):
     from repro_torch.configs import ParallelConfig, TrainConfig
     from repro_torch.models.resnet import ResNet50
@@ -366,7 +372,8 @@ def test_overlap_with_zero_or_hierarchical_sync_raises(kw, exc, match):
         compression="bf16+bucketed", overlap_comm=True, **kw))
     model = ResNet50(treduced(tget("resnet50")), device="cpu")
     with pytest.raises(exc, match=match):
-        make_dp_shardmap_train_step(model, None, cfg)
+        make_dp_shardmap_train_step(model, None, cfg,
+                                    mesh_shape={"data": 2})
 
 
 def test_overlap_needs_the_data_parallel_step():

@@ -276,14 +276,18 @@ def test_zero_rejected_outside_shardmap():
 
 
 def test_zero_with_a_hierarchy_still_raises():
+    """ZeRO runs hierarchically (``test_torch_hierarchical.py``) over a
+    DP layout of two stages; on the default one-axis layout the split
+    still raises, as ``make_hierarchy`` does in the JAX package."""
     from repro_torch.models.resnet import ResNet50
     model = ResNet50(treduced(tget("resnet50")), device="cpu")
     sopt = tstream.make_stream_optimizer(TOpt(), SPE, GB)
     for overlap in (False, True):
-        with pytest.raises(NotImplementedError, match="item 13"):
+        with pytest.raises(ValueError, match="hier_split must be in"):
             make_dp_shardmap_train_step(
                 model, sopt, _zero_cfg(compression="bf16+bucketed",
-                                       overlap_comm=overlap, hier_split=1))
+                                       overlap_comm=overlap, hier_split=1),
+                mesh_shape={"data": 2})
 
 
 def test_stream_rmsprop_needs_zero():
