@@ -208,6 +208,43 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (the state bitwise; ZeRO's losses within 2.4e-7), and ZeRO +
      overlap stream-LARS against overlapped stream-LARS within rtol 1e-2
      / atol 1e-4.
+  3f. the four kernels of main paths 9 and 10 at their shapes, bf16:
+     ``flash_attention`` at yi-9b's, granite-34b's and qwen2-72b's
+     prefills (8 x 1,024 tokens, Dh 128, 32 / 4, 48 / 1 and 64 / 8
+     heads) and llama3.2-1b's training batch (4 x 1,024, 32 / 8, Dh 64),
+     ``rmsnorm`` at yi-9b's and qwen2-72b's prefill and decode rows (d
+     4,096 and 8,192) and the training batch's (4,096 x 2,048), each
+     against its plain version (the tolerances of 3d) and timed with
+     SDPA / ``F.rms_norm`` and its bound; ``hybrid_update`` over
+     llama3.2-1b's 11 f32 leaves (1,235,814,400 elements) in one launch,
+     bitwise per leaf, timed with its plain version and bound;
+     ``cast_copy`` at that gradient stream (as 3b's ``cast_phase``);
+  15. main path 9, the other dense configs served
+     (``repro_torch.launch.serve.serve``, weights drawn on the card):
+     yi-9b at full width and depth (48 layers, d 4,096, 32 / 4 heads, Dh
+     128, vocabulary 64,000) with 8 prompts of 1,024 tokens and 31
+     greedy decode steps, granite-34b (LayerNorm, GELU, one kv head) and
+     qwen2-72b (qkv bias) at full width with their depth cut to 8 and 4
+     layers, one prefill and 3 decode steps each, bf16, chunked (flash)
+     attention: launches per prefill and decode step checked (flash one
+     a layer per prefill, rmsnorm 2 a layer + 1 per forward, none for
+     granite), the warm call, peak memory, prefill logits against the
+     naive attention's within ``NAIVE_REL_TOL``;
+  16. main path 10, LM training: llama3.2-1b at full width (16 layers,
+     d 2,048, vocabulary 128,256, tied), batch 4 x 1,024 tokens, bf16,
+     flash attention (its gradient the plain version's, recomputed),
+     rmsprop_warmup + slow_start through the fused update, 6 steps and
+     one eval batch through the ``Trainer`` on one device (the bf16
+     wire cast), then through the DP step at world size 1 over NCCL
+     (``bf16+bucketed``), bitwise the one-device run (losses,
+     parameters, ``delta``, ``m``, ``opt.step``; deterministic
+     algorithms on); launches a step checked (flash 16 and rmsnorm 33 a
+     forward, none in the backward; ``hybrid_update`` 1; ``cast_copy``
+     2 on the DP step, none on one device), step time, tokens/s, peak
+     memory;
+  16b. reference: the reduced llama3.2-1b in f32, 3 train steps on the
+     card against the CPU from the same weights (losses within rtol
+     2e-5, parameters within a relative norm of 2e-4).
 With ``--profile``, a few more steps of each main path run under
 torch.profiler (device busy time and idle share, top host ops and
 kernels), and one prefill and four decode steps of main path 4. With
@@ -219,7 +256,10 @@ reverse, for their wall step times side by side. Then a ``{"kernels":
 main path 3 for the two stream-LARS kernels, from main path 4 for
 flash_attention and rmsnorm, whose times are per prefill;
 ``launches_by_path`` holds every main path's, main paths 7's and 8's
-from their first worker, ``path8`` run A and ``path8_zero`` run B;
+from their first worker, ``path8`` run A and ``path8_zero`` run B,
+``path9_<arch>`` main path 9's per config, ``path10`` and ``path10_dp``
+main path 10's one-device and DP runs; ``slice13`` the times of phase
+3f at those paths' shapes;
 ``hybrid_update`` also carries its time at main path 7's shard), the card's name and power
 limit, and last the ``{"ok": true, "device": ...}`` line. ``--out DIR`` also
 writes the per-shape kernel tables to ``DIR/chip_smoke_kernels.json``.
@@ -3382,12 +3422,14 @@ def grad_phase(torch):
 
 
 def serve_counts_check(launches, n_layers: int, forwards: int,
-                       prefills: int) -> None:
+                       prefills: int, norm: str = "rmsnorm") -> None:
     """flash = n_layers per prefill and none per decode step; rmsnorm =
-    2 n_layers + 1 per forward; every other kernel none."""
+    2 n_layers + 1 per forward (none for a LayerNorm model); every other
+    kernel none."""
     want = {k: 0 for k in launches}
     want.update(flash_attention=n_layers * prefills,
-                rmsnorm=(2 * n_layers + 1) * forwards)
+                rmsnorm=(2 * n_layers + 1) * forwards
+                if norm == "rmsnorm" else 0)
     log(f"  launches {launches} (want {want})")
     assert launches == want, (launches, want)
 
@@ -3596,6 +3638,447 @@ def serve_reference_phase(torch):
     return {"max_abs_err": err, "tokens": card_t.tolist()}
 
 
+# ---------------------------------------------------------------------------
+# slice 13: main path 9 (the other dense configs served) and main path 10
+# (LM training of llama3.2-1b), and their kernels at their shapes
+# ---------------------------------------------------------------------------
+
+# (arch, layers kept: None for the full depth, decode steps + 1) of main
+# path 9: yi-9b whole (18 GB of bf16 weights), granite-34b and qwen2-72b
+# at full width with their depth cut to fit beside the rest (their whole
+# bf16 weights, 68 and 145 GB, do not fit an 80 GB card with a prefill's
+# activations)
+DENSE_SERVE = (("yi-9b", None, SERVE_STEPS), ("granite-34b", 8, 4),
+               ("qwen2-72b", 4, 4))
+# main path 10: llama3.2-1b trained at full width, batch 4 x 1,024 tokens
+LM_TRAIN_ARCH = "llama3.2-1b"
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 4, 1024, 6
+# the recipe of examples/train_llm_100m.py (no weight decay: the update
+# runs the _kernel body, not _kernel_wd)
+LM_TRAIN_OPT = dict(kind="rmsprop_warmup", schedule="slow_start",
+                    base_lr_per_256=3e-3, beta_center=1.0, beta_period=1.0,
+                    weight_decay=0.0)
+# phase 3f: flash_attention and rmsnorm at this slice's shapes, bf16
+SLICE13_FLASH = {
+    "yi-9b prefill": (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32, 4, 128,
+                      True, None),
+    "granite-34b prefill": (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 48, 1,
+                            128, True, None),
+    "qwen2-72b prefill": (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 64, 8,
+                          128, True, None),
+    "llama3.2-1b training": (LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_SEQ, 32,
+                             8, 64, True, None),
+}
+SLICE13_RMSNORM = {
+    "yi-9b prefill": (SERVE_BATCH * SERVE_PROMPT, 4096),
+    "yi-9b decode": (SERVE_BATCH, 4096),
+    "qwen2-72b prefill": (SERVE_BATCH * SERVE_PROMPT, 8192),
+    "qwen2-72b decode": (SERVE_BATCH, 8192),
+    "llama3.2-1b training": (LM_TRAIN_BATCH * LM_TRAIN_SEQ, 2048),
+}
+# phase 16b: the reduced llama3.2-1b in f32 on the card against the CPU,
+# losses as the DP step against JAX (rtol 2e-5), parameters by relative
+# norm (2e-4; the RMSprop warm-up moves an element whose tiny gradient
+# flips sign by ~lr, test_torch_slice.py)
+LM_REF_LOSS_RTOL, LM_REF_PARAM_TOL = 2e-5, 2e-4
+
+
+def slice13_kernel_phase(torch):
+    """Phase 3f: the four kernels of this slice's paths at their shapes.
+    ``flash_attention`` (bf16) at the three configs' prefills and
+    llama3.2-1b's training batch, and ``rmsnorm`` (bf16, the model's
+    rounding order) at yi-9b's and qwen2-72b's prefill and decode rows
+    and the training batch's rows, each against its plain version (the
+    tolerances of phase 3d) and timed with its library call and bound;
+    ``hybrid_update`` over llama3.2-1b's 11 f32 leaves in one launch,
+    bitwise per leaf (a_sgd 0 and 1), timed against the per-leaf plain
+    version and its bound; ``cast_copy`` at llama3.2-1b's gradient
+    stream (``cast_phase``)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.optimizer import HybridHyper
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.models.transformer import TransformerLM
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    bf16 = torch.bfloat16
+    out = {"flash_attention": {}, "rmsnorm": {}}
+    for name, case in SLICE13_FLASH.items():
+        b, sq, sk, hq, hkv, dh, causal, window = case
+        q, k, v = (torch.randn(b, s_, h, dh, generator=gen, device=dev)
+                   .to(bf16) for s_, h in ((sq, hq), (sk, hkv), (sk, hkv)))
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = fa.PLAIN["flash_attention"](q, k, v, causal, window)
+        torch.cuda.synchronize()
+        err = _bf16_ulp_check(torch, f"flash_attention {name} {case}", got,
+                              want, BF16_ULPS["flash_attention"],
+                              **LM_TOL["flash_attention"])
+        del got, want
+        bound_ms, _, bound_by, _ = flash_bound(case, 2)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        rec = {"case": list(case), "max_abs_err": err,
+               "ms": time_ms(torch, lambda: fa.flash_attention(
+                   q, k, v, causal=causal, window=window)),
+               "plain_ms": time_ms(torch, lambda: fa.PLAIN[
+                   "flash_attention"](q, k, v, causal, window), iters=3,
+                   trials=3),
+               "library_ms": time_ms(
+                   torch, lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, is_causal=causal, enable_gqa=True)),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        out["flash_attention"][name] = rec
+        log(f"  flash bf16 {name} {case}: {rec['ms']:.4f} ms (plain "
+            f"{rec['plain_ms']:.4f}, sdpa {rec['library_ms']:.4f}, bound "
+            f"{bound_ms:.4f}), max err {err:.3g}")
+        del q, k, v, qt, kt, vt
+    for name, (rows, d) in SLICE13_RMSNORM.items():
+        x = (torch.randn(rows, d, generator=gen, device=dev) * 2 + 0.3
+             ).to(bf16)
+        st = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(bf16)
+        got = rn.rmsnorm(x, st, round_inv=True)
+        want = rn.PLAIN["rmsnorm"](x, st, 1e-5, True)
+        torch.cuda.synchronize()
+        err = _bf16_ulp_check(torch, f"rmsnorm {name} {rows} x {d}", got,
+                              want, BF16_ULPS["rmsnorm"], **LM_TOL["rmsnorm"])
+        bound_ms, bound_by = bound(2 * (2 * rows * d + d), 4 * rows * d)
+        rec = {"rows": rows, "d": d, "max_abs_err": err,
+               "ms": time_ms(torch, lambda: rn.rmsnorm(x, st,
+                                                        round_inv=True)),
+               "plain_ms": time_ms(torch, lambda: rn.PLAIN["rmsnorm"](
+                   x, st, 1e-5, True)),
+               "library_ms": time_ms(torch, lambda: F.rms_norm(
+                   x, (d,), st, 1e-5)),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        out["rmsnorm"][name] = rec
+        log(f"  rmsnorm bf16 {name} {rows} x {d}: {rec['ms']:.4f} ms (plain "
+            f"{rec['plain_ms']:.4f}, F.rms_norm {rec['library_ms']:.4f}, "
+            f"bound {bound_ms:.4f}), max err {err:.3g}")
+        del x, got, want
+
+    # hybrid_update over llama3.2-1b's leaves (drawn on the card), the
+    # gradients as views into one stream as unpack gives them
+    model = TransformerLM(get_config(LM_TRAIN_ARCH), device="cuda")
+    params = model.init(0, draw_device="cuda")
+    names = list(params)
+    sizes = [params[k].numel() for k in names]
+    total = sum(sizes)
+    stream = torch.randn(total, generator=gen, device=dev) * 1e-3
+    gs, lo = [], 0
+    for n in sizes:
+        gs.append(stream[lo:lo + n])
+        lo += n
+    ps = [params.pop(k).reshape(-1) for k in names]
+    del params, model
+    ds = [torch.randn(n, generator=gen, device=dev) * 1e-3 for n in sizes]
+    ms = [torch.rand(n, generator=gen, device=dev) * 1e-6 for n in sizes]
+    wds = [0.0] * len(sizes)
+    for a_sgd in (0.0, 1.0):
+        h = HybridHyper(eta=0.1, alpha_sgd=a_sgd)
+        kern = [[t.clone() for t in ts] for ts in (ps, ds, ms)]
+        fu.reset_launch_counts()
+        fu.fused_hybrid_update_leaves(gs, *kern, h, wds)
+        assert fu.LAUNCHES["hybrid_update"] == 1, fu.LAUNCHES
+        for i, g in enumerate(gs):
+            plain = [t[i].clone() for t in (ps, ds, ms)]
+            fu.PLAIN["hybrid_update"](g, *plain, h, 0.0)
+            for what, a, b in zip(("theta", "delta", "m"),
+                                  (kern[0][i], kern[1][i], kern[2][i]),
+                                  plain):
+                _bitwise(f"hybrid_update_leaves {names[i]} a_sgd={a_sgd} "
+                         f"{what}", a, b)
+            del plain
+        del kern
+    h = HybridHyper(eta=0.1, alpha_sgd=0.0)
+
+    def plain_all():
+        for i, g in enumerate(gs):
+            fu.PLAIN["hybrid_update"](g, ps[i], ds[i], ms[i], h, 0.0)
+
+    upd = {"leaves": len(sizes), "elements": total, "max_abs_err": 0.0,
+           "ms": time_ms(torch, lambda: fu.fused_hybrid_update_leaves(
+               gs, ps, ds, ms, h, wds), iters=3, trials=3),
+           "plain_ms": time_ms(torch, plain_all, iters=2, trials=3),
+           "library_ms": None}
+    upd["bound_ms"], upd["bound_by"] = bound(28 * total,
+                                             UPDATE_FLOPS * total)
+    out["hybrid_update"] = upd
+    log(f"  hybrid_update over {LM_TRAIN_ARCH}'s {len(sizes)} leaves "
+        f"({total} elements) in one launch, bitwise per leaf x a_sgd 0/1: "
+        f"{upd['ms']:.3f} ms (plain {upd['plain_ms']:.3f}, bound "
+        f"{upd['bound_ms']:.3f})")
+    del gs, ps, ds, ms, stream
+    torch.cuda.empty_cache()
+    out["cast_copy"] = cast_phase(torch, total)
+    out["cast_copy"]["elements"] = total
+    torch.cuda.empty_cache()
+    return out
+
+
+def dense_serve_path(torch, libs, arch: str, layers, steps: int):
+    """Main path 9, one config: ``serve()`` at full width (``layers``
+    None: full depth too) of 8 prompts of 1,024 tokens and ``steps - 1``
+    greedy decode steps, bf16, chunked (flash) attention, the weights
+    drawn on the card (``draw_device="cuda"``); then a second session
+    (the warm call), one prefill and one decode step alone with their
+    launches counted, and the prefill logits against the naive
+    attention's, as main path 4."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import (build_serve_setup, generate,
+                                          make_prompts, serve)
+    from repro_torch.models import build_model
+    from repro_torch.training.step import make_decode_step, make_prefill_step
+
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    bf16, L = torch.bfloat16, cfg.n_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts(libs)
+    t0 = time.perf_counter()
+    first = serve(cfg, SERVE_BATCH, SERVE_PROMPT, steps, compute_dtype=bf16,
+                  attention_impl="chunked", device="cuda",
+                  draw_device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(libs)
+    serve_counts_check(launches, L, steps, 1, cfg.norm)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    gen = first["generated"]
+    assert gen.shape == (SERVE_BATCH, steps), gen.shape
+    assert ((gen >= 0) & (gen < cfg.vocab_size)).all(), gen
+
+    t0 = time.perf_counter()
+    model, params = build_serve_setup(cfg, compute_dtype=bf16,
+                                      attention_impl="chunked",
+                                      device="cuda", draw_device="cuda")
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.values())
+    prompts = make_prompts(cfg, SERVE_BATCH, SERVE_PROMPT)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    warm = generate(model, params, prompts, steps)
+    warm_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    same = bool((warm["generated"] == gen).all())
+
+    tokens = {"tokens": torch.from_numpy(prompts).to("cuda")}
+    cache, _ = model.cache_shape(SERVE_BATCH, SERVE_PROMPT + steps, bf16)
+    reset_counts(libs)
+    logits, cache = make_prefill_step(model)(params, cache, tokens)
+    torch.cuda.synchronize()
+    serve_counts_check(read_counts(libs), L, 1, 1, cfg.norm)
+    assert logits.shape == (SERVE_BATCH, 1, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all()), "non-finite prefill logits"
+    step = {"tokens": torch.argmax(logits[:, -1], -1)[:, None],
+            "cache_index": SERVE_PROMPT}
+    reset_counts(libs)
+    dlogits, cache = make_decode_step(model)(params, cache, step)
+    torch.cuda.synchronize()
+    serve_counts_check(read_counts(libs), L, 1, 0, cfg.norm)
+    assert bool(torch.isfinite(dlogits).all()), "non-finite decode logits"
+    del cache, dlogits
+
+    naive = build_model(cfg, bf16, attention_impl="naive", device="cuda")
+    ncache, _ = naive.cache_shape(SERVE_BATCH, SERVE_PROMPT, bf16)
+    nlogits, _ = make_prefill_step(naive)(params, ncache, tokens)
+    rel = ((logits.float() - nlogits.float()).norm()
+           / nlogits.float().norm()).item()
+    agree = (logits.argmax(-1) == nlogits.argmax(-1)).float().mean().item()
+    del ncache, nlogits, logits, params, model
+    torch.cuda.empty_cache()
+    stats = {
+        "arch": arch, "n_layers": L, "full_depth": layers is None,
+        "parameters": n_params, "batch": SERVE_BATCH,
+        "prompt_len": SERVE_PROMPT, "decode_steps": steps,
+        "first": {k: first[k] for k in ("prefill_s", "decode_s",
+                                        "decode_tok_per_s")},
+        "first_wall_s": wall, "setup_s": setup_s,
+        "prefill_ms": warm["prefill_s"] * 1e3,
+        "decode_ms_per_step": warm["decode_s"] / max(steps - 1, 1) * 1e3,
+        "decode_tok_per_s": warm["decode_tok_per_s"],
+        "peak_mem_gib": warm_peak, "first_peak_mem_gib": peak,
+        "warm_tokens_equal_first": same,
+        "naive_rel_norm": rel, "naive_argmax_agree": agree,
+        "launches": launches}
+    log(f"  {arch} ({L} layers, {n_params} parameters, bf16): first call "
+        f"prefill {first['prefill_s'] * 1e3:.2f} ms, serve() wall "
+        f"{wall:.1f}s with set-up; warm call prefill "
+        f"{stats['prefill_ms']:.2f} ms, decode "
+        f"{stats['decode_ms_per_step']:.2f} ms/step "
+        f"({stats['decode_tok_per_s']:.1f} tok/s), same tokens {same}; "
+        f"peak {warm_peak:.2f} GiB (first call {peak:.2f}); set-up "
+        f"{setup_s:.1f}s")
+    log(f"  {arch} prefill logits, flash vs naive attention: relative norm "
+        f"{rel:.3g} (bound {NAIVE_REL_TOL}), argmax agree {agree:.3f}")
+    assert rel <= NAIVE_REL_TOL, (arch, rel)
+    return launches, stats
+
+
+def lm_train_run(torch, libs, cfg, dp: bool, steps: int):
+    """``steps`` steps of main path 10 and one eval batch through the
+    ``Trainer``: llama3.2-1b at full width (its weights drawn on the
+    card from seed 0), batch 4 x 1,024 tokens, bf16, flash attention,
+    rmsprop_warmup + slow_start through the fused update; on one device with the bf16 wire cast, or (``dp``) the DP
+    step at world size 1 over NCCL with the bucketed bf16 all-reduce.
+    The kernel counts are set to 0 just before the run. Returns
+    (result, launches, stats, (train_step, data))."""
+    from repro_torch.configs import OptimizerConfig
+    from repro_torch.launch.train import build_eval_setup, build_train_setup
+    from repro_torch.training import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    mode = "shardmap" if dp else "none"
+    model, state, train_step, data, put, shardings = build_train_setup(
+        cfg, global_batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ,
+        opt_cfg=OptimizerConfig(**LM_TRAIN_OPT), steps_per_epoch=steps,
+        dp_mode=mode, compute_dtype=torch.bfloat16,
+        attention_impl="chunked", use_fused_kernel=True,
+        compression="bf16+bucketed" if dp else "bf16", draw_device="cuda",
+        device="cuda")
+    ev, vd, fin = build_eval_setup(model, cfg, global_batch=LM_TRAIN_BATCH,
+                                   seq_len=LM_TRAIN_SEQ, dp_mode=mode)
+    setup_s = time.perf_counter() - t0
+    tcfg = TrainerConfig(epochs=1, steps_per_epoch=steps,
+                         eval_every_epochs=1, val_batches=1, log_every=1)
+    trainer = Trainer(train_step, state, data, tcfg, eval_step=ev,
+                      val_data=vd, finalize_state=fin, put_batch=put,
+                      state_shardings=shardings)
+    del state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(libs)
+    t0 = time.perf_counter()
+    result = trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(libs)
+    losses = [h["loss"] for h in result.history]
+    assert len(losses) == steps and all(math.isfinite(v) for v in losses), \
+        losses
+    ev_rec = result.epoch_history[-1]
+    assert math.isfinite(ev_rec["loss"]) and "top1" not in ev_rec, ev_rec
+    forwards = steps + tcfg.val_batches
+    want = {k: 0 for k in launches}
+    want.update(flash_attention=cfg.n_layers * forwards,
+                rmsnorm=(2 * cfg.n_layers + 1) * forwards,
+                hybrid_update=steps, cast_copy=2 * steps if dp else 0)
+    log(f"  {'DP step' if dp else 'one device'}: losses {losses}, eval "
+        f"loss {ev_rec['loss']:.4f}; launches {launches} (want {want})")
+    assert launches == want, (launches, want)
+    step_ms = [h["time"] * 1e3 for h in result.history[1:]]
+    med = statistics.median(step_ms)
+    n_params = sum(p.numel() for p in result.state["params"].values())
+    stats = {"dp": dp, "steps": steps, "setup_s": setup_s, "run_s": wall,
+             "parameters": n_params, "losses": losses,
+             "eval_loss": ev_rec["loss"], "median_step_ms": med,
+             "step_ms": step_ms,
+             "first_step_ms": result.history[0]["time"] * 1e3,
+             "tokens_per_s": LM_TRAIN_BATCH * LM_TRAIN_SEQ / med * 1e3,
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "launches": launches}
+    log(f"  median step {med:.2f} ms ({stats['tokens_per_s']:.0f} "
+        f"tokens/s), first step {stats['first_step_ms']:.0f} ms, peak "
+        f"{stats['peak_mem_gib']:.2f} GiB, set-up {setup_s:.1f}s, "
+        f"{n_params} parameters")
+    return result, launches, stats, (train_step, data)
+
+
+def lm_train_path(torch, libs, profile: bool):
+    """Main path 10: llama3.2-1b trained at full width (``lm_train_run``)
+    on one device, then through the DP step at world size 1 over NCCL,
+    whose state after the steps must be bitwise the one-device run's
+    (losses, parameters, ``delta``, ``m``, ``opt.step``). Both run with
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``: the
+    backward of the token lookup adds rows of the embedding gradient
+    with atomics otherwise, in no fixed order. With ``profile``, two
+    more one-device steps under torch.profiler."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import shutdown
+
+    cfg = get_config(LM_TRAIN_ARCH)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    prof = None
+    try:
+        r1, launches, stats1, live = lm_train_run(torch, libs, cfg, False,
+                                                  LM_TRAIN_STEPS)
+        r2, launches_dp, stats2, _ = lm_train_run(torch, libs, cfg, True,
+                                                  LM_TRAIN_STEPS)
+        s1, s2 = r1.state, r2.state
+        differ = [k for k in s1["params"]
+                  if not torch.equal(s1["params"][k], s2["params"][k])]
+        differ += [f"{f}/{k}" for f in ("delta", "m") for k in s1["opt"][f]
+                   if not torch.equal(s1["opt"][f][k], s2["opt"][f][k])]
+        if s1["opt"]["step"] != s2["opt"]["step"]:
+            differ.append("opt/step")
+        same_losses = [h["loss"] for h in r1.history] == \
+            [h["loss"] for h in r2.history]
+        log(f"  DP step at world size 1 vs one device: losses equal "
+            f"{same_losses}, {len(differ)} of {3 * len(s1['params']) + 1} "
+            f"state entries differ {differ[:6]}")
+        assert same_losses and not differ, differ
+        del r2, s2
+        if profile:
+            log("[16p] profile of main path 10 (one device, 2 more steps)")
+            prof = profile_phase(torch, live[0], s1, live[1], steps=2)
+    finally:
+        shutdown()
+        torch.use_deterministic_algorithms(was)
+    del r1, s1, live
+    torch.cuda.empty_cache()
+    out = {"one_device": stats1, "dp": stats2, "dp_bitwise": True}
+    if prof is not None:
+        out["profile"] = prof
+    return launches, launches_dp, out
+
+
+def lm_train_reference_phase(torch):
+    """Phase 16b: the reduced llama3.2-1b in f32 trained 3 steps on the
+    card (the kernels) and on the CPU (their plain versions) from the
+    same weights and batches (batch 2 x 256 tokens, flash attention, the
+    recipe of main path 10): losses within rtol ``LM_REF_LOSS_RTOL``,
+    parameters within a relative norm of ``LM_REF_PARAM_TOL``. TF32 is
+    off on the card."""
+    from repro_torch.configs import OptimizerConfig, get_config
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.train import build_train_setup
+
+    cfg = reduced_config(get_config(LM_TRAIN_ARCH))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        sides = {}
+        for dev in ("cuda", "cpu"):
+            _, s, step, data, _, _ = build_train_setup(
+                cfg, global_batch=2, seq_len=256,
+                opt_cfg=OptimizerConfig(**LM_TRAIN_OPT), steps_per_epoch=4,
+                attention_impl="chunked", use_fused_kernel=True, device=dev)
+            losses = []
+            for i in range(3):
+                s, met = step(s, data.batch_at(i))
+                losses.append(float(met["loss"]))
+            sides[dev] = (losses, {k: v.cpu() for k, v in
+                                   s["params"].items()})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (cl, cp), (hl, hp) = sides["cuda"], sides["cpu"]
+    rel_loss = max(abs(a - b) / abs(b) for a, b in zip(cl, hl))
+    rel_p = param_rel_norm(cp, hp)
+    log(f"  3 steps: losses card {cl} vs CPU {hl} (largest relative "
+        f"difference {rel_loss:.3g}, bound {LM_REF_LOSS_RTOL}); parameters "
+        f"{rel_p:.3g} apart in relative norm (bound {LM_REF_PARAM_TOL})")
+    assert rel_loss <= LM_REF_LOSS_RTOL and rel_p <= LM_REF_PARAM_TOL, \
+        (rel_loss, rel_p)
+    return {"losses_card": cl, "losses_cpu": hl, "loss_rel": rel_loss,
+            "param_rel_norm": rel_p}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -3697,6 +4180,12 @@ def main() -> int:
     log("[3e] gradients through the LM kernels' autograd Functions vs the "
         "plain versions' autograd")
     lm_grads = grad_phase(torch)
+    log(f"  ({time.perf_counter() - t0:.1f}s)")
+
+    t0 = time.perf_counter()
+    log("[3f] flash_attention, rmsnorm, hybrid_update and cast_copy at "
+        "main paths 9 and 10's shapes vs plain versions")
+    slice13 = slice13_kernel_phase(torch)
     log(f"  ({time.perf_counter() - t0:.1f}s)")
 
     t0 = time.perf_counter()
@@ -3855,6 +4344,34 @@ def main() -> int:
     ref4 = serve_reference_phase(torch)
     log(f"  ({time.perf_counter() - t0:.1f}s)")
 
+    launches9, stats9 = {}, {}
+    for arch, layers, steps in DENSE_SERVE:
+        t0 = time.perf_counter()
+        depth = "full depth" if layers is None else f"{layers} layers"
+        log(f"[15] main path 9: serve() {arch} full width, {depth}, batch "
+            f"{SERVE_BATCH}, {SERVE_PROMPT}-token prompts, {steps - 1} "
+            f"greedy decode steps, bf16, chunked (flash) attention, weights "
+            f"drawn on the card")
+        launches9[arch], stats9[arch] = dense_serve_path(torch, libs, arch,
+                                                         layers, steps)
+        log(f"  ({time.perf_counter() - t0:.1f}s)")
+
+    t0 = time.perf_counter()
+    log(f"[16] main path 10: {LM_TRAIN_ARCH} trained at full width, batch "
+        f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens, bf16, flash attention, "
+        f"rmsprop_warmup + slow_start, fused update, {LM_TRAIN_STEPS} steps "
+        f"+ 1 eval batch through the Trainer: one device, then the DP step "
+        f"at world size 1 (NCCL, bf16+bucketed), bitwise")
+    launches10, launches10_dp, stats10 = lm_train_path(torch, libs,
+                                                       args.profile)
+    log(f"  ({time.perf_counter() - t0:.1f}s)")
+
+    t0 = time.perf_counter()
+    log("[16b] reference: reduced llama3.2-1b f32 trained 3 steps, kernels "
+        "on the card vs plain versions on the CPU")
+    ref10 = lm_train_reference_phase(torch)
+    log(f"  ({time.perf_counter() - t0:.1f}s)")
+
     launches5 = sync_stats["path5_launches"]
     launches6 = overlap_stats["path6_launches"]
     by_path = {k: {"path2": launches[k], "path3": launches3[k],
@@ -3862,7 +4379,9 @@ def main() -> int:
                    "path6": launches6[k],
                    "path6_lars": overlap_stats["path3_overlap_launches"][k],
                    "path7": launches7[k], "path8": launches8[k],
-                   "path8_zero": launches8_zero[k]}
+                   "path8_zero": launches8_zero[k],
+                   **{f"path9_{a}": launches9[a][k] for a in launches9},
+                   "path10": launches10[k], "path10_dp": launches10_dp[k]}
                for k in launches}
     kernels = [{"name": k, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[k], "launches": launches[k],
@@ -3900,6 +4419,10 @@ def main() -> int:
             "unit": t["unit"]})
     kernels[-1]["launch_floor_ms"] = floor["decode_grid_ms"]
     assert len(kernels) == 12, len(kernels)
+    # this slice's shapes of the four kernels its paths run (phase 3f)
+    for rec in kernels:
+        if rec["name"] in slice13:
+            rec["slice13"] = slice13[rec["name"]]
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke_kernels.json"),
@@ -3918,7 +4441,9 @@ def main() -> int:
                        "sync_bn": sync_stats, "sync_bn_cards": sync_cards,
                        "overlap": overlap_stats, "reference_6": ref6,
                        "zero": zero_stats, "hierarchical": hier_stats,
-                       "division": division}, f,
+                       "division": division, "slice13_kernels": slice13,
+                       "main_path_9": stats9, "main_path_10": stats10,
+                       "reference_10": ref10}, f,
                       indent=1)
     log(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))

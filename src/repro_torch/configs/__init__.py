@@ -1,6 +1,6 @@
 """Arch config registry. Importing this package registers every config
-the port supports (ResNet-50, the paper's own architecture, and
-llama3.2-1b, the dense LM the serving path runs)."""
+the port supports (ResNet-50, the paper's own architecture, and the
+dense LM family: llama3.2-1b, yi-9b, granite-34b and qwen2-72b)."""
 from repro_torch.configs.base import (  # noqa: F401
     InputConfig,
     ModelConfig,
@@ -12,4 +12,10 @@ from repro_torch.configs.base import (  # noqa: F401
     reduced_config,
 )
 
-from repro_torch.configs import llama3_2_1b, resnet50  # noqa: F401,E402
+from repro_torch.configs import (  # noqa: F401,E402
+    granite_34b,
+    llama3_2_1b,
+    qwen2_72b,
+    resnet50,
+    yi_9b,
+)

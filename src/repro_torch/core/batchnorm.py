@@ -102,8 +102,11 @@ def finalize_bn_stats(state: State, group=None) -> State:
     """Paper §2: all-reduce every worker's last-minibatch statistics
     before validation, moment-correctly (as ``combine_worker_bn_stats``),
     in one collective over all sites. Returns new tensors, equal on
-    every worker."""
+    every worker. A model without BN (an LM: no sites) has nothing to
+    reduce."""
     sites = list(state)
+    if not sites:
+        return {}
     n = dist.get_world_size(group)
     parts = []
     for site in sites:

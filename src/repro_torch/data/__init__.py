@@ -2,5 +2,6 @@
 package's pipelines)."""
 from repro_torch.data.synthetic import (  # noqa: F401
     SyntheticImageData,
+    SyntheticLMData,
     make_data,
 )

@@ -1,4 +1,5 @@
-"""Deterministic synthetic image data, bitwise equal to the JAX package.
+"""Deterministic synthetic data (images for the conv family, a token
+stream for the LMs), bitwise equal to the JAX package.
 
 Every *sample* depends only on ``(seed, split, step, global_index)``: it
 draws from its own ``np.random.Generator(Philox(key=(mix(seed, split,
@@ -13,7 +14,7 @@ them to the device.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 
@@ -43,6 +44,74 @@ def _check_shard(batch: int, sample_offset: int) -> None:
         raise ValueError(f"per-host batch must be positive, got {batch}")
     if sample_offset < 0:
         raise ValueError(f"sample_offset must be >= 0, got {sample_offset}")
+
+
+class SyntheticLMData:
+    """Language-model token stream with learnable structure (a noisy
+    copy task: each row repeats 8 random tokens, 5% of positions
+    replaced by random ones), so loss curves move. ``batch_at`` returns
+    ``{"tokens", "targets"}`` (B, S) int32, the targets the tokens
+    shifted by one, plus ``patches`` / ``frames`` float32 for configs
+    with a vision / audio frontend. ``sample_offset`` is the index of
+    this pipeline's first sample in the global batch."""
+
+    _MIX = 1_000_003
+
+    def __init__(self, cfg: ModelConfig, batch: int, seq_len: int,
+                 seed: int = 0, structured: bool = True,
+                 split: str = "train", sample_offset: int = 0):
+        assert split in SPLITS, split
+        _check_shard(batch, sample_offset)
+        self.cfg = cfg
+        self.batch = batch
+        self.seq_len = seq_len
+        self.seed = seed
+        self.structured = structured
+        self.split = split
+        self.sample_offset = sample_offset
+
+    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        idx = _split_index(self.split, step)
+        v = self.cfg.vocab_size
+        b, s = self.batch, self.seq_len
+        toks = np.empty((b, s + 1), np.int32)
+        patches = frames = None
+        if self.cfg.vision is not None:
+            vf = self.cfg.vision
+            patches = np.empty((b, vf.num_patches, vf.patch_dim),
+                               np.float32)
+        if self.cfg.audio is not None:
+            af = self.cfg.audio
+            frames = np.empty((b, af.num_frames, af.frame_dim), np.float32)
+        for j in range(b):
+            rng = _sample_rng(self._MIX, self.seed, idx,
+                              self.sample_offset + j)
+            if self.structured:
+                period = 8
+                base = rng.integers(0, v, size=(period,))
+                reps = int(np.ceil((s + 1) / period))
+                row = np.tile(base, reps)[:s + 1]
+                noise = rng.random(s + 1) < 0.05
+                row = np.where(noise, rng.integers(0, v, size=(s + 1,)),
+                               row)
+            else:
+                row = rng.integers(0, v, size=(s + 1,))
+            toks[j] = row
+            if patches is not None:
+                patches[j] = rng.standard_normal(patches.shape[1:],
+                                                 dtype=np.float32)
+            if frames is not None:
+                frames[j] = rng.standard_normal(frames.shape[1:],
+                                                dtype=np.float32)
+        out: Dict[str, Any] = {
+            "tokens": np.ascontiguousarray(toks[:, :-1]),
+            "targets": np.ascontiguousarray(toks[:, 1:]),
+        }
+        if patches is not None:
+            out["patches"] = patches
+        if frames is not None:
+            out["frames"] = frames
+        return out
 
 
 class SyntheticImageData:
@@ -99,14 +168,10 @@ class SyntheticImageData:
 
 def make_data(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0,
               split: str = "train", noise: Optional[float] = None,
-              num_hosts: int = 1, host_id: int = 0) -> SyntheticImageData:
+              num_hosts: int = 1, host_id: int = 0):
     """This host's shard of the global batch: host ``h`` generates rows
-    ``[h * B/N, (h+1) * B/N)``. Conv family only: the language-model
-    stream is ported with the LM families (ROADMAP queue 1, item 15)."""
-    if cfg.family != "conv":
-        raise NotImplementedError(
-            f"synthetic data for family {cfg.family!r} is not ported yet "
-            "(ROADMAP queue 1, item 15); only the conv family is")
+    ``[h * B/N, (h+1) * B/N)``. Images for the conv family, the token
+    stream (``shape.seq_len`` tokens a row) for every other."""
     if not 0 <= host_id < num_hosts:
         raise ValueError(f"host_id {host_id} not in [0, {num_hosts})")
     if shape.global_batch % num_hosts:
@@ -114,7 +179,11 @@ def make_data(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0,
             f"global batch {shape.global_batch} must divide evenly over "
             f"{num_hosts} hosts")
     per_host = shape.global_batch // num_hosts
-    kw = {} if noise is None else {"noise": noise}
-    return SyntheticImageData(cfg.num_classes, cfg.image_size, per_host,
-                              seed, split=split,
-                              sample_offset=host_id * per_host, **kw)
+    offset = host_id * per_host
+    if cfg.family == "conv":
+        kw = {} if noise is None else {"noise": noise}
+        return SyntheticImageData(cfg.num_classes, cfg.image_size, per_host,
+                                  seed, split=split, sample_offset=offset,
+                                  **kw)
+    return SyntheticLMData(cfg, per_host, shape.seq_len, seed, split=split,
+                           sample_offset=offset)

@@ -72,8 +72,24 @@ def _unflatten(flat: Mapping[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def _hwio(t: torch.Tensor) -> torch.Tensor:
-    """A conv leaf (optionally under a leading worker dim) as HWIO."""
+_CONV_PART = re.compile(r"conv\d*|proj")
+
+
+def is_conv_leaf(name: str) -> bool:
+    """Whether a 4-d parameter ``name`` is a conv weight: a part of its
+    path is ``conv``, ``conv1``-``conv3`` or ``proj`` (ResNet's
+    ``stem/conv``, ``.../conv2``, ``.../proj``). It is OIHW in the port
+    and HWIO in the JAX package; every other leaf, an LM's 4-d stacked
+    attention weights (``sub0/attn/wq``) included, has one layout in
+    both."""
+    return any(_CONV_PART.fullmatch(part) for part in name.split("/"))
+
+
+def _hwio(name: str, t: torch.Tensor) -> torch.Tensor:
+    """Leaf ``name`` (optionally under a leading worker dim) in the JAX
+    package's layout: a conv leaf as HWIO, any other as it is."""
+    if not is_conv_leaf(name):
+        return t
     if t.dim() == 4:
         return t.permute(2, 3, 1, 0)
     if t.dim() == 5:
@@ -88,7 +104,7 @@ def params_from_jax(tree: Mapping, device: DeviceLike = "cuda"
     out = {}
     for name, v in _flatten(tree).items():
         a = np.asarray(v)
-        if a.ndim == 4:  # conv: HWIO -> OIHW
+        if a.ndim == 4 and is_conv_leaf(name):  # HWIO -> OIHW
             a = a.transpose(3, 2, 0, 1)
         out[name] = torch.from_numpy(np.array(a, order="C")).to(dev)
     return out
@@ -115,7 +131,7 @@ def params_to_jax(params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     under a leading worker dim) -> the JAX package's nested numpy, conv
     leaves as HWIO: transposed on the tensors' device, then copied to
     the host once."""
-    return _unflatten({name: to_numpy(_hwio(t).contiguous())
+    return _unflatten({name: to_numpy(_hwio(name, t).contiguous())
                        for name, t in params.items()})
 
 
@@ -192,7 +208,7 @@ def _restream(flat, params: Mapping[str, torch.Tensor], to_port: bool,
         lo, to = ((jax_off[name], port_off[name]) if to_port
                   else (port_off[name], jax_off[name]))
         seg = src[lo:lo + size]
-        if len(shape) == 4:
+        if len(shape) == 4 and is_conv_leaf(name):
             o, i, h, w = shape
             seg = (seg.view(h, w, i, o).permute(3, 2, 0, 1) if to_port
                    else seg.view(o, i, h, w).permute(2, 3, 1, 0))
@@ -281,17 +297,17 @@ def _path(name: str) -> tuple:
     return tuple(name.split("/"))
 
 
-def hwio_shape(shape: Sequence[int]) -> tuple:
-    """A leaf's shape in the JAX package's layout: a conv weight's OIHW
-    as HWIO, any other shape as it is."""
-    if len(shape) == 4:
+def hwio_shape(name: str, shape: Sequence[int]) -> tuple:
+    """Leaf ``name``'s shape in the JAX package's layout: a conv weight's
+    OIHW as HWIO, any other shape as it is."""
+    if len(shape) == 4 and is_conv_leaf(name):
         o, i, h, w = shape
         return (h, w, i, o)
     return tuple(shape)
 
 
-def _jax_shape(t: torch.Tensor) -> tuple:
-    return tuple(_hwio(t).shape)
+def _jax_shape(name: str, t: torch.Tensor) -> tuple:
+    return tuple(_hwio(name, t).shape)
 
 
 def _gather_rows(tensors: List[torch.Tensor], shardings: WorkerSharding
@@ -452,27 +468,28 @@ def train_state_from_jax(arrays: Mapping, target: Dict[str, Any],
                              f"vs target {tuple(shape)}")
         return arr
 
-    def load(t: torch.Tensor, arr: np.ndarray) -> None:
-        if arr.ndim == 4:  # HWIO -> OIHW
+    def load(name: str, t: torch.Tensor, arr: np.ndarray) -> None:
+        if arr.ndim == 4 and is_conv_leaf(name):  # HWIO -> OIHW
             arr = arr.transpose(3, 2, 0, 1)
         t.copy_(to_tensor(arr, t))
 
     def per_worker(path: tuple, t: torch.Tensor) -> np.ndarray:
+        name = "/".join(path[1:])
         if row is None:
-            return fetch(path, _jax_shape(t))
-        return fetch(path, (world,) + _jax_shape(t))[row]
+            return fetch(path, _jax_shape(name, t))
+        return fetch(path, (world,) + _jax_shape(name, t))[row]
 
     with torch.no_grad():
         for key, sub in target.items():
             if key == "params":
                 for n, t in sub.items():
-                    load(t, fetch((key,) + _path(n), _jax_shape(t)))
+                    load(n, t, fetch((key,) + _path(n), _jax_shape(n, t)))
             elif key == "opt":
                 for k, v in list(sub.items()):
                     if isinstance(v, Mapping):
                         for n, t in v.items():
-                            load(t, fetch((key, k) + _path(n),
-                                          _jax_shape(t)))
+                            load(n, t, fetch((key, k) + _path(n),
+                                             _jax_shape(n, t)))
                     elif torch.is_tensor(v) and zero_plan is not None:
                         v.copy_(to_tensor(_zero_field_from_jax(
                             fetch((key, k), (v.numel() * world,)),
@@ -491,7 +508,7 @@ def train_state_from_jax(arrays: Mapping, target: Dict[str, Any],
                         t.copy_(to_tensor(per_worker((key, site, k), t), t))
             elif key == "ef_residual":
                 for n, t in sub.items():
-                    load(t, per_worker((key,) + _path(n), t))
+                    load(n, t, per_worker((key,) + _path(n), t))
             else:
                 raise KeyError(f"unknown train-state entry {key!r}")
     return target

@@ -37,16 +37,20 @@ def _sync(dev: torch.device) -> None:
 
 def build_serve_setup(cfg, *, seed: int = 0, compute_dtype=torch.float32,
                       attention_impl: str = "naive",
-                      device: DeviceLike = "cuda") -> Tuple:
-    """(model, params) for a serving session: parameters from ``seed``,
-    cast to the compute dtype once here. The values are those of the JAX
-    package's per-op ``astype``, and the decode loop then does not cast
-    every weight again at every step (5 GB of casts a step at
-    llama3.2-1b's width)."""
+                      device: DeviceLike = "cuda",
+                      draw_device: DeviceLike = "cpu") -> Tuple:
+    """(model, params) for a serving session: parameters from ``seed``
+    (drawn on ``draw_device``: see ``TransformerLM.init``), cast to the
+    compute dtype once here, leaf by leaf, each f32 leaf freed as its
+    cast is made: the device holds the f32 weights and one leaf's cast
+    at most. The values are those of the JAX package's per-op
+    ``astype``, and the decode loop then does not cast every weight
+    again at every step (5 GB of casts a step at llama3.2-1b's
+    width)."""
     model = build_model(cfg, compute_dtype=compute_dtype,
                         attention_impl=attention_impl, device=device)
-    params, _ = model.init_params(seed)
-    params = {k: v.to(compute_dtype) for k, v in params.items()}
+    params, _ = model.init_params(seed, draw_device=draw_device)
+    params = {k: params.pop(k).to(compute_dtype) for k in list(params)}
     return model, params
 
 
@@ -96,20 +100,22 @@ def generate(model, params, prompts: np.ndarray, decode_steps: int
 
 def serve(cfg, batch: int, prompt_len: int, decode_steps: int,
           seed: int = 0, compute_dtype=torch.float32, greedy: bool = True,
-          *, attention_impl: str = "naive", device: DeviceLike = "cuda"
-          ) -> Dict:
+          *, attention_impl: str = "naive", device: DeviceLike = "cuda",
+          draw_device: DeviceLike = "cpu") -> Dict:
     """Serve ``batch`` random prompts of ``prompt_len`` tokens: one
     prefill and ``decode_steps - 1`` greedy decode steps. Decoding is
-    greedy whatever ``greedy`` says, as in the JAX package."""
+    greedy whatever ``greedy`` says, as in the JAX package.
+    ``draw_device`` is where the random weights are drawn (the CPU:
+    the same weights on every device)."""
     del greedy
     dev = resolve_device(device)
     if cfg.audio is not None or cfg.vision is not None:
         raise NotImplementedError(
             f"{cfg.name}: modality frontends are not ported yet (ROADMAP "
-            "queue 1, item 15)")
+            "queue 1, items 15.4-15.5)")
     model, params = build_serve_setup(
         cfg, seed=seed, compute_dtype=compute_dtype,
-        attention_impl=attention_impl, device=dev)
+        attention_impl=attention_impl, device=dev, draw_device=draw_device)
     return generate(model, params,
                     make_prompts(cfg, batch, prompt_len, seed), decode_steps)
 

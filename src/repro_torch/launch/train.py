@@ -22,7 +22,12 @@ across the D groups, an all-gather inside the group
 ``--ckpt-dir`` checkpoints in the JAX package's format and resumes from
 the newest intact checkpoint; ``--sentinel`` adds the divergence
 sentinel and the recovery state machine, ``--chaos`` deterministic
-fault injection:
+fault injection. ``--arch`` a dense LM (llama3.2-1b, yi-9b, granite-34b,
+qwen2-72b) trains it on the synthetic token stream (``--seq-len``
+tokens a row, the naive attention as in the JAX launcher), on one
+device or on the DP step without overlap, ZeRO or a hierarchical plan.
+``--host-shard H/N`` reads only host H's rows of every global batch,
+``--log-json PATH`` writes the run's history as the JAX launcher does:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch resnet50 \\
         --reduced --epochs 2 --steps-per-epoch 5 --global-batch 16 \\
@@ -51,15 +56,20 @@ fault injection:
         --epochs 3 --steps-per-epoch 5 --global-batch 16 --sentinel \\
         --chaos "nan_grad@7-9" --ckpt-dir /tmp/ck --ckpt-every 5 \\
         --event-log /tmp/events.jsonl --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+        --reduced --seq-len 128 --global-batch 8 --epochs 2 \\
+        --steps-per-epoch 3 --host-shard 0/2 --log-json /tmp/run.json \\
+        --device cpu
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import math
 import os
 import time
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -125,6 +135,8 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
                       dp_axes: Tuple[str, ...] = ("data",),
                       hier_split: Optional[int] = None,
                       mesh_shape: Optional[Tuple[int, ...]] = None,
+                      attention_impl: str = "naive",
+                      draw_device: DeviceLike = "cpu",
                       device: DeviceLike = "cuda"):
     """Returns (model, state, train_step, data, put_batch,
     state_shardings).
@@ -142,8 +154,20 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
     own parameters, updated in place. ``state_shardings`` is
     ``interop.WorkerSharding()`` on the data-parallel path (each worker
     keeps its own BN state and EF residual; the checkpoints stack them
-    as the JAX package does) and None on one device. ``seq_len`` is
-    unused by the conv family.
+    as the JAX package does) and None on one device.
+
+    An LM (the dense family) trains on the synthetic token stream of
+    ``seq_len`` tokens a row with its token-mean cross entropy, its
+    attention ``attention_impl`` ("naive", as the JAX package's default;
+    "chunked": the flash kernel; "chunked_opt": the bf16-tile loop with
+    each q block recomputed in the backward), on one device or on the
+    data-parallel step with per-leaf or bucketed sync and error
+    feedback. Its staged loss is not ported, so the overlapped sync,
+    ZeRO and the hierarchical schedules raise for it (ROADMAP queue 1,
+    item 15.2), and so does ``sync_bn`` (it has no BN). Its weights are
+    drawn from ``seed`` on ``draw_device`` (``TransformerLM.init``: the
+    CPU gives the same weights on every device, the card draws a
+    billion in milliseconds). ``seq_len`` is unused by the conv family.
 
     ``sentinel`` wraps the step with the divergence sentinel
     (``resilience.wrap_step_with_sentinel``): it becomes the
@@ -170,11 +194,17 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
     only) takes ``make_dp_overlap_train_step``, which starts each
     bucket's all-reduce during the backward pass.
 
-    ``input_cfg`` turns on per-sample augmentation; with ``fused=True``
-    augment + normalize + cast run on the device in the fused input
-    kernel inside the DP step (``dp_mode="shardmap"`` and the conv
-    family only, as in the JAX package), else on the host feed
-    (``AugmentedSource``).
+    ``input_cfg`` turns on per-sample augmentation of the conv family's
+    images; with ``fused=True`` augment + normalize + cast run on the
+    device in the fused input kernel inside the DP step
+    (``dp_mode="shardmap"`` only, as in the JAX package), else on the
+    host feed (``AugmentedSource``). Its ``num_hosts`` / ``host_id``
+    (``--host-shard H/N``) make this run read host H's rows ``[H * B/N,
+    (H+1) * B/N)`` of every global batch of B, the optimizer still
+    scaled for B, as the JAX package does; on the DP path those rows are
+    split over the workers in rank order, as the JAX package's mesh
+    splits them over its devices: worker r of W reads shard ``H * W +
+    r`` of ``N * W``.
 
     ``mesh_shape`` lays the workers out over ``MESH_AXES`` (the JAX
     package's ``mesh``; None: all of them on "data"), rank ``w`` at row
@@ -185,7 +215,6 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
     parallel over the whole mesh. A mesh axis outside ``dp_axes`` of
     more than one worker would be tensor parallel, which is not
     ported."""
-    del seq_len
     if dp_mode not in DP_MODES:
         raise ValueError(f"dp_mode must be one of {DP_MODES}, got "
                          f"{dp_mode!r}")
@@ -240,6 +269,19 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
                 "--fused-bn fuses the ResNet BN sites; arch family "
                 f"{cfg.family!r} has no BN")
         cfg = dataclasses.replace(cfg, fused_bn=True)
+    if cfg.family != "conv":
+        if sync_bn:
+            raise ValueError(f"sync_bn makes BN cross-replica; arch family "
+                             f"{cfg.family!r} has no BN")
+        unported = [name for name, on in (("overlap_comm", overlap_comm),
+                                          ("zero_dp", zero_dp),
+                                          ("hier_split",
+                                           hier_split is not None)) if on]
+        if unported:
+            raise NotImplementedError(
+                f"{unported[0]} on an LM needs its staged loss and stream "
+                "plans (loss_segments), which are not ported yet (ROADMAP "
+                "queue 1, item 15.2)")
     if input_cfg is not None and input_cfg.fused:
         if cfg.family != "conv":
             raise ValueError(
@@ -251,24 +293,23 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
                 "parameters inside the data-parallel step "
                 "(dp_mode='shardmap'); use the host AugmentedSource "
                 "path (fused=False) elsewhere")
+    num_hosts = input_cfg.num_hosts if input_cfg else 1
+    host_id = input_cfg.host_id if input_cfg else 0
     if dp_mode == "shardmap":
-        if input_cfg is not None and input_cfg.num_hosts != 1:
-            raise ValueError("the data-parallel path shards every batch "
-                             "over its workers; input_cfg.num_hosts must "
-                             "be 1")
         dev = init_workers(device)
         world, me = world_size(), rank()
         if mesh is not None and math.prod(mesh.values()) != world:
             raise ValueError(
                 f"mesh {'x'.join(map(str, mesh.values()))} lays out "
                 f"{math.prod(mesh.values())} workers, this run has {world}")
-        if global_batch % world:
+        if global_batch % (world * num_hosts):
             raise ValueError(f"global batch {global_batch} must divide "
-                             f"evenly over {world} workers")
+                             f"evenly over {num_hosts} host(s) x {world} "
+                             f"workers")
     else:
         dev = resolve_device(device)
         world, me = 1, 0
-    shape = ShapeConfig("train", 0, global_batch, "train")
+    shape = ShapeConfig("train", seq_len, global_batch, "train")
     train_cfg = TrainConfig(
         optimizer=opt_cfg,
         parallel=ParallelConfig(dp_axes=tuple(dp_axes),
@@ -282,10 +323,14 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
         # reports the norm of the synced gradient anyway
         log_grad_norm=sentinel and dp_mode != "shardmap")
     sync = cfg.family == "conv" and dp_mode == "shardmap" and sync_bn
-    model = build_model(cfg, compute_dtype=compute_dtype, seed=seed,
+    model = build_model(cfg, compute_dtype=compute_dtype,
+                        attention_impl=attention_impl, seed=seed,
                         device=dev,
                         bn_group=dist.group.WORLD if sync else None)
-    params = {k: p.detach() for k, p in model.named_parameters()}
+    if cfg.family == "conv":  # drawn from seed when it was built
+        params = {k: p.detach() for k, p in model.named_parameters()}
+    else:
+        params, _ = model.init_params(seed, draw_device=draw_device)
     # the packed-stream layout: always under --zero, and LARS on the
     # bucketed DP path
     stream = zero_dp or (opt_cfg.kind == "lars" and dp_mode == "shardmap"
@@ -322,26 +367,27 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
         shardings = WorkerSharding(
             stream_order=overlap_stream_order(model, params)
             if stream and overlap_comm else None, zero_plan=zero_plan)
-        data = make_data(cfg, shape, seed=seed, num_hosts=world,
-                         host_id=me)
+        # this host's rows, split over its workers in rank order
+        data = make_data(cfg, shape, seed=seed, num_hosts=num_hosts * world,
+                         host_id=host_id * world + me)
     else:
         train_step = make_train_step(model, optimizer, train_cfg)
-        data = make_data(
-            cfg, shape, seed=seed,
-            num_hosts=input_cfg.num_hosts if input_cfg else 1,
-            host_id=input_cfg.host_id if input_cfg else 0)
+        data = make_data(cfg, shape, seed=seed, num_hosts=num_hosts,
+                         host_id=host_id)
     if sentinel:
         train_step = wrap_step_with_sentinel(train_step)
     data = _wrap_train_source(data, input_cfg, seed=seed,
-                              global_batch=global_batch)
+                              global_batch=global_batch,
+                              is_conv=cfg.family == "conv")
     return model, state, train_step, data, put_batch, shardings
 
 
-def _wrap_train_source(data, input_cfg, *, seed, global_batch):
-    """The input pipeline's host-side wrappers: fused -> stamp each
-    batch with its step (the kernel's seed material); host augmentation
-    -> the numpy mirror of the fused transform."""
-    if input_cfg is None:
+def _wrap_train_source(data, input_cfg, *, seed, global_batch, is_conv):
+    """The input pipeline's host-side wrappers of the conv family's
+    images: fused -> stamp each batch with its step (the kernel's seed
+    material); host augmentation -> the numpy mirror of the fused
+    transform."""
+    if input_cfg is None or not is_conv:
         return data
     if input_cfg.fused:
         return StepStampSource(data)
@@ -359,14 +405,16 @@ def build_eval_setup(model, cfg, *, global_batch: int, seq_len: int,
     same statistics: on the data-parallel path ``finalize`` is the
     paper's pre-validation all-reduce of the workers' BN statistics
     (``finalize_worker_bn_stats``); on one device it is None (the
-    identity). With ``input_cfg``, validation applies the eval input
-    variant (normalize + cast, no augmentation): the fused kernel when
-    ``fused=True``, else on the host feed."""
-    del seq_len
-    shape = ShapeConfig("val", 0, global_batch, "train")
+    identity). With ``input_cfg``, validation of the conv family applies
+    the eval input variant (normalize + cast, no augmentation): the
+    fused kernel when ``fused=True``, else on the host feed. An LM's
+    validation batches are ``seq_len`` tokens a row, and its metrics its
+    loss (no top-1), as in the JAX package."""
+    shape = ShapeConfig("val", seq_len, global_batch, "train")
     val_data = make_data(cfg, shape, seed=seed, split="val")
-    fused_input = input_cfg is not None and input_cfg.fused
-    if input_cfg is not None and not fused_input:
+    conv = cfg.family == "conv"
+    fused_input = input_cfg is not None and input_cfg.fused and conv
+    if input_cfg is not None and conv and not fused_input:
         val_data = AugmentedSource(val_data, seed=seed,
                                    mean=input_cfg.mean, std=input_cfg.std,
                                    train=False, global_batch=global_batch)
@@ -396,6 +444,11 @@ def _print_history(history) -> None:
               f"{h['data_wait'] * 1e3:.1f} ms)")
 
 
+def _write_json(path: str, record: Dict) -> None:
+    with open(path, "w") as f:
+        json.dump(record, f)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="resnet50")
@@ -410,6 +463,8 @@ def main(argv=None):
     ap.add_argument("--eval-every-epochs", type=int, default=1)
     ap.add_argument("--val-batches", type=int, default=4)
     ap.add_argument("--global-batch", type=int, default=32)
+    ap.add_argument("--seq-len", type=int, default=128,
+                    help="tokens a row of an LM's batches")
     ap.add_argument("--optimizer", default="rmsprop_warmup",
                     choices=["rmsprop_warmup", "momentum_sgd", "lars"])
     ap.add_argument("--schedule", default="slow_start",
@@ -435,6 +490,10 @@ def main(argv=None):
                          "the device (shardmap only)")
     ap.add_argument("--data-workers", type=int, default=1,
                     help="host input-producer threads")
+    ap.add_argument("--host-shard", default=None, metavar="H/N",
+                    help="per-host input sharding: this run reads only "
+                         "shard H of N of every global batch, e.g. 0/4 "
+                         "(on the DP path split over its workers)")
     ap.add_argument("--error-feedback", action="store_true",
                     help="carry each worker's wire rounding residual into "
                          "its next step (shardmap only)")
@@ -478,6 +537,10 @@ def main(argv=None):
                          "--sentinel)")
     ap.add_argument("--event-log", default=None,
                     help="JSONL path for resilience events")
+    ap.add_argument("--log-json", default=None, metavar="PATH",
+                    help="write the run's history (and, epoch-driven, its "
+                         "eval history, best, events) as JSON, the JAX "
+                         "launcher's keys; rank 0 writes")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.chaos:
@@ -523,12 +586,22 @@ def main(argv=None):
     if args.reduced:
         cfg = reduced_config(cfg)
     opt_cfg = OptimizerConfig(kind=args.optimizer, schedule=args.schedule)
-    input_cfg = (InputConfig(fused=True, num_workers=args.data_workers)
-                 if args.fused_input else None)
+    input_cfg = None
+    if args.fused_input or args.host_shard:
+        num_hosts, host_id = 1, 0
+        if args.host_shard:
+            try:
+                host_id, num_hosts = (int(x)
+                                      for x in args.host_shard.split("/"))
+            except ValueError:
+                ap.error("--host-shard expects H/N, e.g. 0/4")
+        input_cfg = InputConfig(fused=args.fused_input,
+                                num_workers=args.data_workers,
+                                num_hosts=num_hosts, host_id=host_id)
     try:
         model, state, train_step, data, put_batch, shardings = \
             build_train_setup(
-                cfg, global_batch=args.global_batch, seq_len=0,
+                cfg, global_batch=args.global_batch, seq_len=args.seq_len,
                 opt_cfg=opt_cfg, steps_per_epoch=args.steps_per_epoch,
                 dp_mode=args.dp_mode,
                 compute_dtype=DTYPES[args.compute_dtype], seed=args.seed,
@@ -557,15 +630,20 @@ def main(argv=None):
                            log_every=max(1, args.steps // 20)),
                 put_batch=put_batch, metadata=metadata,
                 state_shardings=shardings)
+            wall = time.time() - t0
             if rank() == 0:
-                print(f"trained {args.steps} steps in "
-                      f"{time.time() - t0:.1f}s on {model.device} "
-                      f"(dp_mode={args.dp_mode}, {world_size()} worker(s), "
+                print(f"trained {args.steps} steps in {wall:.1f}s on "
+                      f"{model.device} (dp_mode={args.dp_mode}, "
+                      f"{world_size()} worker(s), "
                       f"resumed_from={result.resumed_from})")
                 _print_history(result.history)
+                if args.log_json:
+                    _write_json(args.log_json, {
+                        "history": result.history, "wall": wall,
+                        "resumed_from": result.resumed_from})
             return result
         eval_step, val_data, finalize = build_eval_setup(
-            model, cfg, global_batch=args.global_batch, seq_len=0,
+            model, cfg, global_batch=args.global_batch, seq_len=args.seq_len,
             dp_mode=args.dp_mode, seed=args.seed, input_cfg=input_cfg)
         tcfg = TrainerConfig(
             epochs=args.epochs, steps_per_epoch=args.steps_per_epoch,
@@ -599,11 +677,19 @@ def main(argv=None):
                     f"{k}={v}" for k, v in sorted(kinds.items())))
             _print_history(result.history)
             for r in result.epoch_history:
-                print(f"  epoch {r['epoch']:3d} val top1 {r['top1']:.4f} "
-                      f"val loss {r['loss']:.4f}")
+                top1 = r.get("top1")  # an LM evaluates its loss only
+                t = f"val top1 {top1:.4f} " if top1 is not None else ""
+                print(f"  epoch {r['epoch']:3d} {t}val loss {r['loss']:.4f}")
             if result.best:
                 print(f"best: top1 {result.best['top1']:.4f} at epoch "
                       f"{result.best['epoch']}")
+            if args.log_json:
+                _write_json(args.log_json, {
+                    "history": result.history,
+                    "epoch_history": result.epoch_history,
+                    "best": result.best, "wall": wall,
+                    "resumed_from": result.resumed_from,
+                    "events": result.events})
         return result
     finally:
         shutdown()

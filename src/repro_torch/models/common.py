@@ -1,8 +1,9 @@
 """Initializers, norms and activations shared by the port's models, and
 the staged loss of the overlapped data-parallel step.
 
-Initializers draw from an explicit ``torch.Generator`` on the CPU, so a
-seed gives the same weights on every device; the JAX package's
+Initializers draw from an explicit ``torch.Generator``, on the device
+the generator lives on (the CPU unless a caller asks for another, so a
+seed gives the same weights on every device); the JAX package's
 threefry draws cannot be reproduced, so tests carry JAX-initialized
 weights across instead (``interop.py``).
 """
@@ -20,7 +21,8 @@ Tensor = torch.Tensor
 
 def normal_init(gen: torch.Generator, shape: Sequence[int],
                 stddev: float = 0.02) -> Tensor:
-    return stddev * torch.randn(tuple(shape), generator=gen)
+    return stddev * torch.randn(tuple(shape), generator=gen,
+                                device=gen.device)
 
 
 def fan_in_init(gen: torch.Generator, shape: Sequence[int],
@@ -30,13 +32,14 @@ def fan_in_init(gen: torch.Generator, shape: Sequence[int],
     fan_in = 1
     for d in fan_in_dims:
         fan_in *= shape[d]
-    return torch.randn(tuple(shape), generator=gen) / math.sqrt(
-        max(fan_in, 1))
+    return torch.randn(tuple(shape), generator=gen,
+                       device=gen.device) / math.sqrt(max(fan_in, 1))
 
 
 def he_init(gen: torch.Generator, shape: Sequence[int],
             fan_in: int) -> Tensor:
-    return torch.randn(tuple(shape), generator=gen) * math.sqrt(2.0 / fan_in)
+    return torch.randn(tuple(shape), generator=gen,
+                       device=gen.device) * math.sqrt(2.0 / fan_in)
 
 
 def dense(gen: torch.Generator, d_in: int, d_out: int,
@@ -94,6 +97,29 @@ def apply_norm(p: Dict[str, Tensor], x: Tensor, kind: str,
 def gelu(x: Tensor) -> Tensor:
     """GELU, tanh approximation (``jax.nn.gelu(approximate=True)``)."""
     return F.gelu(x, approximate="tanh")
+
+
+def count_params(tree: Dict[str, Tensor]) -> int:
+    return sum(t.numel() for t in tree.values())
+
+
+def cross_entropy_loss(logits: Tensor, targets: Tensor, ignore_id: int = -1,
+                       label_smoothing: float = 0.0) -> Tuple[Tensor, Tensor]:
+    """Token-mean softmax cross entropy in f32, the JAX package's ops:
+    ``(mean loss over the targets that are not ignore_id, their
+    count)``. logits (..., V) floating; targets (...) integers. Label
+    smoothing mixes in the loss against the mean logit."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    target_logit = logits.gather(
+        -1, targets.long().clamp_min(0)[..., None])[..., 0]
+    nll = lse - target_logit
+    if label_smoothing:
+        smooth_nll = lse - logits.mean(dim=-1)
+        nll = (1 - label_smoothing) * nll + label_smoothing * smooth_nll
+    mask = (targets != ignore_id).float()
+    total = torch.clamp(mask.sum(), min=1.0)
+    return (nll * mask).sum() / total, mask.sum()
 
 
 # ---------------------------------------------------------------------------

@@ -9,10 +9,13 @@ parameters except the KV cache, which attention updates in place (the
 JAX package writes a new cache, in place too once its buffer is
 donated). ``chunked_attention`` at ``precision="f32"`` is the flash
 kernel (``kernels.ops.attention``); the JAX package's pure-jnp chunked
-loop and its Pallas kernel compute the same function. Plain products
-and ``decode_attention`` stay ``torch.matmul`` / einsum, as the JAX
-package leaves them to XLA. The MoE layer is not ported yet (ROADMAP
-queue 1, item 15).
+loop and its Pallas kernel compute the same function. At
+``precision="bf16"`` (the ``chunked_opt`` training path) it is that
+jnp loop, in plain PyTorch: tiles in the compute dtype, f32 softmax
+statistics and accumulator, each q block optionally checkpointed. Plain
+products and ``decode_attention`` stay ``torch.matmul`` / einsum, as
+the JAX package leaves them to XLA. The MoE layer is not ported yet
+(ROADMAP queue 1, item 15.3).
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
@@ -143,21 +147,88 @@ def chunked_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
                       window: Optional[int] = None, q_chunk: int = 1024,
                       kv_chunk: int = 1024, precision: str = "f32",
                       inner_checkpoint: bool = False) -> Tensor:
-    """Online-softmax attention. At ``precision="f32"`` this is the flash
-    kernel (``kernels.ops.attention``: f32 tiles, f32 statistics, f32 p),
-    which needs no chunk sizes or padding; ``q_chunk`` and ``kv_chunk``
-    only shape the JAX package's jnp loop and give the same result. It
+    """Online-softmax attention. At ``precision="f32"`` without
+    ``inner_checkpoint`` this is the flash kernel
+    (``kernels.ops.attention``: f32 tiles, f32 statistics, f32 p), which
+    needs no chunk sizes or padding; ``q_chunk`` and ``kv_chunk`` only
+    shape the JAX package's jnp loop and give the same result. It
     differentiates through the kernel's plain version, recomputed.
-    ``precision="bf16"`` with ``inner_checkpoint`` (``chunked_opt``) is a
-    training path and is not ported yet."""
-    del q_chunk, kv_chunk
-    if precision != "f32" or inner_checkpoint:
-        raise NotImplementedError(
-            "chunked_attention at precision='bf16' / inner_checkpoint (the "
-            "chunked_opt training path) is not ported yet (ROADMAP queue 1, "
-            "item 15: LM training)")
-    from repro_torch.kernels.ops import attention
-    return attention(q, k, v, causal=causal, window=window)
+
+    ``precision="bf16"`` (with ``inner_checkpoint``: the ``chunked_opt``
+    training path) runs the JAX package's loop over ``q_chunk`` x
+    ``kv_chunk`` tiles in plain PyTorch (``_chunked_loop``): the tiles
+    stay in q's dtype, scores, softmax statistics and the accumulator
+    are f32, p is rounded to q's dtype. ``inner_checkpoint`` recomputes
+    each q block in the backward instead of keeping its p tiles."""
+    if precision == "f32" and not inner_checkpoint:
+        from repro_torch.kernels.ops import attention
+        return attention(q, k, v, causal=causal, window=window)
+    if precision not in ("f32", "bf16"):
+        raise ValueError(f"precision must be 'f32' or 'bf16', got "
+                         f"{precision!r}")
+    return _chunked_loop(q, k, v, causal, window, q_chunk, kv_chunk,
+                         precision, inner_checkpoint)
+
+
+def _chunked_loop(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+                  window: Optional[int], q_chunk: int, kv_chunk: int,
+                  precision: str, inner_checkpoint: bool) -> Tensor:
+    """The JAX package's jnp ``chunked_attention``, op for op: q and kv
+    padded to whole chunks, every kv chunk visited by every q block
+    (masked scores are -1e30), ``p = exp(s - m)`` in the tile dtype, its
+    row sums and ``p @ v`` accumulated in f32. A product of tiles in the
+    compute dtype takes f32 copies of them: the products are exact, the
+    sums f32, as with ``preferred_element_type=f32``."""
+    b, sq, h, dh = q.shape
+    sk = k.shape[1]
+    k = _expand_kv(k, h)
+    v = _expand_kv(v, h)
+    q_chunk, kv_chunk = min(q_chunk, sq), min(kv_chunk, sk)
+    pad_q, pad_k = (-sq) % q_chunk, (-sk) % kv_chunk
+    tile = q.dtype if precision == "bf16" else torch.float32
+    qr = F.pad(q, (0, 0, 0, 0, 0, pad_q)).to(tile)
+    kr = F.pad(k, (0, 0, 0, 0, 0, pad_k)).to(tile)
+    vr = F.pad(v, (0, 0, 0, 0, 0, pad_k)).to(tile)
+    n_q, n_k = (sq + pad_q) // q_chunk, (sk + pad_k) // kv_chunk
+    scale = 1.0 / math.sqrt(dh)
+    dev = q.device
+
+    def q_block(qi: int, q_blk: Tensor) -> Tensor:
+        m = torch.full((b, h, q_chunk), -math.inf, device=dev)
+        l = torch.zeros((b, h, q_chunk), device=dev)
+        acc = torch.zeros((b, q_chunk, h, dh), device=dev)
+        qpos = qi * q_chunk + torch.arange(q_chunk, device=dev)[:, None]
+        for kj in range(n_k):
+            k_blk = kr[:, kj * kv_chunk:(kj + 1) * kv_chunk]
+            v_blk = vr[:, kj * kv_chunk:(kj + 1) * kv_chunk]
+            s = torch.einsum("bqhd,bkhd->bhqk", q_blk.float(),
+                             k_blk.float()) * scale
+            kpos = kj * kv_chunk + torch.arange(kv_chunk, device=dev)[None]
+            mask = kpos < sk  # exclude kv padding
+            if causal:
+                mask = mask & (kpos <= qpos)
+            if window is not None:
+                mask = mask & (qpos - kpos < window)
+            s = torch.where(mask, s, torch.full((), NEG_INF, device=dev))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp((s - m_new[..., None]).to(tile))
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1, dtype=torch.float32)
+            acc = acc * corr.transpose(1, 2)[..., None] + torch.einsum(
+                "bhqk,bkhd->bqhd", p.float(), v_blk.float())
+            m = m_new
+        denom = torch.clamp(l, min=1e-30)  # fully padded q rows: no 0/0
+        return acc / denom.transpose(1, 2)[..., None]
+
+    outs = []
+    for qi in range(n_q):
+        q_blk = qr[:, qi * q_chunk:(qi + 1) * q_chunk]
+        if inner_checkpoint and torch.is_grad_enabled():
+            outs.append(torch.utils.checkpoint.checkpoint(
+                q_block, qi, q_blk, use_reentrant=False))
+        else:
+            outs.append(q_block(qi, q_blk))
+    return torch.cat(outs, dim=1)[:, :sq].to(q.dtype)
 
 
 def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,

@@ -1,6 +1,6 @@
 """Model registry: arch family -> model class (the conv family, ResNet-50,
-and the dense LM family; the other LM families are ROADMAP queue 1,
-item 15)."""
+and the dense LM family: llama3.2-1b, yi-9b, granite-34b, qwen2-72b; the
+other LM families are ROADMAP queue 1, items 15.3-15.5)."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -25,7 +25,9 @@ def build_model(cfg: ModelConfig, compute_dtype=torch.bfloat16, *,
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"arch family {cfg.family!r} is not ported yet (ROADMAP "
-            "queue 1, item 15); the port has the conv and dense families")
+            "queue 1, items 15.3-15.5); the port has the conv family "
+            "(resnet50) and the dense family (llama3.2-1b, yi-9b, "
+            "granite-34b, qwen2-72b)")
     if cfg.family == "conv":
         return ResNet50(cfg, compute_dtype=compute_dtype, seed=seed,
                         device=device, bn_group=bn_group)

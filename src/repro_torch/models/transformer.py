@@ -1,4 +1,5 @@
-"""Decoder-only transformer LM, the dense family (llama3.2-1b).
+"""Decoder-only transformer LM, the dense family (llama3.2-1b, yi-9b,
+granite-34b, qwen2-72b).
 
 The port of the JAX package's ``models/transformer.py`` for
 ``family="dense"``: the same parameter tree, flattened to "/" paths
@@ -8,9 +9,12 @@ The port of the JAX package's ``models/transformer.py`` for
 it. The KV cache is ``{"sub0/k", "sub0/v"}``, each ``(L, B, S, KV,
 Dh)``, written in place by ``prefill`` and ``decode_step``.
 
-MoE configs and the VLM patch frontend are not ported yet (ROADMAP
-queue 1, item 15), nor are the training losses (``loss_fn``,
-``loss_segments``), which come with LM training.
+``loss_fn`` is the training loss (token-mean cross entropy in f32);
+the staged loss of the overlapped step (``loss_segments``), MoE configs
+and the VLM patch frontend are not ported yet (ROADMAP queue 1, items
+15.2 and 15.3-15.4). The JAX package rematerializes the layer scan of a
+model of more than 8 layers; the port keeps every activation, which
+gives the same values.
 """
 from __future__ import annotations
 
@@ -40,7 +44,7 @@ class TransformerLM:
         if cfg.n_experts:
             raise NotImplementedError(
                 f"{cfg.name}: MoE layers are not ported yet (ROADMAP queue "
-                "1, item 15)")
+                "1, item 15.3)")
         if attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl must be one of "
                              f"{ATTENTION_IMPLS}, got {attention_impl!r}")
@@ -51,11 +55,16 @@ class TransformerLM:
         self.n_groups = cfg.n_layers  # one layer per group: no MoE groups
 
     # ------------------------------------------------------------------ init
-    def init(self, seed: int = 0) -> Params:
-        """Parameters by their JAX-tree paths, drawn on the CPU from
-        ``seed`` and moved to the model's device."""
+    def init(self, seed: int = 0, *, draw_device: DeviceLike = "cpu"
+             ) -> Params:
+        """Parameters by their JAX-tree paths, drawn from ``seed`` on
+        ``draw_device`` (the CPU: the same weights for every model
+        device) and moved to the model's device. Drawing on the card
+        gives other values and spares the host a copy of the weights
+        (35 GB in f32 at yi-9b's size)."""
         cfg = self.cfg
-        gen = torch.Generator().manual_seed(seed)
+        gen = torch.Generator(device=resolve_device(draw_device)
+                              ).manual_seed(seed)
         L = self.n_groups
         p: Params = _flat("embed", layers.embedding_init(gen, cfg))
         p.update(_flat("sub0/norm1", norm_init(cfg.norm, cfg.d_model, L)))
@@ -67,10 +76,11 @@ class TransformerLM:
             p["head"] = common.dense(gen, cfg.d_model, cfg.vocab_size)
         return {k: v.to(self.device) for k, v in p.items()}
 
-    def init_params(self, seed: int = 0) -> Tuple[Params, None]:
+    def init_params(self, seed: int = 0, *, draw_device: DeviceLike = "cpu"
+                    ) -> Tuple[Params, None]:
         """``(params, None)``: the JAX package returns its logical-axes
         tree second; the port shards nothing yet."""
-        return self.init(seed), None
+        return self.init(seed, draw_device=draw_device), None
 
     # ------------------------------------------------------------- sub-layer
     def _block(self, p: Params, layer: int, x: Tensor, positions: Tensor,
@@ -105,7 +115,7 @@ class TransformerLM:
         if patches is not None:
             raise NotImplementedError(
                 "the VLM patch frontend is not ported yet (ROADMAP queue 1, "
-                "item 15)")
+                "item 15.4)")
         cfg = self.cfg
         x = layers.embed(_sub(p, "embed"), tokens, self.compute_dtype)
         b, s, _ = x.shape
@@ -122,6 +132,31 @@ class TransformerLM:
         w = p["embed/table"] if cfg.tie_embeddings else p["head"]
         logits = layers.lm_head(w, x, cfg.tie_embeddings)
         return logits, 0.0, cache
+
+    # --------------------------------------------------------------- losses
+    def loss_fn(self, p: Params, model_state: Dict, batch: Dict,
+                label_smoothing: float = 0.0):
+        """``(total, (model_state, {"loss", "moe_aux", "tokens"}))`` of a
+        batch ``{"tokens", "targets"}`` (B, S) integers: the token-mean
+        cross entropy of the train-mode forward, plus 0.01 x the MoE aux
+        loss, which is 0 for the dense family."""
+        logits, moe_aux, _ = self.forward(
+            p, batch["tokens"], patches=batch.get("patches"), mode="train")
+        loss, n_tok = common.cross_entropy_loss(
+            logits, batch["targets"], label_smoothing=label_smoothing)
+        moe_aux = torch.as_tensor(moe_aux, dtype=torch.float32,
+                                  device=loss.device)
+        total = loss + 0.01 * moe_aux
+        metrics = {"loss": loss.detach(), "moe_aux": moe_aux,
+                   "tokens": n_tok}
+        return total, (model_state, metrics)
+
+    def loss_segments(self, p: Params, model_state: Dict, batch: Dict,
+                      label_smoothing: float = 0.0):
+        raise NotImplementedError(
+            "the staged LM loss (loss_segments, for the overlapped "
+            "data-parallel step) is not ported yet (ROADMAP queue 1, item "
+            "15.2)")
 
     # ---------------------------------------------------------------- serve
     def cache_shape(self, batch: int, max_seq: int, dtype=torch.bfloat16

@@ -308,7 +308,7 @@ def zero_state_to_tree_arrays(arrays: Dict[str, np.ndarray],
         for name, slot in zip(plan.names, plan.slots):
             out[flat_key + key_tree[name]] = stream[
                 slot.offset:slot.offset + slot.size].reshape(
-                    hwio_shape(slot.shape))
+                    hwio_shape(name, slot.shape))
     return out
 
 

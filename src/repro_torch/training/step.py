@@ -152,7 +152,9 @@ def make_train_step(model, optimizer: Optimizer, train_cfg: TrainConfig,
             new_mstate, metrics, grads = _grads_of(
                 model, train_cfg, params, state["model_state"], batch)
         else:
-            b = batch["images"].shape[0]
+            rows = [v for v in batch.values()
+                    if torch.is_tensor(v) and v.dim()]
+            b = rows[0].shape[0]
             if b % microbatches:
                 raise ValueError(f"batch {b} does not split into "
                                  f"{microbatches} microbatches")
@@ -160,7 +162,9 @@ def make_train_step(model, optimizer: Optimizer, train_cfg: TrainConfig,
             grads = None
             seq = []
             for i in range(microbatches):
-                mb = {k: v.chunk(microbatches)[i] for k, v in batch.items()}
+                mb = {k: v.chunk(microbatches)[i]
+                      if torch.is_tensor(v) and v.dim() else v
+                      for k, v in batch.items()}
                 mstate, metrics, g = _grads_of(model, train_cfg, params,
                                                mstate, mb)
                 g = {k: v / microbatches for k, v in g.items()}
@@ -188,14 +192,23 @@ def make_train_step(model, optimizer: Optimizer, train_cfg: TrainConfig,
 
 def make_eval_step(model, train_cfg: Optional[TrainConfig] = None):
     """Validation step: (params, model_state, batch) -> metrics. The
-    parameters stay fp32 masters (only conv and fc weights are cast to
-    the activation dtype inside the model), as in the JAX package."""
+    parameters stay fp32 masters (the model casts weights to the
+    activation dtype where it uses them), as in the JAX package. A model
+    without ``eval_fn`` (an LM) reports its train loss's scalar metrics,
+    ``loss`` being the total (``{"loss", "moe_aux", "tokens"}``), as
+    the JAX package does."""
     del train_cfg  # schedules don't enter the eval path
 
     @torch.no_grad()
     def eval_step(params, model_state, batch) -> Dict:
-        return model.eval_fn(params, model_state,
-                             to_device(batch, model.device))
+        batch = to_device(batch, model.device)
+        if hasattr(model, "eval_fn"):
+            return model.eval_fn(params, model_state, batch)
+        loss, (_, metrics) = model.loss_fn(params, model_state, batch)
+        out = {k: v for k, v in metrics.items()
+               if not torch.is_tensor(v) or v.dim() == 0}
+        out["loss"] = loss
+        return out
 
     return eval_step
 

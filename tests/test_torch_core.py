@@ -109,9 +109,16 @@ def test_train_and_val_are_disjoint_and_lm_data_raises():
     d_va = tsyn.SyntheticImageData(10, 8, 4, split="val")
     assert not np.array_equal(d_tr.batch_at(0)["images"],
                               d_va.batch_at(0)["images"])
-    with pytest.raises(NotImplementedError):
-        tsyn.make_data(tbase.ModelConfig("lm", "dense", 2, 8, 2, 2, 16, 32),
-                       tbase.ShapeConfig("t", 16, 2, "train"))
+    # the LM token stream is ported now (it raised before): its splits
+    # are disjoint too (tests/test_torch_lm_train.py holds it against
+    # the JAX package)
+    lm = tbase.ModelConfig("lm", "dense", 2, 8, 2, 2, 16, 32)
+    shape = tbase.ShapeConfig("t", 16, 2, "train")
+    lm_tr = tsyn.make_data(lm, shape)
+    lm_va = tsyn.make_data(lm, shape, split="val")
+    assert isinstance(lm_tr, tsyn.SyntheticLMData)
+    assert not np.array_equal(lm_tr.batch_at(0)["tokens"],
+                              lm_va.batch_at(0)["tokens"])
 
 
 # -------------------------------------------------------------- schedules

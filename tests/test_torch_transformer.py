@@ -201,6 +201,16 @@ def test_unported_lm_options_raise(pair, what):
                 else "naive", device="cpu")
     tp = lm_params_from_jax(params_np, "cpu")
     toks = torch.zeros(1, 128, dtype=torch.long)
+    if what == "chunked_opt":
+        # ported since (it raised before): in f32 its loop equals the
+        # naive attention's forward to f32 rounding
+        # (tests/test_torch_lm_train.py holds it against the JAX package)
+        naive = tbuild(cfg_t, torch.float32, attention_impl="naive",
+                       device="cpu")
+        got, _, _ = tm.forward(tp, toks)
+        want, _, _ = naive.forward(tp, toks)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+        return
     with pytest.raises(NotImplementedError, match="item 15"):
         tm.forward(tp, toks, patches=torch.zeros(1, 4, 8)
                    if what == "patches" else None)
