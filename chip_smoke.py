@@ -245,6 +245,56 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   16b. reference: the reduced llama3.2-1b in f32, 3 train steps on the
      card against the CPU from the same weights (losses within rtol
      2e-5, parameters within a relative norm of 2e-4).
+  3f (slice 14, after 3f). ``flash_attention`` in bf16 and f32 at
+     mixtral-8x7b's windowed prefill (1 x 5,120 tokens, 32 / 8 heads,
+     Dh 128, window 4,096: keys past the window) and llama4-maverick's
+     (8 x 1,024, 40 / 8 heads: a GQA group of 5), ``rmsnorm`` at their
+     prefill and decode rows (d 4,096 and 5,120), each against its plain
+     version and timed with SDPA (the window as a boolean mask) /
+     ``F.rms_norm`` and its bound; ``flash_attention`` in bf16 and
+     ``rmsnorm`` at main paths 12 and 13's own mixtral shapes too (the
+     prefills of 8 x 1,024 and of 4,064 tokens, whose 64-row tiles end
+     in a tail, and the training forward of 4 x 1,024);
+     ``hybrid_update`` and ``cast_copy`` at main path 13's leaves
+     (mixtral-8x7b at 1 layer, 1,713,418,240 elements), as for path 10;
+  17. main path 11, the LM on the other DP steps: main path 10's DP step
+     with ``overlap_comm=True`` (its staged loss: embed, 4 layer
+     segments, head) at world size 1 over NCCL, full depth, 6 steps and
+     one eval batch, bitwise main path 10 (losses, parameters,
+     ``delta``, ``m``, ``opt.step``), 7 ``cast_copy`` a step; then
+     four processes sharing the card over gloo, spawned once,
+     llama3.2-1b at full width, 4 x 1,024 tokens a worker, bf16, flash,
+     one step: the four as a 2x2 layout under ``hier:1`` (2 of 16
+     layers) ZeRO + hier against bucketed + hier, then two of them (4
+     layers) ZeRO against the bucketed step, each bitwise (losses,
+     parameters, ``opt.step``, the optimizer state as the worker's
+     shard), launches a step checked;
+  17b. in the same processes, the reduced llama3.2-1b in f32: overlap,
+     ZeRO and ZeRO + overlap against bucketed (under ``hier:1`` at 4),
+     bitwise; in this process the staged loss of the reduced
+     llama3.2-1b and llama4-maverick in f32 against ``loss_fn``'s
+     gradients, bitwise (the tied table within 2.4e-7);
+  18. main path 12, the MoE family served (``serve()``, weights drawn
+     on the card leaf by leaf), 8 prompts, bf16, flash: mixtral-8x7b at
+     full width, 8 of its 32 layers, 1,024-token prompts and 31 decode
+     steps; llama4-maverick at one layer group of its 24 (a dense and a
+     MoE layer with 128 experts and the shared expert), 3 decode steps;
+     mixtral again with 4,064-token prompts and 64 decode steps, which
+     wrap the 4,096-slot ring during decode; launches per prefill and
+     decode step checked, the warm call, peak memory, prefill logits
+     against the naive attention's within ``NAIVE_REL_TOL`` with the
+     naive prefill's expert routing replayed (``RouteTape``: a token
+     near a tie between two experts may route otherwise under either
+     attention), the free reading and the tokens routed otherwise
+     logged (not for the long prompts: 17 GB of naive scores);
+  18b. reference: the reduced mixtral-8x7b and llama4-maverick in f32,
+     card against CPU, prefill (4 x 128 tokens) and 6 decode steps,
+     logits within 1e-4, the same tokens;
+  19. main path 13, MoE training: mixtral-8x7b at full width, 1 of 32
+     layers (1,713,418,240 parameters), main path 10's batch and recipe,
+     3 steps and one eval batch on one device, then the DP step at world
+     size 1 over NCCL, bitwise (deterministic algorithms on; the
+     one-device state waits on the card).
 With ``--profile``, a few more steps of each main path run under
 torch.profiler (device busy time and idle share, top host ops and
 kernels), and one prefill and four decode steps of main path 4. With
@@ -258,8 +308,11 @@ flash_attention and rmsnorm, whose times are per prefill;
 ``launches_by_path`` holds every main path's, main paths 7's and 8's
 from their first worker, ``path8`` run A and ``path8_zero`` run B,
 ``path9_<arch>`` main path 9's per config, ``path10`` and ``path10_dp``
-main path 10's one-device and DP runs; ``slice13`` the times of phase
-3f at those paths' shapes;
+main path 10's one-device and DP runs, ``path11`` the overlapped LM
+step and ``path11_<n>w_<run>`` its multi-process runs (first worker),
+``path12_<arch>_p<prompt>`` main path 12's per run, ``path13`` and
+``path13_dp`` main path 13's; ``slice13`` and ``slice14`` the times of
+phase 3f at those paths' shapes;
 ``hybrid_update`` also carries its time at main path 7's shard), the card's name and power
 limit, and last the ``{"ok": true, "device": ...}`` line. ``--out DIR`` also
 writes the per-shape kernel tables to ``DIR/chip_smoke_kernels.json``.
@@ -1594,33 +1647,41 @@ CKPT_STEPS, CKPT_EVERY = 6, 3  # phase 10: six steps, a save every three
 SENTINEL_STEPS, SENTINEL_CHAOS = 9, "nan_grad@4,ckpt_truncate@6,nan_grad@7-8"
 
 
-def train_state_bits(state):
-    """Clones of every tensor of a main-path-2 or -3 train state (params,
-    ``delta`` and ``m`` per leaf or the flat stream ``delta``, BN state,
-    the error-feedback residual where there is one) and the optimizer's
-    ``step``."""
+def state_entries(state):
+    """Every tensor of a train state by name (params, ``delta`` and ``m``
+    per leaf or the flat stream ``delta``, BN state, the error-feedback
+    residual where there is one) and the optimizer's ``step``; the
+    state's own tensors, not copies."""
     out = {"opt/step": state["opt"]["step"]}
     for k, t in state.get("ef_residual", {}).items():
-        out["ef/" + k] = t.clone()
+        out["ef/" + k] = t
     for k, t in state["params"].items():
-        out["params/" + k] = t.clone()
+        out["params/" + k] = t
     for f, v in state["opt"].items():
         if isinstance(v, dict):
-            out.update({f"{f}/{k}": t.clone() for k, t in v.items()})
+            out.update({f"{f}/{k}": t for k, t in v.items()})
         elif f != "step":
-            out[f] = v.clone()
-    for site, rec in state["model_state"].items():
+            out[f] = v
+    for site, rec in state.get("model_state", {}).items():
         for k, t in rec.items():
-            out[f"bn/{site}/{k}"] = t.clone()
+            out[f"bn/{site}/{k}"] = t
     return out
 
 
+def train_state_bits(state):
+    """Clones of ``state_entries``: a main-path train state as it stood."""
+    return {k: v if k == "opt/step" else v.clone()
+            for k, v in state_entries(state).items()}
+
+
 def bits_differ(torch, a, b):
-    """Names of the entries of two ``train_state_bits`` that are not
-    bitwise equal."""
+    """Names of the entries of two ``state_entries`` /
+    ``train_state_bits`` that are not bitwise equal (each of ``a``'s
+    tensors compared on its counterpart's device)."""
     assert a.keys() == b.keys()
     return [k for k in a if not (a[k] == b[k] if k == "opt/step"
-                                 else torch.equal(a[k], b[k]))]
+                                 else torch.equal(a[k].to(b[k].device),
+                                                  b[k]))]
 
 
 def dp_trainer(torch, libs, cfg, steps: int, sentinel: bool = False,
@@ -2201,10 +2262,12 @@ ZERO_UPDATE_BYTES = 32
 def as_zero_shard(torch, field, params, plan, n: int, w: int):
     """A run's optimizer field in ZeRO's layout: a per-leaf dict, or a
     flat leaf-order stream, packed into the stream of ``plan`` (+ the
-    zero pad), and block ``w`` of its shard layout
-    (``stream_to_shard_layout``)."""
-    from repro_torch.distributed.bucketing import (leaf_order, shard_size,
-                                                   stream_to_shard_layout)
+    zero pad), and worker ``w``'s block of its shard layout
+    (``local_shard``, which the tests hold to the block of
+    ``stream_to_shard_layout``; it builds no index of the whole
+    stream)."""
+    from repro_torch.distributed.bucketing import leaf_order, local_shard
+    from repro_torch.models.common import slice_views
     if isinstance(field, dict):
         leaves = field
     else:
@@ -2212,11 +2275,13 @@ def as_zero_shard(torch, field, params, plan, n: int, w: int):
         for k in leaf_order(params):
             leaves[k] = field[off:off + params[k].numel()]
             off += params[k].numel()
-    pad = torch.zeros(plan.pad_elems, device=params[plan.names[0]].device)
+    # an LM's overlapped plan names leading-dim slices of its leaves
+    leaves = slice_views(leaves, plan.names)
+    pad = torch.zeros(plan.pad_elems,
+                      device=next(iter(params.values())).device)
     stream = torch.cat([leaves[k].reshape(-1).float() for k in plan.names]
                        + [pad])
-    size = shard_size(plan, n)
-    return stream_to_shard_layout(stream, plan, n)[w * size:(w + 1) * size]
+    return local_shard(stream, plan, n, w).clone()
 
 
 def zero_bits(torch, state, plan, n: int, w: int):
@@ -3590,20 +3655,23 @@ def serve_profile(torch, model, params, tokens, steps: int = 4):
     return out
 
 
-def serve_reference_phase(torch):
-    """Phase 9b: the reduced llama3.2-1b in f32 with the same weights on
-    the card (the kernels) and on the CPU (their plain versions): prefill
-    and 6 greedy decode steps, logits within rtol/atol 1e-4 (f32 sums in
-    other orders) and the same tokens. TF32 is off for float32 products
-    on the card (``torch.backends.cuda.matmul.allow_tf32 = False``), so
-    both sides multiply in full f32."""
+def serve_reference_phase(torch, arch: str = "llama3.2-1b",
+                          prompt: int = 130):
+    """Phase 9b (18b: ``arch`` a MoE config, ``prompt`` a multiple of
+    its dispatch group over the batch): the reduced ``arch`` in f32 with
+    the same weights on the card (the kernels) and on the CPU (their
+    plain versions): prefill and 6 greedy decode steps, logits within
+    rtol/atol 1e-4 (f32 sums in other orders) and the same tokens. TF32
+    is off for float32 products on the card
+    (``torch.backends.cuda.matmul.allow_tf32 = False``), so both sides
+    multiply in full f32."""
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.launch.serve import make_prompts
     from repro_torch.models import build_model
     from repro_torch.training.step import make_decode_step, make_prefill_step
 
-    cfg = reduced_config(get_config("llama3.2-1b"))
-    b, prompt, steps = 4, 130, 6
+    cfg = reduced_config(get_config(arch))
+    b, steps = 4, 6
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -3683,58 +3751,78 @@ SLICE13_RMSNORM = {
 LM_REF_LOSS_RTOL, LM_REF_PARAM_TOL = 2e-5, 2e-4
 
 
-def slice13_kernel_phase(torch):
-    """Phase 3f: the four kernels of this slice's paths at their shapes.
-    ``flash_attention`` (bf16) at the three configs' prefills and
-    llama3.2-1b's training batch, and ``rmsnorm`` (bf16, the model's
-    rounding order) at yi-9b's and qwen2-72b's prefill and decode rows
-    and the training batch's rows, each against its plain version (the
-    tolerances of phase 3d) and timed with its library call and bound;
-    ``hybrid_update`` over llama3.2-1b's 11 f32 leaves in one launch,
-    bitwise per leaf (a_sgd 0 and 1), timed against the per-leaf plain
-    version and its bound; ``cast_copy`` at llama3.2-1b's gradient
-    stream (``cast_phase``)."""
+def flash_shape_cases(torch, gen, cases, dtypes=("bfloat16",)):
+    """``flash_attention`` against its plain version at each case and
+    dtype (the tolerances of phase 3d), timed with its plain version,
+    SDPA on the same inputs (with the window as a boolean mask where
+    there is one) and its bound. Returns {"<name> <dtype>": record}."""
     import torch.nn.functional as F
 
-    from repro_torch.configs import get_config
-    from repro_torch.core.optimizer import HybridHyper
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import fused_update as fu
-    from repro_torch.kernels import rmsnorm as rn
-    from repro_torch.models.transformer import TransformerLM
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(13)
-    bf16 = torch.bfloat16
-    out = {"flash_attention": {}, "rmsnorm": {}}
-    for name, case in SLICE13_FLASH.items():
+    out = {}
+    for name, case in cases.items():
         b, sq, sk, hq, hkv, dh, causal, window = case
-        q, k, v = (torch.randn(b, s_, h, dh, generator=gen, device=dev)
-                   .to(bf16) for s_, h in ((sq, hq), (sk, hkv), (sk, hkv)))
-        got = fa.flash_attention(q, k, v, causal=causal, window=window)
-        want = fa.PLAIN["flash_attention"](q, k, v, causal, window)
-        torch.cuda.synchronize()
-        err = _bf16_ulp_check(torch, f"flash_attention {name} {case}", got,
-                              want, BF16_ULPS["flash_attention"],
-                              **LM_TOL["flash_attention"])
-        del got, want
-        bound_ms, _, bound_by, _ = flash_bound(case, 2)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        rec = {"case": list(case), "max_abs_err": err,
-               "ms": time_ms(torch, lambda: fa.flash_attention(
-                   q, k, v, causal=causal, window=window)),
-               "plain_ms": time_ms(torch, lambda: fa.PLAIN[
-                   "flash_attention"](q, k, v, causal, window), iters=3,
-                   trials=3),
-               "library_ms": time_ms(
-                   torch, lambda: F.scaled_dot_product_attention(
-                       qt, kt, vt, is_causal=causal, enable_gqa=True)),
-               "bound_ms": bound_ms, "bound_by": bound_by}
-        out["flash_attention"][name] = rec
-        log(f"  flash bf16 {name} {case}: {rec['ms']:.4f} ms (plain "
-            f"{rec['plain_ms']:.4f}, sdpa {rec['library_ms']:.4f}, bound "
-            f"{bound_ms:.4f}), max err {err:.3g}")
-        del q, k, v, qt, kt, vt
-    for name, (rows, d) in SLICE13_RMSNORM.items():
+        for dt in dtypes:
+            dtype = getattr(torch, dt)
+            q, k, v = (torch.randn(b, s_, h, dh, generator=gen, device=dev)
+                       .to(dtype) for s_, h in ((sq, hq), (sk, hkv),
+                                                (sk, hkv)))
+            got = fa.flash_attention(q, k, v, causal=causal, window=window)
+            want = fa.PLAIN["flash_attention"](q, k, v, causal, window)
+            torch.cuda.synchronize()
+            if dtype == torch.bfloat16:
+                err = _bf16_ulp_check(torch, f"flash_attention {name}",
+                                      got, want, BF16_ULPS["flash_attention"],
+                                      **LM_TOL["flash_attention"])
+            else:
+                torch.testing.assert_close(got, want,
+                                           **LM_TOL["flash_attention"])
+                err = (got - want).abs().max().item()
+            del got, want
+            b16_ms, f32_ms, _, flops = flash_bound(case, dtype.itemsize)
+            bytes_ms = (dtype.itemsize * b * dh * (2 * sq * hq + 2 * sk * hkv)
+                        / HBM_BYTES_PER_S * 1e3)
+            bound_ms = b16_ms if dtype == torch.bfloat16 else f32_ms
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            mask = None
+            if window is not None:
+                qi = torch.arange(sq, device=dev)[:, None]
+                kj = torch.arange(sk, device=dev)[None, :]
+                mask = (kj <= qi) & (qi - kj < window)
+            rec = {"case": list(case), "dtype": dt, "max_abs_err": err,
+                   "ms": time_ms(torch, lambda: fa.flash_attention(
+                       q, k, v, causal=causal, window=window)),
+                   "plain_ms": time_ms(torch, lambda: fa.PLAIN[
+                       "flash_attention"](q, k, v, causal, window), iters=3,
+                       trials=3),
+                   "library_ms": time_ms(
+                       torch, lambda: F.scaled_dot_product_attention(
+                           qt, kt, vt, attn_mask=mask,
+                           is_causal=causal and mask is None,
+                           enable_gqa=True)),
+                   "bound_ms": bound_ms,
+                   "bound_by": "bytes" if bytes_ms >= bound_ms
+                   else "operations", "flops": flops}
+            out[f"{name} {dt}"] = rec
+            log(f"  flash {dt} {name} {case}: {rec['ms']:.4f} ms (plain "
+                f"{rec['plain_ms']:.4f}, sdpa {rec['library_ms']:.4f}, "
+                f"bound {bound_ms:.4f}), max err {err:.3g}")
+            del q, k, v, qt, kt, vt, mask
+            torch.cuda.empty_cache()
+    return out
+
+
+def rmsnorm_shape_cases(torch, gen, cases):
+    """``rmsnorm`` (bf16, the model's rounding order) against its plain
+    version at each (rows, d), timed with its plain version,
+    ``F.rms_norm`` (the same bf16 scale) and its bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import rmsnorm as rn
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    out = {}
+    for name, (rows, d) in cases.items():
         x = (torch.randn(rows, d, generator=gen, device=dev) * 2 + 0.3
              ).to(bf16)
         st = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(bf16)
@@ -3752,15 +3840,25 @@ def slice13_kernel_phase(torch):
                "library_ms": time_ms(torch, lambda: F.rms_norm(
                    x, (d,), st, 1e-5)),
                "bound_ms": bound_ms, "bound_by": bound_by}
-        out["rmsnorm"][name] = rec
+        out[name] = rec
         log(f"  rmsnorm bf16 {name} {rows} x {d}: {rec['ms']:.4f} ms (plain "
             f"{rec['plain_ms']:.4f}, F.rms_norm {rec['library_ms']:.4f}, "
             f"bound {bound_ms:.4f}), max err {err:.3g}")
         del x, got, want
+    return out
 
-    # hybrid_update over llama3.2-1b's leaves (drawn on the card), the
-    # gradients as views into one stream as unpack gives them
-    model = TransformerLM(get_config(LM_TRAIN_ARCH), device="cuda")
+
+def tree_update_cast(torch, gen, cfg):
+    """``hybrid_update`` over ``cfg``'s f32 leaves (drawn on the card) in
+    one launch, the gradients as views into one stream as unpack gives
+    them, bitwise per leaf against the plain version (a_sgd 0 and 1),
+    timed against the per-leaf plain version and its bound; then
+    ``cast_copy`` at that gradient stream (``cast_phase``)."""
+    from repro_torch.core.optimizer import HybridHyper
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.models.transformer import TransformerLM
+    dev = torch.device("cuda")
+    model = TransformerLM(cfg, device="cuda")
     params = model.init(0, draw_device="cuda")
     names = list(params)
     sizes = [params[k].numel() for k in names]
@@ -3797,34 +3895,98 @@ def slice13_kernel_phase(torch):
         for i, g in enumerate(gs):
             fu.PLAIN["hybrid_update"](g, ps[i], ds[i], ms[i], h, 0.0)
 
-    upd = {"leaves": len(sizes), "elements": total, "max_abs_err": 0.0,
+    upd = {"arch": cfg.name, "n_layers": cfg.n_layers, "leaves": len(sizes),
+           "elements": total, "max_abs_err": 0.0,
            "ms": time_ms(torch, lambda: fu.fused_hybrid_update_leaves(
                gs, ps, ds, ms, h, wds), iters=3, trials=3),
            "plain_ms": time_ms(torch, plain_all, iters=2, trials=3),
            "library_ms": None}
     upd["bound_ms"], upd["bound_by"] = bound(28 * total,
                                              UPDATE_FLOPS * total)
-    out["hybrid_update"] = upd
-    log(f"  hybrid_update over {LM_TRAIN_ARCH}'s {len(sizes)} leaves "
-        f"({total} elements) in one launch, bitwise per leaf x a_sgd 0/1: "
-        f"{upd['ms']:.3f} ms (plain {upd['plain_ms']:.3f}, bound "
-        f"{upd['bound_ms']:.3f})")
+    log(f"  hybrid_update over {cfg.name}'s ({cfg.n_layers} layers) "
+        f"{len(sizes)} leaves ({total} elements) in one launch, bitwise per "
+        f"leaf x a_sgd 0/1: {upd['ms']:.3f} ms (plain {upd['plain_ms']:.3f}, "
+        f"bound {upd['bound_ms']:.3f})")
     del gs, ps, ds, ms, stream
     torch.cuda.empty_cache()
-    out["cast_copy"] = cast_phase(torch, total)
-    out["cast_copy"]["elements"] = total
+    cast = cast_phase(torch, total)
+    cast["elements"] = total
     torch.cuda.empty_cache()
+    return upd, cast
+
+
+def slice13_kernel_phase(torch):
+    """Phase 3f: the four kernels of this slice's paths at their shapes.
+    ``flash_attention`` (bf16) at the three configs' prefills and
+    llama3.2-1b's training batch, and ``rmsnorm`` (bf16, the model's
+    rounding order) at yi-9b's and qwen2-72b's prefill and decode rows
+    and the training batch's rows, each against its plain version (the
+    tolerances of phase 3d) and timed with its library call and bound;
+    ``hybrid_update`` over llama3.2-1b's 11 f32 leaves in one launch,
+    bitwise per leaf (a_sgd 0 and 1), timed against the per-leaf plain
+    version and its bound; ``cast_copy`` at llama3.2-1b's gradient
+    stream (``cast_phase``)."""
+    from repro_torch.configs import get_config
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    flash = flash_shape_cases(torch, gen, SLICE13_FLASH)
+    out = {"flash_attention": {k[:-len(" bfloat16")]: v
+                               for k, v in flash.items()},
+           "rmsnorm": rmsnorm_shape_cases(torch, gen, SLICE13_RMSNORM)}
+    out["hybrid_update"], out["cast_copy"] = tree_update_cast(
+        torch, gen, get_config(LM_TRAIN_ARCH))
     return out
 
 
-def dense_serve_path(torch, libs, arch: str, layers, steps: int):
-    """Main path 9, one config: ``serve()`` at full width (``layers``
-    None: full depth too) of 8 prompts of 1,024 tokens and ``steps - 1``
-    greedy decode steps, bf16, chunked (flash) attention, the weights
-    drawn on the card (``draw_device="cuda"``); then a second session
-    (the warm call), one prefill and one decode step alone with their
-    launches counted, and the prefill logits against the naive
-    attention's, as main path 4."""
+class RouteTape:
+    """Stands in for ``layers._route``, the routing inside ``moe_apply``:
+    records each call's dispatch one-hots, in call order, or (``replay``:
+    another tape) routes each call as the recorded one did (its experts
+    and slots, capacity drops included), with the gates of this call's
+    own router probabilities, and counts the tokens whose own choice of
+    experts differs from the recorded one."""
+
+    def __init__(self, route, replay=None):
+        self.route, self.replay = route, replay
+        self.calls, self.flipped, self.tokens = [], 0, 0
+
+    def __call__(self, probs, k, cap, dt):
+        dispatch, gates = self.route(probs, k, cap, dt)
+        if self.replay is None:
+            self.calls.append(dispatch)
+            return dispatch, gates
+        rec = self.replay.calls[len(self.calls)]
+        self.calls.append(None)
+        kept = rec.bool().any(-1)  # (groups, tokens, experts)
+        self.flipped += int((kept != dispatch.bool().any(-1)).any(-1).sum())
+        self.tokens += probs.shape[0] * probs.shape[1]
+        return rec, probs * kept
+
+
+def taped_prefill(model, params, tokens, prompt: int, replay=None):
+    """One prefill of ``model`` on a fresh cache with ``moe_apply``'s
+    routing recorded (or replayed: ``RouteTape``). Returns (logits,
+    tape)."""
+    from repro_torch.models import layers
+    from repro_torch.training.step import make_prefill_step
+    cache, _ = model.cache_shape(SERVE_BATCH, prompt, model.compute_dtype)
+    tape = RouteTape(layers._route, replay)
+    layers._route = tape
+    try:
+        logits, _ = make_prefill_step(model)(params, cache, tokens)
+    finally:
+        layers._route = tape.route
+    return logits, tape
+
+
+def dense_serve_path(torch, libs, arch: str, layers, steps: int,
+                     prompt: int = SERVE_PROMPT, naive: bool = True):
+    """Main path 9 (and 12), one config: ``serve()`` at full width
+    (``layers`` None: full depth too) of 8 prompts of ``prompt`` tokens
+    and ``steps - 1`` greedy decode steps, bf16, chunked (flash)
+    attention, the weights drawn on the card (``draw_device="cuda"``);
+    then a second session (the warm call), one prefill and one decode
+    step alone with their launches counted, and, with ``naive``, the
+    prefill logits against the naive attention's, as main path 4."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3842,7 +4004,7 @@ def dense_serve_path(torch, libs, arch: str, layers, steps: int):
     torch.cuda.synchronize()
     reset_counts(libs)
     t0 = time.perf_counter()
-    first = serve(cfg, SERVE_BATCH, SERVE_PROMPT, steps, compute_dtype=bf16,
+    first = serve(cfg, SERVE_BATCH, prompt, steps, compute_dtype=bf16,
                   attention_impl="chunked", device="cuda",
                   draw_device="cuda")
     torch.cuda.synchronize()
@@ -3860,7 +4022,7 @@ def dense_serve_path(torch, libs, arch: str, layers, steps: int):
                                       device="cuda", draw_device="cuda")
     setup_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in params.values())
-    prompts = make_prompts(cfg, SERVE_BATCH, SERVE_PROMPT)
+    prompts = make_prompts(cfg, SERVE_BATCH, prompt)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     warm = generate(model, params, prompts, steps)
@@ -3868,7 +4030,8 @@ def dense_serve_path(torch, libs, arch: str, layers, steps: int):
     same = bool((warm["generated"] == gen).all())
 
     tokens = {"tokens": torch.from_numpy(prompts).to("cuda")}
-    cache, _ = model.cache_shape(SERVE_BATCH, SERVE_PROMPT + steps, bf16)
+    cache, _ = model.cache_shape(SERVE_BATCH, prompt + steps, bf16)
+    ring = cache[next(iter(cache))].shape[2]
     reset_counts(libs)
     logits, cache = make_prefill_step(model)(params, cache, tokens)
     torch.cuda.synchronize()
@@ -3876,7 +4039,7 @@ def dense_serve_path(torch, libs, arch: str, layers, steps: int):
     assert logits.shape == (SERVE_BATCH, 1, cfg.vocab_size)
     assert bool(torch.isfinite(logits).all()), "non-finite prefill logits"
     step = {"tokens": torch.argmax(logits[:, -1], -1)[:, None],
-            "cache_index": SERVE_PROMPT}
+            "cache_index": prompt}
     reset_counts(libs)
     dlogits, cache = make_decode_step(model)(params, cache, step)
     torch.cuda.synchronize()
@@ -3884,18 +4047,39 @@ def dense_serve_path(torch, libs, arch: str, layers, steps: int):
     assert bool(torch.isfinite(dlogits).all()), "non-finite decode logits"
     del cache, dlogits
 
-    naive = build_model(cfg, bf16, attention_impl="naive", device="cuda")
-    ncache, _ = naive.cache_shape(SERVE_BATCH, SERVE_PROMPT, bf16)
-    nlogits, _ = make_prefill_step(naive)(params, ncache, tokens)
-    rel = ((logits.float() - nlogits.float()).norm()
-           / nlogits.float().norm()).item()
-    agree = (logits.argmax(-1) == nlogits.argmax(-1)).float().mean().item()
-    del ncache, nlogits, logits, params, model
+    rel = agree = routed = None
+    if naive:
+        nmodel = build_model(cfg, bf16, attention_impl="naive",
+                             device="cuda")
+        nlogits, ntape = taped_prefill(nmodel, params, tokens, prompt)
+
+        def rel_norm(got):
+            return ((got.float() - nlogits.float()).norm()
+                    / nlogits.float().norm()).item()
+
+        def argmax_agree(got):
+            return (got.argmax(-1) == nlogits.argmax(-1)).float().mean(
+                ).item()
+
+        rel, agree = rel_norm(logits), argmax_agree(logits)
+        if cfg.n_experts:
+            # a token near a tie between two experts may route otherwise
+            # under either attention: the check holds flash to naive
+            # with the naive prefill's routing replayed
+            plogits, tape = taped_prefill(model, params, tokens, prompt,
+                                          replay=ntape)
+            routed = {"free_rel_norm": rel, "free_argmax_agree": agree,
+                      "flipped_tokens": tape.flipped,
+                      "routed_tokens": tape.tokens}
+            rel, agree = rel_norm(plogits), argmax_agree(plogits)
+            del plogits, tape
+        del nlogits, ntape
+    del logits, params, model
     torch.cuda.empty_cache()
     stats = {
         "arch": arch, "n_layers": L, "full_depth": layers is None,
         "parameters": n_params, "batch": SERVE_BATCH,
-        "prompt_len": SERVE_PROMPT, "decode_steps": steps,
+        "prompt_len": prompt, "decode_steps": steps, "cache_len": ring,
         "first": {k: first[k] for k in ("prefill_s", "decode_s",
                                         "decode_tok_per_s")},
         "first_wall_s": wall, "setup_s": setup_s,
@@ -3905,7 +4089,7 @@ def dense_serve_path(torch, libs, arch: str, layers, steps: int):
         "peak_mem_gib": warm_peak, "first_peak_mem_gib": peak,
         "warm_tokens_equal_first": same,
         "naive_rel_norm": rel, "naive_argmax_agree": agree,
-        "launches": launches}
+        "naive_routing": routed, "launches": launches}
     log(f"  {arch} ({L} layers, {n_params} parameters, bf16): first call "
         f"prefill {first['prefill_s'] * 1e3:.2f} ms, serve() wall "
         f"{wall:.1f}s with set-up; warm call prefill "
@@ -3914,20 +4098,31 @@ def dense_serve_path(torch, libs, arch: str, layers, steps: int):
         f"({stats['decode_tok_per_s']:.1f} tok/s), same tokens {same}; "
         f"peak {warm_peak:.2f} GiB (first call {peak:.2f}); set-up "
         f"{setup_s:.1f}s")
-    log(f"  {arch} prefill logits, flash vs naive attention: relative norm "
-        f"{rel:.3g} (bound {NAIVE_REL_TOL}), argmax agree {agree:.3f}")
-    assert rel <= NAIVE_REL_TOL, (arch, rel)
+    if routed:
+        log(f"  {arch} prefill logits, flash vs naive attention, each "
+            f"routing its own tokens: relative norm "
+            f"{routed['free_rel_norm']:.3g}; {routed['flipped_tokens']} of "
+            f"{routed['routed_tokens']} token routings (all MoE layers) "
+            f"differ")
+    if naive:
+        log(f"  {arch} prefill logits, flash vs naive attention"
+            f"{', the naive routing replayed' if routed else ''}: relative "
+            f"norm {rel:.3g} (bound {NAIVE_REL_TOL}), argmax agree "
+            f"{agree:.3f}")
+        assert rel <= NAIVE_REL_TOL, (arch, rel)
     return launches, stats
 
 
-def lm_train_run(torch, libs, cfg, dp: bool, steps: int):
-    """``steps`` steps of main path 10 and one eval batch through the
-    ``Trainer``: llama3.2-1b at full width (its weights drawn on the
-    card from seed 0), batch 4 x 1,024 tokens, bf16, flash attention,
-    rmsprop_warmup + slow_start through the fused update; on one device with the bf16 wire cast, or (``dp``) the DP
-    step at world size 1 over NCCL with the bucketed bf16 all-reduce.
-    The kernel counts are set to 0 just before the run. Returns
-    (result, launches, stats, (train_step, data))."""
+def lm_train_run(torch, libs, cfg, dp: bool, steps: int, build=None):
+    """``steps`` steps of main path 10 (or 11, 13: ``cfg``, ``build``)
+    and one eval batch through the ``Trainer``: llama3.2-1b at full
+    width (its weights drawn on the card from seed 0), batch 4 x 1,024
+    tokens, bf16, flash attention, rmsprop_warmup + slow_start through
+    the fused update; on one device with the bf16 wire cast, or
+    (``dp``) the DP step at world size 1 over NCCL with the bucketed
+    bf16 all-reduce (``build``: more ``build_train_setup`` options, such
+    as ``overlap_comm``). The kernel counts are set to 0 just before
+    the run. Returns (result, launches, stats, (train_step, data))."""
     from repro_torch.configs import OptimizerConfig
     from repro_torch.launch.train import build_eval_setup, build_train_setup
     from repro_torch.training import Trainer, TrainerConfig
@@ -3940,7 +4135,7 @@ def lm_train_run(torch, libs, cfg, dp: bool, steps: int):
         dp_mode=mode, compute_dtype=torch.bfloat16,
         attention_impl="chunked", use_fused_kernel=True,
         compression="bf16+bucketed" if dp else "bf16", draw_device="cuda",
-        device="cuda")
+        device="cuda", **(build or {}))
     ev, vd, fin = build_eval_setup(model, cfg, global_batch=LM_TRAIN_BATCH,
                                    seq_len=LM_TRAIN_SEQ, dp_mode=mode)
     setup_s = time.perf_counter() - t0
@@ -3964,10 +4159,14 @@ def lm_train_run(torch, libs, cfg, dp: bool, steps: int):
     ev_rec = result.epoch_history[-1]
     assert math.isfinite(ev_rec["loss"]) and "top1" not in ev_rec, ev_rec
     forwards = steps + tcfg.val_batches
+    # the overlapped step casts each segment's gradients as it packs
+    # them, and the synced stream back once
+    casts = (len(model.segment_names()) + 1 if (build or {}).get(
+        "overlap_comm") else 2 if dp else 0)
     want = {k: 0 for k in launches}
     want.update(flash_attention=cfg.n_layers * forwards,
                 rmsnorm=(2 * cfg.n_layers + 1) * forwards,
-                hybrid_update=steps, cast_copy=2 * steps if dp else 0)
+                hybrid_update=steps, cast_copy=casts * steps)
     log(f"  {'DP step' if dp else 'one device'}: losses {losses}, eval "
         f"loss {ev_rec['loss']:.4f}; launches {launches} (want {want})")
     assert launches == want, (launches, want)
@@ -4011,17 +4210,13 @@ def lm_train_path(torch, libs, profile: bool):
         r2, launches_dp, stats2, _ = lm_train_run(torch, libs, cfg, True,
                                                   LM_TRAIN_STEPS)
         s1, s2 = r1.state, r2.state
-        differ = [k for k in s1["params"]
-                  if not torch.equal(s1["params"][k], s2["params"][k])]
-        differ += [f"{f}/{k}" for f in ("delta", "m") for k in s1["opt"][f]
-                   if not torch.equal(s1["opt"][f][k], s2["opt"][f][k])]
-        if s1["opt"]["step"] != s2["opt"]["step"]:
-            differ.append("opt/step")
+        entries = state_entries(s1)
+        differ = bits_differ(torch, entries, state_entries(s2))
         same_losses = [h["loss"] for h in r1.history] == \
             [h["loss"] for h in r2.history]
         log(f"  DP step at world size 1 vs one device: losses equal "
-            f"{same_losses}, {len(differ)} of {3 * len(s1['params']) + 1} "
-            f"state entries differ {differ[:6]}")
+            f"{same_losses}, {len(differ)} of {len(entries)} state entries "
+            f"differ {differ[:6]}")
         assert same_losses and not differ, differ
         del r2, s2
         if profile:
@@ -4030,12 +4225,13 @@ def lm_train_path(torch, libs, profile: bool):
     finally:
         shutdown()
         torch.use_deterministic_algorithms(was)
-    del r1, s1, live
+    ref = ([h["loss"] for h in r1.history], s1)  # main path 11's yardstick
+    del r1, live
     torch.cuda.empty_cache()
     out = {"one_device": stats1, "dp": stats2, "dp_bitwise": True}
     if prof is not None:
         out["profile"] = prof
-    return launches, launches_dp, out
+    return launches, launches_dp, out, ref
 
 
 def lm_train_reference_phase(torch):
@@ -4077,6 +4273,437 @@ def lm_train_reference_phase(torch):
         (rel_loss, rel_p)
     return {"losses_card": cl, "losses_cpu": hl, "loss_rel": rel_loss,
             "param_rel_norm": rel_p}
+
+
+# ---------------------------------------------------------------------------
+# slice 14: main path 11 (the LM on the overlapped, ZeRO and hierarchical
+# DP steps), main path 12 (the MoE family served), main path 13 (MoE
+# training), and their kernels at their shapes
+# ---------------------------------------------------------------------------
+
+# phase 3f, extended: flash_attention in both dtypes at mixtral's window
+# (4,096, keys past it) and maverick's GQA group of 5; rmsnorm at their
+# widths
+SLICE14_FLASH = {
+    "mixtral-8x7b prefill past the window": (1, 5120, 5120, 32, 8, 128,
+                                             True, 4096),
+    "llama4-maverick prefill": (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 40,
+                                8, 128, True, None),
+}
+# and flash_attention in bf16 (the dtype they run) at main paths 12 and
+# 13's own mixtral shapes: the prefills of 1,024 and 4,064 tokens (4,064
+# is no multiple of the kernel's 64-row tiles: the tail tiles; batch 4,
+# not the path's 8, so that the plain version's f32 scores fit beside
+# the kernel's inputs) and the training forward
+SLICE14_PATH_FLASH = {
+    "mixtral-8x7b prefill": (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32,
+                             8, 128, True, 4096),
+    "mixtral-8x7b prefill of 4,064": (4, 4064, 4064, 32, 8, 128, True,
+                                      4096),
+    "mixtral-8x7b training": (LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_SEQ,
+                              32, 8, 128, True, 4096),
+}
+SLICE14_RMSNORM = {
+    "mixtral-8x7b prefill": (SERVE_BATCH * SERVE_PROMPT, 4096),
+    "mixtral-8x7b prefill of 4,064": (SERVE_BATCH * 4064, 4096),
+    "mixtral-8x7b decode": (SERVE_BATCH, 4096),
+    "mixtral-8x7b training": (LM_TRAIN_BATCH * LM_TRAIN_SEQ, 4096),
+    "llama4-maverick prefill": (SERVE_BATCH * SERVE_PROMPT, 5120),
+    "llama4-maverick decode": (SERVE_BATCH, 5120),
+}
+# main path 11: llama3.2-1b (main path 10's recipe) on the other DP
+# steps. Over gloo, processes sharing the one card each hold a worker's
+# whole state and activations (~13.5 GB beside ~1.5 GB a layer at 4 x
+# 1,024 tokens, from main path 10's 46.57 GiB at 16 layers on an
+# NVIDIA H100 80GB HBM3 at 700 W), so the multi-process runs keep 4
+# layers (2 processes) and 2 (4 processes)
+LM_DP_LAYERS = {2: 4, 4: 2}
+# one step at full width (gloo sums a worker's ~0.8-1 GB of bf16
+# gradients on the host: 2.6-9.4 s a step on that card), three on the
+# reduced model
+LM_DP_STEPS, LM_DP_REDUCED_STEPS = 1, 3
+# workers -> run -> build options; the last run of each is the
+# bucketed step, which every other run must equal bitwise. The four
+# processes run first, as a 2x2 layout; then two of them as two workers
+LM_DP_RUNS = {
+    4: {"zero_hier": dict(zero_dp=True, **HIER_BUILD),
+        "bucketed_hier": dict(HIER_BUILD)},
+    2: {"zero": dict(zero_dp=True), "bucketed": {}}}
+# 17b, the reduced model in f32 in the same processes: run -> options
+LM_DP_REDUCED = {
+    4: {"overlap_hier": dict(overlap_comm=True, **HIER_BUILD),
+        "zero_hier": dict(zero_dp=True, **HIER_BUILD),
+        "zero_overlap_hier": dict(zero_dp=True, overlap_comm=True,
+                                  **HIER_BUILD),
+        "bucketed_hier": dict(HIER_BUILD)},
+    2: {"overlap": dict(overlap_comm=True), "zero": dict(zero_dp=True),
+        "zero_overlap": dict(zero_dp=True, overlap_comm=True),
+        "bucketed": {}}}
+LM_DP_SMALL_BUCKET = 64 * 1024  # 17b: a few dozen buckets
+# the staged LM loss against loss_fn: the tied table's two contributions
+# may sum in another order (the JAX package's own pair: 1.19e-7)
+STAGED_TABLE_ATOL = 2.4e-7
+# main path 12: (arch, layers kept, prompt, decode steps + 1, naive check)
+# mixtral-8x7b's 93 GB of bf16 weights do not fit the card: 8 of its 32
+# layers; maverick at one layer group of its 24 (a dense and a MoE layer
+# with 128 experts and the shared expert, ~36.7 GB in bf16); then
+# mixtral with a prompt of 4,064 tokens and 64 decode steps, which
+# crosses the 4,096-token window during decode, the ring wrapping (its
+# naive prefill would hold 17 GB of scores: not run)
+MOE_SERVE = (("mixtral-8x7b", 8, SERVE_PROMPT, SERVE_STEPS, True),
+             ("llama4-maverick-400b-a17b", 2, SERVE_PROMPT, 4, True),
+             ("mixtral-8x7b", 8, 4064, 65, False))
+# main path 13: mixtral-8x7b trained at full width, 1 of 32 layers
+# (~1.71 B parameters at ~20 bytes each on the DP step; 2 layers would
+# not fit), main path 10's batch and recipe
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = "mixtral-8x7b", 1, 3
+
+
+def slice14_kernel_phase(torch):
+    """Phase 3f, extended: ``flash_attention`` in bf16 and f32 at
+    mixtral-8x7b's windowed prefill (32 / 8 heads, Dh 128, window 4,096,
+    5,120 keys) and llama4-maverick's (40 / 8 heads: a GQA group of 5),
+    and in bf16 at main paths 12 and 13's mixtral shapes; ``rmsnorm`` at
+    d 4,096 and 5,120 at those paths' rows; each against its plain
+    version and timed with its library call and bound; ``hybrid_update``
+    and ``cast_copy`` at main path 13's leaves (mixtral-8x7b, 1
+    layer)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    flash = flash_shape_cases(torch, gen, SLICE14_FLASH,
+                              ("bfloat16", "float32"))
+    flash.update(flash_shape_cases(torch, gen, SLICE14_PATH_FLASH))
+    out = {"flash_attention": flash,
+           "rmsnorm": rmsnorm_shape_cases(torch, gen, SLICE14_RMSNORM)}
+    cfg = dataclasses.replace(get_config(MOE_TRAIN_ARCH),
+                              n_layers=MOE_TRAIN_LAYERS)
+    out["hybrid_update"], out["cast_copy"] = tree_update_cast(torch, gen,
+                                                              cfg)
+    return out
+
+
+def lm_overlap_path(torch, libs, ref):
+    """Main path 11 at world size 1: main path 10's DP step with
+    ``overlap_comm=True`` (its staged loss: embed, 4 layer segments,
+    head), llama3.2-1b at full width and depth, 6 steps and one eval
+    batch through the ``Trainer`` over NCCL; bitwise main path 10
+    (``ref``: its losses and the one-device state, which its DP step
+    equals bitwise): losses, parameters, ``delta``, ``m``,
+    ``opt.step``. Deterministic algorithms on, as path 10."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import shutdown
+
+    cfg = get_config(LM_TRAIN_ARCH)
+    ref_losses, s_ref = ref
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        r, launches, stats, _ = lm_train_run(
+            torch, libs, cfg, True, LM_TRAIN_STEPS,
+            build={"overlap_comm": True})
+    finally:
+        shutdown()
+        torch.use_deterministic_algorithms(was)
+    entries = state_entries(s_ref)
+    differ = bits_differ(torch, entries, state_entries(r.state))
+    losses = [h["loss"] for h in r.history]
+    log(f"  overlapped vs main path 10: losses equal "
+        f"{losses == ref_losses}, {len(differ)} of {len(entries)} state "
+        f"entries differ {differ[:6]}")
+    assert losses == ref_losses and not differ, differ
+    del r, entries
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
+def lm_dp_runs(torch, libs, rank: int, n: int, full: bool):
+    """Phase 17 (``full``: llama3.2-1b at full width, ``LM_DP_LAYERS[n]``
+    layers, bf16, flash; else 17b: the reduced model in f32, 64 KiB
+    buckets) in one of ``n`` workers: each run of ``LM_DP_RUNS[n]`` (17b:
+    ``LM_DP_REDUCED``) ``LM_DP_STEPS`` steps (17b:
+    ``LM_DP_REDUCED_STEPS``) from the same seed, batch 4 x 1,024 tokens a
+    worker (17b: 2 x 256), and each run bitwise the last one (the
+    bucketed step at this worker count): losses (a ZeRO run's under a
+    hierarchy within 2.4e-7), parameters, ``opt.step`` and the optimizer
+    state (``train_state_bits``; a ZeRO run's shard against the same
+    shard of the bucketed state, ``zero_bits``); launches a step. Each
+    earlier run's bits wait on the host until the bucketed run's state
+    exists to compare them with."""
+    import dataclasses
+
+    from repro_torch.configs import OptimizerConfig, get_config
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.train import build_train_setup
+
+    cfg = get_config(LM_TRAIN_ARCH)
+    if full:
+        cfg = dataclasses.replace(cfg, n_layers=LM_DP_LAYERS[n])
+        runs, batch, seq, dtype = (LM_DP_RUNS[n], LM_TRAIN_BATCH,
+                                   LM_TRAIN_SEQ, torch.bfloat16)
+        steps, extra = LM_DP_STEPS, {}
+    else:
+        cfg = reduced_config(cfg)
+        runs, batch, seq, dtype = LM_DP_REDUCED[n], 2, 256, torch.float32
+        steps = LM_DP_REDUCED_STEPS
+        extra = {"bucket_bytes": LM_DP_SMALL_BUCKET}
+    out, kept = {}, {}
+    for name, build in runs.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, s, step, data, put, sh = build_train_setup(
+            cfg, global_batch=batch * n, seq_len=seq,
+            opt_cfg=OptimizerConfig(**LM_TRAIN_OPT),
+            steps_per_epoch=steps, dp_mode="shardmap",
+            compute_dtype=dtype, attention_impl="chunked",
+            use_fused_kernel=True, compression="bf16+bucketed",
+            draw_device="cuda", device="cuda", **build, **extra)
+        rec = {"setup_s": time.perf_counter() - t0}
+        reset_counts(libs)
+        losses, times = [], []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            s, met = step(s, data.batch_at(i))
+            losses.append(float(met["loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        rec.update(losses=losses, step_ms=times, launches=read_counts(libs),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        out[name] = rec
+        t0 = time.perf_counter()
+        if len(out) < len(runs):
+            plan = sh.zero_plan if build.get("zero_dp") else None
+            bits = (train_state_bits(s) if plan is None
+                    else zero_bits(torch, s, plan, n, rank))
+            kept[name] = (plan, {k: v if k == "opt/step" else v.cpu()
+                                 for k, v in bits.items()})
+            del bits
+        else:  # the bucketed step: every earlier run against it
+            rec["n_differ"], rec["differ"] = 0, []
+            for other, (plan, bits) in kept.items():
+                want = (state_entries(s) if plan is None
+                        else zero_bits(torch, s, plan, n, rank))
+                differ = zero_differ(torch, bits, want)
+                out[other]["n_differ"] = len(differ)
+                out[other]["differ"] = differ[:8]
+                out[other]["loss_rel"] = max(
+                    abs(a - b) / abs(b)
+                    for a, b in zip(out[other]["losses"], losses))
+                del want
+        rec["bits_s"] = time.perf_counter() - t0
+        del s, step, data, put, sh
+    return out
+
+
+def lm_dp_cards_worker(rank: int, out_dir: str) -> None:
+    """One of phase 17's processes, all on the one card: the four joined
+    over gloo as a 2x2 layout, then ranks 0 and 1 as two workers (the
+    others leave), each group with its full-width runs and the reduced
+    ones (17b), deterministic algorithms on. Writes
+    ``rank{rank}_w{n}.json`` for each group."""
+    sys.path.insert(0, SRC)
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import shutdown
+    from repro_torch.kernels import bucket_ops as bo
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_bn as fb
+    from repro_torch.kernels import fused_input as fi
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import rmsnorm as rn
+    libs = (fb, fu, bo, fi, fa, rn)
+
+    torch.cuda.set_device(0)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for n in LM_DP_RUNS:
+        if rank >= n:
+            break
+        dist.init_process_group("gloo",
+                                init_method=f"file://{out_dir}/store{n}",
+                                rank=rank, world_size=n)
+        try:
+            t0 = time.perf_counter()
+            out = {"full": lm_dp_runs(torch, libs, rank, n, True)}
+            out["full_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["reduced"] = lm_dp_runs(torch, libs, rank, n, False)
+            out["reduced_s"] = time.perf_counter() - t0
+            with open(os.path.join(out_dir, f"rank{rank}_w{n}.json"),
+                      "w") as f:
+                json.dump(out, f)
+            # the card's memory free before the smaller group starts
+            torch.cuda.empty_cache()
+            dist.barrier()
+        finally:
+            shutdown()
+
+
+def lm_dp_phase(torch):
+    """Phases 17 (multi-process) and 17b: four processes on the card,
+    spawned once, as a 2x2 layout under ``hier:1`` (ZeRO + hier against
+    bucketed + hier), then two of them over gloo (ZeRO against the
+    bucketed step at 2 workers); in each group, the reduced model in f32
+    (overlap, ZeRO, ZeRO + overlap against bucketed). Every run bitwise
+    its bucketed counterpart (``lm_dp_runs``); launches a step as main
+    path 10's DP step. Returns {workers: every rank's record}."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    out = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_lm_dp_")
+    try:
+        t0 = time.perf_counter()
+        mp.spawn(lm_dp_cards_worker, args=(root,), nprocs=max(LM_DP_RUNS))
+        spawn_s = time.perf_counter() - t0
+        for n in LM_DP_RUNS:
+            out[n] = []
+            for r in range(n):
+                with open(os.path.join(root, f"rank{r}_w{n}.json")) as f:
+                    out[n].append(json.load(f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for n, ranks in out.items():
+        layers = LM_DP_LAYERS[n]
+        for r, rec in enumerate(ranks):
+            for part in ("full", "reduced"):
+                for name, run in rec[part].items():
+                    zero_hier = name.startswith("zero") and n == 4
+                    log(f"  {n} workers, worker {r}, {part} {name}: losses "
+                        f"{run['losses']}, {run['n_differ']} state entries "
+                        f"differ from the bucketed run {run['differ'][:4]}; "
+                        f"step ms {[round(t, 1) for t in run['step_ms']]}, "
+                        f"set-up {run['setup_s']:.1f}s, bits "
+                        f"{run['bits_s']:.1f}s, peak {run['peak_gib']:.2f} "
+                        f"GiB")
+                    assert not run["n_differ"], (n, part, name, run["differ"])
+                    if "loss_rel" in run:
+                        assert run["loss_rel"] <= (
+                            HIER_LOSS_RTOL_ZERO if zero_hier else 0.0), run
+            for name, run in rec["full"].items():
+                want = {k: 0 for k in run["launches"]}
+                want.update(flash_attention=layers * LM_DP_STEPS,
+                            rmsnorm=(2 * layers + 1) * LM_DP_STEPS,
+                            hybrid_update=LM_DP_STEPS)
+                got = dict(run["launches"])
+                # 2 casts a step (pack, unpack); the overlapped ZeRO step
+                # one a segment (embed, the layer slices, head)
+                casts = got.pop("cast_copy")
+                want.pop("cast_copy")
+                segs = 2 + min(4, layers)
+                assert casts == LM_DP_STEPS * (segs + 1 if "overlap" in name
+                                               else 2), (name, casts)
+                assert got == want, (name, got, want)
+        log(f"  {n} workers ({layers} layers full width): worker 0 seconds "
+            f"full {ranks[0]['full_s']:.1f}, reduced "
+            f"{ranks[0]['reduced_s']:.1f}")
+    log(f"  {spawn_s:.1f}s with the spawn")
+    return out
+
+
+def staged_reference_phase(torch):
+    """Phase 17b in this process: the staged LM loss on the card, the
+    reduced llama3.2-1b (tied) and llama4-maverick (MoE groups) in f32
+    with every kernel: ``staged_value_and_grad(loss_segments)`` against
+    ``loss_fn``'s gradients, the loss and every gradient bitwise (the
+    tied table within ``STAGED_TABLE_ATOL``)."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models.common import staged_value_and_grad
+    from repro_torch.models.transformer import TransformerLM
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    out = {}
+    try:
+        for arch in ("llama3.2-1b", "llama4-maverick-400b-a17b"):
+            cfg = reduced_config(get_config(arch))
+            model = TransformerLM(cfg, torch.float32,
+                                  attention_impl="chunked", device="cuda")
+            params = model.init(3)
+            toks = torch.from_numpy(make_prompts(cfg, 2, 257, 3)).to("cuda")
+            batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+            pc = {k: v.clone().requires_grad_(True)
+                  for k, v in params.items()}
+            total, _ = model.loss_fn(pc, {}, batch, 0.1)
+            g1 = dict(zip(pc, torch.autograd.grad(total, list(pc.values()))))
+            pc = {k: v.clone().requires_grad_(True)
+                  for k, v in params.items()}
+            loss, _, g2 = staged_value_and_grad(
+                model.loss_segments(pc, {}, batch, 0.1))
+            table = 0.0
+            for k in g1:
+                if k == "embed/table" and cfg.tie_embeddings:
+                    table = (g1[k] - g2[k]).abs().max().item()
+                    assert table <= STAGED_TABLE_ATOL, table
+                else:
+                    assert torch.equal(g1[k], g2[k]), (arch, k)
+            assert float(total.detach()) == float(loss.detach())
+            out[arch] = {"segments": list(model.segment_names()),
+                         "loss": float(loss.detach()),
+                         "tied_table_max_abs": table}
+            log(f"  {arch} (reduced, f32): staged loss and its "
+                f"{len(g1)} gradients bitwise loss_fn's (tied table "
+                f"within {table:.3g}), segments {model.segment_names()}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.use_deterministic_algorithms(was)
+    return out
+
+
+def moe_train_path(torch, libs):
+    """Main path 13: mixtral-8x7b trained at full width, 1 of 32 layers,
+    main path 10's batch (4 x 1,024 tokens), bf16 and recipe, 3 steps and
+    one eval batch through the ``Trainer`` on one device, then through
+    the DP step at world size 1 over NCCL, bitwise the one-device run
+    (losses, parameters, ``delta``, ``m``, ``opt.step``; deterministic
+    algorithms on). The one-device state (19.1 GiB) waits on the card
+    beside the DP step's run (42.68 GiB at its peak on an NVIDIA H100
+    80GB HBM3 at 700 W)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import shutdown
+
+    cfg = dataclasses.replace(get_config(MOE_TRAIN_ARCH),
+                              n_layers=MOE_TRAIN_LAYERS)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        r1, launches, stats1, _ = lm_train_run(torch, libs, cfg, False,
+                                               MOE_TRAIN_STEPS)
+        losses1 = [h["loss"] for h in r1.history]
+        entries = state_entries(r1.state)
+        held = sum(v.numel() * v.element_size() for k, v in entries.items()
+                   if k != "opt/step") / 2 ** 30
+        del r1
+        torch.cuda.empty_cache()
+        r2, launches_dp, stats2, _ = lm_train_run(torch, libs, cfg, True,
+                                                  MOE_TRAIN_STEPS)
+    finally:
+        shutdown()
+        torch.use_deterministic_algorithms(was)
+    differ = bits_differ(torch, entries, state_entries(r2.state))
+    losses2 = [h["loss"] for h in r2.history]
+    log(f"  DP step at world size 1 vs one device: losses {losses2} equal "
+        f"{losses1 == losses2}, {len(differ)} of {len(entries)} state "
+        f"entries differ {differ[:6]}")
+    log(f"  the DP step's peak holds the one-device state's {held:.2f} "
+        f"GiB")
+    assert losses1 == losses2 and not differ, differ
+    del r2, entries
+    torch.cuda.empty_cache()
+    stats2["peak_mem_gib_with_one_device_state"] = stats2.pop("peak_mem_gib")
+    return launches, launches_dp, {"one_device": stats1, "dp": stats2,
+                                   "one_device_state_gib": held,
+                                   "dp_bitwise": True}
 
 
 def main() -> int:
@@ -4186,6 +4813,15 @@ def main() -> int:
     log("[3f] flash_attention, rmsnorm, hybrid_update and cast_copy at "
         "main paths 9 and 10's shapes vs plain versions")
     slice13 = slice13_kernel_phase(torch)
+    log(f"  ({time.perf_counter() - t0:.1f}s)")
+
+    t0 = time.perf_counter()
+    log("[3f] (slice 14) flash_attention (bf16, f32) at mixtral-8x7b's "
+        "window and llama4-maverick's 40 / 8 heads and (bf16) at main paths "
+        "12 and 13's mixtral shapes, rmsnorm at d 4,096 and 5,120, "
+        "hybrid_update and cast_copy at main path 13's leaves vs plain "
+        "versions")
+    slice14 = slice14_kernel_phase(torch)
     log(f"  ({time.perf_counter() - t0:.1f}s)")
 
     t0 = time.perf_counter()
@@ -4362,14 +4998,72 @@ def main() -> int:
         f"rmsprop_warmup + slow_start, fused update, {LM_TRAIN_STEPS} steps "
         f"+ 1 eval batch through the Trainer: one device, then the DP step "
         f"at world size 1 (NCCL, bf16+bucketed), bitwise")
-    launches10, launches10_dp, stats10 = lm_train_path(torch, libs,
-                                                       args.profile)
+    launches10, launches10_dp, stats10, ref10_state = lm_train_path(
+        torch, libs, args.profile)
     log(f"  ({time.perf_counter() - t0:.1f}s)")
 
     t0 = time.perf_counter()
     log("[16b] reference: reduced llama3.2-1b f32 trained 3 steps, kernels "
         "on the card vs plain versions on the CPU")
     ref10 = lm_train_reference_phase(torch)
+    log(f"  ({time.perf_counter() - t0:.1f}s)")
+
+    t0 = time.perf_counter()
+    log(f"[17] main path 11: main path 10's DP step with overlap_comm=True "
+        f"at world size 1 (NCCL), full width and depth, {LM_TRAIN_STEPS} "
+        f"steps + 1 eval batch, bitwise main path 10")
+    launches11, stats11 = lm_overlap_path(torch, libs, ref10_state)
+    del ref10_state
+    torch.cuda.empty_cache()
+    log(f"  ({time.perf_counter() - t0:.1f}s)")
+
+    t0 = time.perf_counter()
+    log(f"[17] main path 11 across processes on the one card over gloo, "
+        f"{LM_TRAIN_ARCH} full width, {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} "
+        f"tokens a worker, bf16, flash, {LM_DP_STEPS} steps, one spawn: 4 "
+        f"workers as 2x2 under hier:1 ({LM_DP_LAYERS[4]} layers) ZeRO + "
+        f"hier vs bucketed + hier, then 2 of them ({LM_DP_LAYERS[2]} "
+        f"layers) ZeRO vs bucketed; [17b] the reduced model in f32 in the "
+        f"same processes (overlap, ZeRO, ZeRO + overlap vs bucketed), all "
+        f"bitwise")
+    lm_dp = lm_dp_phase(torch)
+    log(f"  ({time.perf_counter() - t0:.1f}s)")
+
+    t0 = time.perf_counter()
+    log("[17b] the staged LM loss on the card: reduced llama3.2-1b and "
+        "llama4-maverick in f32, staged vs loss_fn gradients")
+    staged = staged_reference_phase(torch)
+    log(f"  ({time.perf_counter() - t0:.1f}s)")
+
+    launches12, stats12 = {}, {}
+    for arch, layers, prompt, steps, naive in MOE_SERVE:
+        t0 = time.perf_counter()
+        log(f"[18] main path 12: serve() {arch} full width, {layers} "
+            f"layers, batch {SERVE_BATCH}, {prompt}-token prompts, "
+            f"{steps - 1} greedy decode steps, bf16, chunked (flash) "
+            f"attention, weights drawn on the card leaf by leaf")
+        key = f"{arch}_p{prompt}"
+        launches12[key], stats12[key] = dense_serve_path(
+            torch, libs, arch, layers, steps, prompt=prompt, naive=naive)
+        log(f"  ({time.perf_counter() - t0:.1f}s)")
+    window_run = stats12["mixtral-8x7b_p4064"]
+    assert window_run["cache_len"] < 4064 + 65, window_run["cache_len"]
+
+    ref12 = {}
+    for arch in ("mixtral-8x7b", "llama4-maverick-400b-a17b"):
+        t0 = time.perf_counter()
+        log(f"[18b] reference: reduced {arch} f32, kernels on the card vs "
+            f"plain versions on the CPU")
+        ref12[arch] = serve_reference_phase(torch, arch, prompt=128)
+        log(f"  ({time.perf_counter() - t0:.1f}s)")
+
+    t0 = time.perf_counter()
+    log(f"[19] main path 13: {MOE_TRAIN_ARCH} trained at full width, "
+        f"{MOE_TRAIN_LAYERS} of 32 layers, batch {LM_TRAIN_BATCH} x "
+        f"{LM_TRAIN_SEQ} tokens, bf16, flash, {MOE_TRAIN_STEPS} steps + 1 "
+        f"eval batch: one device, then the DP step at world size 1 (NCCL), "
+        f"bitwise")
+    launches13, launches13_dp, stats13 = moe_train_path(torch, libs)
     log(f"  ({time.perf_counter() - t0:.1f}s)")
 
     launches5 = sync_stats["path5_launches"]
@@ -4381,7 +5075,13 @@ def main() -> int:
                    "path7": launches7[k], "path8": launches8[k],
                    "path8_zero": launches8_zero[k],
                    **{f"path9_{a}": launches9[a][k] for a in launches9},
-                   "path10": launches10[k], "path10_dp": launches10_dp[k]}
+                   "path10": launches10[k], "path10_dp": launches10_dp[k],
+                   "path11": launches11[k],
+                   **{f"path11_{n}w_{name}": lm_dp[n][0]["full"][name][
+                       "launches"][k] for n in lm_dp
+                      for name in lm_dp[n][0]["full"]},
+                   **{f"path12_{a}": launches12[a][k] for a in launches12},
+                   "path13": launches13[k], "path13_dp": launches13_dp[k]}
                for k in launches}
     kernels = [{"name": k, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[k], "launches": launches[k],
@@ -4423,6 +5123,8 @@ def main() -> int:
     for rec in kernels:
         if rec["name"] in slice13:
             rec["slice13"] = slice13[rec["name"]]
+        if rec["name"] in slice14:
+            rec["slice14"] = slice14[rec["name"]]
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke_kernels.json"),
@@ -4443,7 +5145,11 @@ def main() -> int:
                        "zero": zero_stats, "hierarchical": hier_stats,
                        "division": division, "slice13_kernels": slice13,
                        "main_path_9": stats9, "main_path_10": stats10,
-                       "reference_10": ref10}, f,
+                       "reference_10": ref10, "slice14_kernels": slice14,
+                       "main_path_11": {"overlap": stats11,
+                                        "processes": lm_dp},
+                       "staged": staged, "main_path_12": stats12,
+                       "reference_12": ref12, "main_path_13": stats13}, f,
                       indent=1)
     log(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -4,8 +4,9 @@ The PyTorch port's own copy of the JAX package's config dataclasses,
 field for field, so a configuration means the same thing in both
 packages. Every architecture is a ``ModelConfig`` produced by a factory
 in ``src/repro_torch/configs/<arch>.py`` and registered under its public
-id (``--arch <id>``). The port registers ResNet-50 and the dense LMs
-(llama3.2-1b, yi-9b, granite-34b, qwen2-72b).
+id (``--arch <id>``). The port registers ResNet-50, the dense LMs
+(llama3.2-1b, yi-9b, granite-34b, qwen2-72b) and the MoE LMs
+(mixtral-8x7b, llama4-maverick-400b-a17b).
 """
 from __future__ import annotations
 
@@ -248,8 +249,6 @@ def register(arch_id: str):
 # the JAX package's archs the port does not have yet: id -> (family,
 # the ROADMAP queue 1 item that ports it)
 UNPORTED_ARCHS = {
-    "mixtral-8x7b": ("moe", "15.3"),
-    "llama4-maverick-400b-a17b": ("moe", "15.3"),
     "phi-3-vision-4.2b": ("vlm", "15.4"),
     "zamba2-7b": ("hybrid", "15.5"),
     "xlstm-350m": ("ssm", "15.5"),

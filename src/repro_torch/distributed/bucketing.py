@@ -697,14 +697,20 @@ def pack_bucket(plan: ReadyBucketPlan, stage_idx: int,
     return ready, view(emitted_end, fed_end)
 
 
-def reorder_stream(stream: Tensor, src: BucketPlan, dst: BucketPlan
+def reorder_stream(stream: Tensor, src: BucketPlan, dst: BucketPlan,
+                   parts: Optional[Mapping[str, Sequence[str]]] = None
                    ) -> Tensor:
     """A packed stream laid out by ``src``, laid out by ``dst`` instead
-    (the same leaves and padded length, in another order; the zero tail
-    stays last): one copy, no arithmetic."""
+    (the same elements and padded length, in another order; the zero
+    tail stays last): one copy, no arithmetic. ``parts`` maps each of
+    ``dst``'s leaves to the ``src`` entries that hold it, in order (the
+    leading-dim slices of an LM's stacked leaves); None: each leaf is
+    one entry of both plans."""
     slots = dict(zip(src.names, src.slots))
-    assert set(slots) == set(dst.names), "plans of different leaves"
+    parts = parts or {k: [k] for k in dst.names}
+    assert sorted(e for k in dst.names for e in parts[k]) == \
+        sorted(slots), "plans of different leaves"
     assert src.padded_total == dst.padded_total == stream.numel()
-    parts = [stream[s.offset:s.offset + s.size]
-             for s in (slots[k] for k in dst.names)]
-    return torch.cat(parts + [stream[src.total_elems:]])
+    pieces = [stream[s.offset:s.offset + s.size]
+              for k in dst.names for s in (slots[e] for e in parts[k])]
+    return torch.cat(pieces + [stream[src.total_elems:]])

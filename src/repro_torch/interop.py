@@ -39,6 +39,7 @@ from repro_torch.distributed.bucketing import (
     shard_size,
     stream_to_shard_layout,
 )
+from repro_torch.models.common import split_slice_key
 
 _KEY = re.compile(r"\['([^']*)'\]")
 
@@ -182,33 +183,66 @@ def load_reference_arrays(arrays: Mapping[str, np.ndarray],
     return params_from_jax(_unflatten(flat), device)
 
 
+def _stream_atoms(order: Sequence[str], cuts) -> List[tuple]:
+    """``(leaf, lo, hi)`` row ranges of a stream whose entries are
+    ``order`` (whole leaves or ``slice_key`` slices of stacked ones),
+    each entry cut at the row bounds ``cuts[leaf]``, in stream order."""
+    atoms = []
+    for key in order:
+        name, lo, hi = split_slice_key(key)
+        if lo is None:
+            lo, hi = 0, cuts[name][-1]
+        edges = [c for c in cuts[name] if lo <= c <= hi]
+        atoms += [(name, a, b) for a, b in zip(edges, edges[1:])]
+    return atoms
+
+
 def _restream(flat, params: Mapping[str, torch.Tensor], to_port: bool,
               order: Optional[Sequence[str]] = None,
               port_order: Optional[Sequence[str]] = None):
-    """Carry a flat packed stream between the port's layout (the leaves
+    """Carry a flat packed stream between the port's layout (the entries
     in ``port_order``, ``leaf_order`` when None; conv leaves OIHW) and
-    the JAX package's (the leaves in ``order``, ``leaf_order`` when
-    None; conv leaves HWIO); the pad tail keeps its place. ``flat`` is a
-    tensor (the result stays on its device) or a numpy array (the result
-    is one)."""
+    the JAX package's (the entries in ``order``, ``leaf_order`` when
+    None; conv leaves HWIO); the pad tail keeps its place. An entry is a
+    leaf or a ``slice_key`` slice of its leading rows (an LM's layer
+    segments under ``overlap_comm``); each side's entries must cover
+    every leaf once. ``flat`` is a tensor (the result stays on its
+    device) or a numpy array (the result is one)."""
     src = flat if torch.is_tensor(flat) else torch.from_numpy(np.array(flat))
     names = leaf_order(params)
     port_order = names if port_order is None else list(port_order)
     jax_order = names if order is None else list(order)
-    if sorted(jax_order) != names or sorted(port_order) != names:
-        raise ValueError("the stream order must name every parameter once")
-    sizes = {k: int(np.prod(tuple(params[k].shape))) for k in port_order}
-    port_off = dict(zip(port_order, np.cumsum(
-        [0] + [sizes[k] for k in port_order[:-1]]).tolist()))
-    jax_off = dict(zip(jax_order, np.cumsum(
-        [0] + [sizes[k] for k in jax_order[:-1]]).tolist()))
+    rows = {k: int(params[k].shape[0]) if params[k].dim() else 1
+            for k in names}
+    cuts = {k: {0, r} for k, r in rows.items()}
+    for key in port_order + jax_order:
+        name, lo, hi = split_slice_key(key)
+        if name not in cuts:
+            raise ValueError(f"the stream order names {key!r}, which is "
+                             "not a parameter")
+        if lo is not None:
+            cuts[name].update((lo, hi))
+    cuts = {k: sorted(v) for k, v in cuts.items()}
+    every = sorted((k, a, b) for k in names
+                   for a, b in zip(cuts[k], cuts[k][1:]))
+    sides = []
+    for o in (port_order, jax_order):
+        atoms = _stream_atoms(o, cuts)
+        if sorted(atoms) != every:
+            raise ValueError("the stream order must name every parameter "
+                             "once")
+        sizes = [params[k].numel() // rows[k] * (b - a) for k, a, b in atoms]
+        sides.append(dict(zip(atoms, zip(np.cumsum([0] + sizes[:-1])
+                                         .tolist(), sizes))))
+    port_off, jax_off = sides
     out = src.clone()
-    for name in port_order:
-        shape, size = tuple(params[name].shape), sizes[name]
-        lo, to = ((jax_off[name], port_off[name]) if to_port
-                  else (port_off[name], jax_off[name]))
+    for atom, (p_off, size) in port_off.items():
+        name = atom[0]
+        shape = tuple(params[name].shape)
+        lo, to = ((jax_off[atom][0], p_off) if to_port
+                  else (p_off, jax_off[atom][0]))
         seg = src[lo:lo + size]
-        if len(shape) == 4 and is_conv_leaf(name):
+        if len(shape) == 4 and is_conv_leaf(name):  # never sliced
             o, i, h, w = shape
             seg = (seg.view(h, w, i, o).permute(3, 2, 0, 1) if to_port
                    else seg.view(o, i, h, w).permute(2, 3, 1, 0))
@@ -270,7 +304,8 @@ class WorkerSharding:
     ``stream_order`` is the leaf order of the JAX package's stream
     optimizer state: None for ``leaf_order`` (the bucketed step's, and
     the port's without ZeRO), the ready order under ``overlap_comm``
-    (``training.step.overlap_stream_order``).
+    (``training.step.overlap_stream_order``; an LM's layer segments
+    name leading-dim slices of its leaves, ``models.common.slice_key``).
 
     ``zero_plan`` (ZeRO) says that the flat fields of ``opt`` are
     sharded: each worker holds its block of the shard layout

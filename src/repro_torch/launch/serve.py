@@ -41,16 +41,17 @@ def build_serve_setup(cfg, *, seed: int = 0, compute_dtype=torch.float32,
                       draw_device: DeviceLike = "cpu") -> Tuple:
     """(model, params) for a serving session: parameters from ``seed``
     (drawn on ``draw_device``: see ``TransformerLM.init``), cast to the
-    compute dtype once here, leaf by leaf, each f32 leaf freed as its
-    cast is made: the device holds the f32 weights and one leaf's cast
-    at most. The values are those of the JAX package's per-op
-    ``astype``, and the decode loop then does not cast every weight
-    again at every step (5 GB of casts a step at llama3.2-1b's
-    width)."""
+    compute dtype once, leaf by leaf as they are drawn, each f32 draw
+    freed as its cast is made: the device holds the cast weights and one
+    f32 leaf at most (llama4-maverick's expert leaves are 32 GB in bf16,
+    one of them 21.5 GB in f32). The values are those of the JAX
+    package's per-op ``astype``, and the decode loop then does not cast
+    every weight again at every step (5 GB of casts a step at
+    llama3.2-1b's width)."""
     model = build_model(cfg, compute_dtype=compute_dtype,
                         attention_impl=attention_impl, device=device)
-    params, _ = model.init_params(seed, draw_device=draw_device)
-    params = {k: params.pop(k).to(compute_dtype) for k in list(params)}
+    params, _ = model.init_params(seed, draw_device=draw_device,
+                                  dtype=compute_dtype)
     return model, params
 
 

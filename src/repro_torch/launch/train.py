@@ -23,9 +23,10 @@ across the D groups, an all-gather inside the group
 the newest intact checkpoint; ``--sentinel`` adds the divergence
 sentinel and the recovery state machine, ``--chaos`` deterministic
 fault injection. ``--arch`` a dense LM (llama3.2-1b, yi-9b, granite-34b,
-qwen2-72b) trains it on the synthetic token stream (``--seq-len``
-tokens a row, the naive attention as in the JAX launcher), on one
-device or on the DP step without overlap, ZeRO or a hierarchical plan.
+qwen2-72b) or a MoE LM (mixtral-8x7b, llama4-maverick-400b-a17b)
+trains it on the synthetic token stream (``--seq-len`` tokens a row,
+the naive attention as in the JAX launcher), on one device or on any of
+the DP steps above but ``--sync-bn``.
 ``--host-shard H/N`` reads only host H's rows of every global batch,
 ``--log-json PATH`` writes the run's history as the JAX launcher does:
 
@@ -60,6 +61,10 @@ device or on the DP step without overlap, ZeRO or a hierarchical plan.
         --reduced --seq-len 128 --global-batch 8 --epochs 2 \\
         --steps-per-epoch 3 --host-shard 0/2 --log-json /tmp/run.json \\
         --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --arch mixtral-8x7b --reduced --seq-len 64 --global-batch 8 \\
+        --dp-mode shardmap --compression bf16+bucketed --zero \\
+        --overlap-comm --bucket-mib 1 --steps 2 --device cpu
 """
 from __future__ import annotations
 
@@ -156,15 +161,16 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
     keeps its own BN state and EF residual; the checkpoints stack them
     as the JAX package does) and None on one device.
 
-    An LM (the dense family) trains on the synthetic token stream of
-    ``seq_len`` tokens a row with its token-mean cross entropy, its
-    attention ``attention_impl`` ("naive", as the JAX package's default;
-    "chunked": the flash kernel; "chunked_opt": the bf16-tile loop with
-    each q block recomputed in the backward), on one device or on the
-    data-parallel step with per-leaf or bucketed sync and error
-    feedback. Its staged loss is not ported, so the overlapped sync,
-    ZeRO and the hierarchical schedules raise for it (ROADMAP queue 1,
-    item 15.2), and so does ``sync_bn`` (it has no BN). Its weights are
+    An LM (the dense and MoE families) trains on the synthetic token
+    stream of ``seq_len`` tokens a row with its token-mean cross entropy
+    (plus 0.01 x the MoE aux loss), its attention ``attention_impl``
+    ("naive", as the JAX package's default; "chunked": the flash kernel;
+    "chunked_opt": the bf16-tile loop with each q block recomputed in
+    the backward), on one device or on every data-parallel step the
+    conv family takes: per-leaf or bucketed sync, error feedback,
+    stream-LARS, the overlapped sync (its staged loss,
+    ``TransformerLM.loss_segments``), ZeRO and the hierarchical
+    schedules. ``sync_bn`` raises for it (it has no BN). Its weights are
     drawn from ``seed`` on ``draw_device`` (``TransformerLM.init``: the
     CPU gives the same weights on every device, the card draws a
     billion in milliseconds). ``seq_len`` is unused by the conv family.
@@ -269,19 +275,9 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
                 "--fused-bn fuses the ResNet BN sites; arch family "
                 f"{cfg.family!r} has no BN")
         cfg = dataclasses.replace(cfg, fused_bn=True)
-    if cfg.family != "conv":
-        if sync_bn:
-            raise ValueError(f"sync_bn makes BN cross-replica; arch family "
-                             f"{cfg.family!r} has no BN")
-        unported = [name for name, on in (("overlap_comm", overlap_comm),
-                                          ("zero_dp", zero_dp),
-                                          ("hier_split",
-                                           hier_split is not None)) if on]
-        if unported:
-            raise NotImplementedError(
-                f"{unported[0]} on an LM needs its staged loss and stream "
-                "plans (loss_segments), which are not ported yet (ROADMAP "
-                "queue 1, item 15.2)")
+    if cfg.family != "conv" and sync_bn:
+        raise ValueError(f"sync_bn makes BN cross-replica; arch family "
+                         f"{cfg.family!r} has no BN")
     if input_cfg is not None and input_cfg.fused:
         if cfg.family != "conv":
             raise ValueError(

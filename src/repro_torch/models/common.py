@@ -1,17 +1,18 @@
 """Initializers, norms and activations shared by the port's models, and
 the staged loss of the overlapped data-parallel step.
 
-Initializers draw from an explicit ``torch.Generator``, on the device
-the generator lives on (the CPU unless a caller asks for another, so a
-seed gives the same weights on every device); the JAX package's
-threefry draws cannot be reproduced, so tests carry JAX-initialized
-weights across instead (``interop.py``).
+Initializers draw from an explicit ``torch.Generator`` (wrapped in a
+``LeafDraw``), on the device the generator lives on (the CPU unless a
+caller asks for another, so a seed gives the same weights on every
+device); the JAX package's threefry draws cannot be reproduced, so
+tests carry JAX-initialized weights across instead (``interop.py``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, List, Sequence, Tuple
+import re
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -19,30 +20,48 @@ import torch.nn.functional as F
 Tensor = torch.Tensor
 
 
-def normal_init(gen: torch.Generator, shape: Sequence[int],
+class LeafDraw:
+    """The initializers' source of weights: a ``torch.Generator`` whose
+    draws are handed over leaf by leaf. Each leaf is drawn in f32 on the
+    generator's device, cast to ``dtype`` (None: kept f32) on ``device``
+    (None: where it was drawn), and the f32 draw is freed before the
+    next one. A tree drawn so never holds more than one f32 leaf beside
+    its finished leaves (llama4-maverick's expert leaves alone are 32 GB
+    in bf16); the values are those of drawing the whole tree and casting
+    it afterwards."""
+
+    def __init__(self, gen: torch.Generator, device=None, dtype=None):
+        self.gen, self.dtype = gen, dtype
+        self.device = gen.device if device is None else device
+
+    def randn(self, shape: Sequence[int]) -> Tensor:
+        return torch.randn(tuple(shape), generator=self.gen,
+                           device=self.gen.device)
+
+    def put(self, t: Tensor) -> Tensor:
+        return t.to(self.device, self.dtype or t.dtype)
+
+
+def normal_init(gen: LeafDraw, shape: Sequence[int],
                 stddev: float = 0.02) -> Tensor:
-    return stddev * torch.randn(tuple(shape), generator=gen,
-                                device=gen.device)
+    return gen.put(stddev * gen.randn(shape))
 
 
-def fan_in_init(gen: torch.Generator, shape: Sequence[int],
+def fan_in_init(gen: LeafDraw, shape: Sequence[int],
                 fan_in_dims: Sequence[int] = (-2,)) -> Tensor:
     """A normal draw over the square root of the fan-in, the product of
     ``shape``'s dims at ``fan_in_dims``."""
     fan_in = 1
     for d in fan_in_dims:
         fan_in *= shape[d]
-    return torch.randn(tuple(shape), generator=gen,
-                       device=gen.device) / math.sqrt(max(fan_in, 1))
+    return gen.put(gen.randn(shape) / math.sqrt(max(fan_in, 1)))
 
 
-def he_init(gen: torch.Generator, shape: Sequence[int],
-            fan_in: int) -> Tensor:
-    return torch.randn(tuple(shape), generator=gen,
-                       device=gen.device) * math.sqrt(2.0 / fan_in)
+def he_init(gen: LeafDraw, shape: Sequence[int], fan_in: int) -> Tensor:
+    return gen.put(gen.randn(shape) * math.sqrt(2.0 / fan_in))
 
 
-def dense(gen: torch.Generator, d_in: int, d_out: int,
+def dense(gen: LeafDraw, d_in: int, d_out: int,
           stacked: int = 0) -> Tensor:
     """A ``(stacked?, d_in, d_out)`` weight, fan-in initialized."""
     shape = (d_in, d_out) if not stacked else (stacked, d_in, d_out)
@@ -136,12 +155,14 @@ class StagedLoss:
     soon as its last gradient exists.
 
     ``seg_fns[i](seg_params[i], carry) -> (carry', aux)``; the carry is
-    the activation handed from one segment to the next, and the last
-    segment's carry' is the scalar loss. Every parameter lives in
-    exactly one segment (the model's ``segment_trees`` cuts a
-    parameter-shaped dict the same way), so the union of the segments'
-    gradient dicts is the whole gradient.
-    ``finalize_aux(auxes) -> (new_model_state, metrics)``."""
+    what one segment hands the next, a tensor or a tuple of tensors
+    (an LM's ``(x, moe_aux[, tied table])``), and the last segment's
+    carry' is the scalar loss. Every parameter lives in exactly one
+    segment, whole or as a leading-dim slice (``slice_key``; the model's
+    ``segment_trees`` cuts a parameter-shaped dict the same way), so
+    ``merge_slices`` of the union of the segments' gradient dicts is the
+    whole gradient. ``finalize_aux(auxes) -> (new_model_state,
+    metrics)``."""
 
     names: Tuple[str, ...]
     seg_params: Tuple[Dict[str, Tensor], ...]
@@ -153,20 +174,33 @@ class StagedLoss:
         return len(self.seg_fns)
 
 
+def _as_tuple(x) -> tuple:
+    return x if isinstance(x, tuple) else (x,)
+
+
+def _detach_carry(carry):
+    """A carry cut from its segment's graph: each tensor a detached
+    copy that requires grad, so the next segment's VJP ends at it."""
+    if isinstance(carry, tuple):
+        return tuple(c.detach().requires_grad_(True) for c in carry)
+    return carry.detach().requires_grad_(True)
+
+
 def staged_forward(staged: StagedLoss):
     """The forward as a chain of segments, each on a detached copy of
     the incoming carry. Returns ``(loss, vjp_fns, auxes)``;
     ``vjp_fns[i](ct)`` is ``(segment parameter gradients, carry
-    cotangent)``, the cotangent None for the first segment. The
-    parameters must be leaves that require grad. Chained from the last
-    segment back, they run the ops of the monolithic backward, segment
-    by segment, so the gradients are bitwise those of
-    ``torch.autograd.grad`` of the whole loss."""
+    cotangent)``, the cotangent None for the first segment and shaped as
+    the carry (a tensor or a tuple). The parameters must require grad
+    (leaves, or slices of leaves). Chained from the last segment back,
+    they run the ops of the monolithic backward, segment by segment, so
+    the gradients are bitwise those of ``torch.autograd.grad`` of the
+    whole loss."""
     carry = staged.x0
     vjps: List[Callable] = []
     auxes = []
     for i, (sp, fn) in enumerate(zip(staged.seg_params, staged.seg_fns)):
-        carry_in = carry if i == 0 else carry.detach().requires_grad_(True)
+        carry_in = carry if i == 0 else _detach_carry(carry)
         carry, aux = fn(sp, carry_in)
         vjps.append(_segment_vjp(carry, list(sp), list(sp.values()),
                                  None if i == 0 else carry_in))
@@ -174,20 +208,27 @@ def staged_forward(staged: StagedLoss):
     return carry, vjps, auxes
 
 
-def _segment_vjp(out: Tensor, names: List[str], leaves: List[Tensor],
-                 carry_in):
-    def vjp(ct: Tensor):
-        inputs = leaves + ([] if carry_in is None else [carry_in])
-        gs = torch.autograd.grad(out, inputs, grad_outputs=ct)
-        return dict(zip(names, gs)), (None if carry_in is None
-                                      else gs[-1])
+def _segment_vjp(out, names: List[str], leaves: List[Tensor], carry_in):
+    def vjp(ct):
+        # an output that does not require grad (a carried constant, as
+        # the embedding segment's zero MoE aux) takes no cotangent
+        pairs = [(o, c) for o, c in zip(_as_tuple(out), _as_tuple(ct))
+                 if o.requires_grad]
+        ins = leaves + ([] if carry_in is None else list(_as_tuple(carry_in)))
+        gs = torch.autograd.grad([o for o, _ in pairs], ins,
+                                 grad_outputs=[c for _, c in pairs])
+        grads = dict(zip(names, gs[:len(leaves)]))
+        if carry_in is None:
+            return grads, None
+        ct_in = tuple(gs[len(leaves):])
+        return grads, ct_in if isinstance(carry_in, tuple) else ct_in[0]
     return vjp
 
 
 def staged_value_and_grad(staged: StagedLoss):
     """The chained backward without overlap: ``(loss, (new_state,
     metrics), grads)``, the gradients in the parameters' own dtype and
-    by their names."""
+    by their names (slices merged back into their leaves)."""
     loss, vjps, auxes = staged_forward(staged)
     ct: Any = torch.ones_like(loss)
     grads: Dict[str, Tensor] = {}
@@ -195,4 +236,57 @@ def staged_value_and_grad(staged: StagedLoss):
         g_seg, ct = vjps[i](ct)
         grads.update(g_seg)
     new_state, metrics = staged.finalize_aux(auxes)
-    return loss, (new_state, metrics), grads
+    return loss, (new_state, metrics), merge_slices(grads)
+
+
+# ---------------------------------------------------------------------------
+# leading-dim slices of stacked leaves (an LM's layer segments)
+# ---------------------------------------------------------------------------
+
+_SLICE = re.compile(r"layers(\d+)_(\d+)/(.+)")
+
+
+def slice_key(lo: int, hi: int, name: str) -> str:
+    """The key of rows ``[lo, hi)`` of the stacked leaf ``name`` in a
+    staged loss's layer segment ``layers{lo}_{hi}``: unique across
+    segments, and sorted within one segment as ``name`` is
+    (``bucketing.leaf_order``), which is the JAX package's order of a
+    segment's stage tree."""
+    return f"layers{lo}_{hi}/{name}"
+
+
+def split_slice_key(key: str) -> Tuple[str, Optional[int], Optional[int]]:
+    """``(leaf name, lo, hi)`` of a ``slice_key``; ``(key, None, None)``
+    for a whole leaf."""
+    m = _SLICE.fullmatch(key)
+    if m is None:
+        return key, None, None
+    return m.group(3), int(m.group(1)), int(m.group(2))
+
+
+def slice_views(tree: Dict[str, Tensor], keys) -> Dict[str, Tensor]:
+    """``keys`` (whole leaves or ``slice_key``s) as views into ``tree``:
+    writing into a slice's view writes into its leaf."""
+    out = {}
+    for k in keys:
+        name, lo, hi = split_slice_key(k)
+        out[k] = tree[name] if lo is None else tree[name][lo:hi]
+    return out
+
+
+def slice_parts(keys) -> Dict[str, List[str]]:
+    """Leaf name -> the keys of ``keys`` that hold it, in row order."""
+    parts: Dict[str, List[Tuple[int, str]]] = {}
+    for k in keys:
+        name, lo, _ = split_slice_key(k)
+        parts.setdefault(name, []).append((-1 if lo is None else lo, k))
+    return {n: [k for _, k in sorted(v)] for n, v in parts.items()}
+
+
+def merge_slices(tree: Dict[str, Tensor]) -> Dict[str, Tensor]:
+    """A dict of whole leaves and ``slice_key`` slices -> whole leaves,
+    each leaf's slices concatenated in row order (the JAX package's
+    ``merge_grads``)."""
+    return {name: tree[name] if keys == [name] else
+            torch.cat([tree[k] for k in keys])
+            for name, keys in slice_parts(tree).items()}

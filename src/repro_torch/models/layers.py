@@ -1,6 +1,6 @@
-"""Transformer building blocks of the dense family: RoPE, GQA attention
-(full forward, prefill into a KV cache, decode against it), the MLPs,
-the embedding and the LM head.
+"""Transformer building blocks of the dense and MoE families: RoPE, GQA
+attention (full forward, prefill into a KV cache, decode against it),
+the MLPs, the MoE layer, the embedding and the LM head.
 
 The port of the JAX package's ``models/layers.py``, function for
 function, in the same layouts: activations ``(B, S, H, Dh)``, attention
@@ -14,8 +14,9 @@ loop and its Pallas kernel compute the same function. At
 jnp loop, in plain PyTorch: tiles in the compute dtype, f32 softmax
 statistics and accumulator, each q block optionally checkpointed. Plain
 products and ``decode_attention`` stay ``torch.matmul`` / einsum, as
-the JAX package leaves them to XLA. The MoE layer is not ported yet
-(ROADMAP queue 1, item 15.3).
+the JAX package leaves them to XLA; so do the MoE layer's routing and
+its four einsums (``moe_apply``), where the JAX package has no Pallas
+kernel either.
 """
 from __future__ import annotations
 
@@ -57,7 +58,7 @@ def rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
 # ---------------------------------------------------------------------------
 
 
-def attention_init(gen: torch.Generator, cfg: ModelConfig, stacked: int = 0,
+def attention_init(gen: common.LeafDraw, cfg: ModelConfig, stacked: int = 0,
                    kv_dim: Optional[int] = None) -> Params:
     """QKV + output projection, weights shaped (d, H, Dh) and (H, Dh, d)
     (with a leading layer dim when ``stacked``)."""
@@ -337,7 +338,7 @@ def attention_apply(
 # ---------------------------------------------------------------------------
 
 
-def mlp_init(gen: torch.Generator, cfg: ModelConfig, stacked: int = 0,
+def mlp_init(gen: common.LeafDraw, cfg: ModelConfig, stacked: int = 0,
              d_ff: Optional[int] = None) -> Params:
     d, ff = cfg.d_model, d_ff or cfg.d_ff
     if cfg.mlp_variant == "swiglu":
@@ -361,11 +362,128 @@ def mlp_apply(p: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
 
 
 # ---------------------------------------------------------------------------
+# MoE: GShard/GLaM-style grouped capacity dispatch
+# ---------------------------------------------------------------------------
+
+# tokens per dispatch group, and the expert capacity factor; both read
+# at call time, as in the JAX package
+MOE_GROUP = 256
+CAPACITY_FACTOR = 1.25
+
+
+def moe_init(gen: common.LeafDraw, cfg: ModelConfig, stacked: int = 0
+             ) -> Params:
+    """The router ``(d, e)``, the experts ``(e, d, ff)`` / ``(e, ff, d)``
+    and, with ``n_shared_experts``, the always-on shared expert's MLP
+    under ``shared/`` (a leading layer dim when ``stacked``)."""
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    L = (stacked,) if stacked else ()
+
+    def ew(d_in, d_out):
+        return common.fan_in_init(gen, L + (e, d_in, d_out), (-2,))
+
+    p: Params = {"router": dense(gen, d, e, stacked)}
+    if cfg.mlp_variant == "swiglu":
+        p["w_gate"] = ew(d, ff)
+    p["w_up"] = ew(d, ff)
+    p["w_down"] = ew(ff, d)
+    if cfg.n_shared_experts:
+        shared = mlp_init(gen, cfg, stacked,
+                          d_ff=cfg.d_ff * cfg.n_shared_experts)
+        p.update({f"shared/{k}": v for k, v in shared.items()})
+    return p
+
+
+def _route(probs: Tensor, k: int, cap: int, dt) -> Tuple[Tensor, Tensor]:
+    """``moe_apply``'s routing of the router ``probs`` (groups, tokens,
+    experts): each of a token's top ``k`` choices (repeated argmax)
+    takes the next slot of its expert in the group (a cumsum) and is
+    dropped past ``cap``. Returns the dispatch one-hots (groups, tokens,
+    experts, cap) in ``dt`` and the kept gates (groups, tokens, experts)
+    in f32."""
+    n_groups, g_size, e = probs.shape
+    f32 = torch.float32
+    dispatch = torch.zeros((n_groups, g_size, e, cap), dtype=dt,
+                           device=probs.device)
+    gates_full = torch.zeros((n_groups, g_size, e), dtype=f32,
+                             device=probs.device)
+    remaining = probs
+    position_in_expert = torch.zeros((n_groups, e), dtype=torch.int32,
+                                     device=probs.device)
+    for _ in range(k):
+        idx = remaining.argmax(-1)  # (g, s)
+        gate = remaining.gather(-1, idx[..., None])[..., 0]
+        onehot = F.one_hot(idx, e).to(torch.int32)
+        pos = (position_in_expert[:, None, :] + onehot.cumsum(1,
+               dtype=torch.int32) - onehot)
+        pos = (pos * onehot).sum(-1)  # (g, s) slot within its expert
+        keep = pos < cap
+        # a slot past the capacity has no one-hot (JAX's one_hot of an
+        # index out of range is all zeros); keep masks it anyway
+        slot = F.one_hot(pos.clamp(max=cap - 1), cap).to(dt)
+        dispatch = dispatch + (F.one_hot(idx, e).to(dt)[..., None]
+                               * slot[:, :, None, :]
+                               * keep[..., None, None].to(dt))
+        gates_full = gates_full + onehot.to(f32) * (gate * keep)[..., None]
+        position_in_expert = position_in_expert + onehot.sum(
+            1, dtype=torch.int32)
+        remaining = remaining * (1.0 - F.one_hot(idx, e).to(f32))
+    return dispatch, gates_full
+
+
+def moe_apply(p: Params, x: Tensor, cfg: ModelConfig,
+              capacity_factor: Optional[float] = None
+              ) -> Tuple[Tensor, Tensor]:
+    """``(output, load-balance aux loss)``: the JAX package's
+    ``moe_apply``, op for op. Tokens are cut into groups of
+    ``MOE_GROUP``; the router's softmax is f32; each of the top
+    ``experts_per_token`` choices (repeated argmax) takes the next slot
+    of its expert in the group (a cumsum) and is dropped past the
+    capacity ``max(4, int(group * k * capacity_factor / e))``; the
+    tokens reach their experts and come back through the dispatch and
+    combine (dispatch x gate) one-hots in four einsums; the shared
+    expert adds its MLP of every token. The aux loss is Switch's,
+    ``mean(density * density_proxy) * e**2``."""
+    if capacity_factor is None:
+        capacity_factor = CAPACITY_FACTOR
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.experts_per_token
+    n_tokens = b * s
+    g_size = min(MOE_GROUP, n_tokens)
+    n_groups = n_tokens // g_size
+    xg = x.reshape(n_groups, g_size, d)
+    dt, f32 = x.dtype, torch.float32
+
+    logits = torch.einsum("gsd,de->gse", xg, p["router"].to(dt))
+    probs = torch.softmax(logits.float(), dim=-1)
+    density = F.one_hot(probs.argmax(-1), e).to(f32).mean(dim=1)
+    density_proxy = probs.mean(dim=1)
+    aux = (density * density_proxy).mean() * (e * e)
+
+    cap = max(4, int(g_size * k * capacity_factor / e))
+    dispatch, gates_full = _route(probs, k, cap, dt)
+    combine = dispatch * gates_full[..., None].to(dt)
+    xe = torch.einsum("gsec,gsd->gecd", dispatch, xg)
+    if "w_gate" in p:
+        h = F.silu(torch.einsum("gecd,edf->gecf", xe, p["w_gate"].to(dt)))
+        h = h * torch.einsum("gecd,edf->gecf", xe, p["w_up"].to(dt))
+    else:
+        h = gelu(torch.einsum("gecd,edf->gecf", xe, p["w_up"].to(dt)))
+    ye = torch.einsum("gecf,efd->gecd", h, p["w_down"].to(dt))
+    y = torch.einsum("gsec,gecd->gsd", combine, ye)
+    shared = {k_[len("shared/"):]: v for k_, v in p.items()
+              if k_.startswith("shared/")}
+    if shared:
+        y = y + mlp_apply(shared, xg, cfg)
+    return y.reshape(b, s, d), aux
+
+
+# ---------------------------------------------------------------------------
 # Embedding + LM head
 # ---------------------------------------------------------------------------
 
 
-def embedding_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+def embedding_init(gen: common.LeafDraw, cfg: ModelConfig) -> Params:
     return {"table": common.normal_init(gen, (cfg.vocab_size, cfg.d_model))}
 
 

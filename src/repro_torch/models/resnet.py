@@ -96,7 +96,7 @@ class ResNet50(nn.Module):
                          else bool(fused_bn))
         self.bn_group = bn_group
         self.device = resolve_device(device)
-        gen = torch.Generator().manual_seed(seed)
+        gen = common.LeafDraw(torch.Generator().manual_seed(seed))
         for name, value in self._init_values(gen).items():
             self.register_parameter(name, nn.Parameter(value.to(self.device)))
 
@@ -115,7 +115,7 @@ class ResNet50(nn.Module):
                     yield si, bi, c_in, mid, c_out, stride
                 c_in = c_out
 
-    def _init_values(self, gen: torch.Generator) -> Params:
+    def _init_values(self, gen: common.LeafDraw) -> Params:
         cfg = self.cfg
         w = cfg.conv_width
 

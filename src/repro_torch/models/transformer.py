@@ -1,31 +1,41 @@
-"""Decoder-only transformer LM, the dense family (llama3.2-1b, yi-9b,
-granite-34b, qwen2-72b).
+"""Decoder-only transformer LM, the dense and MoE families (llama3.2-1b,
+yi-9b, granite-34b, qwen2-72b; mixtral-8x7b, llama4-maverick).
 
-The port of the JAX package's ``models/transformer.py`` for
-``family="dense"``: the same parameter tree, flattened to "/" paths
-(``embed/table``, ``sub0/norm1/scale``, ``sub0/attn/wq``, ...,
-``final_norm/scale``), with the layer params stacked on a leading
-``L`` dim; ``forward`` loops over that dim where the JAX package scans
-it. The KV cache is ``{"sub0/k", "sub0/v"}``, each ``(L, B, S, KV,
+The port of the JAX package's ``models/transformer.py``: the same
+parameter tree, flattened to "/" paths (``embed/table``,
+``sub0/norm1/scale``, ``sub0/attn/wq``, ..., ``sub1/moe/w_up``,
+``final_norm/scale``), with the layer params stacked on a leading dim
+of layer *groups*. A MoE config with ``moe_layer_every=k`` has groups
+of k sub-layers ``sub0 .. sub{k-1}``, the last of them MoE (llama4's
+alternating pattern); every other config has one sub-layer a group.
+``forward`` loops over the groups where the JAX package scans them.
+The KV cache is ``{"sub{j}/k", "sub{j}/v"}``, each ``(G, B, S, KV,
 Dh)``, written in place by ``prefill`` and ``decode_step``.
 
-``loss_fn`` is the training loss (token-mean cross entropy in f32);
-the staged loss of the overlapped step (``loss_segments``), MoE configs
-and the VLM patch frontend are not ported yet (ROADMAP queue 1, items
-15.2 and 15.3-15.4). The JAX package rematerializes the layer scan of a
-model of more than 8 layers; the port keeps every activation, which
-gives the same values.
+``loss_fn`` is the training loss (token-mean cross entropy in f32, plus
+0.01 x the MoE aux loss); ``loss_segments`` is the same loss as chained
+segments for the overlapped data-parallel step. The VLM patch frontend
+is not ported yet (ROADMAP queue 1, item 15.4). The JAX package
+rematerializes the layer scan of a model of more than 8 layers; the
+port keeps every activation, which gives the same values.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import common, layers
-from repro_torch.models.common import apply_norm, norm_init
+from repro_torch.models.common import (
+    LeafDraw,
+    StagedLoss,
+    apply_norm,
+    norm_init,
+    slice_key,
+    slice_views,
+)
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
@@ -39,59 +49,76 @@ def _flat(prefix: str, tree: Dict[str, Tensor]) -> Params:
 
 class TransformerLM:
     def __init__(self, cfg: ModelConfig, compute_dtype=torch.bfloat16,
-                 attention_impl: str = "chunked", *,
+                 attention_impl: str = "chunked", *, comm_stages: int = 4,
                  device: DeviceLike = "cuda"):
-        if cfg.n_experts:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers are not ported yet (ROADMAP queue "
-                "1, item 15.3)")
         if attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl must be one of "
                              f"{ATTENTION_IMPLS}, got {attention_impl!r}")
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         self.attention_impl = attention_impl
+        # how many slices loss_segments cuts the layer groups into: the
+        # granularity of the overlapped step's gradient sync
+        self.comm_stages = comm_stages
         self.device = resolve_device(device)
-        self.n_groups = cfg.n_layers  # one layer per group: no MoE groups
+        self.group = cfg.moe_layer_every if cfg.n_experts else 1
+        if cfg.n_layers % self.group:
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not "
+                             f"make groups of {self.group}")
+        self.n_groups = cfg.n_layers // self.group
 
     # ------------------------------------------------------------------ init
-    def init(self, seed: int = 0, *, draw_device: DeviceLike = "cpu"
-             ) -> Params:
+    def init(self, seed: int = 0, *, draw_device: DeviceLike = "cpu",
+             dtype: Optional[torch.dtype] = None) -> Params:
         """Parameters by their JAX-tree paths, drawn from ``seed`` on
         ``draw_device`` (the CPU: the same weights for every model
-        device) and moved to the model's device. Drawing on the card
-        gives other values and spares the host a copy of the weights
-        (35 GB in f32 at yi-9b's size)."""
+        device), each leaf moved to the model's device and cast to
+        ``dtype`` (None: f32) as soon as it is drawn, its f32 draw freed
+        before the next (``common.LeafDraw``). Drawing on the card gives
+        other values and spares the host a copy of the weights (35 GB
+        in f32 at yi-9b's size)."""
         cfg = self.cfg
-        gen = torch.Generator(device=resolve_device(draw_device)
-                              ).manual_seed(seed)
-        L = self.n_groups
+        gen = LeafDraw(torch.Generator(device=resolve_device(draw_device)
+                                       ).manual_seed(seed),
+                       self.device, dtype)
+        G = self.n_groups
         p: Params = _flat("embed", layers.embedding_init(gen, cfg))
-        p.update(_flat("sub0/norm1", norm_init(cfg.norm, cfg.d_model, L)))
-        p.update(_flat("sub0/attn", layers.attention_init(gen, cfg, L)))
-        p.update(_flat("sub0/norm2", norm_init(cfg.norm, cfg.d_model, L)))
-        p.update(_flat("sub0/mlp", layers.mlp_init(gen, cfg, L)))
+        for j in range(self.group):
+            pre = f"sub{j}"
+            p.update(_flat(f"{pre}/norm1", norm_init(cfg.norm, cfg.d_model,
+                                                     G)))
+            p.update(_flat(f"{pre}/attn", layers.attention_init(gen, cfg, G)))
+            p.update(_flat(f"{pre}/norm2", norm_init(cfg.norm, cfg.d_model,
+                                                     G)))
+            if cfg.is_moe_layer(j):
+                p.update(_flat(f"{pre}/moe", layers.moe_init(gen, cfg, G)))
+            else:
+                p.update(_flat(f"{pre}/mlp", layers.mlp_init(gen, cfg, G)))
         p.update(_flat("final_norm", norm_init(cfg.norm, cfg.d_model)))
         if not cfg.tie_embeddings:
             p["head"] = common.dense(gen, cfg.d_model, cfg.vocab_size)
-        return {k: v.to(self.device) for k, v in p.items()}
+        return {k: gen.put(v) for k, v in p.items()}
 
-    def init_params(self, seed: int = 0, *, draw_device: DeviceLike = "cpu"
+    def init_params(self, seed: int = 0, *, draw_device: DeviceLike = "cpu",
+                    dtype: Optional[torch.dtype] = None
                     ) -> Tuple[Params, None]:
         """``(params, None)``: the JAX package returns its logical-axes
         tree second; the port shards nothing yet."""
-        return self.init(seed, draw_device=draw_device), None
+        return self.init(seed, draw_device=draw_device, dtype=dtype), None
 
     # ------------------------------------------------------------- sub-layer
-    def _block(self, p: Params, layer: int, x: Tensor, positions: Tensor,
-               cache: Optional[Params], cache_index) -> Tensor:
+    def _block(self, p: Params, j: int, g: int, x: Tensor,
+               positions: Tensor, cache: Optional[Params], cache_index
+               ) -> Tuple[Tensor, Optional[Tensor]]:
+        """Sub-layer ``j`` of layer group ``g`` (an index into ``p``'s
+        stacked leaves): ``(x', its MoE aux loss or None)``."""
         cfg = self.cfg
-        h = apply_norm(_sub(p, "sub0/norm1", layer), x, cfg.norm,
-                       cfg.norm_eps)
+        pre = f"sub{j}"
+        h = apply_norm(_sub(p, f"{pre}/norm1", g), x, cfg.norm, cfg.norm_eps)
         layer_cache = None if cache is None else {
-            "k": cache["sub0/k"][layer], "v": cache["sub0/v"][layer]}
+            "k": cache[f"{pre}/k"][g], "v": cache[f"{pre}/v"][g]}
         attn_out, _ = layers.attention_apply(
-            _sub(p, "sub0/attn", layer), h, cfg,
+            _sub(p, f"{pre}/attn", g), h, cfg,
             positions=positions,
             causal=True,
             window=cfg.sliding_window,
@@ -100,9 +127,24 @@ class TransformerLM:
             cache_index=cache_index,
         )
         x = x + attn_out
-        h = apply_norm(_sub(p, "sub0/norm2", layer), x, cfg.norm,
-                       cfg.norm_eps)
-        return x + layers.mlp_apply(_sub(p, "sub0/mlp", layer), h, cfg)
+        h = apply_norm(_sub(p, f"{pre}/norm2", g), x, cfg.norm, cfg.norm_eps)
+        if cfg.is_moe_layer(j):
+            out, aux = layers.moe_apply(_sub(p, f"{pre}/moe", g), h, cfg)
+            return x + out, aux
+        return x + layers.mlp_apply(_sub(p, f"{pre}/mlp", g), h, cfg), None
+
+    def _groups(self, p: Params, n: int, x: Tensor, positions: Tensor,
+                cache: Optional[Params], cache_index, aux):
+        """The layer groups of ``p`` (its ``n`` rows of stacked leaves:
+        all of them, or a segment's slice) in order; ``aux`` threads the
+        MoE aux loss across them, gaining the last sub-layer's aux of
+        each group, as the JAX package's group body does."""
+        for g in range(n):
+            for j in range(self.group):
+                x, a = self._block(p, j, g, x, positions, cache, cache_index)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
     # ---------------------------------------------------------------- fwd
     def forward(self, p: Params, tokens: Tensor, *,
@@ -111,11 +153,9 @@ class TransformerLM:
                 cache_index=None) -> Tuple[Tensor, Any, Optional[Params]]:
         """Returns (logits, moe_aux, cache); the cache is written in
         place. tokens: (B, S) integers. In decode mode S == 1 and
-        ``cache_index`` is the write position."""
-        if patches is not None:
-            raise NotImplementedError(
-                "the VLM patch frontend is not ported yet (ROADMAP queue 1, "
-                "item 15.4)")
+        ``cache_index`` is the write position. ``moe_aux`` is 0.0 for a
+        model without MoE layers."""
+        _no_patches(patches)
         cfg = self.cfg
         x = layers.embed(_sub(p, "embed"), tokens, self.compute_dtype)
         b, s, _ = x.shape
@@ -126,12 +166,12 @@ class TransformerLM:
             positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
             if cache is not None and cache_index is None:
                 cache_index = 0
-        for layer in range(self.n_groups):
-            x = self._block(p, layer, x, positions, cache, cache_index)
+        x, aux = self._groups(p, self.n_groups, x, positions, cache,
+                              cache_index, 0.0)
         x = apply_norm(_sub(p, "final_norm"), x, cfg.norm, cfg.norm_eps)
         w = p["embed/table"] if cfg.tie_embeddings else p["head"]
         logits = layers.lm_head(w, x, cfg.tie_embeddings)
-        return logits, 0.0, cache
+        return logits, aux, cache
 
     # --------------------------------------------------------------- losses
     def loss_fn(self, p: Params, model_state: Dict, batch: Dict,
@@ -139,7 +179,7 @@ class TransformerLM:
         """``(total, (model_state, {"loss", "moe_aux", "tokens"}))`` of a
         batch ``{"tokens", "targets"}`` (B, S) integers: the token-mean
         cross entropy of the train-mode forward, plus 0.01 x the MoE aux
-        loss, which is 0 for the dense family."""
+        loss (0 without MoE layers)."""
         logits, moe_aux, _ = self.forward(
             p, batch["tokens"], patches=batch.get("patches"), mode="train")
         loss, n_tok = common.cross_entropy_loss(
@@ -147,30 +187,114 @@ class TransformerLM:
         moe_aux = torch.as_tensor(moe_aux, dtype=torch.float32,
                                   device=loss.device)
         total = loss + 0.01 * moe_aux
-        metrics = {"loss": loss.detach(), "moe_aux": moe_aux,
+        metrics = {"loss": loss.detach(), "moe_aux": moe_aux.detach(),
                    "tokens": n_tok}
         return total, (model_state, metrics)
 
+    # ----------------------------------------------------- staged apply
+    def _bounds(self) -> List[int]:
+        n_lseg = max(1, min(self.comm_stages, self.n_groups))
+        return [round(i * self.n_groups / n_lseg) for i in range(n_lseg + 1)]
+
+    def segment_names(self) -> Tuple[str, ...]:
+        """The staged loss's segments, forward order: ``embed``,
+        ``layers{lo}_{hi}`` for each slice of at most ``comm_stages`` of
+        the layer groups, ``head``."""
+        b = self._bounds()
+        return (("embed",) + tuple(f"layers{lo}_{hi}"
+                                   for lo, hi in zip(b, b[1:])) + ("head",))
+
+    def segment_trees(self, tree: Dict) -> List[Dict]:
+        """A parameter-shaped dict cut into the staged loss's segments
+        (forward order): the embedding; rows ``[lo, hi)`` of every
+        stacked leaf, keyed ``common.slice_key(lo, hi, name)`` (views:
+        writing into one writes into its leaf); the final norm and the
+        untied head. The JAX package's ``split_tree``."""
+        b = self._bounds()
+        stacked = [k for k in tree if k.startswith("sub")]
+        segs = [{k: v for k, v in tree.items() if k.startswith("embed/")}]
+        for lo, hi in zip(b, b[1:]):
+            segs.append(slice_views(tree, [slice_key(lo, hi, k)
+                                           for k in stacked]))
+        segs.append({k: v for k, v in tree.items()
+                     if k.startswith("final_norm/") or k == "head"})
+        return segs
+
     def loss_segments(self, p: Params, model_state: Dict, batch: Dict,
-                      label_smoothing: float = 0.0):
-        raise NotImplementedError(
-            "the staged LM loss (loss_segments, for the overlapped "
-            "data-parallel step) is not ported yet (ROADMAP queue 1, item "
-            "15.2)")
+                      label_smoothing: float = 0.0) -> StagedLoss:
+        """``loss_fn`` as chained segments (``segment_names``) over
+        ``segment_trees(p)``, for the overlapped DP step: each layer
+        segment runs its slice of the groups with the monolithic
+        forward's ops. The carry is ``(x, moe_aux)``; with tied
+        embeddings the table rides in it too, so each parameter leaf
+        belongs to one segment and its two gradient contributions (the
+        lookup and the head) meet in the embedding segment's backward.
+        The JAX package's ``loss_segments``."""
+        cfg = self.cfg
+        tied = cfg.tie_embeddings
+        tokens = batch["tokens"]
+        _no_patches(batch.get("patches"))
+
+        def embed_fn(sp, _x0):
+            x = layers.embed(_sub(sp, "embed"), tokens, self.compute_dtype)
+            carry = (x, torch.zeros((), dtype=torch.float32,
+                                    device=x.device))
+            if tied:
+                carry += (sp["embed/table"],)
+            return carry, None
+
+        def make_layer_fn(lo: int, hi: int):
+            cut = len(slice_key(lo, hi, ""))
+
+            def layer_fn(sp, carry):
+                x, aux = carry[0], carry[1]
+                b, s, _ = x.shape
+                positions = torch.arange(s, device=x.device)[None, :] \
+                    .expand(b, s)
+                x, aux = self._groups({k[cut:]: v for k, v in sp.items()},
+                                      hi - lo, x, positions, None, None, aux)
+                return (x, aux) + carry[2:], None
+            return layer_fn
+
+        def head_fn(sp, carry):
+            x, moe_aux = carry[0], carry[1]
+            x = apply_norm(_sub(sp, "final_norm"), x, cfg.norm, cfg.norm_eps)
+            w = carry[2] if tied else sp["head"]
+            logits = layers.lm_head(w, x, tied)
+            loss, n_tok = common.cross_entropy_loss(
+                logits, batch["targets"], label_smoothing=label_smoothing)
+            total = loss + 0.01 * moe_aux
+            return total, ({}, {"loss": loss.detach(),
+                                "moe_aux": moe_aux.detach(),
+                                "tokens": n_tok})
+
+        b = self._bounds()
+        seg_fns = ((embed_fn,) + tuple(make_layer_fn(lo, hi)
+                                       for lo, hi in zip(b, b[1:]))
+                   + (head_fn,))
+
+        def finalize_aux(auxes):
+            return model_state, auxes[-1][1]
+
+        return StagedLoss(names=self.segment_names(),
+                          seg_params=tuple(self.segment_trees(p)),
+                          seg_fns=seg_fns, x0=None,
+                          finalize_aux=finalize_aux)
 
     # ---------------------------------------------------------------- serve
     def cache_shape(self, batch: int, max_seq: int, dtype=torch.bfloat16
                     ) -> Tuple[Params, Dict[str, Tuple]]:
-        """A zero KV cache on the model's device and its logical axes.
-        SWA archs keep a ring buffer of the window's size only."""
+        """A zero KV cache on the model's device and its logical axes,
+        one ``(G, B, S, KV, Dh)`` pair per sub-layer. SWA archs keep a
+        ring buffer of the window's size only."""
         cfg = self.cfg
         s = min(max_seq, cfg.sliding_window) if cfg.sliding_window \
             else max_seq
         shape = (self.n_groups, batch, s, cfg.n_kv_heads, cfg.head_dim)
         axes = ("layers", "batch", "kv_seq", "kv_heads", None)
-        vals = {f"sub0/{n}": torch.zeros(shape, dtype=dtype,
-                                         device=self.device)
-                for n in ("k", "v")}
+        vals = {f"sub{j}/{n}": torch.zeros(shape, dtype=dtype,
+                                           device=self.device)
+                for j in range(self.group) for n in ("k", "v")}
         return vals, {k: axes for k in vals}
 
     def prefill(self, p: Params, tokens: Tensor, cache: Params, *,
@@ -185,6 +309,13 @@ class TransformerLM:
         logits, _, new_cache = self.forward(
             p, tokens, mode="decode", cache=cache, cache_index=cache_index)
         return logits, new_cache
+
+
+def _no_patches(patches) -> None:
+    if patches is not None:
+        raise NotImplementedError(
+            "the VLM patch frontend is not ported yet (ROADMAP queue 1, "
+            "item 15.4)")
 
 
 def _sub(p: Params, prefix: str, layer: Optional[int] = None) -> Params:

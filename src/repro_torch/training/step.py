@@ -92,7 +92,12 @@ from repro_torch.kernels.ops import (
     input_augment_params,
     unpack_cast,
 )
-from repro_torch.models.common import staged_forward
+from repro_torch.models.common import (
+    merge_slices,
+    slice_parts,
+    slice_views,
+    staged_forward,
+)
 from repro_torch.optim.interface import Optimizer
 from repro_torch.optim.stream import trust_mask_segments
 
@@ -744,7 +749,7 @@ def zero_stream_plan(model, params, train_cfg: TrainConfig, n: int
     wire, _ = parse_compression(parallel.compression)
     shapes = {k: torch.empty(v.shape, dtype=torch.float32, device="meta")
               for k, v in params.items()}
-    if parallel.overlap_comm:
+    if parallel.overlap_comm:  # an LM's names key its layer slices
         return plan_ready_buckets(_ready_stages(model, shapes),
                                   parallel.bucket_bytes, wire, n).base
     return plan_buckets(shapes, parallel.bucket_bytes, wire, align=n)
@@ -782,6 +787,12 @@ def make_dp_overlap_train_step(model, optimizer: Optimizer,
     (the JAX package keeps it in ready order, ``overlap_stream_order``,
     which its checkpoints carry).
 
+    An LM's layer segments hold leading-dim slices of its stacked
+    leaves: the ready-order stream is laid out by their ``slice_key``s
+    (the JAX package's plan over its tuple of stage trees), and the
+    synced slices are merged back into whole leaves (``merge_slices``)
+    before the update, so it is the bucketed step's.
+
     With ``zero_dp`` each ready bucket is reduce-scattered instead
     (``async_op=True``, in the same pipeline), and the update is
     ``_make_dp_zero_train_step``'s on this worker's shard of the
@@ -806,7 +817,7 @@ def make_dp_overlap_train_step(model, optimizer: Optimizer,
     if not hasattr(model, "loss_segments"):
         raise ValueError(
             f"{type(model).__name__} has no loss_segments(); overlap_comm "
-            "needs a staged model (ResNet50)")
+            "needs a staged model (ResNet50, TransformerLM)")
     hier = _hier_or_none(parallel, mesh_shape, bucketed, group)
     use_zero = parallel.zero_dp
     use_stream = hasattr(optimizer, "update_shard")
@@ -819,9 +830,10 @@ def make_dp_overlap_train_step(model, optimizer: Optimizer,
     plan: Optional[ReadyBucketPlan] = None
     stream_plan: Optional[BucketPlan] = None  # stream-LARS, leaf order
     aux: Dict[str, torch.Tensor] = {}
+    parts: Dict[str, List[str]] = {}  # leaf -> its keys in the stream
 
     def train_step(state: Tree, batch: Tree):
-        nonlocal plan, stream_plan, aux
+        nonlocal plan, stream_plan, aux, parts
         batch = to_device(batch, device)
         if input_transform is not None:
             batch = input_transform(batch)
@@ -840,9 +852,11 @@ def make_dp_overlap_train_step(model, optimizer: Optimizer,
             align = n if use_stream or hier is not None else 1
             plan = plan_ready_buckets(_ready_stages(model, shapes),
                                       parallel.bucket_bytes, wire, align)
+            parts = slice_parts(plan.base.names)
             if use_zero:
-                aux = _stream_aux(optimizer, plan.base, params, n, w, device,
-                                  sharded=True)
+                aux = _stream_aux(optimizer, plan.base,
+                                  slice_views(params, plan.base.names), n, w,
+                                  device, sharded=True)
             elif use_stream:
                 stream_plan = plan_buckets(shapes, parallel.bucket_bytes,
                                            wire, align)
@@ -891,14 +905,14 @@ def make_dp_overlap_train_step(model, optimizer: Optimizer,
             # this worker's shard of the ready-order stream, updated as
             # the JAX package's zero-overlap step updates it
             metrics = _zero_synced_update(
-                optimizer, plan.base, params, buckets, state["opt"], n, w,
-                aux, metrics, group, hier)
+                optimizer, plan.base, slice_views(params, plan.base.names),
+                buckets, state["opt"], n, w, aux, metrics, group, hier)
             new_params, new_opt = params, state["opt"]
         elif use_stream:
             # back in the bucketed step's leaf order, the update, its
             # trust norms and ``delta`` are that step's, bit for bit
             g_wire = reorder_stream(torch.cat(buckets), plan.base,
-                                    stream_plan)
+                                    stream_plan, parts)
             metrics = _stream_synced_update(
                 optimizer, stream_plan, params, [g_wire], state["opt"], n,
                 w, aux, metrics, group)
@@ -906,12 +920,14 @@ def make_dp_overlap_train_step(model, optimizer: Optimizer,
         else:
             grads, sq_norm = unpack(buckets, plan.base, denom=n,
                                     with_sq_norm=True)
+            grads = merge_slices(grads)
             new_params, new_opt, metrics = _synced_update(
                 optimizer, params, {k: grads[k] for k in params},
                 state["opt"], metrics, sq_norm, group)
         new_state = {"params": new_params, "opt": new_opt,
                      "model_state": new_mstate}
         if use_ef:
+            new_residual = merge_slices(new_residual)
             new_state["ef_residual"] = {k: new_residual[k] for k in params}
         return new_state, metrics
 
@@ -920,13 +936,15 @@ def make_dp_overlap_train_step(model, optimizer: Optimizer,
 
 def _ready_stages(model, tree: Dict) -> List[Dict]:
     """A parameter-shaped dict cut into the staged loss's segments, in
-    the order their backwards run: last segment first."""
+    the order their backwards run: last segment first (an LM's layer
+    segments keyed by ``slice_key``)."""
     return list(reversed(model.segment_trees(tree)))
 
 
 def overlap_stream_order(model, params: Dict) -> Tuple[str, ...]:
     """The leaf order of the overlapped step's wire stream
-    (``plan_ready_buckets`` of ``_ready_stages``), which is also the
+    (``plan_ready_buckets`` of ``_ready_stages``; an LM's layer slices
+    by their ``slice_key``s), which is also the
     layout of the JAX package's stream-LARS ``delta`` under
     ``overlap_comm`` (``interop.WorkerSharding.stream_order``)."""
     return tuple(k for t in _ready_stages(model, params)

@@ -67,8 +67,12 @@ def test_resnet50_config_matches(reduced):
 
 
 def test_unknown_arch_raises():
+    # an arch the port lacks (mixtral-8x7b was one until the MoE family
+    # was ported) and an id no package has
     with pytest.raises(KeyError):
-        tget("mixtral-8x7b")
+        tget("phi-3-vision-4.2b")
+    with pytest.raises(KeyError):
+        tget("no-such-arch")
 
 
 # ------------------------------------------------------------------- data

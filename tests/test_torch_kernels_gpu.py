@@ -577,8 +577,11 @@ def _within_bf16_ulps(got, want, ulps, rtol, atol):
 # (B, Sq, Sk, Hq, Hkv, Dh, causal, window): the serving path's prefill,
 # lengths 1 and 1000, Sq != Sk, non-causal, a causal window of 256,
 # groups 1, 4 and 8, Dh 32 and 128, the 64-row tile edges (one row
-# past a tile, one short of it, a single key), and Dh 96 and 112 (the
-# registry's MHA configs with 32 kv heads) with tile edges of their own
+# past a tile, one short of it, a single key), Dh 96 and 112 (the
+# registry's MHA configs with 32 kv heads) with tile edges of their own,
+# and the MoE configs' shapes: llama4-maverick's 40 query heads on 8 kv
+# heads (a group of 5) and mixtral-8x7b's 4,096-token window with keys
+# past it
 FLASH_CASES = [
     (8, 1024, 1024, 32, 8, 64, True, None),
     (2, 1, 1, 8, 8, 64, True, None),
@@ -596,6 +599,8 @@ FLASH_CASES = [
     (1, 1000, 1000, 32, 32, 112, True, None),
     (1, 65, 63, 8, 8, 96, True, None),
     (2, 129, 129, 8, 4, 112, False, None),
+    (2, 1024, 1024, 40, 8, 128, True, None),
+    (1, 4608, 4608, 32, 8, 128, True, 4096),
 ]
 
 
@@ -654,7 +659,8 @@ def test_flash_attention_raises_on_other_head_dims_on_card(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 @pytest.mark.parametrize("rows,d", [(8192, 2048), (8, 2048), (333, 2048),
-                                    (1001, 128), (5, 100)])
+                                    (1001, 128), (5, 100), (1024, 5120),
+                                    (8, 5120)])
 def test_rmsnorm_matches_plain_on_card(cuda, rows, d, dt):
     from repro_torch.kernels import rmsnorm as trn
     g = torch.Generator(device=cuda).manual_seed(rows + d)
@@ -674,7 +680,8 @@ def test_rmsnorm_matches_plain_on_card(cuda, rows, d, dt):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", sorted(DTYPES))
-@pytest.mark.parametrize("rows,d", [(8192, 2048), (8, 2048), (5, 100)])
+@pytest.mark.parametrize("rows,d", [(8192, 2048), (8, 2048), (5, 100),
+                                    (8192, 5120)])
 def test_rmsnorm_model_order_matches_plain_on_card(cuda, rows, d, dt):
     """``round_inv=True``, the JAX model's order (``apply_norm``)."""
     from repro_torch.kernels import rmsnorm as trn

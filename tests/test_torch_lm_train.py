@@ -32,8 +32,9 @@ on the CPU, at the reduced llama3.2-1b:
    element by about lr x sign(g), so an element near 0 whose rounding
    differs moves the other way.
 6. An LM checkpoint in the JAX package's layout (the stacked 4-d
-   attention weights are not conv weights), and the overlapped sync,
-   ZeRO, the hierarchical schedule and sync-BN refused for an LM.
+   attention weights are not conv weights); sync-BN refused for an LM,
+   and the overlapped sync, ZeRO and the hierarchical schedule taking a
+   step (``test_torch_lm_dp.py`` holds them against the bucketed step).
 """
 import dataclasses
 import importlib.util
@@ -381,19 +382,83 @@ def test_lm_checkpoint_has_the_jax_layout_and_resumes(tmp_path, jax_run):
         assert torch.equal(v, s2["params"][k]), k
 
 
+# one gloo worker of 4 taking a step of each LM DP variant that needs
+# more than one worker: ZeRO, and the hierarchical schedule over 2x2
+_STEP_WORKER = """
+import os, sys
+import numpy as np
+from repro_torch.configs import OptimizerConfig, get_config, reduced_config
+from repro_torch.distributed import init_workers, shutdown
+from repro_torch.launch.train import build_train_setup
+rank, out_dir = int(sys.argv[1]), sys.argv[2]
+init_workers("cpu", init_method=f"file://{{out_dir}}/store", rank=rank,
+             world_size=4)
+losses = {{}}
+for i, kw in enumerate({runs!r}):
+    _, s, step, data, put, _ = build_train_setup(
+        reduced_config(get_config({arch!r})), global_batch=8,
+        seq_len={seq}, opt_cfg=OptimizerConfig(**{opt!r}),
+        steps_per_epoch={spe}, device="cpu", dp_mode="shardmap",
+        compression="bf16+bucketed", **kw)
+    s, met = step(s, put(data.batch_at(0)))
+    losses[f"run{{i}}"] = float(met["loss"])
+np.savez(os.path.join(out_dir, f"rank{{rank}}.npz"), **losses)
+shutdown()
+"""
+
+_VARIANTS = [dict(overlap_comm=True), dict(zero_dp=True),
+             dict(hier_split=1, dp_axes=("data", "model"),
+                  mesh_shape=(2, 2))]
+
+
+@pytest.fixture(scope="module")
+def four_worker_steps(tmp_path_factory):
+    out_dir = tmp_path_factory.mktemp("lm_variants")
+    body = _STEP_WORKER.format(runs=_VARIANTS[1:], arch=ARCH, seq=SEQ,
+                               opt=_opt(), spe=SPE)
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+           "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen([sys.executable, "-c", body, str(r),
+                               str(out_dir)], env=env,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(4)]
+    for p in procs:
+        _, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err[-4000:]
+    return [dict(np.load(out_dir / f"rank{r}.npz")) for r in range(4)]
+
+
 @pytest.mark.parametrize("kw,match", [
-    (dict(overlap_comm=True), "item 15.2"),
-    (dict(zero_dp=True), "item 15.2"),
-    (dict(hier_split=1, dp_axes=("data", "model"), mesh_shape=(1, 1)),
-     "item 15.2"),
+    (_VARIANTS[0], None), (_VARIANTS[1], None), (_VARIANTS[2], None),
     (dict(sync_bn=True), "has no BN")])
-def test_unported_lm_steps_raise(kw, match):
-    exc = ValueError if "sync_bn" in kw else NotImplementedError
-    with pytest.raises(exc, match=match):
-        _port_setup(dp_mode="shardmap", compression="bf16+bucketed", **kw)
-    shutdown()
-    with pytest.raises(NotImplementedError, match="item 15.2"):
-        _port_setup()[0].loss_segments({}, {}, {})
+def test_unported_lm_steps_raise(request, tmp_path, kw, match):
+    """sync_bn still raises for an LM (it has no BN); the overlapped
+    step, ZeRO and the hierarchical schedule, which raised until the
+    staged LM loss was ported, now build and take a step: the overlapped
+    one on one worker here, the other two on four gloo workers (one
+    spawn for both). tests/test_torch_lm_dp.py holds them bitwise
+    against the bucketed step."""
+    if match is not None:
+        with pytest.raises(ValueError, match=match):
+            _port_setup(dp_mode="shardmap", compression="bf16+bucketed",
+                        **kw)
+        shutdown()
+        return
+    if "overlap_comm" not in kw:
+        ranks = request.getfixturevalue("four_worker_steps")
+        run = f"run{_VARIANTS.index(kw) - 1}"
+        assert len({float(r[run]) for r in ranks}) == 1
+        assert np.isfinite(float(ranks[0][run]))
+        return
+    init_workers("cpu", init_method=f"file://{tmp_path}/store", rank=0,
+                 world_size=1)
+    try:
+        _, s, step, data, put, _ = _port_setup(
+            dp_mode="shardmap", compression="bf16+bucketed", **kw)
+        s, met = step(s, put(data.batch_at(0)))
+        assert np.isfinite(float(met["loss"]))
+    finally:
+        shutdown()
 
 
 def test_train_llm_100m_script_config_is_jax_scripts():

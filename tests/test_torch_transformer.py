@@ -192,9 +192,17 @@ def test_serve_needs_a_card_unless_told_cpu():
 def test_unported_lm_options_raise(pair, what):
     _, cfg_t, _, params_np = pair
     if what == "moe":
-        with pytest.raises(NotImplementedError, match="item 15"):
-            tbuild(dataclasses.replace(cfg_t, n_experts=4,
-                                       experts_per_token=2), device="cpu")
+        # ported since (it raised before): MoE layers on the reduced
+        # config build and run; test_torch_moe.py holds them against JAX
+        moe = dataclasses.replace(cfg_t, n_experts=4, experts_per_token=2)
+        tm = tbuild(moe, torch.float32, attention_impl="naive",
+                    device="cpu")
+        tp = tm.init(0)
+        assert tp["sub0/moe/w_up"].shape == (moe.n_layers, 4, moe.d_model,
+                                             moe.d_ff)
+        logits, aux, _ = tm.forward(tp, torch.zeros(1, 16, dtype=torch.long))
+        assert logits.shape == (1, 16, moe.vocab_size)
+        assert float(aux) > 0 and bool(torch.isfinite(logits).all())
         return
     tm = tbuild(cfg_t, torch.float32,
                 attention_impl="chunked_opt" if what == "chunked_opt"
