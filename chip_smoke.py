@@ -294,7 +294,42 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      layers (1,713,418,240 parameters), main path 10's batch and recipe,
      3 steps and one eval batch on one device, then the DP step at world
      size 1 over NCCL, bitwise (deterministic algorithms on; the
-     one-device state waits on the card).
+     one-device state waits on the card: ``family_train_path``, as main
+     path 15).
+  3g (after 3f). ``flash_attention`` in bf16 and f32 at main path 14's
+     prefills: phi-3-vision (8 x 1,600 rows: 576 patches + 1,024 tokens,
+     32 / 32 heads, Dh 96, causal), zamba2-7b's shared attention (8 x
+     1,024, 32 / 32, Dh 112, window 4,096), whisper-tiny's encoder (8 x
+     1,500 x 1,500, non-causal: 1,500 keys end in a partial 64-row
+     tile), decoder (8 x 1,024, causal) and cross attention (1,024 x
+     1,500, non-causal), 6 / 6 heads, Dh 64; in bf16 at main path 15's
+     training shapes (batch 4); ``rmsnorm`` at main path 14's prefill
+     and decode rows at d 3,072, 3,584, 7,168 and 2,048; each against
+     its plain version (the tolerances of 3d) and timed with SDPA (a
+     boolean mask for the window) / ``F.rms_norm`` and its bound;
+  20. main path 14, the last four families served whole at full width
+     (``serve()``, weights drawn on the card leaf by leaf), 8 prompts of
+     1,024 tokens, 31 greedy decode steps, bf16, flash: phi-3-vision
+     (32 layers, 576 patches of 1,024 ahead of each prompt), zamba2-7b
+     (81 Mamba2 layers, 13 shared-attention applications, its 4,096-slot
+     serving window), xlstm-350m (21 mLSTM and 3 sLSTM layers) and
+     whisper-tiny (4 + 4 layers, 1,500 frames); launches per prefill and
+     decode step checked (``lm_launches``), the warm call, peak memory,
+     prefill logits against the naive attention's within
+     ``NAIVE_REL_TOL`` (not xLSTM: no attention), and one prefill and 4
+     decode steps under torch.profiler (device busy time, idle share,
+     kernels a call);
+  20b. reference: the reduced four in f32, card against CPU, prefill (4
+     x 128 tokens, with patches or frames) and 6 decode steps, logits
+     within 1e-4, the same tokens;
+  21. main path 15, the last four families trained at full width, main
+     path 10's batch and recipe, 3 steps and one eval batch on one
+     device, then the DP step at world size 1 over NCCL, bitwise (the
+     one-device state waits on the card, zamba2's on the host): phi-3-vision at 4 of 32 layers
+     (also overlapped, bitwise the bucketed DP step), zamba2-7b at 12 of
+     81 layers (two groups: both shared blocks), xlstm-350m at 8 of 24
+     (one segment: 7 mLSTM and 1 sLSTM layers), whisper-tiny whole;
+     launches a step checked.
 With ``--profile``, a few more steps of each main path run under
 torch.profiler (device busy time and idle share, top host ops and
 kernels), and one prefill and four decode steps of main path 4. With
@@ -311,8 +346,10 @@ from their first worker, ``path8`` run A and ``path8_zero`` run B,
 main path 10's one-device and DP runs, ``path11`` the overlapped LM
 step and ``path11_<n>w_<run>`` its multi-process runs (first worker),
 ``path12_<arch>_p<prompt>`` main path 12's per run, ``path13`` and
-``path13_dp`` main path 13's; ``slice13`` and ``slice14`` the times of
-phase 3f at those paths' shapes;
+``path13_dp`` main path 13's, ``path14_<arch>`` main path 14's per
+config, ``path15_<arch>_<run>`` main path 15's per config and run;
+``slice13``, ``slice14`` and ``slice15`` the times of phases 3f and 3g
+at those paths' shapes;
 ``hybrid_update`` also carries its time at main path 7's shard), the card's name and power
 limit, and last the ``{"ok": true, "device": ...}`` line. ``--out DIR`` also
 writes the per-shape kernel tables to ``DIR/chip_smoke_kernels.json``.
@@ -3486,15 +3523,38 @@ def grad_phase(torch):
     return out
 
 
-def serve_counts_check(launches, n_layers: int, forwards: int,
-                       prefills: int, norm: str = "rmsnorm") -> None:
-    """flash = n_layers per prefill and none per decode step; rmsnorm =
-    2 n_layers + 1 per forward (none for a LayerNorm model); every other
-    kernel none."""
+def lm_launches(cfg, forwards: int, prefills: int):
+    """The ``flash_attention`` and ``rmsnorm`` launches of ``forwards``
+    forwards of the LM ``cfg``, ``prefills`` of them over a whole
+    sequence (a prefill or a training forward; the others decode steps,
+    whose single query never takes flash): flash at each attention site
+    (a transformer's layers; zamba2's shared blocks, one per group;
+    whisper's encoder layers and its decoder's self and cross
+    attention), rmsnorm at each RMSNorm site (a transformer's 2 a layer
+    and the final norm; zamba2's 2 a mamba layer, 2 a shared block and
+    the final norm; xLSTM's mLSTM output norms; none in a LayerNorm
+    model)."""
+    L = cfg.n_layers
+    if cfg.family == "hybrid":
+        groups = L // cfg.shared_attn_every
+        return {"flash_attention": groups * prefills,
+                "rmsnorm": (2 * L + 2 * groups + 1) * forwards}
+    if cfg.family == "ssm":
+        mlstm = L // cfg.slstm_every * (cfg.slstm_every - 1)
+        return {"flash_attention": 0, "rmsnorm": mlstm * forwards}
+    if cfg.family == "audio":
+        sites = cfg.n_encoder_layers + 2 * L
+        return {"flash_attention": sites * prefills, "rmsnorm": 0}
+    return {"flash_attention": L * prefills,
+            "rmsnorm": (2 * L + 1) * forwards if cfg.norm == "rmsnorm"
+            else 0}
+
+
+def serve_counts_check(launches, cfg, forwards: int, prefills: int) -> None:
+    """flash and rmsnorm as ``lm_launches`` says; every other kernel
+    none."""
     want = {k: 0 for k in launches}
-    want.update(flash_attention=n_layers * prefills,
-                rmsnorm=(2 * n_layers + 1) * forwards
-                if norm == "rmsnorm" else 0)
+    want.update(lm_launches(cfg, forwards, prefills))
     log(f"  launches {launches} (want {want})")
     assert launches == want, (launches, want)
 
@@ -3514,7 +3574,7 @@ def serve_main_path(torch, libs, profile: bool):
     from repro_torch.training.step import make_decode_step, make_prefill_step
 
     cfg = get_config("llama3.2-1b")
-    bf16, L = torch.bfloat16, cfg.n_layers
+    bf16 = torch.bfloat16
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     reset_counts(libs)
@@ -3525,7 +3585,7 @@ def serve_main_path(torch, libs, profile: bool):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts(libs)
-    serve_counts_check(launches, L, SERVE_STEPS, 1)
+    serve_counts_check(launches, cfg, SERVE_STEPS, 1)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     gen = first["generated"]
     assert gen.shape == (SERVE_BATCH, SERVE_STEPS), gen.shape
@@ -3550,7 +3610,7 @@ def serve_main_path(torch, libs, profile: bool):
     reset_counts(libs)
     logits, cache = make_prefill_step(model)(params, cache, tokens)
     torch.cuda.synchronize()
-    serve_counts_check(read_counts(libs), L, 1, 1)
+    serve_counts_check(read_counts(libs), cfg, 1, 1)
     assert logits.shape == (SERVE_BATCH, 1, cfg.vocab_size)
     assert bool(torch.isfinite(logits).all()), "non-finite prefill logits"
     step = {"tokens": torch.argmax(logits[:, -1], -1)[:, None],
@@ -3558,7 +3618,7 @@ def serve_main_path(torch, libs, profile: bool):
     reset_counts(libs)
     dlogits, cache = make_decode_step(model)(params, cache, step)
     torch.cuda.synchronize()
-    serve_counts_check(read_counts(libs), L, 1, 0)
+    serve_counts_check(read_counts(libs), cfg, 1, 0)
     assert bool(torch.isfinite(dlogits).all()), "non-finite decode logits"
 
     # the same prompts and weights through the naive attention
@@ -3604,9 +3664,12 @@ def serve_main_path(torch, libs, profile: bool):
 
 
 def serve_profile(torch, model, params, tokens, steps: int = 4):
-    """``--profile``: one prefill and ``steps`` decode steps under
-    torch.profiler, each window's wall time, device busy time (the summed
-    kernel time, one stream) and idle share, and its top kernels."""
+    """``--profile`` (and main path 14): one prefill and ``steps`` decode
+    steps under torch.profiler, each window's wall time, device busy
+    time (the summed kernel time, one stream) and idle share, and its top
+    kernels. Only device activity is traced: a zamba2-7b prefill runs
+    ~50 k kernels and an xLSTM one ~78 k, whose host ops would take the
+    profiler tens of seconds to sum."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3617,8 +3680,7 @@ def serve_profile(torch, model, params, tokens, steps: int = 4):
     out = {}
     for phase in ("prefill", "decode"):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             if phase == "prefill":
                 logits, cache = make_prefill_step(model)(params, cache,
@@ -3658,7 +3720,9 @@ def serve_profile(torch, model, params, tokens, steps: int = 4):
 def serve_reference_phase(torch, arch: str = "llama3.2-1b",
                           prompt: int = 130):
     """Phase 9b (18b: ``arch`` a MoE config, ``prompt`` a multiple of
-    its dispatch group over the batch): the reduced ``arch`` in f32 with
+    its dispatch group over the batch; 20b: the last four families, the
+    VLM with its patches and the audio model with its frames, ``prompt``
+    a multiple of the chunked GLA's 128): the reduced ``arch`` in f32 with
     the same weights on the card (the kernels) and on the CPU (their
     plain versions): prefill and 6 greedy decode steps, logits within
     rtol/atol 1e-4 (f32 sums in other orders) and the same tokens. TF32
@@ -3666,12 +3730,13 @@ def serve_reference_phase(torch, arch: str = "llama3.2-1b",
     (``torch.backends.cuda.matmul.allow_tf32 = False``), so both sides
     multiply in full f32."""
     from repro_torch.configs import get_config, reduced_config
-    from repro_torch.launch.serve import make_prompts
+    from repro_torch.launch.serve import make_requests
     from repro_torch.models import build_model
     from repro_torch.training.step import make_decode_step, make_prefill_step
 
     cfg = reduced_config(get_config(arch))
     b, steps = 4, 6
+    requests = make_requests(cfg, b, prompt, 7)
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -3681,9 +3746,10 @@ def serve_reference_phase(torch, arch: str = "llama3.2-1b",
                                 device=dev)
             params = model.init(7)
             cache, _ = model.cache_shape(b, prompt + steps, torch.float32)
-            toks = torch.from_numpy(make_prompts(cfg, b, prompt, 7)).to(dev)
-            logits, cache = make_prefill_step(model)(params, cache,
-                                                     {"tokens": toks})
+            batch = {k: torch.from_numpy(v).to(
+                dev, None if k == "tokens" else torch.float32)
+                for k, v in requests.items()}
+            logits, cache = make_prefill_step(model)(params, cache, batch)
             seq_logits, seq_tokens = [logits.cpu()], []
             for i in range(steps):
                 tok = torch.argmax(logits[:, -1], -1)[:, None]
@@ -3978,20 +4044,23 @@ def taped_prefill(model, params, tokens, prompt: int, replay=None):
     return logits, tape
 
 
-def dense_serve_path(torch, libs, arch: str, layers, steps: int,
-                     prompt: int = SERVE_PROMPT, naive: bool = True):
-    """Main path 9 (and 12), one config: ``serve()`` at full width
+def lm_serve_path(torch, libs, arch: str, layers, steps: int,
+                  prompt: int = SERVE_PROMPT, naive: bool = True,
+                  profile: bool = False):
+    """Main path 9 (and 12, 14), one config: ``serve()`` at full width
     (``layers`` None: full depth too) of 8 prompts of ``prompt`` tokens
-    and ``steps - 1`` greedy decode steps, bf16, chunked (flash)
-    attention, the weights drawn on the card (``draw_device="cuda"``);
-    then a second session (the warm call), one prefill and one decode
-    step alone with their launches counted, and, with ``naive``, the
-    prefill logits against the naive attention's, as main path 4."""
+    (with a VLM's patches, an audio model's frames) and ``steps - 1``
+    greedy decode steps, bf16, chunked (flash) attention, the weights
+    drawn on the card (``draw_device="cuda"``); then a second session
+    (the warm call), one prefill and one decode step alone with their
+    launches counted, with ``naive`` the prefill logits against the
+    naive attention's, as main path 4, and with ``profile`` one prefill
+    and 4 decode steps under torch.profiler (``serve_profile``)."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import (build_serve_setup, generate,
-                                          make_prompts, serve)
+                                          make_requests, serve)
     from repro_torch.models import build_model
     from repro_torch.training.step import make_decode_step, make_prefill_step
 
@@ -4010,7 +4079,7 @@ def dense_serve_path(torch, libs, arch: str, layers, steps: int,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts(libs)
-    serve_counts_check(launches, L, steps, 1, cfg.norm)
+    serve_counts_check(launches, cfg, steps, 1)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     gen = first["generated"]
     assert gen.shape == (SERVE_BATCH, steps), gen.shape
@@ -4022,20 +4091,25 @@ def dense_serve_path(torch, libs, arch: str, layers, steps: int,
                                       device="cuda", draw_device="cuda")
     setup_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in params.values())
-    prompts = make_prompts(cfg, SERVE_BATCH, prompt)
+    requests = make_requests(cfg, SERVE_BATCH, prompt)
+    prompts = requests.pop("tokens")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    warm = generate(model, params, prompts, steps)
+    warm = generate(model, params, prompts, steps, requests)
     warm_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     same = bool((warm["generated"] == gen).all())
 
     tokens = {"tokens": torch.from_numpy(prompts).to("cuda")}
+    tokens.update({k: torch.from_numpy(v).to("cuda", bf16)
+                   for k, v in requests.items()})
     cache, _ = model.cache_shape(SERVE_BATCH, prompt + steps, bf16)
-    ring = cache[next(iter(cache))].shape[2]
+    # the attention cache's length (None: a recurrent state only)
+    ring = next((v.shape[2] for k, v in cache.items() if k.endswith("k")),
+                None)
     reset_counts(libs)
     logits, cache = make_prefill_step(model)(params, cache, tokens)
     torch.cuda.synchronize()
-    serve_counts_check(read_counts(libs), L, 1, 1, cfg.norm)
+    serve_counts_check(read_counts(libs), cfg, 1, 1)
     assert logits.shape == (SERVE_BATCH, 1, cfg.vocab_size)
     assert bool(torch.isfinite(logits).all()), "non-finite prefill logits"
     step = {"tokens": torch.argmax(logits[:, -1], -1)[:, None],
@@ -4043,7 +4117,7 @@ def dense_serve_path(torch, libs, arch: str, layers, steps: int,
     reset_counts(libs)
     dlogits, cache = make_decode_step(model)(params, cache, step)
     torch.cuda.synchronize()
-    serve_counts_check(read_counts(libs), L, 1, 0, cfg.norm)
+    serve_counts_check(read_counts(libs), cfg, 1, 0)
     assert bool(torch.isfinite(dlogits).all()), "non-finite decode logits"
     del cache, dlogits
 
@@ -4074,12 +4148,14 @@ def dense_serve_path(torch, libs, arch: str, layers, steps: int,
             rel, agree = rel_norm(plogits), argmax_agree(plogits)
             del plogits, tape
         del nlogits, ntape
+    prof = serve_profile(torch, model, params, tokens) if profile else None
     del logits, params, model
     torch.cuda.empty_cache()
     stats = {
         "arch": arch, "n_layers": L, "full_depth": layers is None,
         "parameters": n_params, "batch": SERVE_BATCH,
         "prompt_len": prompt, "decode_steps": steps, "cache_len": ring,
+        "frontend": {k: list(v.shape) for k, v in requests.items()},
         "first": {k: first[k] for k in ("prefill_s", "decode_s",
                                         "decode_tok_per_s")},
         "first_wall_s": wall, "setup_s": setup_s,
@@ -4090,6 +4166,8 @@ def dense_serve_path(torch, libs, arch: str, layers, steps: int,
         "warm_tokens_equal_first": same,
         "naive_rel_norm": rel, "naive_argmax_agree": agree,
         "naive_routing": routed, "launches": launches}
+    if prof is not None:
+        stats["profile"] = prof
     log(f"  {arch} ({L} layers, {n_params} parameters, bf16): first call "
         f"prefill {first['prefill_s'] * 1e3:.2f} ms, serve() wall "
         f"{wall:.1f}s with set-up; warm call prefill "
@@ -4164,9 +4242,8 @@ def lm_train_run(torch, libs, cfg, dp: bool, steps: int, build=None):
     casts = (len(model.segment_names()) + 1 if (build or {}).get(
         "overlap_comm") else 2 if dp else 0)
     want = {k: 0 for k in launches}
-    want.update(flash_attention=cfg.n_layers * forwards,
-                rmsnorm=(2 * cfg.n_layers + 1) * forwards,
-                hybrid_update=steps, cast_copy=casts * steps)
+    want.update(lm_launches(cfg, forwards, forwards))
+    want.update(hybrid_update=steps, cast_copy=casts * steps)
     log(f"  {'DP step' if dp else 'one device'}: losses {losses}, eval "
         f"loss {ev_rec['loss']:.4f}; launches {launches} (want {want})")
     assert launches == want, (launches, want)
@@ -4355,8 +4432,8 @@ MOE_SERVE = (("mixtral-8x7b", 8, SERVE_PROMPT, SERVE_STEPS, True),
              ("mixtral-8x7b", 8, 4064, 65, False))
 # main path 13: mixtral-8x7b trained at full width, 1 of 32 layers
 # (~1.71 B parameters at ~20 bytes each on the DP step; 2 layers would
-# not fit), main path 10's batch and recipe
-MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = "mixtral-8x7b", 1, 3
+# not fit), main path 10's batch and recipe (``family_train_path``)
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "mixtral-8x7b", 1
 
 
 def slice14_kernel_phase(torch):
@@ -4658,52 +4735,161 @@ def staged_reference_phase(torch):
     return out
 
 
-def moe_train_path(torch, libs):
-    """Main path 13: mixtral-8x7b trained at full width, 1 of 32 layers,
-    main path 10's batch (4 x 1,024 tokens), bf16 and recipe, 3 steps and
-    one eval batch through the ``Trainer`` on one device, then through
-    the DP step at world size 1 over NCCL, bitwise the one-device run
-    (losses, parameters, ``delta``, ``m``, ``opt.step``; deterministic
-    algorithms on). The one-device state (19.1 GiB) waits on the card
-    beside the DP step's run (42.68 GiB at its peak on an NVIDIA H100
-    80GB HBM3 at 700 W)."""
+# ---------------------------------------------------------------------------
+# slice 15: main path 14 (the last four families served) and main path 15
+# (the last four families trained), and their kernels at their shapes
+# ---------------------------------------------------------------------------
+
+# main path 14: (arch, naive check) served whole at full width with
+# main path 4's prompts (8 x 1,024 tokens, 31 decode steps): phi-3-vision
+# with its 576 patches ahead of each prompt, whisper-tiny with its 1,500
+# frames; xLSTM has no attention, so no naive check
+FAMILY_SERVE = (("phi-3-vision-4.2b", True), ("zamba2-7b", True),
+                ("xlstm-350m", False), ("whisper-tiny", True))
+# main path 15: (arch, layers kept: None for the full depth) trained at
+# full width, main path 10's batch and recipe, 3 steps + 1 eval batch:
+# phi-3-vision at 4 of its 32 layers, zamba2-7b at 12 of its 81 (two
+# groups of 6 mamba layers, so both shared blocks run: ~1.6 G parameters,
+# ~20 bytes each on the DP step beside ~1.5 GB of chunked-GLA
+# activations a mamba layer), xlstm-350m at 8 of its 24 (one segment: 7
+# mLSTM layers and an sLSTM one; whole, its host-bound sLSTM loops took
+# 7.2 s a step, 53 s of script for the path), whisper-tiny whole
+FAMILY_TRAIN = (("phi-3-vision-4.2b", 4), ("zamba2-7b", 12),
+                ("xlstm-350m", 8), ("whisper-tiny", None))
+FAMILY_TRAIN_STEPS = 3
+VLM_PATCHES, WHISPER_FRAMES = 576, 1500
+# phase 3g: flash_attention at main path 14's prefill shapes (bf16 and
+# f32): phi-3-vision's 576 + 1,024 rows at Dh 96, zamba2-7b's shared
+# attention at Dh 112 under its 4,096-token serving window, whisper-tiny's
+# non-causal encoder (1,500 keys: no whole 64-row tile at the end), its
+# causal decoder and its non-causal cross attention (1,024 x 1,500)
+SLICE15_FLASH = {
+    "phi-3-vision-4.2b prefill": (SERVE_BATCH, VLM_PATCHES + SERVE_PROMPT,
+                                  VLM_PATCHES + SERVE_PROMPT, 32, 32, 96,
+                                  True, None),
+    "zamba2-7b prefill": (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32, 32,
+                          112, True, 4096),
+    "whisper-tiny encoder": (SERVE_BATCH, WHISPER_FRAMES, WHISPER_FRAMES, 6,
+                             6, 64, False, None),
+    "whisper-tiny decoder": (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 6, 6,
+                             64, True, None),
+    "whisper-tiny cross": (SERVE_BATCH, SERVE_PROMPT, WHISPER_FRAMES, 6, 6,
+                           64, False, None),
+}
+# ... and (bf16) at main path 15's training shapes (batch 4)
+SLICE15_PATH_FLASH = {
+    "phi-3-vision-4.2b training": (LM_TRAIN_BATCH,
+                                   VLM_PATCHES + LM_TRAIN_SEQ,
+                                   VLM_PATCHES + LM_TRAIN_SEQ, 32, 32, 96,
+                                   True, None),
+    "zamba2-7b training": (LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_SEQ, 32,
+                           32, 112, True, None),
+    "whisper-tiny encoder training": (LM_TRAIN_BATCH, WHISPER_FRAMES,
+                                      WHISPER_FRAMES, 6, 6, 64, False, None),
+    "whisper-tiny cross training": (LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                    WHISPER_FRAMES, 6, 6, 64, False, None),
+}
+# rmsnorm (bf16) at main path 14's norm sites: prefill and decode rows at
+# phi-3-vision's d 3,072, zamba2-7b's d 3,584 (the mamba input norm, the
+# shared blocks, the final norm) and 7,168 (the mamba output norm), and
+# xLSTM's mLSTM output norm at d 2,048
+SLICE15_RMSNORM = {
+    "phi-3-vision-4.2b prefill": (SERVE_BATCH * (VLM_PATCHES + SERVE_PROMPT),
+                                  3072),
+    "phi-3-vision-4.2b decode": (SERVE_BATCH, 3072),
+    "zamba2-7b prefill": (SERVE_BATCH * SERVE_PROMPT, 3584),
+    "zamba2-7b prefill d_in": (SERVE_BATCH * SERVE_PROMPT, 7168),
+    "zamba2-7b decode": (SERVE_BATCH, 3584),
+    "zamba2-7b decode d_in": (SERVE_BATCH, 7168),
+    "xlstm-350m prefill": (SERVE_BATCH * SERVE_PROMPT, 2048),
+    "xlstm-350m decode": (SERVE_BATCH, 2048),
+}
+
+
+def slice15_kernel_phase(torch):
+    """Phase 3g: ``flash_attention`` (bf16 and f32) at main path 14's
+    prefill shapes and (bf16) at main path 15's training shapes, and
+    ``rmsnorm`` (bf16, the model's rounding order) at main path 14's norm
+    sites, each against its plain version (the tolerances of phase 3d)
+    and timed with its library call (SDPA, with a boolean mask for the
+    window; ``F.rms_norm``) and its bound."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    flash = flash_shape_cases(torch, gen, SLICE15_FLASH,
+                              ("bfloat16", "float32"))
+    flash.update(flash_shape_cases(torch, gen, SLICE15_PATH_FLASH))
+    return {"flash_attention": flash,
+            "rmsnorm": rmsnorm_shape_cases(torch, gen, SLICE15_RMSNORM)}
+
+
+def kept_state_entries(torch, state, peak_gib: float):
+    """``state_entries`` of a finished run, kept for the next run's
+    bitwise comparison: on the card, no copy, when their bytes and the
+    run's peak fit in 85% of the card's memory (the next run peaks about
+    as high), else copied to the host (zamba2-7b's 12-layer state, ~18
+    GiB beside a ~52 GiB peak; a host round trip of ~20 GB costs ~15 s).
+    Returns (entries, "card" or "host")."""
+    entries = state_entries(state)
+    held = sum(v.numel() * v.element_size() for k, v in entries.items()
+               if k != "opt/step")
+    total = torch.cuda.get_device_properties(0).total_memory
+    if held + peak_gib * 2 ** 30 < 0.85 * total:
+        return entries, "card"
+    return {k: v if k == "opt/step" else v.to("cpu")
+            for k, v in entries.items()}, "host"
+
+
+def family_train_path(torch, libs, arch: str, layers):
+    """Main path 15 (and 13), one config: ``arch`` trained at full width
+    (``layers`` None: full depth too), main path 10's batch (4 x 1,024
+    tokens, with phi-3-vision's 576 patches or whisper-tiny's 1,500
+    frames a row), bf16 and recipe, 3 steps and one eval batch through
+    the ``Trainer`` on one device, then through the DP step at world
+    size 1 over NCCL, bitwise the one-device run (losses, parameters,
+    ``delta``, ``m``, ``opt.step``; deterministic algorithms on; the
+    one-device state waits where ``kept_state_entries`` puts it).
+    phi-3-vision, which has a staged
+    loss, also runs the DP step with ``overlap_comm=True`` (embed with
+    ``vision_proj``, 4 layer segments, head; 16 MiB buckets), bitwise
+    the bucketed DP step. Returns ({run: launches}, {run: stats})."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.distributed import shutdown
 
-    cfg = dataclasses.replace(get_config(MOE_TRAIN_ARCH),
-                              n_layers=MOE_TRAIN_LAYERS)
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    runs = [("one_device", False, None), ("dp", True, None)]
+    if cfg.family == "vlm":
+        runs.append(("dp_overlap", True, {
+            "overlap_comm": True, "bucket_bytes": OVERLAP_BUCKET_MIB << 20}))
     was = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True, warn_only=True)
+    launches, stats, prev = {}, {}, None
     try:
-        r1, launches, stats1, _ = lm_train_run(torch, libs, cfg, False,
-                                               MOE_TRAIN_STEPS)
-        losses1 = [h["loss"] for h in r1.history]
-        entries = state_entries(r1.state)
-        held = sum(v.numel() * v.element_size() for k, v in entries.items()
-                   if k != "opt/step") / 2 ** 30
-        del r1
-        torch.cuda.empty_cache()
-        r2, launches_dp, stats2, _ = lm_train_run(torch, libs, cfg, True,
-                                                  MOE_TRAIN_STEPS)
+        for i, (name, dp, build) in enumerate(runs):
+            r, launches[name], stats[name], _ = lm_train_run(
+                torch, libs, cfg, dp, FAMILY_TRAIN_STEPS, build)
+            losses = [h["loss"] for h in r.history]
+            if prev is not None:
+                ref_name, ref_losses, ref_entries = prev
+                differ = bits_differ(torch, ref_entries,
+                                     state_entries(r.state))
+                log(f"  {name} vs {ref_name}: losses {losses} equal "
+                    f"{losses == ref_losses}, {len(differ)} of "
+                    f"{len(ref_entries)} state entries differ {differ[:6]}")
+                assert losses == ref_losses and not differ, (name, differ)
+            if i + 1 < len(runs):  # the next run's yardstick
+                kept, stats[name]["state_kept_on"] = kept_state_entries(
+                    torch, r.state, stats[name]["peak_mem_gib"])
+                prev = (name, losses, kept)
+            del r
+            torch.cuda.empty_cache()
     finally:
         shutdown()
         torch.use_deterministic_algorithms(was)
-    differ = bits_differ(torch, entries, state_entries(r2.state))
-    losses2 = [h["loss"] for h in r2.history]
-    log(f"  DP step at world size 1 vs one device: losses {losses2} equal "
-        f"{losses1 == losses2}, {len(differ)} of {len(entries)} state "
-        f"entries differ {differ[:6]}")
-    log(f"  the DP step's peak holds the one-device state's {held:.2f} "
-        f"GiB")
-    assert losses1 == losses2 and not differ, differ
-    del r2, entries
-    torch.cuda.empty_cache()
-    stats2["peak_mem_gib_with_one_device_state"] = stats2.pop("peak_mem_gib")
-    return launches, launches_dp, {"one_device": stats1, "dp": stats2,
-                                   "one_device_state_gib": held,
-                                   "dp_bitwise": True}
+    stats["n_layers"], stats["full_depth"] = cfg.n_layers, layers is None
+    return launches, stats
 
 
 def main() -> int:
@@ -4822,6 +5008,16 @@ def main() -> int:
         "hybrid_update and cast_copy at main path 13's leaves vs plain "
         "versions")
     slice14 = slice14_kernel_phase(torch)
+    log(f"  ({time.perf_counter() - t0:.1f}s)")
+
+    t0 = time.perf_counter()
+    log("[3g] flash_attention (bf16, f32) at main path 14's prefills "
+        "(phi-3-vision Dh 96 over 1,600 rows, zamba2-7b Dh 112 in its "
+        "4,096-token window, whisper-tiny's non-causal encoder and cross "
+        "attention over 1,500 frames and its causal decoder) and (bf16) "
+        "at main path 15's training shapes, rmsnorm at d 3,072, 3,584, "
+        "7,168 and 2,048 vs plain versions")
+    slice15 = slice15_kernel_phase(torch)
     log(f"  ({time.perf_counter() - t0:.1f}s)")
 
     t0 = time.perf_counter()
@@ -4988,7 +5184,7 @@ def main() -> int:
             f"{SERVE_BATCH}, {SERVE_PROMPT}-token prompts, {steps - 1} "
             f"greedy decode steps, bf16, chunked (flash) attention, weights "
             f"drawn on the card")
-        launches9[arch], stats9[arch] = dense_serve_path(torch, libs, arch,
+        launches9[arch], stats9[arch] = lm_serve_path(torch, libs, arch,
                                                          layers, steps)
         log(f"  ({time.perf_counter() - t0:.1f}s)")
 
@@ -5043,7 +5239,7 @@ def main() -> int:
             f"{steps - 1} greedy decode steps, bf16, chunked (flash) "
             f"attention, weights drawn on the card leaf by leaf")
         key = f"{arch}_p{prompt}"
-        launches12[key], stats12[key] = dense_serve_path(
+        launches12[key], stats12[key] = lm_serve_path(
             torch, libs, arch, layers, steps, prompt=prompt, naive=naive)
         log(f"  ({time.perf_counter() - t0:.1f}s)")
     window_run = stats12["mixtral-8x7b_p4064"]
@@ -5060,11 +5256,44 @@ def main() -> int:
     t0 = time.perf_counter()
     log(f"[19] main path 13: {MOE_TRAIN_ARCH} trained at full width, "
         f"{MOE_TRAIN_LAYERS} of 32 layers, batch {LM_TRAIN_BATCH} x "
-        f"{LM_TRAIN_SEQ} tokens, bf16, flash, {MOE_TRAIN_STEPS} steps + 1 "
-        f"eval batch: one device, then the DP step at world size 1 (NCCL), "
-        f"bitwise")
-    launches13, launches13_dp, stats13 = moe_train_path(torch, libs)
+        f"{LM_TRAIN_SEQ} tokens, bf16, flash, {FAMILY_TRAIN_STEPS} steps "
+        f"+ 1 eval batch: one device, then the DP step at world size 1 "
+        f"(NCCL), bitwise")
+    launches13, stats13 = family_train_path(torch, libs, MOE_TRAIN_ARCH,
+                                            MOE_TRAIN_LAYERS)
     log(f"  ({time.perf_counter() - t0:.1f}s)")
+
+    launches14, stats14 = {}, {}
+    for arch, naive in FAMILY_SERVE:
+        t0 = time.perf_counter()
+        log(f"[20] main path 14: serve() {arch} whole at full width, batch "
+            f"{SERVE_BATCH}, {SERVE_PROMPT}-token prompts, {SERVE_STEPS - 1} "
+            f"greedy decode steps, bf16, chunked (flash) attention, weights "
+            f"drawn on the card leaf by leaf; one prefill and 4 decode "
+            f"steps profiled")
+        launches14[arch], stats14[arch] = lm_serve_path(
+            torch, libs, arch, None, SERVE_STEPS, naive=naive, profile=True)
+        log(f"  ({time.perf_counter() - t0:.1f}s)")
+
+    ref14 = {}
+    for arch, _ in FAMILY_SERVE:
+        t0 = time.perf_counter()
+        log(f"[20b] reference: reduced {arch} f32, kernels on the card vs "
+            f"plain versions on the CPU")
+        ref14[arch] = serve_reference_phase(torch, arch, prompt=128)
+        log(f"  ({time.perf_counter() - t0:.1f}s)")
+
+    launches15, stats15 = {}, {}
+    for arch, layers in FAMILY_TRAIN:
+        t0 = time.perf_counter()
+        depth = "whole" if layers is None else f"at {layers} layers"
+        log(f"[21] main path 15: {arch} trained at full width, {depth}, "
+            f"batch {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens, bf16, flash, "
+            f"{FAMILY_TRAIN_STEPS} steps + 1 eval batch: one device, then "
+            f"the DP step at world size 1 (NCCL), bitwise")
+        launches15[arch], stats15[arch] = family_train_path(torch, libs,
+                                                            arch, layers)
+        log(f"  ({time.perf_counter() - t0:.1f}s)")
 
     launches5 = sync_stats["path5_launches"]
     launches6 = overlap_stats["path6_launches"]
@@ -5081,7 +5310,11 @@ def main() -> int:
                        "launches"][k] for n in lm_dp
                       for name in lm_dp[n][0]["full"]},
                    **{f"path12_{a}": launches12[a][k] for a in launches12},
-                   "path13": launches13[k], "path13_dp": launches13_dp[k]}
+                   "path13": launches13["one_device"][k],
+                   "path13_dp": launches13["dp"][k],
+                   **{f"path14_{a}": launches14[a][k] for a in launches14},
+                   **{f"path15_{a}_{run}": launches15[a][run][k]
+                      for a in launches15 for run in launches15[a]}}
                for k in launches}
     kernels = [{"name": k, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[k], "launches": launches[k],
@@ -5125,6 +5358,8 @@ def main() -> int:
             rec["slice13"] = slice13[rec["name"]]
         if rec["name"] in slice14:
             rec["slice14"] = slice14[rec["name"]]
+        if rec["name"] in slice15:
+            rec["slice15"] = slice15[rec["name"]]
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke_kernels.json"),
@@ -5149,7 +5384,9 @@ def main() -> int:
                        "main_path_11": {"overlap": stats11,
                                         "processes": lm_dp},
                        "staged": staged, "main_path_12": stats12,
-                       "reference_12": ref12, "main_path_13": stats13}, f,
+                       "reference_12": ref12, "main_path_13": stats13,
+                       "slice15_kernels": slice15, "main_path_14": stats14,
+                       "reference_14": ref14, "main_path_15": stats15}, f,
                       indent=1)
     log(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))

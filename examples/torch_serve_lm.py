@@ -1,13 +1,16 @@
 """Serve a reduced LM on the PyTorch port with batched requests: prefill
-+ greedy KV-cache decode, as ``examples/serve_lm.py`` does with the JAX
-package. The port has the dense family (llama3.2-1b, yi-9b, granite-34b,
-qwen2-72b) and the MoE family (mixtral-8x7b, llama4-maverick-400b-a17b);
-any other arch raises ``NotImplementedError`` naming its ROADMAP item.
++ greedy cached decode, as ``examples/serve_lm.py`` does with the JAX
+package. Every LM arch of the registry: the dense family (llama3.2-1b,
+yi-9b, granite-34b, qwen2-72b), the MoE family (mixtral-8x7b,
+llama4-maverick-400b-a17b), phi-3-vision-4.2b (with random patches),
+zamba2-7b, xlstm-350m and whisper-tiny (with random frames).
 
     PYTHONPATH=src python examples/torch_serve_lm.py --arch yi-9b
     PYTHONPATH=src python examples/torch_serve_lm.py --arch qwen2-72b \
         --device cpu
     PYTHONPATH=src python examples/torch_serve_lm.py --arch mixtral-8x7b \
+        --device cpu
+    PYTHONPATH=src python examples/torch_serve_lm.py --arch zamba2-7b \
         --device cpu
 """
 import argparse
@@ -23,7 +26,7 @@ from repro_torch.launch.serve import serve  # noqa: E402
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b",
-                    help="a dense or MoE arch id (reduced config)")
+                    help="an LM arch id (reduced config)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--decode-steps", type=int, default=16)

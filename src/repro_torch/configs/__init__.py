@@ -1,7 +1,8 @@
 """Arch config registry. Importing this package registers every config
-the port supports (ResNet-50, the paper's own architecture; the dense
-LM family: llama3.2-1b, yi-9b, granite-34b and qwen2-72b; the MoE
-family: mixtral-8x7b and llama4-maverick-400b-a17b)."""
+of the JAX package: ResNet-50, the paper's own architecture; the dense
+LM family (llama3.2-1b, yi-9b, granite-34b, qwen2-72b); the MoE family
+(mixtral-8x7b, llama4-maverick-400b-a17b); the VLM phi-3-vision-4.2b;
+the hybrid zamba2-7b; the SSM xlstm-350m; the audio whisper-tiny."""
 from repro_torch.configs.base import (  # noqa: F401
     InputConfig,
     ModelConfig,
@@ -18,7 +19,11 @@ from repro_torch.configs import (  # noqa: F401,E402
     llama3_2_1b,
     llama4_maverick_400b,
     mixtral_8x7b,
+    phi_3_vision_4_2b,
     qwen2_72b,
     resnet50,
+    whisper_tiny,
+    xlstm_350m,
     yi_9b,
+    zamba2_7b,
 )

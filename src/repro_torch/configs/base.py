@@ -4,9 +4,7 @@ The PyTorch port's own copy of the JAX package's config dataclasses,
 field for field, so a configuration means the same thing in both
 packages. Every architecture is a ``ModelConfig`` produced by a factory
 in ``src/repro_torch/configs/<arch>.py`` and registered under its public
-id (``--arch <id>``). The port registers ResNet-50, the dense LMs
-(llama3.2-1b, yi-9b, granite-34b, qwen2-72b) and the MoE LMs
-(mixtral-8x7b, llama4-maverick-400b-a17b).
+id (``--arch <id>``); the port registers each of the JAX package's.
 """
 from __future__ import annotations
 
@@ -246,30 +244,7 @@ def register(arch_id: str):
     return deco
 
 
-# the JAX package's archs the port does not have yet: id -> (family,
-# the ROADMAP queue 1 item that ports it)
-UNPORTED_ARCHS = {
-    "phi-3-vision-4.2b": ("vlm", "15.4"),
-    "zamba2-7b": ("hybrid", "15.5"),
-    "xlstm-350m": ("ssm", "15.5"),
-    "whisper-tiny": ("audio", "15.5"),
-}
-
-
-class ArchNotPortedError(NotImplementedError, KeyError):
-    """An arch of the JAX package that the port does not have yet; a
-    ``KeyError`` too, as for any arch the registry lacks."""
-
-    __str__ = Exception.__str__
-
-
 def get_config(arch_id: str) -> ModelConfig:
-    if arch_id in UNPORTED_ARCHS:
-        family, item = UNPORTED_ARCHS[arch_id]
-        raise ArchNotPortedError(
-            f"arch {arch_id!r} (family {family!r}) is not ported yet "
-            f"(ROADMAP queue 1, item {item}); available: "
-            f"{sorted(_REGISTRY)}")
     if arch_id not in _REGISTRY:
         raise KeyError(
             f"unknown arch {arch_id!r}; available: {sorted(_REGISTRY)}"

@@ -8,16 +8,18 @@
         --attention-impl chunked
 
 The port of the JAX package's ``launch/serve.py``: the same defaults
-(naive attention, float32), the same prompts (``np.random.RandomState
-(seed)``), the same result keys. The model runs on the card unless
-``--device cpu`` is given; ``chunked`` attention there is the flash
-kernel, and every RMSNorm site the rmsnorm kernel.
+(naive attention, float32), the same requests (``np.random.RandomState
+(seed)``: the prompts, then an audio model's frames and a VLM's
+patches), the same result keys, for every LM family of the registry.
+The model runs on the card unless ``--device cpu`` is given; ``chunked``
+attention there is the flash kernel, and every RMSNorm site the rmsnorm
+kernel.
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,22 +57,43 @@ def build_serve_setup(cfg, *, seed: int = 0, compute_dtype=torch.float32,
     return model, params
 
 
+def make_requests(cfg, batch: int, prompt_len: int, seed: int = 0
+                  ) -> Dict[str, np.ndarray]:
+    """The JAX package's serving inputs, bit for bit: ``tokens`` (the
+    prompts), then from the same ``RandomState`` an audio model's
+    ``frames`` (B, num_frames, frame_dim) and a VLM's ``patches`` (B,
+    num_patches, patch_dim), float64."""
+    rng = np.random.RandomState(seed)
+    out = {"tokens": rng.randint(0, cfg.vocab_size,
+                                 size=(batch, prompt_len))}
+    if cfg.audio is not None:
+        out["frames"] = rng.randn(batch, cfg.audio.num_frames,
+                                  cfg.audio.frame_dim)
+    if cfg.vision is not None:
+        out["patches"] = rng.randn(batch, cfg.vision.num_patches,
+                                   cfg.vision.patch_dim)
+    return out
+
+
 def make_prompts(cfg, batch: int, prompt_len: int, seed: int = 0
                  ) -> np.ndarray:
     """The JAX package's prompts, bit for bit."""
-    rng = np.random.RandomState(seed)
-    return rng.randint(0, cfg.vocab_size, size=(batch, prompt_len))
+    return make_requests(cfg, batch, prompt_len, seed)["tokens"]
 
 
-def generate(model, params, prompts: np.ndarray, decode_steps: int
-             ) -> Dict:
-    """Prefill ``prompts`` into a fresh cache, then ``decode_steps - 1``
-    greedy decode steps. Each phase is timed between device syncs."""
+def generate(model, params, prompts: np.ndarray, decode_steps: int,
+             frontend: Optional[Dict[str, np.ndarray]] = None) -> Dict:
+    """Prefill ``prompts`` (with ``frontend``'s ``frames`` / ``patches``,
+    cast to the compute dtype) into a fresh cache sized ``prompt_len +
+    decode_steps``, as the JAX package sizes it, then ``decode_steps -
+    1`` greedy decode steps. Each phase is timed between device syncs."""
     dev = model.device
     batch, prompt_len = prompts.shape
     cache, _ = model.cache_shape(batch, prompt_len + decode_steps,
                                  model.compute_dtype)
     batch_in = {"tokens": torch.from_numpy(prompts.astype(np.int64)).to(dev)}
+    for k, v in (frontend or {}).items():
+        batch_in[k] = torch.from_numpy(v).to(dev, model.compute_dtype)
     prefill = make_prefill_step(model)
     decode = make_decode_step(model)
 
@@ -103,22 +126,20 @@ def serve(cfg, batch: int, prompt_len: int, decode_steps: int,
           seed: int = 0, compute_dtype=torch.float32, greedy: bool = True,
           *, attention_impl: str = "naive", device: DeviceLike = "cuda",
           draw_device: DeviceLike = "cpu") -> Dict:
-    """Serve ``batch`` random prompts of ``prompt_len`` tokens: one
-    prefill and ``decode_steps - 1`` greedy decode steps. Decoding is
+    """Serve ``batch`` random prompts of ``prompt_len`` tokens (with an
+    audio model's frames, a VLM's patches): one prefill and
+    ``decode_steps - 1`` greedy decode steps. Decoding is
     greedy whatever ``greedy`` says, as in the JAX package.
     ``draw_device`` is where the random weights are drawn (the CPU:
     the same weights on every device)."""
     del greedy
     dev = resolve_device(device)
-    if cfg.audio is not None or cfg.vision is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: modality frontends are not ported yet (ROADMAP "
-            "queue 1, items 15.4-15.5)")
     model, params = build_serve_setup(
         cfg, seed=seed, compute_dtype=compute_dtype,
         attention_impl=attention_impl, device=dev, draw_device=draw_device)
-    return generate(model, params,
-                    make_prompts(cfg, batch, prompt_len, seed), decode_steps)
+    requests = make_requests(cfg, batch, prompt_len, seed)
+    prompts = requests.pop("tokens")
+    return generate(model, params, prompts, decode_steps, requests)
 
 
 def main(argv=None):

@@ -22,11 +22,15 @@ across the D groups, an all-gather inside the group
 ``--ckpt-dir`` checkpoints in the JAX package's format and resumes from
 the newest intact checkpoint; ``--sentinel`` adds the divergence
 sentinel and the recovery state machine, ``--chaos`` deterministic
-fault injection. ``--arch`` a dense LM (llama3.2-1b, yi-9b, granite-34b,
-qwen2-72b) or a MoE LM (mixtral-8x7b, llama4-maverick-400b-a17b)
-trains it on the synthetic token stream (``--seq-len`` tokens a row,
-the naive attention as in the JAX launcher), on one device or on any of
-the DP steps above but ``--sync-bn``.
+fault injection. ``--arch`` an LM (the dense llama3.2-1b, yi-9b,
+granite-34b, qwen2-72b; the MoE mixtral-8x7b, llama4-maverick-400b-a17b;
+phi-3-vision-4.2b, zamba2-7b, xlstm-350m, whisper-tiny) trains it on the
+synthetic token stream (``--seq-len`` tokens a row, with random patches
+or frames for the VLM and the audio model, the naive attention as in
+the JAX launcher), on one device or on any of the DP steps above but
+``--sync-bn``; ``--overlap-comm`` needs a staged loss, which zamba2-7b,
+xlstm-350m and whisper-tiny do not have (it raises, as in the JAX
+package).
 ``--host-shard H/N`` reads only host H's rows of every global batch,
 ``--log-json PATH`` writes the run's history as the JAX launcher does:
 
@@ -161,15 +165,17 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
     keeps its own BN state and EF residual; the checkpoints stack them
     as the JAX package does) and None on one device.
 
-    An LM (the dense and MoE families) trains on the synthetic token
-    stream of ``seq_len`` tokens a row with its token-mean cross entropy
-    (plus 0.01 x the MoE aux loss), its attention ``attention_impl``
+    An LM (every family but the conv one) trains on the synthetic token
+    stream of ``seq_len`` tokens a row (with the VLM's patches, the audio
+    model's frames) with its token-mean cross entropy (plus 0.01 x the
+    MoE aux loss), its attention ``attention_impl``
     ("naive", as the JAX package's default; "chunked": the flash kernel;
     "chunked_opt": the bf16-tile loop with each q block recomputed in
     the backward), on one device or on every data-parallel step the
     conv family takes: per-leaf or bucketed sync, error feedback,
     stream-LARS, the overlapped sync (its staged loss,
-    ``TransformerLM.loss_segments``), ZeRO and the hierarchical
+    ``TransformerLM.loss_segments``: the hybrid, SSM and audio models
+    have none, and it raises for them), ZeRO and the hierarchical
     schedules. ``sync_bn`` raises for it (it has no BN). Its weights are
     drawn from ``seed`` on ``draw_device`` (``TransformerLM.init``: the
     CPU gives the same weights on every device, the card draws a

@@ -1,4 +1,4 @@
-"""Models of the port (the conv family: ResNet-50)."""
+"""Models of the port: every family of the JAX package (``registry``)."""
 from repro_torch.models.registry import (  # noqa: F401
     build_model,
     init_model_state,

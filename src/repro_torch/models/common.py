@@ -38,8 +38,32 @@ class LeafDraw:
         return torch.randn(tuple(shape), generator=self.gen,
                            device=self.gen.device)
 
+    @classmethod
+    def from_seed(cls, seed: int, draw_device, device, dtype=None
+                  ) -> "LeafDraw":
+        """Draws from ``seed`` on ``draw_device``, each leaf put on
+        ``device`` in ``dtype`` (an LM's ``init``)."""
+        from repro_torch.device import resolve_device
+        gen = torch.Generator(device=resolve_device(draw_device))
+        return cls(gen.manual_seed(seed), device, dtype)
+
     def put(self, t: Tensor) -> Tensor:
         return t.to(self.device, self.dtype or t.dtype)
+
+
+def prefixed(prefix: str, tree: Dict[str, Tensor]) -> Dict[str, Tensor]:
+    """``tree``'s names under ``prefix`` (``"attn"`` + ``"wq"`` ->
+    ``"attn/wq"``): a subtree flattened into its parent's "/" paths."""
+    return {f"{prefix}/{k}": v for k, v in tree.items()}
+
+
+def sub_params(p: Dict[str, Tensor], prefix: str,
+               layer: Optional[int] = None) -> Dict[str, Tensor]:
+    """The params under ``prefix`` by their names below it (``sub0/attn``
+    -> ``{"wq": ..., ...}``); layer ``layer``'s slice of stacked ones."""
+    cut = len(prefix) + 1
+    return {k[cut:]: v if layer is None else v[layer]
+            for k, v in p.items() if k.startswith(prefix + "/")}
 
 
 def normal_init(gen: LeafDraw, shape: Sequence[int],

@@ -1,7 +1,16 @@
-"""Model registry: arch family -> model class (the conv family, ResNet-50;
-the dense LM family: llama3.2-1b, yi-9b, granite-34b, qwen2-72b; the MoE
-family: mixtral-8x7b, llama4-maverick; the other LM families are ROADMAP
-queue 1, items 15.4-15.5)."""
+"""Model registry: arch family -> model class, for every family of the
+JAX package (the conv family, ResNet-50; the dense, MoE and VLM
+``TransformerLM``; the hybrid ``Zamba2Model``; the SSM ``XLSTMModel``;
+the audio ``WhisperModel``).
+
+Model protocol (duck-typed, as in the JAX package):
+  init_params(seed, draw_device=, dtype=) -> (params, None)   [LMs]
+  loss_fn(params, model_state, batch, label_smoothing)
+      -> (loss, (state', metrics))
+  cache_shape(batch, max_seq, dtype) -> (cache_zeros, cache_axes)   [LMs]
+  prefill(params, tokens, cache, **frontend) -> (last_logits, cache)
+  decode_step(params, cache, tokens, cache_index) -> (logits, cache)
+"""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -10,10 +19,21 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike
+from repro_torch.models.mamba import Zamba2Model
 from repro_torch.models.resnet import ResNet50
 from repro_torch.models.transformer import TransformerLM
+from repro_torch.models.whisper import WhisperModel
+from repro_torch.models.xlstm import XLSTMModel
 
-_FAMILIES = {"conv": ResNet50, "dense": TransformerLM, "moe": TransformerLM}
+_FAMILIES = {
+    "dense": TransformerLM,
+    "moe": TransformerLM,
+    "vlm": TransformerLM,
+    "hybrid": Zamba2Model,
+    "ssm": XLSTMModel,
+    "audio": WhisperModel,
+    "conv": ResNet50,
+}
 
 
 def build_model(cfg: ModelConfig, compute_dtype=torch.bfloat16, *,
@@ -23,18 +43,12 @@ def build_model(cfg: ModelConfig, compute_dtype=torch.bfloat16, *,
     ``seed`` here; an LM's come from ``model.init_params(seed)``, as in
     the JAX package. ``attention_impl`` applies to LMs, ``bn_group``
     (cross-replica BN over that process group) to ResNet-50."""
-    if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"arch family {cfg.family!r} is not ported yet (ROADMAP "
-            "queue 1, items 15.4-15.5); the port has the conv family "
-            "(resnet50), the dense family (llama3.2-1b, yi-9b, "
-            "granite-34b, qwen2-72b) and the MoE family (mixtral-8x7b, "
-            "llama4-maverick-400b-a17b)")
+    cls = _FAMILIES[cfg.family]
     if cfg.family == "conv":
-        return ResNet50(cfg, compute_dtype=compute_dtype, seed=seed,
-                        device=device, bn_group=bn_group)
-    return TransformerLM(cfg, compute_dtype=compute_dtype,
-                         attention_impl=attention_impl, device=device)
+        return cls(cfg, compute_dtype=compute_dtype, seed=seed,
+                   device=device, bn_group=bn_group)
+    return cls(cfg, compute_dtype=compute_dtype,
+               attention_impl=attention_impl, device=device)
 
 
 def init_model_state(model) -> Dict:

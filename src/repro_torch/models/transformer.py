@@ -1,5 +1,6 @@
-"""Decoder-only transformer LM, the dense and MoE families (llama3.2-1b,
-yi-9b, granite-34b, qwen2-72b; mixtral-8x7b, llama4-maverick).
+"""Decoder-only transformer LM, the dense, MoE and VLM families
+(llama3.2-1b, yi-9b, granite-34b, qwen2-72b; mixtral-8x7b,
+llama4-maverick; phi-3-vision-4.2b).
 
 The port of the JAX package's ``models/transformer.py``: the same
 parameter tree, flattened to "/" paths (``embed/table``,
@@ -14,10 +15,12 @@ Dh)``, written in place by ``prefill`` and ``decode_step``.
 
 ``loss_fn`` is the training loss (token-mean cross entropy in f32, plus
 0.01 x the MoE aux loss); ``loss_segments`` is the same loss as chained
-segments for the overlapped data-parallel step. The VLM patch frontend
-is not ported yet (ROADMAP queue 1, item 15.4). The JAX package
-rematerializes the layer scan of a model of more than 8 layers; the
-port keeps every activation, which gives the same values.
+segments for the overlapped data-parallel step. A VLM (a config with
+``vision``) does early fusion: its ``patches`` (B, P, patch_dim),
+projected by ``vision_proj`` in the compute dtype, are prepended to the
+token embeddings, and their positions are dropped after the final norm.
+The JAX package rematerializes the layer scan of a model of more than 8
+layers; the port keeps every activation, which gives the same values.
 """
 from __future__ import annotations
 
@@ -33,18 +36,16 @@ from repro_torch.models.common import (
     StagedLoss,
     apply_norm,
     norm_init,
+    prefixed,
     slice_key,
     slice_views,
+    sub_params,
 )
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
 
 ATTENTION_IMPLS = ("naive", "chunked", "chunked_opt")
-
-
-def _flat(prefix: str, tree: Dict[str, Tensor]) -> Params:
-    return {f"{prefix}/{k}": v for k, v in tree.items()}
 
 
 class TransformerLM:
@@ -78,23 +79,25 @@ class TransformerLM:
         other values and spares the host a copy of the weights (35 GB
         in f32 at yi-9b's size)."""
         cfg = self.cfg
-        gen = LeafDraw(torch.Generator(device=resolve_device(draw_device)
-                                       ).manual_seed(seed),
-                       self.device, dtype)
+        gen = LeafDraw.from_seed(seed, draw_device, self.device, dtype)
         G = self.n_groups
-        p: Params = _flat("embed", layers.embedding_init(gen, cfg))
+        p: Params = prefixed("embed", layers.embedding_init(gen, cfg))
+        if cfg.vision is not None:
+            p["vision_proj"] = common.dense(gen, cfg.vision.patch_dim,
+                                            cfg.d_model)
         for j in range(self.group):
             pre = f"sub{j}"
-            p.update(_flat(f"{pre}/norm1", norm_init(cfg.norm, cfg.d_model,
-                                                     G)))
-            p.update(_flat(f"{pre}/attn", layers.attention_init(gen, cfg, G)))
-            p.update(_flat(f"{pre}/norm2", norm_init(cfg.norm, cfg.d_model,
-                                                     G)))
+            p.update(prefixed(f"{pre}/norm1",
+                              norm_init(cfg.norm, cfg.d_model, G)))
+            p.update(prefixed(f"{pre}/attn",
+                              layers.attention_init(gen, cfg, G)))
+            p.update(prefixed(f"{pre}/norm2",
+                              norm_init(cfg.norm, cfg.d_model, G)))
             if cfg.is_moe_layer(j):
-                p.update(_flat(f"{pre}/moe", layers.moe_init(gen, cfg, G)))
+                p.update(prefixed(f"{pre}/moe", layers.moe_init(gen, cfg, G)))
             else:
-                p.update(_flat(f"{pre}/mlp", layers.mlp_init(gen, cfg, G)))
-        p.update(_flat("final_norm", norm_init(cfg.norm, cfg.d_model)))
+                p.update(prefixed(f"{pre}/mlp", layers.mlp_init(gen, cfg, G)))
+        p.update(prefixed("final_norm", norm_init(cfg.norm, cfg.d_model)))
         if not cfg.tie_embeddings:
             p["head"] = common.dense(gen, cfg.d_model, cfg.vocab_size)
         return {k: gen.put(v) for k, v in p.items()}
@@ -114,11 +117,12 @@ class TransformerLM:
         stacked leaves): ``(x', its MoE aux loss or None)``."""
         cfg = self.cfg
         pre = f"sub{j}"
-        h = apply_norm(_sub(p, f"{pre}/norm1", g), x, cfg.norm, cfg.norm_eps)
+        h = apply_norm(sub_params(p, f"{pre}/norm1", g), x, cfg.norm,
+                       cfg.norm_eps)
         layer_cache = None if cache is None else {
             "k": cache[f"{pre}/k"][g], "v": cache[f"{pre}/v"][g]}
         attn_out, _ = layers.attention_apply(
-            _sub(p, f"{pre}/attn", g), h, cfg,
+            sub_params(p, f"{pre}/attn", g), h, cfg,
             positions=positions,
             causal=True,
             window=cfg.sliding_window,
@@ -127,11 +131,13 @@ class TransformerLM:
             cache_index=cache_index,
         )
         x = x + attn_out
-        h = apply_norm(_sub(p, f"{pre}/norm2", g), x, cfg.norm, cfg.norm_eps)
+        h = apply_norm(sub_params(p, f"{pre}/norm2", g), x, cfg.norm,
+                       cfg.norm_eps)
         if cfg.is_moe_layer(j):
-            out, aux = layers.moe_apply(_sub(p, f"{pre}/moe", g), h, cfg)
+            out, aux = layers.moe_apply(sub_params(p, f"{pre}/moe", g), h, cfg)
             return x + out, aux
-        return x + layers.mlp_apply(_sub(p, f"{pre}/mlp", g), h, cfg), None
+        return x + layers.mlp_apply(sub_params(p, f"{pre}/mlp", g), h,
+                                    cfg), None
 
     def _groups(self, p: Params, n: int, x: Tensor, positions: Tensor,
                 cache: Optional[Params], cache_index, aux):
@@ -155,9 +161,8 @@ class TransformerLM:
         place. tokens: (B, S) integers. In decode mode S == 1 and
         ``cache_index`` is the write position. ``moe_aux`` is 0.0 for a
         model without MoE layers."""
-        _no_patches(patches)
         cfg = self.cfg
-        x = layers.embed(_sub(p, "embed"), tokens, self.compute_dtype)
+        x = self._embed(p, tokens, patches)
         b, s, _ = x.shape
         if mode == "decode":
             positions = torch.full((b, 1), int(cache_index),
@@ -168,10 +173,22 @@ class TransformerLM:
                 cache_index = 0
         x, aux = self._groups(p, self.n_groups, x, positions, cache,
                               cache_index, 0.0)
-        x = apply_norm(_sub(p, "final_norm"), x, cfg.norm, cfg.norm_eps)
+        x = apply_norm(sub_params(p, "final_norm"), x, cfg.norm, cfg.norm_eps)
+        if patches is not None:
+            x = x[:, patches.shape[1]:, :]
         w = p["embed/table"] if cfg.tie_embeddings else p["head"]
         logits = layers.lm_head(w, x, cfg.tie_embeddings)
         return logits, aux, cache
+
+    def _embed(self, p: Params, tokens: Tensor,
+               patches: Optional[Tensor]) -> Tensor:
+        """The token embeddings, after the projected patches if any."""
+        x = layers.embed(sub_params(p, "embed"), tokens, self.compute_dtype)
+        if patches is None:
+            return x
+        cd = self.compute_dtype
+        pe = patches.to(cd) @ p["vision_proj"].to(cd)
+        return torch.cat([pe, x], dim=1)
 
     # --------------------------------------------------------------- losses
     def loss_fn(self, p: Params, model_state: Dict, batch: Dict,
@@ -206,13 +223,15 @@ class TransformerLM:
 
     def segment_trees(self, tree: Dict) -> List[Dict]:
         """A parameter-shaped dict cut into the staged loss's segments
-        (forward order): the embedding; rows ``[lo, hi)`` of every
-        stacked leaf, keyed ``common.slice_key(lo, hi, name)`` (views:
-        writing into one writes into its leaf); the final norm and the
-        untied head. The JAX package's ``split_tree``."""
+        (forward order): the embedding (with a VLM's ``vision_proj``);
+        rows ``[lo, hi)`` of every stacked leaf, keyed
+        ``common.slice_key(lo, hi, name)`` (views: writing into one writes
+        into its leaf); the final norm and the untied head. The JAX
+        package's ``split_tree``."""
         b = self._bounds()
         stacked = [k for k in tree if k.startswith("sub")]
-        segs = [{k: v for k, v in tree.items() if k.startswith("embed/")}]
+        segs = [{k: v for k, v in tree.items()
+                 if k.startswith("embed/") or k == "vision_proj"}]
         for lo, hi in zip(b, b[1:]):
             segs.append(slice_views(tree, [slice_key(lo, hi, k)
                                            for k in stacked]))
@@ -233,10 +252,10 @@ class TransformerLM:
         cfg = self.cfg
         tied = cfg.tie_embeddings
         tokens = batch["tokens"]
-        _no_patches(batch.get("patches"))
+        patches = batch.get("patches")
 
         def embed_fn(sp, _x0):
-            x = layers.embed(_sub(sp, "embed"), tokens, self.compute_dtype)
+            x = self._embed(sp, tokens, patches)
             carry = (x, torch.zeros((), dtype=torch.float32,
                                     device=x.device))
             if tied:
@@ -258,7 +277,10 @@ class TransformerLM:
 
         def head_fn(sp, carry):
             x, moe_aux = carry[0], carry[1]
-            x = apply_norm(_sub(sp, "final_norm"), x, cfg.norm, cfg.norm_eps)
+            x = apply_norm(sub_params(sp, "final_norm"), x, cfg.norm,
+                           cfg.norm_eps)
+            if patches is not None:
+                x = x[:, patches.shape[1]:, :]
             w = carry[2] if tied else sp["head"]
             logits = layers.lm_head(w, x, tied)
             loss, n_tok = common.cross_entropy_loss(
@@ -309,18 +331,3 @@ class TransformerLM:
         logits, _, new_cache = self.forward(
             p, tokens, mode="decode", cache=cache, cache_index=cache_index)
         return logits, new_cache
-
-
-def _no_patches(patches) -> None:
-    if patches is not None:
-        raise NotImplementedError(
-            "the VLM patch frontend is not ported yet (ROADMAP queue 1, "
-            "item 15.4)")
-
-
-def _sub(p: Params, prefix: str, layer: Optional[int] = None) -> Params:
-    """The params under ``prefix`` by their names below it (``sub0/attn``
-    -> ``{"wq": ..., ...}``); layer ``layer``'s slice of stacked ones."""
-    cut = len(prefix) + 1
-    return {k[cut:]: v if layer is None else v[layer]
-            for k, v in p.items() if k.startswith(prefix + "/")}

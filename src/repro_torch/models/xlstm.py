@@ -1,0 +1,304 @@
+"""xLSTM: mLSTM (matrix memory, parallelizable) + sLSTM (scalar memory,
+sequential) blocks in a ``slstm_every`` pattern (7:1 for xlstm-350m).
+
+The port of the JAX package's ``models/xlstm.py``: the same parameter
+tree, flattened to "/" paths (``mlstm/w_up``, ``mlstm/norm/scale``,
+``slstm/r_gates``, ...), each block's leaves stacked on a leading layer
+dim, and the same op order.
+
+mLSTM is gated linear attention with an exponential input gate and a
+normalizer n, run on the chunked GLA engine (``ssd.py``) with v
+augmented by a ones channel: the state carries [i*v; i], so one readout
+gives numerator and denominator. sLSTM has a recurrent nonlinearity: a
+sequential loop over time in f32 with the stabilized exponential-gate
+formulation, its recurrent weights block-diagonal per head.
+
+The cache is ``{"conv": (n_mlstm, B, 3, d_in), "gla": (n_mlstm, B, H,
+Dh + 1, Dh) f32, "slstm/h", "slstm/c", "slstm/n", "slstm/m": (n_seg, B,
+H, d / H) f32}``, written in place. The mLSTM ``out_norm`` is an RMSNorm
+(the rmsnorm kernel); xlstm-350m's other norms are LayerNorms.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import common, layers, ssd
+from repro_torch.models.common import (
+    LeafDraw,
+    apply_norm,
+    norm_init,
+    prefixed,
+    sub_params,
+)
+from repro_torch.models.mamba import _causal_conv
+
+Tensor = torch.Tensor
+Params = Dict[str, Tensor]
+
+CONV_W = 4
+SLSTM_STATE = ("h", "c", "n", "m")
+
+
+# ---------------------------------------------------------------------------
+# mLSTM block
+# ---------------------------------------------------------------------------
+
+
+def _mlstm_dims(cfg: ModelConfig):
+    d_in = int(cfg.d_model * cfg.mlstm_proj_factor)
+    n_h = cfg.n_heads
+    return d_in, n_h, d_in // n_h
+
+
+def mlstm_init(gen: LeafDraw, cfg: ModelConfig, stacked: int = 0) -> Params:
+    d = cfg.d_model
+    d_in, n_h, dh = _mlstm_dims(cfg)
+    L = (stacked,) if stacked else ()
+
+    def headwise():  # block-diagonal per-head projection
+        return common.fan_in_init(gen, L + (n_h, dh, dh), (-2,))
+
+    p: Params = prefixed("norm", norm_init(cfg.norm, d, stacked))
+    p["w_up"] = common.fan_in_init(gen, L + (d, 2 * d_in), (-2,))
+    p["conv_w"] = common.normal_init(gen, L + (CONV_W, d_in), 0.1)
+    p["conv_b"] = torch.zeros(L + (d_in,))
+    p["wq"], p["wk"], p["wv"] = headwise(), headwise(), headwise()
+    p["w_if"] = common.fan_in_init(gen, L + (d_in, 2 * n_h), (-2,))
+    # input-gate bias 0, forget-gate bias +3 (standard xLSTM init)
+    p["b_if"] = torch.cat([torch.zeros(n_h), torch.full((n_h,), 3.0)]
+                          ).expand(L + (2 * n_h,)).clone()
+    p.update(prefixed("out_norm", norm_init("rmsnorm", d_in, stacked)))
+    p["w_down"] = common.fan_in_init(gen, L + (d_in, d), (-2,))
+    return p
+
+
+def mlstm_apply(p: Params, x: Tensor, cfg: ModelConfig,
+                conv_state: Optional[Tensor] = None,
+                gla_state: Optional[Tensor] = None,
+                decode: bool = False) -> Tuple[Tensor, Tensor, Tensor]:
+    """Returns (out, new_conv_state, new_gla_state)."""
+    d_in, n_h, dh = _mlstm_dims(cfg)
+    b, s, _ = x.shape
+    h = apply_norm(sub_params(p, "norm"), x, cfg.norm, cfg.norm_eps)
+    up = h @ p["w_up"].to(x.dtype)
+    inner, z = up[..., :d_in], up[..., d_in:]
+    conv_out, new_conv = _causal_conv(inner, p["conv_w"], p["conv_b"],
+                                      conv_state)
+    qk_src = conv_out.reshape(b, s, n_h, dh)
+    v_src = inner.reshape(b, s, n_h, dh)
+    q = torch.einsum("bshd,hde->bshe", qk_src, p["wq"].to(x.dtype))
+    k = torch.einsum("bshd,hde->bshe", qk_src, p["wk"].to(x.dtype)) / (
+        dh ** 0.5)
+    v = torch.einsum("bshd,hde->bshe", v_src, p["wv"].to(x.dtype))
+
+    gates = conv_out @ p["w_if"].to(x.dtype) + p["b_if"].to(x.dtype)
+    gates = gates.float()
+    i_gate = torch.exp(torch.clamp(gates[..., :n_h], max=10.0))  # capped
+    log_a = F.logsigmoid(gates[..., n_h:])  # forget gate
+
+    v_aug = torch.cat([v, torch.ones((b, s, n_h, 1), dtype=v.dtype,
+                                     device=v.device)], dim=-1) \
+        * i_gate[..., None].to(v.dtype)
+
+    if decode:
+        y, new_state = ssd.gla_decode_step(
+            q[:, 0], k[:, 0], v_aug[:, 0], log_a[:, 0], gla_state)
+        y = y[:, None]
+    else:
+        y, new_state = ssd.chunked_gla(q, k, v_aug, log_a,
+                                       initial_state=gla_state)
+    num, den = y[..., :dh], y[..., dh:]
+    y = num / torch.clamp(den.abs(), min=1.0).to(num.dtype)
+    y = y.reshape(b, s, d_in)
+    y = apply_norm(sub_params(p, "out_norm"), y, "rmsnorm", cfg.norm_eps)
+    y = y * F.silu(z)
+    out = y @ p["w_down"].to(x.dtype)
+    return out, new_conv, new_state
+
+
+# ---------------------------------------------------------------------------
+# sLSTM block
+# ---------------------------------------------------------------------------
+
+
+def slstm_init(gen: LeafDraw, cfg: ModelConfig, stacked: int = 0) -> Params:
+    d, n_h = cfg.d_model, cfg.n_heads
+    dh = d // n_h
+    d_ffn = int(d * cfg.slstm_proj_factor)
+    L = (stacked,) if stacked else ()
+    p: Params = prefixed("norm", norm_init(cfg.norm, d, stacked))
+    p["w_gates"] = common.fan_in_init(gen, L + (d, 4 * d), (-2,))
+    # block-diagonal recurrent, per head, 4 gates
+    p["r_gates"] = common.fan_in_init(gen, L + (4, n_h, dh, dh), (-2,)) * 0.1
+    p["b_gates"] = torch.zeros(L + (4 * d,))
+    p["w_up"] = common.fan_in_init(gen, L + (d, 2 * d_ffn), (-2,))
+    p["w_down"] = common.fan_in_init(gen, L + (d_ffn, d), (-2,))
+    return p
+
+
+def _slstm_cell(st: Dict[str, Tensor], wx_t: Tensor, r: Tensor
+                ) -> Dict[str, Tensor]:
+    rh = torch.einsum("bhd,ghde->bghe", st["h"], r)  # (b,4,h,dh)
+    pre = wx_t + rh
+    zt = torch.tanh(pre[:, 0])
+    it = pre[:, 1]
+    ft = pre[:, 2]
+    ot = torch.sigmoid(pre[:, 3])
+    m_new = torch.maximum(ft + st["m"], it)
+    i_p = torch.exp(it - m_new)
+    f_p = torch.exp(ft + st["m"] - m_new)
+    c = f_p * st["c"] + i_p * zt
+    n = f_p * st["n"] + i_p
+    h = ot * c / torch.clamp(n.abs(), min=1e-6)
+    return {"h": h, "c": c, "n": n, "m": m_new}
+
+
+def slstm_apply(p: Params, x: Tensor, cfg: ModelConfig,
+                state: Optional[Dict[str, Tensor]] = None,
+                decode: bool = False) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """state: dict h, c, n, m, each (B, H, d / H) f32."""
+    d, n_h = cfg.d_model, cfg.n_heads
+    dh = d // n_h
+    b, s, _ = x.shape
+    xin = apply_norm(sub_params(p, "norm"), x, cfg.norm, cfg.norm_eps)
+    wx = (xin @ p["w_gates"].to(x.dtype) + p["b_gates"].to(x.dtype))
+    wx = wx.float().reshape(b, s, 4, n_h, dh)
+    r = p["r_gates"].float()
+
+    if state is None:
+        zeros = torch.zeros((b, n_h, dh), dtype=torch.float32,
+                            device=x.device)
+        state = {k: zeros for k in SLSTM_STATE}
+    hs = []
+    for t in range(1 if decode else s):
+        state = _slstm_cell(state, wx[:, t], r)
+        hs.append(state["h"])
+    y = torch.stack(hs, 1).reshape(b, s, d).to(x.dtype)
+    # gated FFN
+    up = y @ p["w_up"].to(x.dtype)
+    d_ffn = up.shape[-1] // 2
+    y = F.silu(up[..., :d_ffn]) * up[..., d_ffn:]
+    out = y @ p["w_down"].to(x.dtype)
+    return out, state
+
+
+# ---------------------------------------------------------------------------
+# Model
+# ---------------------------------------------------------------------------
+
+
+class XLSTMModel:
+    """The SSM family: ``n_layers // slstm_every`` segments, each
+    ``slstm_every - 1`` mLSTM layers then one sLSTM layer."""
+
+    def __init__(self, cfg: ModelConfig, compute_dtype=torch.bfloat16,
+                 attention_impl: str = "chunked", *,
+                 device: DeviceLike = "cuda"):
+        del attention_impl  # no attention
+        self.cfg = cfg
+        self.compute_dtype = compute_dtype
+        self.device = resolve_device(device)
+        every = cfg.slstm_every
+        if cfg.n_layers % every:
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not "
+                             f"make segments of {every}")
+        self.n_segments = cfg.n_layers // every
+        self.m_per_seg = every - 1
+        self.n_mlstm = self.n_segments * self.m_per_seg
+
+    def init(self, seed: int = 0, *, draw_device: DeviceLike = "cpu",
+             dtype: Optional[torch.dtype] = None) -> Params:
+        """Parameters by their JAX-tree paths, drawn leaf by leaf from
+        ``seed`` on ``draw_device`` (``TransformerLM.init``)."""
+        cfg = self.cfg
+        gen = LeafDraw.from_seed(seed, draw_device, self.device, dtype)
+        p: Params = prefixed("embed", layers.embedding_init(gen, cfg))
+        p.update(prefixed("mlstm", mlstm_init(gen, cfg, self.n_mlstm)))
+        p.update(prefixed("slstm", slstm_init(gen, cfg, self.n_segments)))
+        p.update(prefixed("final_norm", norm_init(cfg.norm, cfg.d_model)))
+        p["head"] = common.dense(gen, cfg.d_model, cfg.vocab_size)
+        return {k: gen.put(v) for k, v in p.items()}
+
+    def init_params(self, seed: int = 0, *, draw_device: DeviceLike = "cpu",
+                    dtype: Optional[torch.dtype] = None
+                    ) -> Tuple[Params, None]:
+        return self.init(seed, draw_device=draw_device, dtype=dtype), None
+
+    def forward(self, p: Params, tokens: Tensor, *, mode: str = "train",
+                cache: Optional[Params] = None, cache_index=None
+                ) -> Tuple[Tensor, float, Optional[Params]]:
+        """Returns (logits, 0.0, cache); the cache is written in place."""
+        del cache_index  # the recurrent state is the position
+        cfg = self.cfg
+        x = layers.embed(sub_params(p, "embed"), tokens, self.compute_dtype)
+        decode = mode == "decode"
+        for seg in range(self.n_segments):
+            for i in range(seg * self.m_per_seg, (seg + 1) * self.m_per_seg):
+                conv_c = gla_c = None
+                if cache is not None:
+                    conv_c, gla_c = cache["conv"][i], cache["gla"][i]
+                out, nc, ns = mlstm_apply(sub_params(p, "mlstm", i), x, cfg,
+                                          conv_c, gla_c, decode=decode)
+                x = x + out
+                if cache is not None:
+                    cache["conv"][i] = nc
+                    cache["gla"][i] = ns
+            s_state = None
+            if cache is not None:
+                s_state = {k: cache[f"slstm/{k}"][seg] for k in SLSTM_STATE}
+            out, new_s = slstm_apply(sub_params(p, "slstm", seg), x, cfg,
+                                     s_state, decode)
+            x = x + out
+            if cache is not None:
+                for k in SLSTM_STATE:
+                    cache[f"slstm/{k}"][seg] = new_s[k]
+        x = apply_norm(sub_params(p, "final_norm"), x, cfg.norm,
+                       cfg.norm_eps)
+        logits = layers.lm_head(p["head"], x, tied=False)
+        return logits, 0.0, cache
+
+    def loss_fn(self, p: Params, model_state: Dict, batch: Dict,
+                label_smoothing: float = 0.0):
+        """``(loss, (model_state, {"loss", "tokens"}))``: the token-mean
+        cross entropy of the train-mode forward."""
+        logits, _, _ = self.forward(p, batch["tokens"], mode="train")
+        loss, n_tok = common.cross_entropy_loss(
+            logits, batch["targets"], label_smoothing=label_smoothing)
+        return loss, (model_state, {"loss": loss.detach(), "tokens": n_tok})
+
+    def cache_shape(self, batch: int, max_seq: int, dtype=torch.bfloat16
+                    ) -> Tuple[Params, Dict[str, Tuple]]:
+        del max_seq  # the state does not grow with the sequence
+        cfg = self.cfg
+        d_in, n_h, dh = _mlstm_dims(cfg)
+        d_head = cfg.d_model // cfg.n_heads
+        shapes = {
+            "conv": ((self.n_mlstm, batch, CONV_W - 1, d_in),
+                     ("layers", "batch", None, "inner"), dtype),
+            "gla": ((self.n_mlstm, batch, n_h, dh + 1, dh),
+                    ("layers", "batch", "heads", None, None), torch.float32),
+        }
+        for k in SLSTM_STATE:
+            shapes[f"slstm/{k}"] = ((self.n_segments, batch, n_h, d_head),
+                                    ("layers", "batch", "heads", None),
+                                    torch.float32)
+        vals = {k: torch.zeros(s, dtype=dt, device=self.device)
+                for k, (s, _, dt) in shapes.items()}
+        return vals, {k: a for k, (_, a, _) in shapes.items()}
+
+    def prefill(self, p: Params, tokens: Tensor, cache: Params, **_
+                ) -> Tuple[Tensor, Params]:
+        logits, _, new_cache = self.forward(
+            p, tokens, mode="prefill", cache=cache, cache_index=0)
+        return logits[:, -1:, :], new_cache
+
+    def decode_step(self, p: Params, cache: Params, tokens: Tensor,
+                    cache_index) -> Tuple[Tensor, Params]:
+        logits, _, new_cache = self.forward(
+            p, tokens, mode="decode", cache=cache, cache_index=cache_index)
+        return logits, new_cache

@@ -814,10 +814,7 @@ def make_dp_overlap_train_step(model, optimizer: Optimizer,
     if use_ef and wire is None:
         raise ValueError("error_feedback requires a wire dtype "
                          f"(compression={parallel.compression!r})")
-    if not hasattr(model, "loss_segments"):
-        raise ValueError(
-            f"{type(model).__name__} has no loss_segments(); overlap_comm "
-            "needs a staged model (ResNet50, TransformerLM)")
+    _require_staged(model)
     hier = _hier_or_none(parallel, mesh_shape, bucketed, group)
     use_zero = parallel.zero_dp
     use_stream = hasattr(optimizer, "update_shard")
@@ -934,10 +931,20 @@ def make_dp_overlap_train_step(model, optimizer: Optimizer,
     return train_step
 
 
+def _require_staged(model) -> None:
+    """The JAX package's error for a model without a staged loss (the
+    hybrid, SSM and audio families), which the overlapped step needs."""
+    if not hasattr(model, "loss_segments"):
+        raise ValueError(
+            f"{type(model).__name__} has no loss_segments(); overlap_comm "
+            "needs a staged model (ResNet50, TransformerLM)")
+
+
 def _ready_stages(model, tree: Dict) -> List[Dict]:
     """A parameter-shaped dict cut into the staged loss's segments, in
     the order their backwards run: last segment first (an LM's layer
     segments keyed by ``slice_key``)."""
+    _require_staged(model)
     return list(reversed(model.segment_trees(tree)))
 
 

@@ -67,12 +67,15 @@ def test_resnet50_config_matches(reduced):
 
 
 def test_unknown_arch_raises():
-    # an arch the port lacks (mixtral-8x7b was one until the MoE family
-    # was ported) and an id no package has
-    with pytest.raises(KeyError):
-        tget("phi-3-vision-4.2b")
+    # an id no package has raises; the four archs the port lacked until
+    # their families were ported (phi-3-vision-4.2b raised here) build
     with pytest.raises(KeyError):
         tget("no-such-arch")
+    from repro_torch.models import build_model
+    for arch in ("phi-3-vision-4.2b", "zamba2-7b", "xlstm-350m",
+                 "whisper-tiny"):
+        assert tget(arch).name == arch
+        build_model(treduced(tget(arch)), device="cpu")
 
 
 # ------------------------------------------------------------------- data

@@ -601,6 +601,15 @@ FLASH_CASES = [
     (2, 129, 129, 8, 4, 112, False, None),
     (2, 1024, 1024, 40, 8, 128, True, None),
     (1, 4608, 4608, 32, 8, 128, True, 4096),
+    # the last four families' shapes: phi-3-vision's 576 patches + 1,024
+    # tokens at Dh 96, zamba2-7b's shared attention at Dh 112 in its
+    # 4,096-token window, whisper-tiny's non-causal encoder over 1,500
+    # frames, its causal decoder and its non-causal cross attention
+    (2, 1600, 1600, 32, 32, 96, True, None),
+    (2, 1024, 1024, 32, 32, 112, True, 4096),
+    (2, 1500, 1500, 6, 6, 64, False, None),
+    (2, 1024, 1024, 6, 6, 64, True, None),
+    (2, 1024, 1500, 6, 6, 64, False, None),
 ]
 
 
@@ -681,7 +690,9 @@ def test_rmsnorm_matches_plain_on_card(cuda, rows, d, dt):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 @pytest.mark.parametrize("rows,d", [(8192, 2048), (8, 2048), (5, 100),
-                                    (8192, 5120)])
+                                    (8192, 5120), (12800, 3072), (8, 3072),
+                                    (8192, 3584), (8, 3584), (8192, 7168),
+                                    (8, 7168)])
 def test_rmsnorm_model_order_matches_plain_on_card(cuda, rows, d, dt):
     """``round_inv=True``, the JAX model's order (``apply_norm``)."""
     from repro_torch.kernels import rmsnorm as trn

@@ -24,6 +24,7 @@ from repro.training.step import make_decode_step as jdecode_step
 from repro.training.step import make_prefill_step as jprefill_step
 from repro_torch.configs import get_config as tget
 from repro_torch.configs import reduced_config as treduced
+from repro_torch.configs.base import VisionFrontend
 from repro_torch.interop import lm_params_from_jax
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import rmsnorm as trn
@@ -219,6 +220,16 @@ def test_unported_lm_options_raise(pair, what):
         want, _, _ = naive.forward(tp, toks)
         np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
         return
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tm.forward(tp, toks, patches=torch.zeros(1, 4, 8)
-                   if what == "patches" else None)
+    # "patches": ported since (it raised before): a VLM config (the
+    # reduced model with a patch frontend) runs a patched forward whose
+    # logits are the text positions'; tests/test_torch_vlm.py holds it
+    # against the JAX package
+    vlm = dataclasses.replace(cfg_t, vision=VisionFrontend(4, 8))
+    tv = tbuild(vlm, torch.float32, attention_impl="naive", device="cpu")
+    vp = dict(tp, vision_proj=torch.randn(8, vlm.d_model))
+    patches = torch.randn(1, 4, 8)
+    logits, _, _ = tv.forward(vp, toks, patches=patches)
+    assert logits.shape == (1, 128, vlm.vocab_size)
+    plain, _, _ = tv.forward(vp, toks)
+    assert bool(torch.isfinite(logits).all())
+    assert float((logits - plain).abs().max()) > 0
