@@ -65,8 +65,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      library times (``F.scaled_dot_product_attention``, ``F.rms_norm``,
      every rmsnorm call given the same bf16 scale as the serving path's
      parameters are; ``F.rms_norm`` also logged at the decode site) and
-     the bound of each case; an empty kernel timed the same way (the
-     launch floor) at rmsnorm's decode grid;
+     the bound of each case, each rmsnorm case with its share of the
+     bound and, at decode rows, the empty kernel on its own grid as its
+     least time; an empty kernel timed the same way (the launch floor)
+     at rmsnorm's decode grid; rmsnorm's row sum order set by d and the
+     dtype alone: at each RMSNorm width of the registry, in bf16 and
+     f32, a row of the prefill batch gets the same bits normalized in
+     the batch, among 8 rows, alone, and (through the generic instance)
+     as a view 2 elements into its buffer;
   3e. gradients through the LM kernels' autograd Functions: rmsnorm in
      both orders and dtypes, flash at Dh 64 and 96 in both dtypes; every
      gradient (x and scale; q, k and v) present, finite, not all zero,
@@ -3385,12 +3391,13 @@ def lm_kernel_phase(torch):
                    "library_ms": time_ms(torch, lambda: F.rms_norm(
                        x, (d,), st, 1e-5)),
                    "bound_ms": bound_ms, "bound_by": bound_by}
-            records["rmsnorm"].append(rec)
+            records["rmsnorm"].append(rmsnorm_shares(torch, rec, x, st))
             log(f"  rmsnorm {dname:4s} {rows:5d} x {d:4d}: {rec['ms']:.4f} "
                 f"ms (Pallas order {rec['pallas_order_ms']:.4f}, plain "
                 f"{rec['plain_ms']:.4f}, F.rms_norm "
-                f"{rec['library_ms']:.4f}, bound {bound_ms:.4f}), max err "
-                f"{err:.3g} (both orders)")
+                f"{rec['library_ms']:.4f}, bound {bound_ms:.4f}, "
+                f"{rmsnorm_share_text(rec)}), max err {err:.3g} (both "
+                f"orders)")
     n_layers = 16  # llama3.2-1b
     per_prefill = {"flash_attention": n_layers, "rmsnorm": 2 * n_layers + 1}
     totals = {}
@@ -3418,22 +3425,109 @@ def lm_kernel_phase(torch):
     return totals, records
 
 
-def launch_floor_phase(torch):
-    """An empty kernel (``csrc/launch_floor.cu``) timed by the same
-    CUDA-graph replay as the kernels: the least time any launch takes.
-    At rmsnorm's decode grid (one 128-thread block per row of a decode
-    step) and at one warp."""
-    from repro_torch.kernels._launch import I32, P, Library, stream
-    lib = Library("launch_floor", {"launch_floor": [I32, I32, P]})
-    out = {}
-    for name, blocks, threads in (("decode_grid", SERVE_BATCH, 128),
-                                  ("one_warp", 1, 32)):
-        out[f"{name}_ms"] = time_ms(torch, lambda: lib.launch(
+_EMPTY_KERNEL_MS = {}
+
+
+def empty_kernel_ms(torch, blocks: int, threads: int) -> float:
+    """An empty kernel (``csrc/launch_floor.cu``) on ``blocks`` x
+    ``threads``, timed by the same CUDA-graph replay as the kernels: the
+    least time a launch on that grid takes (timed once a grid)."""
+    if (blocks, threads) not in _EMPTY_KERNEL_MS:
+        from repro_torch.kernels._launch import I32, P, Library, stream
+        lib = Library("launch_floor", {"launch_floor": [I32, I32, P]})
+        _EMPTY_KERNEL_MS[blocks, threads] = time_ms(torch, lambda: lib.launch(
             "launch_floor", blocks, threads, stream()))
+    return _EMPTY_KERNEL_MS[blocks, threads]
+
+
+def rmsnorm_grid(x, st):
+    """(blocks, threads a block) of rmsnorm's launch plan for x."""
+    from repro_torch.kernels import rmsnorm as rn
+    plan = rn.plan_for(x, st, x)
+    return plan.grid, 32 * plan.warps * plan.rows_per_block
+
+
+def rmsnorm_shares(torch, rec, x, st):
+    """``rec`` (an rmsnorm case's record) with its share of the bound; at
+    decode rows, where one launch costs more than the bytes, also the
+    empty kernel on the launch's own grid (``floor_ms``) and the larger
+    of the two as its least time (``least_ms``, ``least_share``)."""
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    if rec["rows"] <= SERVE_BATCH:
+        rec["floor_ms"] = empty_kernel_ms(torch, *rmsnorm_grid(x, st))
+        rec["least_ms"] = max(rec["bound_ms"], rec["floor_ms"])
+        rec["least_share"] = rec["least_ms"] / rec["ms"]
+    return rec
+
+
+def rmsnorm_share_text(rec) -> str:
+    if "least_ms" in rec:
+        return (f"{rec['least_share']:.0%} of its least time, the empty "
+                f"kernel's {rec['floor_ms'] * 1e3:.2f} us")
+    return f"{rec['bound_share']:.0%} of bound"
+
+
+def launch_floor_phase(torch):
+    """The empty kernel at rmsnorm's decode grid (the launch plan of a
+    decode step's 8 rows of 2,048 bf16) and at one warp."""
+    x = torch.empty(SERVE_BATCH, 2048, dtype=torch.bfloat16, device="cuda")
+    blocks, threads = rmsnorm_grid(x, x[0])
+    out = {"decode_grid": [blocks, threads],
+           "decode_grid_ms": empty_kernel_ms(torch, blocks, threads),
+           "one_warp_ms": empty_kernel_ms(torch, 1, 32)}
     log(f"  empty kernel: {out['decode_grid_ms'] * 1e3:.2f} us at "
-        f"{SERVE_BATCH} x 128 threads, {out['one_warp_ms'] * 1e3:.2f} us "
-        f"at 1 x 32")
+        f"{blocks} x {threads} threads (rmsnorm's decode grid), "
+        f"{out['one_warp_ms'] * 1e3:.2f} us at 1 x 32")
     return out
+
+
+# rmsnorm's widths in the registry (every config's RMSNorm d_model, and
+# the Mamba2 and mLSTM out_norm width d_in)
+RMSNORM_WIDTHS = (2048, 3072, 3584, 4096, 5120, 7168, 8192)
+
+
+def rmsnorm_order_phase(torch):
+    """rmsnorm's row sum order is set by d and the dtype alone: at each
+    width of ``RMSNORM_WIDTHS``, in bf16 and f32, rows of a prefill batch
+    (phi-3-vision's 12,800 at d 3,072, 8,192 elsewhere) get the same bits
+    normalized in the batch, among 8 rows, alone, and as a view 2
+    elements into its buffer (the generic instance). Returns the number
+    of rows compared."""
+    from repro_torch.kernels import rmsnorm as rn
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(26)
+    compared = 0
+    for d in RMSNORM_WIDTHS:
+        rows = SERVE_BATCH * (SERVE_PROMPT + (VLM_PATCHES if d == 3072
+                                              else 0))
+        mid = rows // 2
+        for dname, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            x = (torch.randn(rows, d, generator=gen, device=dev) * 2
+                 + 0.3).to(dt)
+            st = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(dt)
+            full = rn.rmsnorm(x, st, round_inv=True)
+            eight = rn.rmsnorm(x[mid:mid + SERVE_BATCH], st, round_inv=True)
+            buf = torch.empty(SERVE_BATCH * d + 2, dtype=dt, device=dev)
+            moved = buf[2:].view(SERVE_BATCH, d)
+            moved.copy_(x[mid:mid + SERVE_BATCH])
+            assert rn.plan_for(moved, st, moved).held == 0
+            shifted = rn.rmsnorm(moved, st, round_inv=True)
+            name = f"rmsnorm {dname} d={d}"
+            _bitwise(f"{name}: 8 rows vs the same rows of {rows}", eight,
+                     full[mid:mid + SERVE_BATCH])
+            _bitwise(f"{name}: 8 rows 2 elements into a buffer vs aligned",
+                     shifted, eight)
+            for r in (0, mid + 3, rows - 1):
+                _bitwise(f"{name}: row {r} alone vs in {rows} rows",
+                         rn.rmsnorm(x[r:r + 1], st, round_inv=True)[0],
+                         full[r])
+            compared += 3 + 2 * SERVE_BATCH
+            del x, full
+    log(f"  rmsnorm's sum order by d and dtype: the same bits alone, in 8 "
+        f"rows, in the prefill batch and 2 elements into a buffer at d "
+        f"{', '.join(map(str, RMSNORM_WIDTHS))}, bf16 and f32 ({compared} "
+        f"rows compared)")
+    return compared
 
 
 def misaligned_flash(torch, fa, gen):
@@ -3906,10 +4000,11 @@ def rmsnorm_shape_cases(torch, gen, cases):
                "library_ms": time_ms(torch, lambda: F.rms_norm(
                    x, (d,), st, 1e-5)),
                "bound_ms": bound_ms, "bound_by": bound_by}
-        out[name] = rec
+        out[name] = rmsnorm_shares(torch, rec, x, st)
         log(f"  rmsnorm bf16 {name} {rows} x {d}: {rec['ms']:.4f} ms (plain "
             f"{rec['plain_ms']:.4f}, F.rms_norm {rec['library_ms']:.4f}, "
-            f"bound {bound_ms:.4f}), max err {err:.3g}")
+            f"bound {bound_ms:.4f}, {rmsnorm_share_text(rec)}), max err "
+            f"{err:.3g}")
         del x, got, want
     return out
 
@@ -4981,6 +5076,7 @@ def main() -> int:
     floor = launch_floor_phase(torch)
     rms = lm_totals["rmsnorm"]
     rms["launch_floor_ms"] = floor["decode_grid_ms"]
+    rms["order_rows_compared"] = rmsnorm_order_phase(torch)
     log(f"  rmsnorm at a decode site {rms['decode_launch_ms'] * 1e3:.2f} "
         f"us a launch, {rms['decode_launch_ms'] / floor['decode_grid_ms']:.2f}"
         f"x the empty kernel on its grid; F.rms_norm at the same "

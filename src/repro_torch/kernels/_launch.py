@@ -22,12 +22,15 @@ class Library:
     (``entry_launches``)."""
 
     def __init__(self, name: str, signatures: Dict[str, Sequence],
-                 counts_as: Optional[Dict[str, str]] = None):
+                 counts_as: Optional[Dict[str, str]] = None,
+                 queries: Optional[Dict[str, Sequence]] = None):
         """``counts_as`` maps an entry point to the kernel whose count its
-        launches add to (another entry of the same kernel)."""
+        launches add to (another entry of the same kernel); ``queries``
+        are entry points that launch nothing (``query``), not counted."""
         self.name = name
         self.signatures = signatures
         self.counts_as = counts_as or {}
+        self.queries = queries or {}
         self.launches: Dict[str, int] = {
             k: 0 for k in signatures if k not in self.counts_as}
         self.entry_launches: Dict[str, int] = {k: 0 for k in signatures}
@@ -37,7 +40,8 @@ class Library:
         if not self._fns:
             from repro_torch.kernels import _build
             lib = _build.load(self.name)
-            for s, argtypes in self.signatures.items():
+            for s, argtypes in {**self.signatures,
+                                **self.queries}.items():
                 f = getattr(lib, s)
                 f.argtypes = list(argtypes)
                 f.restype = ctypes.c_int
@@ -53,6 +57,12 @@ class Library:
                                f"{err}")
         self.launches[self.counts_as.get(sym, sym)] += 1
         self.entry_launches[sym] += 1
+
+    def query(self, sym: str, *args) -> None:
+        """Call the query ``sym``; raise on the CUDA error it returns."""
+        err = self._fn(sym)(*args)
+        if err != 0:
+            raise RuntimeError(f"{sym} failed: CUDA error {err}")
 
     def reset(self) -> None:
         for counts in (self.launches, self.entry_launches):

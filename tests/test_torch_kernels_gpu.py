@@ -665,11 +665,21 @@ def test_flash_attention_raises_on_other_head_dims_on_card(cuda):
         tfa.flash_attention(q, q, q)
 
 
+# every rmsnorm row of the main paths (PERF.md §6): prefill and decode
+# rows at each width of the registry, mixtral's 4,064-token prefill,
+# and the training rows
+RMSNORM_PATH_ROWS = [(8192, 4096), (8, 4096), (8192, 5120), (8192, 8192),
+                     (8, 8192), (32512, 4096), (4096, 2048), (4096, 4096),
+                     (12800, 3072), (8, 3072), (8192, 3584), (8, 3584),
+                     (8192, 7168), (8, 7168)]
+RMSNORM_WIDTHS = (2048, 3072, 3584, 4096, 5120, 7168, 8192)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 @pytest.mark.parametrize("rows,d", [(8192, 2048), (8, 2048), (333, 2048),
                                     (1001, 128), (5, 100), (1024, 5120),
-                                    (8, 5120)])
+                                    (8, 5120)] + RMSNORM_PATH_ROWS)
 def test_rmsnorm_matches_plain_on_card(cuda, rows, d, dt):
     from repro_torch.kernels import rmsnorm as trn
     g = torch.Generator(device=cuda).manual_seed(rows + d)
@@ -692,7 +702,10 @@ def test_rmsnorm_matches_plain_on_card(cuda, rows, d, dt):
 @pytest.mark.parametrize("rows,d", [(8192, 2048), (8, 2048), (5, 100),
                                     (8192, 5120), (12800, 3072), (8, 3072),
                                     (8192, 3584), (8, 3584), (8192, 7168),
-                                    (8, 7168)])
+                                    (8, 7168), (8192, 4096), (8, 4096),
+                                    (8, 5120), (8192, 8192), (8, 8192),
+                                    (32512, 4096), (4096, 2048),
+                                    (4096, 4096)])
 def test_rmsnorm_model_order_matches_plain_on_card(cuda, rows, d, dt):
     """``round_inv=True``, the JAX model's order (``apply_norm``)."""
     from repro_torch.kernels import rmsnorm as trn
@@ -703,6 +716,61 @@ def test_rmsnorm_model_order_matches_plain_on_card(cuda, rows, d, dt):
         DTYPES[dt])
     got = trn.rmsnorm(x, scale, round_inv=True)
     want = trn.PLAIN["rmsnorm"](x, scale, 1e-5, True)
+    if dt == "f32":
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    else:
+        _within_bf16_ulps(got, want, 2, 0.0, 0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("d", RMSNORM_WIDTHS)
+def test_rmsnorm_row_same_bits_at_every_row_count_on_card(cuda, d, dt):
+    """A row's sum order is set by d and the dtype alone: the same bits
+    for a row normalized inside a 12,800-row launch, an 8-row launch and
+    alone, in both rounding orders."""
+    from repro_torch.kernels import rmsnorm as trn
+    g = torch.Generator(device=cuda).manual_seed(d)
+    x = (torch.randn(12800, d, generator=g, device=cuda) * 2 + 0.3).to(
+        DTYPES[dt])
+    scale = (1 + 0.1 * torch.randn(d, generator=g, device=cuda)).to(
+        DTYPES[dt])
+    for round_inv in (False, True):
+        full = trn.rmsnorm(x, scale, round_inv=round_inv)
+        eight = trn.rmsnorm(x[4000:4008], scale, round_inv=round_inv)
+        for r in (0, 4003, 12799):
+            one = trn.rmsnorm(x[r:r + 1], scale, round_inv=round_inv)
+            assert torch.equal(one[0], full[r])
+        assert torch.equal(eight, full[4000:4008])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("d", RMSNORM_WIDTHS)
+def test_rmsnorm_misaligned_view_takes_generic_on_card(cuda, d, dt):
+    """x as a view 2 elements into its buffer (its rows not 16-byte
+    aligned) takes the generic instance, in the held instance's layout:
+    within the plain version's tolerance, and the same bits as an
+    aligned copy."""
+    from repro_torch.kernels import rmsnorm as trn
+    g = torch.Generator(device=cuda).manual_seed(d + 2)
+    rows = 333
+    buf = (torch.randn(rows * d + 2, generator=g, device=cuda) * 2
+           + 0.3).to(DTYPES[dt])
+    x = buf[2:].view(rows, d)
+    scale = (1 + 0.1 * torch.randn(d, generator=g, device=cuda)).to(
+        DTYPES[dt])
+    copy = x.clone()
+    assert x.data_ptr() % 16 != 0 and copy.data_ptr() % 16 == 0
+    assert trn.plan_for(x, scale, copy).held == 0
+    assert trn.plan_for(copy, scale, copy).held > 0
+    trn.reset_launch_counts()
+    got = trn.rmsnorm(x, scale, round_inv=True)
+    aligned = trn.rmsnorm(copy, scale, round_inv=True)
+    want = trn.PLAIN["rmsnorm"](x, scale, 1e-5, True)
+    torch.cuda.synchronize()
+    assert trn.LAUNCHES == {"rmsnorm": 2}
+    assert torch.equal(got, aligned)
     if dt == "f32":
         torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
     else:
