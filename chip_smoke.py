@@ -336,6 +336,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      81 layers (two groups: both shared blocks), xlstm-350m at 8 of 24
      (one segment: 7 mLSTM and 1 sLSTM layers), whisper-tiny whole;
      launches a step checked.
+  3h (after 3g). ``flash_attention`` (bf16) at main path 17's
+     worker-local heads (16 / 4, Dh 64, 4 x 1,024), ``rmsnorm`` at its
+     rows and ``hybrid_update`` over one TP worker's shards of every
+     leaf in one launch, against their plain versions (the update
+     bitwise) and timed;
+  16c (after 16b). main path 10 on one device with remat (every LM of
+     more than 8 layers checkpoints each layer group in training, as the
+     JAX launcher does; paths 10, 11 and zamba2's on 15 count the
+     recomputed sites) and without, 2 steps and one eval batch each:
+     losses and state bitwise, step times and peak memory;
+  22. main path 16, ResNet-50 at full width under ``--dp-mode gspmd
+     --mesh 2x1 --fused-bn --use-fused-kernel``: two processes share the
+     card over gloo, 32 images a worker, bf16, 3 steps, BN over the
+     global batch, the BN and update kernels' launches checked; its
+     state and losses bitwise main path 5's step at the same workers;
+     its first update in f32 (f32 wire, momentum SGD) against one
+     process on the 64-image batch (``GSPMD_*`` tolerances); two more
+     steps under torch.profiler (idle share);
+  23. main path 17, llama3.2-1b at full size under ``--dp-mode gspmd
+     --mesh 1x2`` (Megatron TP 2, remat on), two processes on the card
+     over gloo, main path 10's batch and recipe, 3 steps: flash on each
+     worker's heads, rmsnorm, the fused update on its shards, launches
+     checked; the first loss against main path 10's within
+     ``GSPMD_TP_LOSS_RTOL``; step time and peak memory a worker.
 With ``--profile``, a few more steps of each main path run under
 torch.profiler (device busy time and idle share, top host ops and
 kernels), and one prefill and four decode steps of main path 4. With
@@ -353,9 +377,11 @@ main path 10's one-device and DP runs, ``path11`` the overlapped LM
 step and ``path11_<n>w_<run>`` its multi-process runs (first worker),
 ``path12_<arch>_p<prompt>`` main path 12's per run, ``path13`` and
 ``path13_dp`` main path 13's, ``path14_<arch>`` main path 14's per
-config, ``path15_<arch>_<run>`` main path 15's per config and run;
-``slice13``, ``slice14`` and ``slice15`` the times of phases 3f and 3g
-at those paths' shapes;
+config, ``path15_<arch>_<run>`` main path 15's per config and run,
+``path10_remat`` / ``path10_no_remat`` phase 16c's, ``path16`` and
+``path17`` main paths 16 and 17's (first worker); ``slice13``,
+``slice14``, ``slice15`` and ``slice17`` the times of phases 3f, 3g and
+3h at those paths' shapes;
 ``hybrid_update`` also carries its time at main path 7's shard), the card's name and power
 limit, and last the ``{"ok": true, "device": ...}`` line. ``--out DIR`` also
 writes the per-shape kernel tables to ``DIR/chip_smoke_kernels.json``.
@@ -3617,7 +3643,7 @@ def grad_phase(torch):
     return out
 
 
-def lm_launches(cfg, forwards: int, prefills: int):
+def lm_launches(cfg, forwards: int, prefills: int, remats: int = 0):
     """The ``flash_attention`` and ``rmsnorm`` launches of ``forwards``
     forwards of the LM ``cfg``, ``prefills`` of them over a whole
     sequence (a prefill or a training forward; the others decode steps,
@@ -3627,21 +3653,26 @@ def lm_launches(cfg, forwards: int, prefills: int):
     attention), rmsnorm at each RMSNorm site (a transformer's 2 a layer
     and the final norm; zamba2's 2 a mamba layer, 2 a shared block and
     the final norm; xLSTM's mLSTM output norms; none in a LayerNorm
-    model)."""
+    model). ``remats`` of the training forwards ran with ``remat``: the
+    checkpointed layers' sites run again in their backward (a
+    transformer's layer groups; zamba2's mamba layers)."""
     L = cfg.n_layers
     if cfg.family == "hybrid":
         groups = L // cfg.shared_attn_every
         return {"flash_attention": groups * prefills,
-                "rmsnorm": (2 * L + 2 * groups + 1) * forwards}
+                "rmsnorm": (2 * L + 2 * groups + 1) * forwards
+                + 2 * L * remats}
     if cfg.family == "ssm":
         mlstm = L // cfg.slstm_every * (cfg.slstm_every - 1)
         return {"flash_attention": 0, "rmsnorm": mlstm * forwards}
     if cfg.family == "audio":
         sites = cfg.n_encoder_layers + 2 * L
         return {"flash_attention": sites * prefills, "rmsnorm": 0}
-    return {"flash_attention": L * prefills,
-            "rmsnorm": (2 * L + 1) * forwards if cfg.norm == "rmsnorm"
-            else 0}
+    if remats and cfg.family not in ("dense", "moe", "vlm"):
+        raise NotImplementedError(f"remat launch counts of {cfg.family}")
+    return {"flash_attention": L * (prefills + remats),
+            "rmsnorm": ((2 * L + 1) * forwards + 2 * L * remats
+                        if cfg.norm == "rmsnorm" else 0)}
 
 
 def serve_counts_check(launches, cfg, forwards: int, prefills: int) -> None:
@@ -4337,7 +4368,9 @@ def lm_train_run(torch, libs, cfg, dp: bool, steps: int, build=None):
     casts = (len(model.segment_names()) + 1 if (build or {}).get(
         "overlap_comm") else 2 if dp else 0)
     want = {k: 0 for k in launches}
-    want.update(lm_launches(cfg, forwards, forwards))
+    remat = (build or {}).get("remat", cfg.n_layers > 8)
+    want.update(lm_launches(cfg, forwards, forwards,
+                            steps if remat else 0))
     want.update(hybrid_update=steps, cast_copy=casts * steps)
     log(f"  {'DP step' if dp else 'one device'}: losses {losses}, eval "
         f"loss {ev_rec['loss']:.4f}; launches {launches} (want {want})")
@@ -4345,7 +4378,8 @@ def lm_train_run(torch, libs, cfg, dp: bool, steps: int, build=None):
     step_ms = [h["time"] * 1e3 for h in result.history[1:]]
     med = statistics.median(step_ms)
     n_params = sum(p.numel() for p in result.state["params"].values())
-    stats = {"dp": dp, "steps": steps, "setup_s": setup_s, "run_s": wall,
+    stats = {"dp": dp, "steps": steps, "remat": remat, "setup_s": setup_s,
+             "run_s": wall,
              "parameters": n_params, "losses": losses,
              "eval_loss": ev_rec["loss"], "median_step_ms": med,
              "step_ms": step_ms,
@@ -4987,6 +5021,446 @@ def family_train_path(torch, libs, arch: str, layers):
     return launches, stats
 
 
+# ---------------------------------------------------------------------------
+# slice 17: the GSPMD mode (main paths 16 and 17), per-layer remat
+# ---------------------------------------------------------------------------
+
+GSPMD_WORKERS = 2  # main paths 16 and 17: two processes share the card
+GSPMD_STEPS = 3
+GSPMD_RESNET_MESH = (2, 1)  # main path 16: --mesh 2x1, pure DP
+GSPMD_LM_MESH = (1, 2)  # main path 17: --mesh 1x2, tensor parallel
+REMAT_STEPS = 2  # phase 16c: main path 10 with remat against without
+# main path 16's first update in f32 against one process on the 64-image
+# batch: the first loss and the parameters by relative norm (the sync-BN
+# tolerances of tests/test_torch_sync_bn.py: measured 3.2e-7 and
+# 1.2e-4), the first step's BN statistics relative to each site's
+# largest magnitude (measured 9.7e-6), and, measured, the worst leaf
+# (2.4e-2) and the second loss (2.5e-3):
+# ResNet-50's gradient at full depth is ill-conditioned in f32 (the 16
+# blocks' BN backwards cancel), so that a batch permuted within one
+# process moves it 1.3e-2 (on the CPU at 64 px), two half batches against
+# one whole 1.9e-2
+GSPMD_LOSS_RTOL, GSPMD_STATS_RTOL, GSPMD_PARAM_TOL = 2e-5, 2e-5, 2e-4
+GSPMD_LEAF_TOL, GSPMD_SECOND_LOSS_RTOL = 5e-2, 5e-3
+# main path 17's first loss against main path 10's (same seed, batch and
+# weights): TP's row-parallel partial sums round differently in bf16
+# (measured 4.2e-5)
+GSPMD_TP_LOSS_RTOL = 2e-4
+# phase 3h: the LM kernels at main path 17's worker-local shapes
+SLICE17_FLASH = {
+    "llama3.2-1b TP 2 training": (LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                  LM_TRAIN_SEQ, 16, 4, 64, True, None),
+}
+SLICE17_RMSNORM = {
+    "llama3.2-1b TP 2 training": (LM_TRAIN_BATCH * LM_TRAIN_SEQ, 2048),
+}
+
+
+def tp_local_shapes(cfg, mesh_sizes, device: str = "cuda"):
+    """Each parameter's shape on one worker of a GSPMD mesh
+    (``{axis: size}``) by the launcher's rules (the whole tree is drawn
+    on ``device`` for its shapes, then freed)."""
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.distributed.sharding import make_rules, spec_for
+    from repro_torch.models import build_model
+    rules = make_rules(cfg, mesh_sizes, ParallelConfig(
+        dp_axes=("data",), tp_axis="model", zero_1=False))
+    params, axes = build_model(cfg, device=device).init_params(
+        0, draw_device=device)
+    shapes = {}
+    for name, a in axes.items():
+        shape = list(params.pop(name).shape)
+        for d, e in enumerate(spec_for(a, rules)):
+            for ax in ((e,) if isinstance(e, str) else (e or ())):
+                shape[d] //= mesh_sizes[ax]
+        shapes[name] = tuple(shape)
+    return shapes
+
+
+def slice17_kernel_phase(torch):
+    """Phase 3h: ``flash_attention`` (bf16) at main path 17's
+    worker-local heads (16 of llama3.2-1b's 32 query heads, 4 of its 8
+    kv heads, Dh 64), ``rmsnorm`` at its rows (the rows stay whole under
+    TP), and ``hybrid_update`` over one worker's shards of every leaf
+    in one launch, each against its plain version (bitwise for the
+    update) and timed with its library call and bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.optimizer import HybridHyper
+    from repro_torch.kernels import fused_update as fu
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    out = {"flash_attention": flash_shape_cases(torch, gen, SLICE17_FLASH),
+           "rmsnorm": rmsnorm_shape_cases(torch, gen, SLICE17_RMSNORM)}
+    shapes = tp_local_shapes(get_config(LM_TRAIN_ARCH),
+                             dict(zip(("data", "model"), GSPMD_LM_MESH)))
+    dev = torch.device("cuda")
+    names = sorted(shapes)
+    gs, ps, ds, ms = ([torch.randn(shapes[k], generator=gen, device=dev)
+                       * sc for k in names]
+                      for sc in (1e-3, 1e-2, 1e-3, 1e-6))
+    ms = [m.abs() for m in ms]
+    h = HybridHyper(eta=0.1, alpha_sgd=0.0)
+    kern = [[t.clone() for t in ts] for ts in (ps, ds, ms)]
+    fu.fused_hybrid_update_leaves(gs, *kern, h, [0.0] * len(names))
+    for i, g in enumerate(gs):
+        plain = [t[i].clone() for t in (ps, ds, ms)]
+        fu.PLAIN["hybrid_update"](g, *plain, h, 0.0)
+        for what, a, b in zip(("theta", "delta", "m"),
+                              (kern[0][i], kern[1][i], kern[2][i]), plain):
+            _bitwise(f"hybrid_update TP-local {names[i]} {what}", a, b)
+    del kern
+    total = sum(g.numel() for g in gs)
+
+    def plain_all():
+        for i, g in enumerate(gs):
+            fu.PLAIN["hybrid_update"](g, ps[i], ds[i], ms[i], h, 0.0)
+
+    upd = {"leaves": len(names), "elements": total, "max_abs_err": 0.0,
+           "ms": time_ms(torch, lambda: fu.fused_hybrid_update_leaves(
+               gs, ps, ds, ms, h, [0.0] * len(names)), iters=3, trials=3),
+           "plain_ms": time_ms(torch, plain_all, iters=2, trials=3),
+           "library_ms": None}
+    upd["bound_ms"], upd["bound_by"] = bound(28 * total,
+                                             UPDATE_FLOPS * total)
+    log(f"  hybrid_update over one TP worker's shards ({len(names)} "
+        f"leaves, {total} elements) in one launch, bitwise: "
+        f"{upd['ms']:.3f} ms (plain {upd['plain_ms']:.3f}, bound "
+        f"{upd['bound_ms']:.3f})")
+    out["hybrid_update"] = upd
+    del gs, ps, ds, ms
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_phase(torch, libs):
+    """Phase 16c: main path 10 on one device, ``REMAT_STEPS`` steps and
+    one eval batch, with remat (each layer group checkpointed: the JAX
+    launcher's ``n_layers > 8``) and without: the same losses and state,
+    bitwise; each run's step times, launches and peak memory."""
+    from repro_torch.configs import get_config
+    cfg = get_config(LM_TRAIN_ARCH)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    runs, entries, differ = {}, None, []
+    try:
+        for remat in (True, False):
+            r, launches, stats, _ = lm_train_run(
+                torch, libs, cfg, False, REMAT_STEPS, {"remat": remat})
+            runs["remat" if remat else "no_remat"] = stats
+            if entries is None:
+                entries = train_state_bits(r.state)
+            else:
+                differ = bits_differ(torch, entries, state_entries(r.state))
+            del r
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    same = runs["remat"]["losses"] == runs["no_remat"]["losses"]
+    log(f"  remat vs not: losses equal {same}, {len(differ)} of "
+        f"{len(entries)} state entries differ {differ[:6]}; median step "
+        f"{runs['remat']['median_step_ms']:.2f} ms vs "
+        f"{runs['no_remat']['median_step_ms']:.2f} ms, peak "
+        f"{runs['remat']['peak_mem_gib']:.2f} GiB vs "
+        f"{runs['no_remat']['peak_mem_gib']:.2f} GiB")
+    assert same and not differ, differ
+    runs["bitwise"] = True
+    return runs
+
+
+def kernel_libs():
+    """The six kernel modules, in ``main``'s order (their launch
+    counters)."""
+    from repro_torch.kernels import bucket_ops as bo
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_bn as fb
+    from repro_torch.kernels import fused_input as fi
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import rmsnorm as rn
+    return (fb, fu, bo, fi, fa, rn)
+
+
+def _leaf_rel(a, b):
+    """Each leaf's relative norm |a - b| / |b| in float64."""
+    return {k: float((a[k].double() - b[k].double()).norm()
+                     / max(float(b[k].double().norm()), 1e-30)) for k in b}
+
+
+def _host(tree):
+    return {k: v.detach().float().cpu() for k, v in tree.items()}
+
+
+def _bn_host(mstate):
+    return {f"{site}/{k}": t.detach().float().cpu()
+            for site, rec in mstate.items() for k, t in rec.items()
+            if k in ("mean", "var")}
+
+
+def _gspmd_run(torch, libs, cfg, build, steps: int):
+    """``steps`` steps of a ``build_train_setup`` run on host batches,
+    the kernel counts set to 0 just before them: (record, state, step,
+    data)."""
+    from repro_torch.launch.train import build_train_setup
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, state, step, data, _, _ = build_train_setup(cfg, **build)
+    rec = {"setup_s": time.perf_counter() - t0}
+    torch.cuda.synchronize()
+    reset_counts(libs)
+    losses, times = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, met = step(state, data.batch_at(i))
+        losses.append(float(met["loss"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    rec.update(losses=losses, step_ms=times, launches=read_counts(libs),
+               median_step_ms=statistics.median(times[1:] or times),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return rec, state, step, data
+
+
+def _first_update(torch, cfg, build):
+    """Two steps of a run: the losses, the first step's BN statistics and
+    the parameters after the first update (on the host, f32)."""
+    from repro_torch.launch.train import build_train_setup
+    from repro_torch.training.gspmd import gather_tree
+    _, state, step, data, _, _ = build_train_setup(cfg, **build)
+    state, met = step(state, data.batch_at(0))
+    losses = [float(met["loss"])]
+    stats = _bn_host(state["model_state"])
+    params = _host(gather_tree(state["params"]))
+    state, met = step(state, data.batch_at(1))
+    losses.append(float(met["loss"]))
+    return losses, stats, params
+
+
+def gspmd_resnet_worker(rank: int, out_dir: str) -> None:
+    """One of main path 16's two processes, both on the one card, joined
+    over gloo: ResNet-50 at full width, ``--dp-mode gspmd --mesh 2x1
+    --fused-bn --use-fused-kernel``, 32 images a worker, bf16,
+    ``GSPMD_STEPS`` steps (then 2 more under torch.profiler); then main
+    path 5's step (shardmap, sync-BN, bf16+bucketed) on the same rows and
+    weights, whose state and losses must be bitwise the GSPMD step's;
+    then the first update in f32 (TF32 off, an f32 wire, momentum SGD):
+    the GSPMD step's, and, rank 0 alone, the one-device step's on the
+    64-image batch. Rank 0 writes ``rank0.json``; cuDNN is held to
+    deterministic algorithms."""
+    sys.path.insert(0, SRC)
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import OptimizerConfig, get_config
+    from repro_torch.distributed import shutdown
+
+    cudnn = torch.backends.cudnn
+    cudnn.deterministic, cudnn.benchmark = True, False
+    libs = kernel_libs()
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/store",
+                            rank=rank, world_size=GSPMD_WORKERS)
+    cfg = get_config("resnet50")
+    common = dict(global_batch=GSPMD_WORKERS * BATCH, seq_len=0,
+                  opt_cfg=OptimizerConfig(), steps_per_epoch=4,
+                  use_fused_kernel=True, fused_bn=True, seed=0,
+                  device="cuda")
+    bf16 = dict(common, compute_dtype=torch.bfloat16)
+    # the f32 check: an f32 wire and a first update linear in the
+    # gradient (the warm-up's first RMSprop update is ~lr x sign(g), so a
+    # near-zero gradient element that rounds the other way moves the
+    # other way)
+    f32 = dict(common, compute_dtype=torch.float32,
+               opt_cfg=OptimizerConfig(kind="momentum_sgd",
+                                       schedule="constant"))
+    out = {}
+    try:
+        rec, state, step, data = _gspmd_run(
+            torch, libs, cfg, dict(dp_mode="gspmd",
+                                   mesh_shape=GSPMD_RESNET_MESH,
+                                   compression="bf16", **bf16), GSPMD_STEPS)
+        # each worker's whole copy of the replicated state
+        kept = {k: v if k == "opt/step" else
+                (v.to_local() if hasattr(v, "to_local") else v).clone()
+                for k, v in state_entries(state).items()}
+        rec["profile"] = profile_phase(torch, step, state, data, steps=2)
+        out["gspmd"] = rec
+        del state, step, data
+        rec, state, _, _ = _gspmd_run(
+            torch, libs, cfg, dict(dp_mode="shardmap", sync_bn=True,
+                                   compression="bf16+bucketed", **bf16),
+            GSPMD_STEPS)
+        differ = bits_differ(torch, kept, state_entries(state))
+        rec["entries"], rec["differ"] = len(kept), differ[:8]
+        rec["n_differ"] = len(differ)
+        out["shardmap_sync_bn"] = rec
+        del state, kept
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cudnn.allow_tf32 = False
+        out["f32_gspmd"] = _first_update(torch, cfg, dict(
+            dp_mode="gspmd", mesh_shape=GSPMD_RESNET_MESH,
+            compression="none", **f32))
+        shutdown()
+        if rank == 0:
+            losses, stats, params = out.pop("f32_gspmd")
+            one_losses, one_stats, one = _first_update(
+                torch, cfg, dict(dp_mode="none", compression="none", **f32))
+            rel = _leaf_rel(params, one)
+            out["f32"] = {
+                "losses": losses, "one_device_losses": one_losses,
+                "loss_rel": [abs(a - b) / abs(b)
+                             for a, b in zip(losses, one_losses)],
+                "stats_rel_worst": max(
+                    float((stats[k] - v).abs().max()
+                          / v.abs().max().clamp_min(1e-30))
+                    for k, v in one_stats.items()),
+                "param_rel_norm": param_rel_norm(params, one),
+                "param_rel_worst": max(rel.values()),
+                "param_rel_worst_leaf": max(rel, key=rel.get)}
+            with open(os.path.join(out_dir, "rank0.json"), "w") as f:
+                json.dump(out, f)
+    finally:
+        shutdown()
+
+
+def gspmd_resnet_path(torch):
+    """Main path 16 (``gspmd_resnet_worker``): the GSPMD step's
+    launches of the BN and update kernels (each worker's: path 2's a
+    step), its state and losses after ``GSPMD_STEPS`` steps bitwise main
+    path 5's step at the same two workers (the gradients are bf16 values
+    in bf16 compute: the f32 sum of two, rounded once, is gloo's bf16
+    sum of two), and its first update in f32 against one process on the
+    64-image batch, f32 wire and momentum SGD (``GSPMD_LOSS_RTOL`` for
+    the first loss, ``GSPMD_SECOND_LOSS_RTOL`` for the second,
+    ``GSPMD_STATS_RTOL`` for the first step's BN statistics,
+    ``GSPMD_PARAM_TOL`` and ``GSPMD_LEAF_TOL`` for the parameters); its
+    step time and the device's idle share under the profiler."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_gspmd_")
+    t0 = time.perf_counter()
+    try:
+        mp.spawn(gspmd_resnet_worker, args=(root,), nprocs=GSPMD_WORKERS)
+        with open(os.path.join(root, "rank0.json")) as f:
+            out = json.load(f)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    g, sm, f32 = out["gspmd"], out["shardmap_sync_bn"], out["f32"]
+    log(f"  GSPMD 2x1 (bf16) losses {g['losses']} vs main path 5's step at "
+        f"2 workers {sm['losses']}: {sm['n_differ']} of {sm['entries']} "
+        f"state entries differ {sm['differ']}")
+    log(f"  f32 first update vs one process on the 64-image batch: losses "
+        f"{f32['losses']} vs {f32['one_device_losses']} (rel diff "
+        f"{f32['loss_rel']}); the first step's BN statistics worst rel "
+        f"{f32['stats_rel_worst']:.3g}; params rel norm "
+        f"{f32['param_rel_norm']:.3g}, worst leaf "
+        f"{f32['param_rel_worst']:.3g} ({f32['param_rel_worst_leaf']})")
+    log(f"  GSPMD step ms {[round(t, 2) for t in g['step_ms']]} (median "
+        f"{g['median_step_ms']:.2f}), main path 5's step at 2 workers "
+        f"{sm['median_step_ms']:.2f}; peak {g['peak_gib']:.2f} GiB a "
+        f"worker; worker 0 idle share {g['profile']['device_idle_share']:.3f}"
+        f"; launches {g['launches']} (path 5's step: {sm['launches']})")
+    assert all(math.isfinite(v) for v in g["losses"]), g["losses"]
+    kernels = ("bn_stats", "bn_apply", "bn_bwd_sums", "bn_bwd_dx",
+               "hybrid_update")
+    assert all(g["launches"][k] > 0 for k in kernels), g["launches"]
+    assert g["launches"]["bn_stats"] == 53 * GSPMD_STEPS, g["launches"]
+    assert g["losses"] == sm["losses"] and not sm["n_differ"], sm
+    assert f32["loss_rel"][0] <= GSPMD_LOSS_RTOL, f32
+    assert f32["loss_rel"][1] <= GSPMD_SECOND_LOSS_RTOL, f32
+    assert f32["stats_rel_worst"] <= GSPMD_STATS_RTOL, f32
+    assert f32["param_rel_norm"] <= GSPMD_PARAM_TOL, f32
+    assert f32["param_rel_worst"] <= GSPMD_LEAF_TOL, f32
+    out["spawn_s"] = time.perf_counter() - t0
+    return g["launches"], out
+
+
+def gspmd_lm_worker(rank: int, out_dir: str) -> None:
+    """One of main path 17's two processes, both on the one card, joined
+    over gloo: llama3.2-1b at full size, ``--dp-mode gspmd --mesh 1x2``
+    (Megatron TP 2), remat on, bf16, flash attention on each worker's
+    heads, the fused update on its shards, main path 10's batch, seed
+    and recipe, ``GSPMD_STEPS`` steps; deterministic algorithms on.
+    Writes ``rank{rank}.json``."""
+    sys.path.insert(0, SRC)
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import OptimizerConfig, get_config
+    from repro_torch.distributed import shutdown
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/store",
+                            rank=rank, world_size=GSPMD_WORKERS)
+    try:
+        rec, state, _, _ = _gspmd_run(
+            torch, kernel_libs(), get_config(LM_TRAIN_ARCH), dict(
+                global_batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ,
+                opt_cfg=OptimizerConfig(**LM_TRAIN_OPT),
+                steps_per_epoch=LM_TRAIN_STEPS, dp_mode="gspmd",
+                mesh_shape=GSPMD_LM_MESH, compute_dtype=torch.bfloat16,
+                attention_impl="chunked", use_fused_kernel=True,
+                compression="bf16", draw_device="cuda", device="cuda"),
+            GSPMD_STEPS)
+        rec["local_parameters"] = sum(p.to_local().numel()
+                                      for p in state["params"].values())
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        shutdown()
+
+
+def gspmd_lm_path(torch, ref_first_loss: float):
+    """Main path 17 (``gspmd_lm_worker``): both workers' losses finite
+    and equal, the first within ``GSPMD_TP_LOSS_RTOL`` of main path 10's
+    one-device first loss, and each worker's launches: flash at every
+    layer twice a step (the forward and its recompute), rmsnorm at
+    every norm site and again at the recomputed ones, one fused update a
+    step."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_config
+
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    t0 = time.perf_counter()
+    try:
+        mp.spawn(gspmd_lm_worker, args=(root,), nprocs=GSPMD_WORKERS)
+        ranks = []
+        for r in range(GSPMD_WORKERS):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    cfg = get_config(LM_TRAIN_ARCH)
+    want = {k: 0 for k in ranks[0]["launches"]}
+    want.update(lm_launches(cfg, GSPMD_STEPS, GSPMD_STEPS, GSPMD_STEPS))
+    want["hybrid_update"] = GSPMD_STEPS
+    first_rel = abs(ranks[0]["losses"][0] - ref_first_loss) / abs(
+        ref_first_loss)
+    for r, rec in enumerate(ranks):
+        log(f"  worker {r}: losses {rec['losses']}, step ms "
+            f"{[round(t, 1) for t in rec['step_ms']]} (median "
+            f"{rec['median_step_ms']:.1f}), set-up {rec['setup_s']:.1f}s, "
+            f"peak {rec['peak_gib']:.2f} GiB, {rec['local_parameters']} "
+            f"local parameters, launches {rec['launches']}")
+    log(f"  first loss {ranks[0]['losses'][0]} vs main path 10's "
+        f"{ref_first_loss}: rel diff {first_rel:.3g}")
+    assert all(math.isfinite(v) for v in ranks[0]["losses"]), ranks
+    assert ranks[0]["losses"] == ranks[1]["losses"], ranks
+    assert all(rec["launches"] == want for rec in ranks), (ranks, want)
+    assert first_rel <= GSPMD_TP_LOSS_RTOL, first_rel
+    return ranks[0]["launches"], {"workers": ranks,
+                                  "first_loss_rel_vs_path10": first_rel,
+                                  "spawn_s": time.perf_counter() - t0}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -5114,6 +5588,12 @@ def main() -> int:
         "at main path 15's training shapes, rmsnorm at d 3,072, 3,584, "
         "7,168 and 2,048 vs plain versions")
     slice15 = slice15_kernel_phase(torch)
+    log(f"  ({time.perf_counter() - t0:.1f}s)")
+    t0 = time.perf_counter()
+    log("[3h] flash_attention (bf16) at main path 17's worker-local heads "
+        "(16 / 4 of llama3.2-1b's 32 / 8, Dh 64), rmsnorm at its rows, "
+        "hybrid_update over one TP worker's shards vs plain versions")
+    slice17 = slice17_kernel_phase(torch)
     log(f"  ({time.perf_counter() - t0:.1f}s)")
 
     t0 = time.perf_counter()
@@ -5299,6 +5779,12 @@ def main() -> int:
         "on the card vs plain versions on the CPU")
     ref10 = lm_train_reference_phase(torch)
     log(f"  ({time.perf_counter() - t0:.1f}s)")
+    t0 = time.perf_counter()
+    log(f"[16c] main path 10 on one device with remat (each layer group "
+        f"checkpointed, as the JAX launcher does above 8 layers) and "
+        f"without, {REMAT_STEPS} steps + 1 eval batch each: bitwise")
+    remat10 = remat_phase(torch, libs)
+    log(f"  ({time.perf_counter() - t0:.1f}s)")
 
     t0 = time.perf_counter()
     log(f"[17] main path 11: main path 10's DP step with overlap_comm=True "
@@ -5391,6 +5877,23 @@ def main() -> int:
                                                             arch, layers)
         log(f"  ({time.perf_counter() - t0:.1f}s)")
 
+    t0 = time.perf_counter()
+    log(f"[22] main path 16: ResNet-50 full width under --dp-mode gspmd "
+        f"--mesh 2x1 --fused-bn --use-fused-kernel, two processes on the "
+        f"one card over gloo, {BATCH} images a worker, bf16, "
+        f"{GSPMD_STEPS} steps (BN over the global batch), against one "
+        f"process on the {GSPMD_WORKERS * BATCH}-image batch and main path "
+        f"5's step at the same workers (cuDNN deterministic)")
+    launches16, stats16 = gspmd_resnet_path(torch)
+    log(f"  ({time.perf_counter() - t0:.1f}s)")
+    t0 = time.perf_counter()
+    log(f"[23] main path 17: {LM_TRAIN_ARCH} at full size under --dp-mode "
+        f"gspmd --mesh 1x2 (tensor parallel 2), remat on, bf16, flash on "
+        f"each worker's heads, {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens, "
+        f"{GSPMD_STEPS} steps, two processes on the one card over gloo")
+    launches17, stats17 = gspmd_lm_path(
+        torch, stats10["one_device"]["losses"][0])
+    log(f"  ({time.perf_counter() - t0:.1f}s)")
     launches5 = sync_stats["path5_launches"]
     launches6 = overlap_stats["path6_launches"]
     by_path = {k: {"path2": launches[k], "path3": launches3[k],
@@ -5410,7 +5913,10 @@ def main() -> int:
                    "path13_dp": launches13["dp"][k],
                    **{f"path14_{a}": launches14[a][k] for a in launches14},
                    **{f"path15_{a}_{run}": launches15[a][run][k]
-                      for a in launches15 for run in launches15[a]}}
+                      for a in launches15 for run in launches15[a]},
+                   "path10_remat": remat10["remat"]["launches"][k],
+                   "path10_no_remat": remat10["no_remat"]["launches"][k],
+                   "path16": launches16[k], "path17": launches17[k]}
                for k in launches}
     kernels = [{"name": k, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[k], "launches": launches[k],
@@ -5456,6 +5962,8 @@ def main() -> int:
             rec["slice14"] = slice14[rec["name"]]
         if rec["name"] in slice15:
             rec["slice15"] = slice15[rec["name"]]
+        if rec["name"] in slice17:
+            rec["slice17"] = slice17[rec["name"]]
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke_kernels.json"),
@@ -5482,7 +5990,10 @@ def main() -> int:
                        "staged": staged, "main_path_12": stats12,
                        "reference_12": ref12, "main_path_13": stats13,
                        "slice15_kernels": slice15, "main_path_14": stats14,
-                       "reference_14": ref14, "main_path_15": stats15}, f,
+                       "reference_14": ref14, "main_path_15": stats15,
+                       "slice17_kernels": slice17, "remat_10": remat10,
+                       "main_path_16": stats16,
+                       "main_path_17": stats17}, f,
                       indent=1)
     log(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -99,10 +99,112 @@ class ModelConfig:
         if self.head_dim is None and self.n_heads:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
 
+    # ---- derived quantities -------------------------------------------------
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.head_dim
+
     def is_moe_layer(self, layer_idx: int) -> bool:
         if not self.n_experts:
             return False
         return layer_idx % self.moe_layer_every == self.moe_layer_every - 1
+
+    @property
+    def n_moe_layers(self) -> int:
+        return sum(self.is_moe_layer(i) for i in range(self.n_layers))
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + blocks + head)."""
+        if self.family == "conv":
+            return _resnet_param_count(self)
+        d, h = self.d_model, self.head_dim
+        n_emb = self.vocab_size * d
+        n_head = 0 if self.tie_embeddings else self.vocab_size * d
+        per_attn = d * self.n_heads * h + 2 * d * self.n_kv_heads * h \
+            + self.n_heads * h * d
+        if self.qkv_bias:
+            per_attn += (self.n_heads + 2 * self.n_kv_heads) * h
+        mlp_mats = 3 if self.mlp_variant == "swiglu" else 2
+        per_dense_mlp = mlp_mats * d * self.d_ff
+        blocks = 0
+        if self.family == "ssm":  # xLSTM
+            blocks = self.n_layers * _xlstm_block_params(self)
+        elif self.family == "hybrid":
+            blocks = self.n_layers * _mamba2_block_params(self)
+            shared = per_attn + per_dense_mlp + 2 * d
+            blocks += self.n_shared_attn_blocks * shared
+            # projections from concat(residual, hidden) into shared block
+            blocks += self.n_shared_attn_blocks * (2 * d) * d
+        else:
+            for i in range(self.n_layers):
+                blocks += per_attn + 2 * d  # attn + 2 norms
+                if self.is_moe_layer(i):
+                    blocks += self.n_experts * mlp_mats * d * self.d_ff
+                    blocks += d * self.n_experts  # router
+                    blocks += self.n_shared_experts * mlp_mats * d * self.d_ff
+                else:
+                    blocks += per_dense_mlp
+        if self.n_encoder_layers:
+            enc = self.n_encoder_layers * (per_attn + per_dense_mlp + 2 * d)
+            dec_cross = self.n_layers * (per_attn + d)  # cross-attn + norm
+            blocks += enc + dec_cross
+        return n_emb + n_head + blocks + d  # final norm
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top-k experts only)."""
+        if not self.n_experts:
+            return self.param_count()
+        total = self.param_count()
+        inactive_per_layer = (
+            (self.n_experts - self.experts_per_token) * 3 * self.d_model * self.d_ff
+        )
+        return total - self.n_moe_layers * inactive_per_layer
+
+
+def _xlstm_block_params(cfg: ModelConfig) -> int:
+    """Average block size over the mLSTM/sLSTM mix (block-diag projections)."""
+    d, n_h = cfg.d_model, cfg.n_heads
+    d_in = int(d * cfg.mlstm_proj_factor)
+    # mLSTM: up (h+gate), block-diagonal per-head qkv, i/f scalar gates, down
+    mlstm = d * 2 * d_in + 3 * d_in * d_in // n_h + d_in * 2 * n_h + d_in * d + 2 * d
+    # sLSTM: 4 gates input + 4 recurrent (block-diag) + gated FFN
+    d_ffn = int(d * cfg.slstm_proj_factor)
+    slstm = 8 * d * d // n_h + 3 * d * d_ffn + 2 * d
+    if not cfg.slstm_every:
+        return mlstm
+    frac_s = 1.0 / cfg.slstm_every
+    return int(mlstm * (1 - frac_s) + slstm * frac_s)
+
+
+def _mamba2_block_params(cfg: ModelConfig) -> int:
+    d = cfg.d_model
+    d_in = cfg.ssm_expand * d
+    n_h = d_in // cfg.ssm_head_dim
+    in_proj = d * (2 * d_in + 2 * cfg.ssm_state + n_h)
+    conv = cfg.ssm_conv_width * (d_in + 2 * cfg.ssm_state)
+    out = d_in * d
+    return in_proj + conv + out + 2 * n_h + d_in + 2 * d
+
+
+def _resnet_param_count(cfg: ModelConfig) -> int:
+    w = cfg.conv_width
+    total = 3 * 7 * 7 * w + 2 * w  # stem
+    c_in = w
+    for stage, blocks in enumerate(cfg.conv_stages):
+        mid = w * (2 ** stage)
+        c_out = mid * 4
+        for b in range(blocks):
+            total += c_in * mid + 3 * 3 * mid * mid + mid * c_out
+            total += 2 * (mid + mid + c_out)  # BN scale/offset
+            if b == 0:
+                total += c_in * c_out + 2 * c_out  # projection shortcut
+            c_in = c_out
+    total += c_in * cfg.num_classes + cfg.num_classes
+    return total
 
 
 # ---------------------------------------------------------------------------

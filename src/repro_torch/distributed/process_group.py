@@ -1,11 +1,15 @@
 """The worker group of the data-parallel path: one process per worker.
 
 The JAX package lays its workers out as a device mesh (``launch/
-mesh.py``) and runs one shard_map program over it. PyTorch has no
-shard_map: every worker is its own process, and the collectives go
-through ``torch.distributed`` (NCCL between cards, gloo on the CPU).
-Pure data parallelism only, as the paper runs ResNet-50: no mesh axes
-and no tensor parallelism.
+mesh.py``) and runs one shard_map or GSPMD program over it. PyTorch
+has neither: every worker is its own process, and the collectives go
+through ``torch.distributed`` (NCCL between cards; gloo on the CPU and
+for several processes that share one card). The data-parallel steps
+use the group as it is (optionally laid out as a two-level hierarchy,
+``distributed/bucketing.py``). The GSPMD step lays it out as a
+``DeviceMesh`` (``device_mesh``): named axes such as ``("data",
+"model")``, a subgroup per axis, DTensor placements over them, and
+tensor parallelism over "model".
 
 ``init_workers`` reads ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` (as
 ``torchrun`` sets them; defaults 0, 1 and 0). With ``MASTER_ADDR`` set
@@ -18,7 +22,7 @@ from __future__ import annotations
 import os
 import shutil
 import tempfile
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -26,6 +30,7 @@ import torch.distributed as dist
 from repro_torch.device import DeviceLike, resolve_device
 
 _STORE_DIR: Optional[str] = None
+_MESHES: dict = {}
 
 
 def init_workers(device: DeviceLike = "cuda", *,
@@ -70,10 +75,38 @@ def rank() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
+def device_mesh(shape: Tuple[int, ...], names: Tuple[str, ...],
+                device_type: Optional[str] = None):
+    """A ``DeviceMesh`` of ``shape`` over the worker group, its dims named
+    ``names``: rank ``w`` at the row-major position ``w`` (with ("data",
+    "model"), row ``w // M``, column ``w % M``, as ``--mesh DxM`` lays
+    the workers out). Its per-axis subgroups take the group's backend.
+    Made once per (shape, names) and worker group, on ``device_type``
+    (None: ``cuda`` under NCCL, else ``cpu``; gloo workers that share a
+    card pass ``cuda``); ``shutdown`` drops it."""
+    from torch.distributed.device_mesh import DeviceMesh
+    shape, names = tuple(int(s) for s in shape), tuple(names)
+    n = 1
+    for s in shape:
+        n *= s
+    if n != world_size():
+        raise ValueError(f"mesh {'x'.join(map(str, shape))} lays out {n} "
+                         f"workers, this run has {world_size()}")
+    if device_type is None:
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    key = (shape, names, device_type)
+    if key not in _MESHES:
+        _MESHES[key] = DeviceMesh(device_type,
+                                  torch.arange(n).reshape(shape),
+                                  mesh_dim_names=names)
+    return _MESHES[key]
+
+
 def shutdown() -> None:
     """Leave the worker group (and the subgroups of a hierarchical
     schedule) and remove the single worker's store."""
     global _STORE_DIR
+    _MESHES.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
     # the subgroups die here, not when the interpreter exits (a gloo

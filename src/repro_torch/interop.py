@@ -328,6 +328,82 @@ class WorkerSharding:
         return dist.get_rank(self.group)
 
 
+@dataclasses.dataclass(frozen=True)
+class MeshSharding:
+    """The GSPMD step's state layout: the parameters and the per-leaf
+    optimizer fields are DTensors on a ``DeviceMesh`` (each worker holds
+    its shards), the model state is replicated. A checkpoint holds the
+    whole arrays, which every worker gathers (``full_tensor``) and the
+    first rank writes; a restore places each whole array by the
+    *target's* placements, which may come from another mesh than the
+    one that saved it (the JAX package's elastic restore). ``group`` is
+    the worker group (None: the default one). ``mesh`` and ``rules`` are
+    the run's ``DeviceMesh`` and logical-axis rules, and this worker
+    reads row ``row`` of ``n_rows`` of every batch (its coordinate on
+    the batch axes), which the eval setup reuses."""
+
+    group: Any = None
+    mesh: Any = None
+    rules: Any = None
+    n_rows: int = 1
+    row: int = 0
+
+    def world(self) -> int:
+        return dist.get_world_size(self.group)
+
+    def rank(self) -> int:
+        return dist.get_rank(self.group)
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _map_state(state: Mapping, fn) -> Dict[str, Any]:
+    """``state`` with ``fn`` applied to each tensor of its params and its
+    per-leaf optimizer fields (the placed leaves)."""
+    out = dict(state)
+    out["params"] = {k: fn(v) for k, v in state["params"].items()}
+    out["opt"] = {f: {k: fn(t) for k, t in v.items()}
+                  if isinstance(v, Mapping) else v
+                  for f, v in state["opt"].items()}
+    return out
+
+
+def _gathered(state: Mapping) -> Dict[str, Any]:
+    """The placed state with whole tensors (a collective)."""
+    return _map_state(state, lambda t: t.full_tensor()
+                      if _is_dtensor(t) else t)
+
+
+def _placed_from_jax(arrays: Mapping, target: Dict[str, Any]
+                     ) -> Dict[str, Any]:
+    """``train_state_from_jax`` into a placed target: each placed leaf
+    loaded whole, then its shard by the target's placements copied into
+    the target's local tensor."""
+    from repro_torch.distributed.sharding import local_slice
+    whole = _map_state(target, lambda t: torch.empty(
+        t.shape, dtype=t.dtype, device=t.to_local().device)
+        if _is_dtensor(t) else t)
+    train_state_from_jax(arrays, whole, None)
+
+    def put(t, w):
+        if _is_dtensor(t):
+            t.to_local().copy_(local_slice(w, t.device_mesh,
+                                           t.placements))
+    with torch.no_grad():
+        for k, t in target["params"].items():
+            put(t, whole["params"][k])
+        for f, v in target["opt"].items():
+            if isinstance(v, Mapping):
+                for k, t in v.items():
+                    put(t, whole["opt"][f][k])
+            else:
+                target["opt"][f] = whole["opt"][f]
+    return target
+
+
 def _path(name: str) -> tuple:
     return tuple(name.split("/"))
 
@@ -394,7 +470,14 @@ def train_state_to_jax(state: Mapping, shardings: Optional[WorkerSharding]
     becomes the JAX package's through the whole stream:
     ``shard_layout_to_stream``, ``_restream``, ``stream_to_shard_layout``
     (a worker's port shard and its JAX shard hold different elements:
-    the conv leaves are laid out differently)."""
+    the conv leaves are laid out differently).
+
+    With a ``MeshSharding`` (the GSPMD step) every placed leaf is
+    gathered whole on every worker, and the first rank builds the
+    tree."""
+    if isinstance(shardings, MeshSharding):
+        state = _gathered(state)
+        return train_state_to_jax(state) if shardings.rank() == 0 else None
     rows: Dict[tuple, torch.Tensor] = {}
     if shardings is not None:
         leaves = _worker_leaves(state, shardings.zero_plan is not None)
@@ -485,9 +568,12 @@ def train_state_from_jax(arrays: Mapping, target: Dict[str, Any],
     place (a model's own parameters stay bound to it), the host ``step``
     counter is set, and ``target`` is returned. With ``shardings`` each
     worker takes its own row of the per-worker entries, and under ZeRO
-    its own shard of the flat ``opt`` fields."""
+    its own shard of the flat ``opt`` fields; with a ``MeshSharding``
+    its shards of the placed leaves, by the target's placements."""
     if any(isinstance(v, Mapping) for v in arrays.values()):
         arrays = _keyed_arrays(arrays)
+    if isinstance(shardings, MeshSharding):
+        return _placed_from_jax(arrays, target)
     row = shardings.rank() if shardings is not None else None
     world = shardings.world() if shardings is not None else None
     order = shardings.stream_order if shardings is not None else None

@@ -4,8 +4,11 @@ BN without moving averages, optionally the fused BN, update and input
 kernels) on synthetic data, with held-out validation at epoch
 boundaries (``--epochs``; without it, ``--steps`` steps of the
 step-driven ``run_training``, no eval). On one device (``--dp-mode
-none``), or data-parallel with one process per worker (``--dp-mode
-shardmap``, the paper's own run).
+none``, or the default ``--dp-mode gspmd`` without ``--mesh``),
+data-parallel with one process per worker (``--dp-mode shardmap``, the
+paper's own run), or under ``--dp-mode gspmd --mesh DxM``: the GSPMD
+step on a DTensor mesh, its "model" axis Megatron tensor parallel for
+the dense family (``training/gspmd.py``).
 ``--optimizer lars`` on the bucketed DP path runs LARS on the packed
 gradient stream (the stream-LARS kernels with ``--use-fused-kernel``).
 ``--sync-bn`` makes every BN site cross-replica over the workers, and
@@ -66,6 +69,9 @@ package).
         --steps-per-epoch 3 --host-shard 0/2 --log-json /tmp/run.json \\
         --device cpu
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --arch llama3.2-1b --reduced --seq-len 64 --dp-mode gspmd \\
+        --mesh 1x2 --global-batch 4 --steps 2 --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
         --arch mixtral-8x7b --reduced --seq-len 64 --global-batch 8 \\
         --dp-mode shardmap --compression bf16+bucketed --zero \\
         --overlap-comm --bucket-mib 1 --steps 2 --device cpu
@@ -123,7 +129,7 @@ from repro_torch.training.step import (
 )
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-DP_MODES = ("none", "shardmap")
+DP_MODES = ("none", "shardmap", "gspmd")
 # the axes of a --mesh DxM worker layout, as the JAX launcher names them
 MESH_AXES = ("data", "model")
 
@@ -145,6 +151,8 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
                       hier_split: Optional[int] = None,
                       mesh_shape: Optional[Tuple[int, ...]] = None,
                       attention_impl: str = "naive",
+                      remat: Optional[bool] = None,
+                      zero_1: bool = False,
                       draw_device: DeviceLike = "cpu",
                       device: DeviceLike = "cuda"):
     """Returns (model, state, train_step, data, put_batch,
@@ -224,12 +232,47 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
     bucketed compression) splits ``dp_axes`` into the two stages of the
     hierarchical schedule, ``dp_axes[:hier_split]`` across nodes and the
     rest inside them; with ``dp_axes=MESH_AXES`` the workers are data
-    parallel over the whole mesh. A mesh axis outside ``dp_axes`` of
-    more than one worker would be tensor parallel, which is not
-    ported."""
+    parallel over the whole mesh. The shard_map DP step takes no mesh
+    axis outside ``dp_axes`` of more than one worker, as in the JAX
+    package.
+
+    ``dp_mode="gspmd"`` is the JAX launcher's default mode. With no
+    ``mesh_shape`` it is the one-device step. With one, the workers form
+    a ``DeviceMesh`` over ``MESH_AXES`` (``process_group.device_mesh``),
+    "model" is the tensor-parallel axis unless ``dp_axes`` takes it, and
+    this builds the logical-axis rules (``distributed/sharding.py``),
+    places the parameters by them and the optimizer fields by their
+    parameters' placements (DTensors), keeps the model state replicated
+    (ResNet-50's BN statistics over the global batch: the mesh's batch
+    group is its ``bn_group``), reads this worker's rows of every batch
+    (its coordinate on the batch axes; the others get the same rows) and
+    returns ``interop.MeshSharding()`` as ``state_shardings``; the step
+    is ``make_train_step(..., mesh, rules)`` (``training/gspmd.py``).
+    Under a model axis of more than one worker the conv family keeps its
+    weights replicated (its rules) and the dense family is Megatron
+    tensor parallel; the other families raise (ROADMAP queue 1, item
+    15.7). As in the JAX package it refuses ``overlap_comm``,
+    ``zero_dp``, ``error_feedback``, ``hier_split`` and fused input, and
+    ignores "+bucketed" (its wire dtype applies). ``zero_1`` (GSPMD on
+    a mesh only; the JAX launcher leaves it off) places the optimizer
+    fields by ZeRO-1's specs (``optim/zero.py``) and gives the step
+    their ``grad_constraint``.
+
+    ``remat`` (None: the JAX launcher's ``n_layers > 8``) checkpoints an
+    LM's layers in training."""
     if dp_mode not in DP_MODES:
         raise ValueError(f"dp_mode must be one of {DP_MODES}, got "
                          f"{dp_mode!r}")
+    if zero_1 and (dp_mode != "gspmd" or mesh_shape is None):
+        raise ValueError("zero_1 shards the GSPMD step's optimizer state "
+                         "over a mesh: pass dp_mode='gspmd' and a "
+                         "mesh_shape (the DP step's ZeRO is zero_dp)")
+    if dp_mode == "gspmd":
+        _gspmd_checks(overlap_comm, zero_dp, error_feedback, hier_split,
+                      input_cfg, cfg.family, mesh_shape)
+        if mesh_shape is None:  # the one-device step
+            dp_mode = "none"
+            compression = parse_compression(compression)[0] or "none"
     if hier_split is not None and dp_mode != "shardmap":
         raise ValueError(
             "hier_split reschedules explicit per-bucket collectives, "
@@ -237,20 +280,22 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
             "(dp_mode='shardmap')")
     mesh = None
     if mesh_shape is not None:
-        if dp_mode != "shardmap":
+        if dp_mode == "none":
             raise ValueError("a worker mesh lays out the data-parallel "
-                             "workers: pass dp_mode='shardmap'")
+                             "workers: pass dp_mode='shardmap' or "
+                             "'gspmd'")
         if len(mesh_shape) != len(MESH_AXES):
             raise ValueError(f"mesh_shape {tuple(mesh_shape)} must give "
                              f"a size for each of {MESH_AXES}")
         mesh = dict(zip(MESH_AXES, (int(s) for s in mesh_shape)))
         tp = [a for a, s in mesh.items() if a not in dp_axes and s > 1]
-        if tp:
+        if tp and dp_mode == "shardmap":
             raise NotImplementedError(
                 f"mesh axis {tp[0]!r} of {mesh[tp[0]]} workers outside "
                 f"dp_axes {tuple(dp_axes)} is tensor parallelism, which "
-                "is not ported (ROADMAP queue 1, item 15.6); the port's "
-                "mesh is pure DP: pass a hierarchical --comm-plan")
+                "the shard_map DP step does not take (pure DP only, as "
+                "in the JAX package): pass --dp-mode gspmd (ROADMAP "
+                "queue 1, item 15.6) or a hierarchical --comm-plan")
     if error_feedback and dp_mode != "shardmap":
         raise ValueError(
             "error_feedback is only implemented for the explicit DP step "
@@ -271,7 +316,7 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
             "which only exist in the shard_map DP mode "
             "(dp_mode='shardmap'; GSPMD has zero_1 sharding constraints "
             "instead, DESIGN.md §9)")
-    if bucketed and dp_mode != "shardmap":
+    if bucketed and dp_mode == "none":
         raise ValueError(
             "bucketed gradient sync all-reduces explicit buckets, which "
             "only the data-parallel step has: pass dp_mode='shardmap'")
@@ -297,6 +342,14 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
                 "path (fused=False) elsewhere")
     num_hosts = input_cfg.num_hosts if input_cfg else 1
     host_id = input_cfg.host_id if input_cfg else 0
+    if remat is None:
+        remat = cfg.n_layers > 8  # the JAX launcher's rule
+    if dp_mode == "gspmd":
+        return _build_gspmd(cfg, mesh, global_batch, seq_len, opt_cfg,
+                            steps_per_epoch, compute_dtype, seed,
+                            use_fused_kernel, compression, label_smoothing,
+                            input_cfg, sentinel, dp_axes, attention_impl,
+                            remat, zero_1, draw_device, device)
     if dp_mode == "shardmap":
         dev = init_workers(device)
         world, me = world_size(), rank()
@@ -326,8 +379,8 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
         log_grad_norm=sentinel and dp_mode != "shardmap")
     sync = cfg.family == "conv" and dp_mode == "shardmap" and sync_bn
     model = build_model(cfg, compute_dtype=compute_dtype,
-                        attention_impl=attention_impl, seed=seed,
-                        device=dev,
+                        attention_impl=attention_impl, remat=remat,
+                        seed=seed, device=dev,
                         bn_group=dist.group.WORLD if sync else None)
     if cfg.family == "conv":  # drawn from seed when it was built
         params = {k: p.detach() for k, p in model.named_parameters()}
@@ -384,6 +437,123 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
     return model, state, train_step, data, put_batch, shardings
 
 
+def _gspmd_checks(overlap_comm: bool, zero_dp: bool, error_feedback: bool,
+                  hier_split, input_cfg, family: str, mesh_shape) -> None:
+    """The JAX launcher's refusals of the GSPMD mode, in its words, and
+    the families whose tensor parallelism is not ported."""
+    if hier_split is not None:
+        raise ValueError(
+            "hier_split reschedules explicit per-bucket collectives, "
+            "which only exist in the shard_map DP mode "
+            "(dp_mode='shardmap', DESIGN.md §14)")
+    if overlap_comm:
+        raise ValueError(
+            "overlap_comm launches explicit per-bucket collectives inside "
+            "the backward pass, which only exists in the shard_map DP "
+            "mode (dp_mode='shardmap', DESIGN.md §8)")
+    if zero_dp:
+        raise ValueError(
+            "--zero reduce-scatters explicit per-bucket collectives, "
+            "which only exist in the shard_map DP mode "
+            "(dp_mode='shardmap'; GSPMD has zero_1 sharding constraints "
+            "instead, DESIGN.md §9)")
+    if input_cfg is not None and input_cfg.fused:
+        raise ValueError(
+            "fused input slices per-worker augmentation parameters "
+            "with the worker's index, which only exists inside the "
+            "shard_map DP step (dp_mode='shardmap', DESIGN.md §15); "
+            "use the host AugmentedSource path (fused=False) elsewhere")
+    if error_feedback:
+        raise ValueError(
+            "error_feedback is only implemented for the explicit "
+            "shard_map DP mode on a mesh (dp_mode='shardmap'); the "
+            "GSPMD path has no worker-local gradients to correct")
+    if mesh_shape is not None and len(mesh_shape) == len(MESH_AXES) and \
+            int(mesh_shape[1]) > 1 and family not in ("conv", "dense"):
+        raise NotImplementedError(
+            f"arch family {family!r} under a model axis of "
+            f"{mesh_shape[1]} workers: tensor parallelism is ported for "
+            "the conv and dense families only; MoE EP, the VLM "
+            "frontend, zamba2, xLSTM and whisper under TP are ROADMAP "
+            "queue 1, item 15.7 (a pure-DP Dx1 mesh runs every family)")
+
+
+def _build_gspmd(cfg, mesh_sizes, global_batch, seq_len, opt_cfg,
+                 steps_per_epoch, compute_dtype, seed, use_fused_kernel,
+                 compression, label_smoothing, input_cfg, sentinel, dp_axes,
+                 attention_impl, remat, zero_1, draw_device, device):
+    """``build_train_setup`` of ``dp_mode="gspmd"`` on a mesh."""
+    from repro_torch.distributed.process_group import device_mesh
+    from repro_torch.distributed.sharding import (make_rules, tree_shardings,
+                                                  tree_specs)
+    from repro_torch.interop import MeshSharding
+    from repro_torch.optim.zero import zero_constraint, zero_shardings
+    from repro_torch.training.gspmd import init_placed_opt, place_params
+    dev = init_workers(device)
+    mesh = device_mesh(tuple(mesh_sizes.values()), MESH_AXES,
+                       device_type=dev.type)
+    # pure DP spans every mesh axis in dp_axes; "model" is the TP axis
+    # otherwise (the JAX launcher's choice)
+    parallel = ParallelConfig(
+        dp_axes=tuple(dp_axes),
+        tp_axis=None if "model" in dp_axes else "model",
+        compression=parse_compression(compression)[0] or "none",
+        zero_1=zero_1)
+    rules = make_rules(cfg, mesh, parallel)
+    batch_dims = [i for i, a in enumerate(MESH_AXES)
+                  if a in (rules["batch"] or ())]
+    n_rows = math.prod(mesh.size(i) for i in batch_dims)
+    row = 0
+    for i in batch_dims:
+        row = row * mesh.size(i) + mesh.get_local_rank(i)
+    num_hosts = input_cfg.num_hosts if input_cfg else 1
+    host_id = input_cfg.host_id if input_cfg else 0
+    if global_batch % (n_rows * num_hosts):
+        raise ValueError(f"global batch {global_batch} must divide evenly "
+                         f"over {num_hosts} host(s) x {n_rows} rows of "
+                         "workers")
+    train_cfg = TrainConfig(optimizer=opt_cfg, parallel=parallel,
+                            input=input_cfg, label_smoothing=label_smoothing,
+                            log_grad_norm=sentinel)
+    bn_group = None
+    if cfg.family == "conv" and n_rows > 1:  # BN over the global batch
+        bn_group = (mesh.get_group(batch_dims[0]) if len(batch_dims) == 1
+                    else dist.group.WORLD if n_rows == world_size() else None)
+        if bn_group is None:
+            raise NotImplementedError(
+                "global-batch BN over a batch split on several mesh axes "
+                "of a mesh with a model axis")
+    model = build_model(cfg, compute_dtype=compute_dtype,
+                        attention_impl=attention_impl, remat=remat,
+                        seed=seed, device=dev, bn_group=bn_group)
+    params, axes = (model.init_params() if cfg.family == "conv" else
+                    model.init_params(seed, draw_device=draw_device))
+    placed = place_params(params, tree_shardings(axes, mesh, rules), mesh)
+    del params
+    optimizer = make_optimizer(opt_cfg, steps_per_epoch, global_batch,
+                               use_fused=use_fused_kernel)
+    fields = grad_constraint = None
+    if zero_1:
+        fields = zero_shardings(placed, tree_specs(axes, rules), mesh,
+                                parallel.dp_axes)
+        grad_constraint = zero_constraint(fields)
+    state = {"params": placed,
+             "opt": init_placed_opt(optimizer, placed, fields),
+             "model_state": init_model_state(model)}
+    train_step = make_train_step(model, optimizer, train_cfg, mesh, rules,
+                                 grad_constraint=grad_constraint)
+    if sentinel:
+        train_step = wrap_step_with_sentinel(train_step)
+    shape = ShapeConfig("train", seq_len, global_batch, "train")
+    data = make_data(cfg, shape, seed=seed, num_hosts=num_hosts * n_rows,
+                     host_id=host_id * n_rows + row)
+    data = _wrap_train_source(data, input_cfg, seed=seed,
+                              global_batch=global_batch,
+                              is_conv=cfg.family == "conv")
+    return (model, state, train_step, data, make_put_batch(dev),
+            MeshSharding(mesh=mesh, rules=rules, n_rows=n_rows, row=row))
+
+
 def _wrap_train_source(data, input_cfg, *, seed, global_batch, is_conv):
     """The input pipeline's host-side wrappers of the conv family's
     images: fused -> stamp each batch with its step (the kernel's seed
@@ -401,7 +571,8 @@ def _wrap_train_source(data, input_cfg, *, seed, global_batch, is_conv):
 
 def build_eval_setup(model, cfg, *, global_batch: int, seq_len: int,
                      dp_mode: str = "none", seed: int = 0,
-                     input_cfg: Optional[InputConfig] = None):
+                     input_cfg: Optional[InputConfig] = None,
+                     shardings=None):
     """Validation pieces for ``Trainer``: (eval_step, val_data,
     finalize). Every worker evaluates the same held-out batches with the
     same statistics: on the data-parallel path ``finalize`` is the
@@ -411,9 +582,17 @@ def build_eval_setup(model, cfg, *, global_batch: int, seq_len: int,
     the eval input variant (normalize + cast, no augmentation): the
     fused kernel when ``fused=True``, else on the host feed. An LM's
     validation batches are ``seq_len`` tokens a row, and its metrics its
-    loss (no top-1), as in the JAX package."""
+    loss (no top-1), as in the JAX package. On the GSPMD path
+    (``shardings`` the ``interop.MeshSharding`` of ``build_train_setup``)
+    each worker evaluates its rows of every batch on the placed state,
+    the metrics global, and ``finalize`` is None: the BN statistics are
+    the global batch's already."""
+    from repro_torch.interop import MeshSharding
     shape = ShapeConfig("val", seq_len, global_batch, "train")
-    val_data = make_data(cfg, shape, seed=seed, split="val")
+    mesh = isinstance(shardings, MeshSharding)
+    val_data = make_data(cfg, shape, seed=seed, split="val",
+                         num_hosts=shardings.n_rows if mesh else 1,
+                         host_id=shardings.row if mesh else 0)
     conv = cfg.family == "conv"
     fused_input = input_cfg is not None and input_cfg.fused and conv
     if input_cfg is not None and conv and not fused_input:
@@ -421,7 +600,9 @@ def build_eval_setup(model, cfg, *, global_batch: int, seq_len: int,
                                    mean=input_cfg.mean, std=input_cfg.std,
                                    train=False, global_batch=global_batch)
     finalize = finalize_worker_bn_stats if dp_mode == "shardmap" else None
-    eval_step = make_eval_step(model)
+    eval_step = (make_eval_step(model, mesh=shardings.mesh,
+                                rules=shardings.rules) if mesh
+                 else make_eval_step(model))
     if fused_input:
         base_eval = eval_step
         mean = torch.tensor(input_cfg.mean, dtype=torch.float32,
@@ -471,8 +652,11 @@ def main(argv=None):
                     choices=["rmsprop_warmup", "momentum_sgd", "lars"])
     ap.add_argument("--schedule", default="slow_start",
                     choices=["slow_start", "goyal", "poly", "constant"])
-    ap.add_argument("--dp-mode", default="none", choices=DP_MODES,
-                    help="none: one device; shardmap: the paper's "
+    ap.add_argument("--dp-mode", default="gspmd", choices=DP_MODES,
+                    help="gspmd (the JAX launcher's default): one device "
+                         "without --mesh, the GSPMD step on a DTensor "
+                         "mesh with it (model axis: tensor parallel); "
+                         "none: one device; shardmap: the paper's "
                          "data-parallel step, one process per worker "
                          "(run several with torchrun)")
     ap.add_argument("--compression", default="bf16",
@@ -507,8 +691,9 @@ def main(argv=None):
     ap.add_argument("--sync-bn", action="store_true")
     ap.add_argument("--mesh", default=None, metavar="DxM",
                     help="the workers laid out over (data, model), D x M "
-                         "of them (shardmap; pure DP: needs a "
-                         "hierarchical --comm-plan when M > 1)")
+                         "of them (gspmd: M-way tensor parallel; "
+                         "shardmap: pure DP, a hierarchical --comm-plan "
+                         "when M > 1)")
     ap.add_argument("--comm-plan", default="flat",
                     help="collective schedule: flat | hier[:k] | auto | "
                          "<path>. 'hier:k' splits the mesh's axes at k "
@@ -646,7 +831,8 @@ def main(argv=None):
             return result
         eval_step, val_data, finalize = build_eval_setup(
             model, cfg, global_batch=args.global_batch, seq_len=args.seq_len,
-            dp_mode=args.dp_mode, seed=args.seed, input_cfg=input_cfg)
+            dp_mode=args.dp_mode, seed=args.seed, input_cfg=input_cfg,
+            shardings=shardings)
         tcfg = TrainerConfig(
             epochs=args.epochs, steps_per_epoch=args.steps_per_epoch,
             eval_every_epochs=args.eval_every_epochs,

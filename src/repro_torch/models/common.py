@@ -112,6 +112,24 @@ def norm_init(kind: str, d: int, stacked: int = 0) -> Dict[str, Tensor]:
             else layernorm_init(d, stacked))
 
 
+# ---------------------------------------------------------------------------
+# Logical axes (the JAX package's ``Boxed`` tags, one name per dim)
+# ---------------------------------------------------------------------------
+
+Axes = Tuple[Optional[str], ...]
+
+
+def layer_axes(stacked) -> Axes:
+    """The leading axis of a leaf stacked over layers, or none."""
+    return ("layers",) if stacked else ()
+
+
+def norm_axes(kind: str, stacked: int = 0) -> Dict[str, Axes]:
+    """A norm's leaves (``norm_init``) over "embed"."""
+    names = ("scale",) if kind == "rmsnorm" else ("scale", "bias")
+    return {n: layer_axes(stacked) + ("embed",) for n in names}
+
+
 def apply_norm(p: Dict[str, Tensor], x: Tensor, kind: str,
                eps: float = 1e-5) -> Tensor:
     """Normalize over the last dim with f32 statistics; the result is in
@@ -120,11 +138,13 @@ def apply_norm(p: Dict[str, Tensor], x: Tensor, kind: str,
     rounding order: ``inv`` is rounded to x's dtype before ``x * inv``
     (``round_inv=True``; the Pallas kernel's order rounds ``x * inv``
     instead). ``layernorm`` stays plain PyTorch, in the JAX package's op
-    order."""
+    order. On a DTensor ``x`` (the GSPMD step; rows split, features
+    whole) the kernel runs on each worker's rows (``local_apply``)."""
     dtype = x.dtype
     if kind == "rmsnorm":
+        from repro_torch.distributed.sharding import local_apply
         from repro_torch.kernels.ops import rmsnorm
-        return rmsnorm(x, p["scale"], eps=eps, round_inv=True)
+        return local_apply(rmsnorm, x, p["scale"], eps=eps, round_inv=True)
     if kind == "layernorm":
         x32 = x.float()
         mean = x32.mean(-1, keepdim=True)
@@ -135,6 +155,16 @@ def apply_norm(p: Dict[str, Tensor], x: Tensor, kind: str,
         y = y * p["scale"].to(dtype) + p["bias"].to(dtype)
         return y.to(dtype)
     raise ValueError(kind)
+
+
+def checkpointed(fn: Callable, *args):
+    """``fn(*args)`` with its activations recomputed in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant, the RNG state preserved
+    for a layer that draws): the JAX package's ``jax.checkpoint`` of a
+    layer (group)."""
+    import torch.utils.checkpoint
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             preserve_rng_state=True)
 
 
 def gelu(x: Tensor) -> Tensor:
@@ -151,7 +181,15 @@ def cross_entropy_loss(logits: Tensor, targets: Tensor, ignore_id: int = -1,
     """Token-mean softmax cross entropy in f32, the JAX package's ops:
     ``(mean loss over the targets that are not ignore_id, their
     count)``. logits (..., V) floating; targets (...) integers. Label
-    smoothing mixes in the loss against the mean logit."""
+    smoothing mixes in the loss against the mean logit.
+
+    DTensor logits (the GSPMD step) have their vocabulary gathered and
+    their rows' sums reduced over the workers: the loss and the count
+    come back as plain tensors, the same on every worker."""
+    from repro_torch.distributed.sharding import is_dtensor
+    if is_dtensor(logits):
+        return _sharded_cross_entropy(logits, targets, ignore_id,
+                                      label_smoothing)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     target_logit = logits.gather(
@@ -163,6 +201,111 @@ def cross_entropy_loss(logits: Tensor, targets: Tensor, ignore_id: int = -1,
     mask = (targets != ignore_id).float()
     total = torch.clamp(mask.sum(), min=1.0)
     return (nll * mask).sum() / total, mask.sum()
+
+
+def _ce_sums(logits: Tensor, targets: Tensor, ignore_id: int,
+             label_smoothing: float) -> Tuple[Tensor, Tensor]:
+    """The masked nll sum and the target count of some rows."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    target_logit = logits.gather(
+        -1, targets.long().clamp_min(0)[..., None])[..., 0]
+    nll = lse - target_logit
+    if label_smoothing:
+        smooth_nll = lse - logits.mean(dim=-1)
+        nll = (1 - label_smoothing) * nll + label_smoothing * smooth_nll
+    mask = (targets != ignore_id).float()
+    return (nll * mask).sum(), mask.sum()
+
+
+class _SumOver(torch.autograd.Function):
+    """The sum of a tensor over a process group, whose gradient is the
+    gradient itself: every worker of the group goes on with the same
+    sum, so each one's gradient of it is already whole."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        import torch.distributed as dist
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _vocab_parallel_sums(logits: Tensor, targets: Tensor, ignore_id: int,
+                         label_smoothing: float, group, lo: int, vocab: int
+                         ) -> Tuple[Tensor, Tensor]:
+    """``_ce_sums`` of rows whose logits are split over ``group`` by
+    vocabulary (this worker's columns start at ``lo``, of ``vocab``):
+    the row max, the sum of exponentials, the target logit and the mean
+    logit each reduced over the group (Megatron's vocab-parallel cross
+    entropy), so no worker gathers the logits."""
+    import torch.distributed as dist
+    logits = logits.float()
+    m = logits.amax(dim=-1).detach()
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    sum_exp = _SumOver.apply(torch.exp(logits - m[..., None]).sum(dim=-1),
+                             group)
+    lse = m + torch.log(sum_exp)
+    t = targets.long() - lo
+    hit = (t >= 0) & (t < logits.shape[-1])
+    picked = logits.gather(-1, t.clamp(0, logits.shape[-1] - 1)[..., None])
+    target_logit = _SumOver.apply(picked[..., 0] * hit, group)
+    nll = lse - target_logit
+    if label_smoothing:
+        mean = _SumOver.apply(logits.sum(dim=-1), group) / vocab
+        nll = (1 - label_smoothing) * nll + label_smoothing * (lse - mean)
+    mask = (targets != ignore_id).float()
+    return (nll * mask).sum(), mask.sum()
+
+
+def _sharded_cross_entropy(logits, targets, ignore_id: int,
+                           label_smoothing: float):
+    """``cross_entropy_loss`` of DTensor logits: each worker sums its own
+    rows, over its own slice of the vocabulary when the logits split it
+    (``_vocab_parallel_sums``; DTensor has no rule for the target gather
+    over a sharded vocabulary), and the sums are reduced over the
+    rows."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.sharding import distribute_local
+    mesh = logits.device_mesh
+    vocab_dim = logits.dim() - 1
+    split = [i for i, p in enumerate(logits.placements)
+             if p == Shard(vocab_dim)]
+    if len(split) > 1 or any(p.is_partial() for p in logits.placements):
+        logits = logits.redistribute(mesh, tuple(
+            p if p == Shard(0) else Replicate() for p in logits.placements))
+        split = []
+    rows = tuple(p if p == Shard(0) else Replicate()
+                 for p in logits.placements)
+    if not isinstance(targets, DTensor):
+        targets = distribute_local(targets, mesh, rows)
+    elif tuple(targets.placements) != rows:
+        targets = targets.redistribute(mesh, rows)
+    sums = tuple(Partial() if p.is_shard() else Replicate() for p in rows)
+    if split:
+        i = split[0]
+        vocab = logits.shape[-1]
+        lo = mesh.get_local_rank(i) * (vocab // mesh.size(i))
+
+        def fn(lg, t):
+            return _vocab_parallel_sums(lg, t, ignore_id, label_smoothing,
+                                        mesh.get_group(i), lo, vocab)
+    else:
+        def fn(lg, t):
+            return _ce_sums(lg, t, ignore_id, label_smoothing)
+    total, count = local_map(
+        fn, out_placements=(sums, sums),
+        in_placements=(tuple(logits.placements), rows),
+        in_grad_placements=(tuple(logits.placements), rows),
+        device_mesh=mesh)(logits, targets)
+    total, count = total.full_tensor(), count.full_tensor()
+    return total / torch.clamp(count, min=1.0), count
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,12 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (
+    constrain,
+    is_dtensor,
+    local_apply,
+    rows_like,
+)
 from repro_torch.models import common
 from repro_torch.models.common import dense, gelu
 
@@ -42,7 +48,11 @@ NEG_INF = -1e30
 
 def rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
     """x: (B, S, H, Dh); positions: (B, S) integers. cos and sin are cast
-    to x's dtype before the products, as in the JAX package."""
+    to x's dtype before the products, as in the JAX package. A DTensor
+    ``x`` (the GSPMD step) is rotated shard by shard, its positions
+    split over the rows as its batch is."""
+    if is_dtensor(x):
+        return local_apply(rope, x, rows_like(positions, x), theta)
     half = x.shape[-1] // 2
     freqs = theta ** (-torch.arange(half, dtype=torch.float32,
                                     device=x.device) / half)
@@ -83,6 +93,20 @@ def attention_init(gen: common.LeafDraw, cfg: ModelConfig, stacked: int = 0,
     return p
 
 
+def attention_axes(cfg: ModelConfig, stacked: int = 0
+                   ) -> Dict[str, common.Axes]:
+    """The logical axes of ``attention_init``'s leaves."""
+    L = common.layer_axes(stacked)
+    a = {"wq": L + ("embed", "heads", "head_dim"),
+         "wk": L + ("embed", "kv_heads", "head_dim"),
+         "wv": L + ("embed", "kv_heads", "head_dim"),
+         "wo": L + ("heads", "head_dim", "embed")}
+    if cfg.qkv_bias:
+        a.update(bq=L + ("heads", "head_dim"), bk=L + ("kv_heads", "head_dim"),
+                 bv=L + ("kv_heads", "head_dim"))
+    return a
+
+
 def _proj(x: Tensor, w: Tensor) -> Tensor:
     """``einsum("bsd,dhk->bshk")`` as one matmul over the flattened heads."""
     d, h, k = w.shape
@@ -102,6 +126,10 @@ def _qkv(p: Params, x: Tensor, kv_x: Tensor, cfg: ModelConfig,
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, kv_positions, cfg.rope_theta)
+    # "attn_batch" is "batch" unless the heads cannot shard
+    q = constrain(q, ("attn_batch", "seq", "heads", None))
+    k = constrain(k, ("attn_batch", "kv_seq", "kv_heads", None))
+    v = constrain(v, ("attn_batch", "kv_seq", "kv_heads", None))
     return q, k, v
 
 
@@ -325,12 +353,27 @@ def attention_apply(
         if impl.startswith("chunked") and (x.shape[1] < 128 or
                                            kv_x.shape[1] < 128):
             fn = naive_attention  # smoke shapes
-        out = fn(q, k, v, causal=causal and not cross, window=window)
+        out = _local_attention(fn, q, k, v, causal=causal and not cross,
+                               window=window)
 
+    out = constrain(out, ("attn_batch", "seq", "heads", None))
     h, dh, d = p["wo"].shape
     y = out.reshape(*out.shape[:2], h * dh) @ p["wo"].to(x.dtype).reshape(
         h * dh, d)
-    return y, new_cache
+    return constrain(y, ("batch", "seq", "embed")), new_cache
+
+
+def _local_attention(fn, q: Tensor, k: Tensor, v: Tensor, **kw) -> Tensor:
+    """``fn(q, k, v)``; on DTensors (the GSPMD step) on each worker's
+    heads: q, k and v must split their heads over the same mesh axes
+    (or the kv heads be a single one), so that query head h still reads
+    kv head h // group within a shard."""
+    if is_dtensor(q) and k.shape[2] > 1 and tuple(q.placements) != tuple(
+            k.placements):
+        raise NotImplementedError(
+            f"attention with q placed {q.placements} and kv placed "
+            f"{k.placements}: the heads of q and kv must shard alike")
+    return local_apply(fn, q, k, v, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -353,12 +396,21 @@ def mlp_init(gen: common.LeafDraw, cfg: ModelConfig, stacked: int = 0,
     }
 
 
+def mlp_axes(cfg: ModelConfig, stacked: int = 0) -> Dict[str, common.Axes]:
+    L = common.layer_axes(stacked)
+    a = {"w_up": L + ("embed", "ffn"), "w_down": L + ("ffn", "embed")}
+    if cfg.mlp_variant == "swiglu":
+        a["w_gate"] = L + ("embed", "ffn")
+    return a
+
+
 def mlp_apply(p: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
     if "w_gate" in p:
         h = F.silu(x @ p["w_gate"].to(x.dtype)) * (x @ p["w_up"].to(x.dtype))
     else:
         h = gelu(x @ p["w_up"].to(x.dtype))
-    return h @ p["w_down"].to(x.dtype)
+    h = constrain(h, ("batch", "seq", "ffn"))
+    return constrain(h @ p["w_down"].to(x.dtype), ("batch", "seq", "embed"))
 
 
 # ---------------------------------------------------------------------------
@@ -392,6 +444,18 @@ def moe_init(gen: common.LeafDraw, cfg: ModelConfig, stacked: int = 0
                           d_ff=cfg.d_ff * cfg.n_shared_experts)
         p.update({f"shared/{k}": v for k, v in shared.items()})
     return p
+
+
+def moe_axes(cfg: ModelConfig, stacked: int = 0) -> Dict[str, common.Axes]:
+    L = common.layer_axes(stacked)
+    a = {"router": L + ("embed", "experts_router"),
+         "w_up": L + ("experts", "embed", "ffn"),
+         "w_down": L + ("experts", "ffn", "embed")}
+    if cfg.mlp_variant == "swiglu":
+        a["w_gate"] = L + ("experts", "embed", "ffn")
+    if cfg.n_shared_experts:
+        a.update(common.prefixed("shared", mlp_axes(cfg, stacked)))
+    return a
 
 
 def _route(probs: Tensor, k: int, cap: int, dt) -> Tuple[Tensor, Tensor]:
@@ -451,7 +515,7 @@ def moe_apply(p: Params, x: Tensor, cfg: ModelConfig,
     n_tokens = b * s
     g_size = min(MOE_GROUP, n_tokens)
     n_groups = n_tokens // g_size
-    xg = x.reshape(n_groups, g_size, d)
+    xg = constrain(x.reshape(n_groups, g_size, d), ("batch", None, "embed"))
     dt, f32 = x.dtype, torch.float32
 
     logits = torch.einsum("gsd,de->gse", xg, p["router"].to(dt))
@@ -462,15 +526,22 @@ def moe_apply(p: Params, x: Tensor, cfg: ModelConfig,
 
     cap = max(4, int(g_size * k * capacity_factor / e))
     dispatch, gates_full = _route(probs, k, cap, dt)
+    dispatch = constrain(dispatch, ("batch", None, "experts", None))
     combine = dispatch * gates_full[..., None].to(dt)
+    combine = constrain(combine, ("batch", None, "experts", None))
     xe = torch.einsum("gsec,gsd->gecd", dispatch, xg)
+    xe = constrain(xe, ("batch", "experts", None, "embed"))
     if "w_gate" in p:
         h = F.silu(torch.einsum("gecd,edf->gecf", xe, p["w_gate"].to(dt)))
         h = h * torch.einsum("gecd,edf->gecf", xe, p["w_up"].to(dt))
     else:
         h = gelu(torch.einsum("gecd,edf->gecf", xe, p["w_up"].to(dt)))
+    h = constrain(h, ("batch", "experts", None, "ffn"))
+    # ye is a partial sum over the model axis when ffn is TP-sharded: not
+    # constrained, so the reduction lands on y, which is smaller
     ye = torch.einsum("gecf,efd->gecd", h, p["w_down"].to(dt))
     y = torch.einsum("gsec,gecd->gsd", combine, ye)
+    y = constrain(y, ("batch", None, "embed"))
     shared = {k_[len("shared/"):]: v for k_, v in p.items()
               if k_.startswith("shared/")}
     if shared:
@@ -487,10 +558,50 @@ def embedding_init(gen: common.LeafDraw, cfg: ModelConfig) -> Params:
     return {"table": common.normal_init(gen, (cfg.vocab_size, cfg.d_model))}
 
 
+EMBEDDING_AXES = {"table": ("vocab", "embed")}
+
+
 def embed(p: Params, tokens: Tensor, compute_dtype) -> Tensor:
-    return p["table"].to(compute_dtype)[tokens]
+    table = p["table"].to(compute_dtype)
+    x = _sharded_lookup(table, tokens) if is_dtensor(table) else table[tokens]
+    return constrain(x, ("batch", "seq", "embed"))
+
+
+def _sharded_lookup(table, tokens):
+    """The token lookup of a DTensor table (DTensor has no rule for a
+    vocab-sharded gather's backward): each worker looks up the tokens
+    its rows of the vocabulary hold, zeros elsewhere, and the result is
+    a Partial sum over the vocab's mesh axis (reduced by the caller's
+    ``constrain``); its rows are placed as the tokens' rows are. The
+    table's gradient is whole on its own rows, and a Partial sum over
+    the mesh axes that split the batch."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = table.device_mesh
+    tok_pl = (tuple(tokens.placements) if is_dtensor(tokens)
+              else (Replicate(),) * mesh.ndim)
+    n = table.to_local().shape[0]
+    lo = 0
+    out_pl, grad_pl = [], []
+    for i, (tp, kp) in enumerate(zip(table.placements, tok_pl)):
+        if tp == Shard(0) and kp.is_replicate():  # the vocab over axis i
+            lo += mesh.get_local_rank(i) * n
+            out_pl.append(Partial())
+            grad_pl.append(Shard(0))
+        elif tp.is_replicate():
+            out_pl.append(kp)
+            grad_pl.append(Partial() if kp.is_shard() else Replicate())
+        else:
+            raise NotImplementedError(
+                f"token lookup of a table placed {table.placements} with "
+                f"tokens placed {tok_pl} (FSDP's embed sharding is not "
+                "executed by the port)")
+    local = table.to_local(grad_placements=tuple(grad_pl))
+    ids = tokens.to_local() if is_dtensor(tokens) else tokens
+    hit = (ids >= lo) & (ids < lo + n)
+    x = local[(ids - lo).clamp(0, n - 1)] * hit[..., None].to(local.dtype)
+    return DTensor.from_local(x, mesh, tuple(out_pl))
 
 
 def lm_head(table_or_w: Tensor, x: Tensor, tied: bool) -> Tensor:
     w = table_or_w.to(x.dtype)
-    return x @ (w.T if tied else w)
+    return constrain(x @ (w.T if tied else w), ("batch", "seq", "vocab"))

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import common, layers, ssd
 from repro_torch.models.common import (
     LeafDraw,
@@ -149,12 +150,34 @@ def mamba2_apply(p: Params, x: Tensor, cfg: ModelConfig,
     y = apply_norm(sub_params(p, "out_norm"), y * F.silu(z), "rmsnorm",
                    cfg.norm_eps)
     out = y @ p["w_out"].to(x.dtype)
-    return out, new_conv, new_ssm
+    return constrain(out, ("batch", "seq", "embed")), new_conv, new_ssm
+
+
+def mamba2_axes(cfg: ModelConfig, stacked: int = 0) -> Dict[str, Tuple]:
+    """The logical axes of ``mamba2_init``'s leaves."""
+    L = common.layer_axes(stacked)
+    a = prefixed("norm", common.norm_axes(cfg.norm, stacked))
+    a.update({"w_in": L + ("embed", "inner"),
+              "conv_w": L + ("conv_spatial", "inner"),
+              "conv_b": L + ("inner",), "A_log": L + ("ssm_heads",),
+              "dt_bias": L + ("ssm_heads",), "D": L + ("ssm_heads",),
+              "w_out": L + ("inner", "embed")})
+    a.update(prefixed("out_norm", common.norm_axes("rmsnorm", stacked)))
+    return a
 
 
 # ---------------------------------------------------------------------------
 # Zamba2 hybrid model
 # ---------------------------------------------------------------------------
+
+
+def shared_block_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    a = {"concat_proj": ("embed", "embed")}
+    a.update(prefixed("norm1", common.norm_axes(cfg.norm)))
+    a.update(prefixed("attn", layers.attention_axes(cfg)))
+    a.update(prefixed("norm2", common.norm_axes(cfg.norm)))
+    a.update(prefixed("mlp", layers.mlp_axes(cfg)))
+    return a
 
 
 def shared_block_init(gen: LeafDraw, cfg: ModelConfig) -> Params:
@@ -171,12 +194,14 @@ class Zamba2Model:
     """The hybrid family. ``forward`` runs ``n_layers // shared_attn_every``
     groups of mamba layers, each followed by shared block ``g %
     n_shared_attn_blocks``, then the tail of mamba layers without one
-    (zamba2-7b: 13 groups of 6, a tail of 3)."""
+    (zamba2-7b: 13 groups of 6, a tail of 3). ``remat`` checkpoints
+    each mamba layer in training, as the JAX package's scan body."""
 
     def __init__(self, cfg: ModelConfig, compute_dtype=torch.bfloat16,
-                 attention_impl: str = "chunked", *,
+                 attention_impl: str = "chunked", *, remat: bool = False,
                  device: DeviceLike = "cuda"):
         self.cfg = cfg
+        self.remat = remat
         self.compute_dtype = compute_dtype
         self.attention_impl = attention_impl
         self.device = resolve_device(device)
@@ -200,8 +225,20 @@ class Zamba2Model:
 
     def init_params(self, seed: int = 0, *, draw_device: DeviceLike = "cpu",
                     dtype: Optional[torch.dtype] = None
-                    ) -> Tuple[Params, None]:
-        return self.init(seed, draw_device=draw_device, dtype=dtype), None
+                    ) -> Tuple[Params, Dict[str, Tuple]]:
+        return self.init(seed, draw_device=draw_device, dtype=dtype), \
+            self.axes()
+
+    def axes(self) -> Dict[str, Tuple]:
+        """Each parameter's logical axes (the JAX package's)."""
+        cfg = self.cfg
+        a = prefixed("embed", layers.EMBEDDING_AXES)
+        a.update(prefixed("mamba", mamba2_axes(cfg, cfg.n_layers)))
+        a.update(prefixed("final_norm", common.norm_axes(cfg.norm)))
+        a["head"] = ("embed", "vocab")
+        for j in range(cfg.n_shared_attn_blocks):
+            a.update(prefixed(f"shared{j}", shared_block_axes(cfg)))
+        return a
 
     def _mamba_span(self, p: Params, x: Tensor, lo: int, hi: int,
                     cache: Optional[Params], decode: bool) -> Tensor:
@@ -211,9 +248,14 @@ class Zamba2Model:
             conv_c = ssm_c = None
             if cache is not None:
                 conv_c, ssm_c = cache["conv"][i], cache["ssm"][i]
-            out, nc, ns = mamba2_apply(sub_params(p, "mamba", i), x,
-                                       self.cfg, conv_c, ssm_c,
-                                       decode=decode)
+            if self.remat and cache is None and torch.is_grad_enabled():
+                out, nc, ns = common.checkpointed(
+                    mamba2_apply, sub_params(p, "mamba", i), x, self.cfg,
+                    conv_c, ssm_c, decode)
+            else:
+                out, nc, ns = mamba2_apply(sub_params(p, "mamba", i), x,
+                                           self.cfg, conv_c, ssm_c,
+                                           decode=decode)
             x = x + out
             if cache is not None:
                 cache["conv"][i] = nc

@@ -4,7 +4,8 @@ JAX package (the conv family, ResNet-50; the dense, MoE and VLM
 the audio ``WhisperModel``).
 
 Model protocol (duck-typed, as in the JAX package):
-  init_params(seed, draw_device=, dtype=) -> (params, None)   [LMs]
+  init_params(seed, draw_device=, dtype=) -> (params, logical axes)
+      [ResNet-50: init_params() of the weights drawn when it was built]
   loss_fn(params, model_state, batch, label_smoothing)
       -> (loss, (state', metrics))
   cache_shape(batch, max_seq, dtype) -> (cache_zeros, cache_axes)   [LMs]
@@ -37,18 +38,21 @@ _FAMILIES = {
 
 
 def build_model(cfg: ModelConfig, compute_dtype=torch.bfloat16, *,
-                attention_impl: str = "chunked", seed: int = 0,
-                device: DeviceLike = "cuda", bn_group=None) -> Any:
+                attention_impl: str = "chunked", remat: bool = False,
+                seed: int = 0, device: DeviceLike = "cuda",
+                bn_group=None) -> Any:
     """The model of ``cfg``'s family. ResNet-50 draws its parameters from
     ``seed`` here; an LM's come from ``model.init_params(seed)``, as in
-    the JAX package. ``attention_impl`` applies to LMs, ``bn_group``
-    (cross-replica BN over that process group) to ResNet-50."""
+    the JAX package. ``attention_impl`` and ``remat`` (checkpoint each
+    layer in training; the JAX launcher passes ``n_layers > 8``) apply
+    to LMs, ``bn_group`` (cross-replica BN over that process group) to
+    ResNet-50."""
     cls = _FAMILIES[cfg.family]
     if cfg.family == "conv":
         return cls(cfg, compute_dtype=compute_dtype, seed=seed,
                    device=device, bn_group=bn_group)
     return cls(cfg, compute_dtype=compute_dtype,
-               attention_impl=attention_impl, device=device)
+               attention_impl=attention_impl, remat=remat, device=device)
 
 
 def init_model_state(model) -> Dict:

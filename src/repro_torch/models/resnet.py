@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.batchnorm import bn_apply_stats, bn_batch_stats
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import common
 from repro_torch.models.common import StagedLoss
 
@@ -145,6 +146,33 @@ class ResNet50(nn.Module):
         """The module's parameters by their JAX-path names."""
         return dict(self.named_parameters())
 
+    def init_params(self, seed: Optional[int] = None):
+        """``(params, logical axes)`` as the JAX package's; the
+        parameters were drawn when the module was built (``seed`` is
+        that one's)."""
+        del seed
+        return {k: p.detach() for k, p in self.named_parameters()}, \
+            self.axes()
+
+    def axes(self) -> Dict[str, Tuple]:
+        """Each parameter's logical axes: a conv weight's are the JAX
+        package's HWIO ``(None, None, "conv_in", "conv_out")`` in the
+        port's OIHW order."""
+        conv = ("conv_out", "conv_in", None, None)
+        bn = {"scale": ("conv_out",), "bias": ("conv_out",)}
+        a = {"stem/conv": conv}
+        a.update(common.prefixed("stem/bn", bn))
+        for si, bi, *_ in self._blocks():
+            pre = f"stage{si}/block{bi}"
+            names = ("conv1", "conv2", "conv3") + (("proj",) if bi == 0
+                                                  else ())
+            a.update({f"{pre}/{n}": conv for n in names})
+            for n in ("bn1", "bn2", "bn3") + (("proj_bn",) if bi == 0
+                                              else ()):
+                a.update(common.prefixed(f"{pre}/{n}", bn))
+        a.update({"fc/w": ("conv_in", None), "fc/b": (None,)})
+        return a
+
     def init_state(self) -> State:
         """BN last-minibatch stats, zero-initialized (mean 0 / var 1)."""
         w = self.cfg.conv_width
@@ -198,7 +226,8 @@ class ResNet50(nn.Module):
     # chains them for the overlapped step
     def _stem_fwd(self, p: Params, images: Tensor, state: State,
                   new_state: Optional[State]) -> Tensor:
-        x = images.to(self.compute_dtype)
+        x = constrain(images.to(self.compute_dtype),
+                      ("batch", None, None, None))
         x = conv(x, p["stem/conv"], stride=2)
         x = self._bn(p, x, "stem/bn", state, new_state, relu=True)
         return max_pool_3x3_s2(x)

@@ -19,8 +19,12 @@ segments for the overlapped data-parallel step. A VLM (a config with
 ``vision``) does early fusion: its ``patches`` (B, P, patch_dim),
 projected by ``vision_proj`` in the compute dtype, are prepended to the
 token embeddings, and their positions are dropped after the final norm.
-The JAX package rematerializes the layer scan of a model of more than 8
-layers; the port keeps every activation, which gives the same values.
+``remat`` (the JAX launcher's ``n_layers > 8``) recomputes each layer
+group's forward in the backward pass (``torch.utils.checkpoint``, as the
+JAX package rematerializes its scan body): the same values, bitwise,
+for less activation memory. ``init_params`` returns the parameters and
+their logical axes (``axes``), which ``distributed/sharding.py`` places;
+on DTensor parameters (the GSPMD step) the forward is tensor parallel.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from repro_torch.models.common import (
     LeafDraw,
     StagedLoss,
     apply_norm,
+    norm_axes,
     norm_init,
     prefixed,
     slice_key,
@@ -51,7 +56,7 @@ ATTENTION_IMPLS = ("naive", "chunked", "chunked_opt")
 class TransformerLM:
     def __init__(self, cfg: ModelConfig, compute_dtype=torch.bfloat16,
                  attention_impl: str = "chunked", *, comm_stages: int = 4,
-                 device: DeviceLike = "cuda"):
+                 remat: bool = False, device: DeviceLike = "cuda"):
         if attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl must be one of "
                              f"{ATTENTION_IMPLS}, got {attention_impl!r}")
@@ -61,6 +66,7 @@ class TransformerLM:
         # how many slices loss_segments cuts the layer groups into: the
         # granularity of the overlapped step's gradient sync
         self.comm_stages = comm_stages
+        self.remat = remat
         self.device = resolve_device(device)
         self.group = cfg.moe_layer_every if cfg.n_experts else 1
         if cfg.n_layers % self.group:
@@ -104,10 +110,31 @@ class TransformerLM:
 
     def init_params(self, seed: int = 0, *, draw_device: DeviceLike = "cpu",
                     dtype: Optional[torch.dtype] = None
-                    ) -> Tuple[Params, None]:
-        """``(params, None)``: the JAX package returns its logical-axes
-        tree second; the port shards nothing yet."""
-        return self.init(seed, draw_device=draw_device, dtype=dtype), None
+                    ) -> Tuple[Params, Dict[str, Tuple]]:
+        """``(params, logical axes)``, as the JAX package's."""
+        return self.init(seed, draw_device=draw_device, dtype=dtype), \
+            self.axes()
+
+    def axes(self) -> Dict[str, Tuple]:
+        """Each parameter's logical axes, one name per dim (the JAX
+        package's ``Boxed`` tags)."""
+        cfg = self.cfg
+        a = prefixed("embed", layers.EMBEDDING_AXES)
+        if cfg.vision is not None:
+            a["vision_proj"] = (None, "embed")
+        for j in range(self.group):
+            pre = f"sub{j}"
+            a.update(prefixed(f"{pre}/norm1", norm_axes(cfg.norm, 1)))
+            a.update(prefixed(f"{pre}/attn", layers.attention_axes(cfg, 1)))
+            a.update(prefixed(f"{pre}/norm2", norm_axes(cfg.norm, 1)))
+            if cfg.is_moe_layer(j):
+                a.update(prefixed(f"{pre}/moe", layers.moe_axes(cfg, 1)))
+            else:
+                a.update(prefixed(f"{pre}/mlp", layers.mlp_axes(cfg, 1)))
+        a.update(prefixed("final_norm", norm_axes(cfg.norm)))
+        if not cfg.tie_embeddings:
+            a["head"] = ("embed", "vocab")
+        return a
 
     # ------------------------------------------------------------- sub-layer
     def _block(self, p: Params, j: int, g: int, x: Tensor,
@@ -144,12 +171,23 @@ class TransformerLM:
         """The layer groups of ``p`` (its ``n`` rows of stacked leaves:
         all of them, or a segment's slice) in order; ``aux`` threads the
         MoE aux loss across them, gaining the last sub-layer's aux of
-        each group, as the JAX package's group body does."""
+        each group, as the JAX package's group body does. With ``remat``
+        (and gradients on) each group is checkpointed."""
         for g in range(n):
-            for j in range(self.group):
-                x, a = self._block(p, j, g, x, positions, cache, cache_index)
-            if a is not None:
-                aux = aux + a
+            if self.remat and cache is None and torch.is_grad_enabled():
+                x, aux = common.checkpointed(self._group, p, g, x, positions,
+                                             cache, cache_index, aux)
+            else:
+                x, aux = self._group(p, g, x, positions, cache, cache_index,
+                                     aux)
+        return x, aux
+
+    def _group(self, p: Params, g: int, x: Tensor, positions: Tensor,
+               cache: Optional[Params], cache_index, aux):
+        for j in range(self.group):
+            x, a = self._block(p, j, g, x, positions, cache, cache_index)
+        if a is not None:
+            aux = aux + a
         return x, aux
 
     # ---------------------------------------------------------------- fwd

@@ -50,10 +50,15 @@ def _sinusoid(n: int, d: int, device=None) -> Tensor:
 
 
 class WhisperModel:
+    """The audio family: an encoder over the frames, a decoder with
+    cross attention. ``remat`` checkpoints each encoder and decoder
+    layer in training, as the JAX package's scan bodies."""
+
     def __init__(self, cfg: ModelConfig, compute_dtype=torch.bfloat16,
-                 attention_impl: str = "chunked", *,
+                 attention_impl: str = "chunked", *, remat: bool = False,
                  device: DeviceLike = "cuda"):
         self.cfg = cfg
+        self.remat = remat
         self.compute_dtype = compute_dtype
         self.attention_impl = attention_impl
         self.device = resolve_device(device)
@@ -87,8 +92,34 @@ class WhisperModel:
 
     def init_params(self, seed: int = 0, *, draw_device: DeviceLike = "cpu",
                     dtype: Optional[torch.dtype] = None
-                    ) -> Tuple[Params, None]:
-        return self.init(seed, draw_device=draw_device, dtype=dtype), None
+                    ) -> Tuple[Params, Dict[str, Tuple]]:
+        return self.init(seed, draw_device=draw_device, dtype=dtype), \
+            self.axes()
+
+    def axes(self) -> Dict[str, Tuple]:
+        """Each parameter's logical axes (the JAX package's)."""
+        cfg = self.cfg
+        a = {"frame_proj": (None, "embed"), "pos_dec": ("seq", "embed")}
+        a.update(prefixed("embed", layers.EMBEDDING_AXES))
+        for stack, parts in (
+                ("enc", (("norm1", None), ("attn", 1), ("norm2", None),
+                         ("mlp", 2))),
+                ("dec", (("norm1", None), ("self_attn", 1),
+                         ("norm_x", None), ("cross_attn", 1),
+                         ("norm2", None), ("mlp", 2)))):
+            for name, kind in parts:
+                sub = (common.norm_axes(cfg.norm, 1) if kind is None else
+                       layers.attention_axes(cfg, 1) if kind == 1 else
+                       layers.mlp_axes(cfg, 1))
+                a.update(prefixed(f"{stack}/{name}", sub))
+        a.update(prefixed("enc_norm", common.norm_axes(cfg.norm)))
+        a.update(prefixed("dec_norm", common.norm_axes(cfg.norm)))
+        return a
+
+    def _remat(self, fn, *args):
+        if self.remat and torch.is_grad_enabled():
+            return common.checkpointed(fn, *args)
+        return fn(*args)
 
     # ----------------------------------------------------------- encoder
     def encode(self, p: Params, frames: Tensor) -> Tensor:
@@ -98,16 +129,20 @@ class WhisperModel:
         positions = torch.arange(x.shape[1], device=x.device)[None].expand(
             x.shape[:2])
         for i in range(cfg.n_encoder_layers):
-            lp = sub_params(p, "enc", i)
-            h = apply_norm(sub_params(lp, "norm1"), x, cfg.norm, cfg.norm_eps)
-            a, _ = layers.attention_apply(
-                sub_params(lp, "attn"), h, cfg, positions=positions,
-                causal=False, impl=self.attention_impl, use_rope=False)
-            x = x + a
-            h = apply_norm(sub_params(lp, "norm2"), x, cfg.norm, cfg.norm_eps)
-            x = x + layers.mlp_apply(sub_params(lp, "mlp"), h, cfg)
+            x = self._remat(self._enc_block, sub_params(p, "enc", i), x,
+                            positions)
         return apply_norm(sub_params(p, "enc_norm"), x, cfg.norm,
                           cfg.norm_eps)
+
+    def _enc_block(self, lp: Params, x: Tensor, positions: Tensor) -> Tensor:
+        cfg = self.cfg
+        h = apply_norm(sub_params(lp, "norm1"), x, cfg.norm, cfg.norm_eps)
+        a, _ = layers.attention_apply(
+            sub_params(lp, "attn"), h, cfg, positions=positions,
+            causal=False, impl=self.attention_impl, use_rope=False)
+        x = x + a
+        h = apply_norm(sub_params(lp, "norm2"), x, cfg.norm, cfg.norm_eps)
+        return x + layers.mlp_apply(sub_params(lp, "mlp"), h, cfg)
 
     # ----------------------------------------------------------- decoder
     def decode(self, p: Params, tokens: Tensor, enc_out: Tensor, *,
@@ -128,25 +163,34 @@ class WhisperModel:
             None].expand(enc_out.shape[:2])
         for i in range(cfg.n_layers):
             lp = sub_params(p, "dec", i)
-            c = None if cache is None else {
-                "k": cache["kv/k"][i], "v": cache["kv/v"][i]}
-            h = apply_norm(sub_params(lp, "norm1"), x, cfg.norm, cfg.norm_eps)
-            a, _ = layers.attention_apply(
-                sub_params(lp, "self_attn"), h, cfg, positions=positions,
-                causal=True, impl=self.attention_impl, cache=c,
-                cache_index=cache_index, use_rope=False)
-            x = x + a
-            h = apply_norm(sub_params(lp, "norm_x"), x, cfg.norm,
-                           cfg.norm_eps)
-            a, _ = layers.attention_apply(
-                sub_params(lp, "cross_attn"), h, cfg, positions=positions,
-                kv_x=enc_out, kv_positions=enc_positions,
-                impl=self.attention_impl, use_rope=False)
-            x = x + a
-            h = apply_norm(sub_params(lp, "norm2"), x, cfg.norm, cfg.norm_eps)
-            x = x + layers.mlp_apply(sub_params(lp, "mlp"), h, cfg)
+            if cache is None:
+                x = self._remat(self._dec_block, lp, x, positions, enc_out,
+                                enc_positions, None, cache_index)
+            else:
+                x = self._dec_block(lp, x, positions, enc_out, enc_positions,
+                                    {"k": cache["kv/k"][i],
+                                     "v": cache["kv/v"][i]}, cache_index)
         x = apply_norm(sub_params(p, "dec_norm"), x, cfg.norm, cfg.norm_eps)
         return layers.lm_head(p["embed/table"], x, tied=True)
+
+    def _dec_block(self, lp: Params, x: Tensor, positions: Tensor,
+                   enc_out: Tensor, enc_positions: Tensor,
+                   c: Optional[Params], cache_index) -> Tensor:
+        cfg = self.cfg
+        h = apply_norm(sub_params(lp, "norm1"), x, cfg.norm, cfg.norm_eps)
+        a, _ = layers.attention_apply(
+            sub_params(lp, "self_attn"), h, cfg, positions=positions,
+            causal=True, impl=self.attention_impl, cache=c,
+            cache_index=cache_index, use_rope=False)
+        x = x + a
+        h = apply_norm(sub_params(lp, "norm_x"), x, cfg.norm, cfg.norm_eps)
+        a, _ = layers.attention_apply(
+            sub_params(lp, "cross_attn"), h, cfg, positions=positions,
+            kv_x=enc_out, kv_positions=enc_positions,
+            impl=self.attention_impl, use_rope=False)
+        x = x + a
+        h = apply_norm(sub_params(lp, "norm2"), x, cfg.norm, cfg.norm_eps)
+        return x + layers.mlp_apply(sub_params(lp, "mlp"), h, cfg)
 
     # ------------------------------------------------------------- api
     def forward(self, p: Params, tokens: Tensor, *,

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import common, layers, ssd
 from repro_torch.models.common import (
     LeafDraw,
@@ -118,7 +119,33 @@ def mlstm_apply(p: Params, x: Tensor, cfg: ModelConfig,
     y = apply_norm(sub_params(p, "out_norm"), y, "rmsnorm", cfg.norm_eps)
     y = y * F.silu(z)
     out = y @ p["w_down"].to(x.dtype)
-    return out, new_conv, new_state
+    return constrain(out, ("batch", "seq", "embed")), new_conv, new_state
+
+
+def mlstm_axes(cfg: ModelConfig, stacked: int = 0) -> Dict[str, Tuple]:
+    """The logical axes of ``mlstm_init``'s leaves."""
+    L = common.layer_axes(stacked)
+    a = prefixed("norm", common.norm_axes(cfg.norm, stacked))
+    a.update({"w_up": L + ("embed", "inner"),
+              "conv_w": L + ("conv_spatial", "inner"),
+              "conv_b": L + ("inner",),
+              "wq": L + ("heads", None, None), "wk": L + ("heads", None, None),
+              "wv": L + ("heads", None, None),
+              "w_if": L + ("inner", "heads"), "b_if": L + ("heads",),
+              "w_down": L + ("inner", "embed")})
+    a.update(prefixed("out_norm", common.norm_axes("rmsnorm", stacked)))
+    return a
+
+
+def slstm_axes(cfg: ModelConfig, stacked: int = 0) -> Dict[str, Tuple]:
+    """The logical axes of ``slstm_init``'s leaves."""
+    L = common.layer_axes(stacked)
+    a = prefixed("norm", common.norm_axes(cfg.norm, stacked))
+    a.update({"w_gates": L + ("embed", "inner"),
+              "r_gates": L + (None, "heads", None, None),
+              "b_gates": L + ("inner",), "w_up": L + ("embed", "ffn"),
+              "w_down": L + ("ffn", "embed")})
+    return a
 
 
 # ---------------------------------------------------------------------------
@@ -184,7 +211,7 @@ def slstm_apply(p: Params, x: Tensor, cfg: ModelConfig,
     d_ffn = up.shape[-1] // 2
     y = F.silu(up[..., :d_ffn]) * up[..., d_ffn:]
     out = y @ p["w_down"].to(x.dtype)
-    return out, state
+    return constrain(out, ("batch", "seq", "embed")), state
 
 
 # ---------------------------------------------------------------------------
@@ -194,13 +221,16 @@ def slstm_apply(p: Params, x: Tensor, cfg: ModelConfig,
 
 class XLSTMModel:
     """The SSM family: ``n_layers // slstm_every`` segments, each
-    ``slstm_every - 1`` mLSTM layers then one sLSTM layer."""
+    ``slstm_every - 1`` mLSTM layers then one sLSTM layer. ``remat``
+    checkpoints each mLSTM layer in training, as the JAX package's scan
+    body."""
 
     def __init__(self, cfg: ModelConfig, compute_dtype=torch.bfloat16,
-                 attention_impl: str = "chunked", *,
+                 attention_impl: str = "chunked", *, remat: bool = False,
                  device: DeviceLike = "cuda"):
         del attention_impl  # no attention
         self.cfg = cfg
+        self.remat = remat
         self.compute_dtype = compute_dtype
         self.device = resolve_device(device)
         every = cfg.slstm_every
@@ -226,8 +256,19 @@ class XLSTMModel:
 
     def init_params(self, seed: int = 0, *, draw_device: DeviceLike = "cpu",
                     dtype: Optional[torch.dtype] = None
-                    ) -> Tuple[Params, None]:
-        return self.init(seed, draw_device=draw_device, dtype=dtype), None
+                    ) -> Tuple[Params, Dict[str, Tuple]]:
+        return self.init(seed, draw_device=draw_device, dtype=dtype), \
+            self.axes()
+
+    def axes(self) -> Dict[str, Tuple]:
+        """Each parameter's logical axes (the JAX package's)."""
+        cfg = self.cfg
+        a = prefixed("embed", layers.EMBEDDING_AXES)
+        a.update(prefixed("mlstm", mlstm_axes(cfg, self.n_mlstm)))
+        a.update(prefixed("slstm", slstm_axes(cfg, self.n_segments)))
+        a.update(prefixed("final_norm", common.norm_axes(cfg.norm)))
+        a["head"] = ("embed", "vocab")
+        return a
 
     def forward(self, p: Params, tokens: Tensor, *, mode: str = "train",
                 cache: Optional[Params] = None, cache_index=None
@@ -242,8 +283,14 @@ class XLSTMModel:
                 conv_c = gla_c = None
                 if cache is not None:
                     conv_c, gla_c = cache["conv"][i], cache["gla"][i]
-                out, nc, ns = mlstm_apply(sub_params(p, "mlstm", i), x, cfg,
-                                          conv_c, gla_c, decode=decode)
+                if self.remat and cache is None and torch.is_grad_enabled():
+                    out, nc, ns = common.checkpointed(
+                        mlstm_apply, sub_params(p, "mlstm", i), x, cfg,
+                        conv_c, gla_c, decode)
+                else:
+                    out, nc, ns = mlstm_apply(sub_params(p, "mlstm", i), x,
+                                              cfg, conv_c, gla_c,
+                                              decode=decode)
                 x = x + out
                 if cache is not None:
                     cache["conv"][i] = nc

@@ -68,14 +68,15 @@ def _flags(metrics: Dict, threshold: float):
 
 def _in_place_tensors(state: Tree) -> List[torch.Tensor]:
     """The tensors a step updates in place: the parameters and every
-    tensor of the optimizer state (per-leaf dicts or flat streams)."""
+    tensor of the optimizer state (per-leaf dicts or flat streams); of a
+    DTensor (the GSPMD step's placed state), this worker's shard."""
     out = list(state["params"].values())
     for v in state["opt"].values():
         if isinstance(v, dict):
             out += list(v.values())
         elif torch.is_tensor(v):
             out.append(v)
-    return out
+    return [t.to_local() if hasattr(t, "to_local") else t for t in out]
 
 
 def wrap_step_with_sentinel(step: Callable) -> Callable:
@@ -105,7 +106,7 @@ def wrap_step_with_sentinel(step: Callable) -> Callable:
                 new_state = {**new_state, **kept}
                 new_state["opt"]["step"] = old_step
             elif scale < 1.0:
-                params = list(new_state["params"].values())
+                params = live[:len(new_state["params"])]
                 old = backup[:len(params)]
                 damped = torch._foreach_sub(params, old)
                 torch._foreach_mul_(damped, scale)

@@ -1,0 +1,347 @@
+"""The GSPMD train and eval steps: the JAX package's ``make_train_step``
+and ``make_eval_step`` with a mesh, on DTensor.
+
+The step computes the function of the one-device step on the whole
+global batch, with the state placed over a ``DeviceMesh`` by the
+logical-axis rules (``distributed/sharding.py``): parameters and
+optimizer fields as DTensors (the fields by their parameters'
+placements, or ZeRO-1's), the model state replicated. Each worker is
+handed its own rows of the global batch (the rows of its coordinate on
+the mesh's batch axes; the workers along the other axes get the same
+rows).
+
+* The loss is the global mean: the token mean over every worker's
+  targets (an LM) or the image mean (ResNet-50), and the BN statistics
+  are the global batch's (the model's ``bn_group`` is the mesh's batch
+  group: the sync-BN route).
+* The gradients are summed over the workers in **f32**, then rounded
+  once to the wire dtype (XLA's GSPMD programs carry f32 all-reduces,
+  and ``simulate_wire_cast`` rounds the summed gradient), unlike the
+  data-parallel step's half-precision all-reduce.
+* The optimizer update runs on each worker's local shard of every leaf
+  (its parameter, gradient and state fields share one placement).
+  ``grad_constraint`` (``optim/zero.py:zero_constraint``, ZeRO-1)
+  redistributes the gradients first, a Partial sum becoming a
+  reduce-scatter; the update then runs on each worker's ZeRO shard and
+  the parameters are gathered back to their own placements.
+  ``param_shardings`` pins the compute-dtype copy of the parameters
+  (FSDP's gathers then move the compute dtype).
+
+How the forward runs depends on the placements. When every parameter
+is replicated (pure DP over any mesh, ResNet-50 on any mesh: its conv
+rules replicate every channel), the model runs on each worker's local
+rows and parameters as the one-device step does, its loss weighted by
+the worker's share of the global count, and the gradients are Partial
+sums over the batch axes. Otherwise (the dense LM under Megatron TP)
+the forward runs on DTensors: the products shard by DTensor's rules,
+the models' ``constrain`` sites redistribute (the row-parallel partial
+sums are all-reduced there), and the hand-written kernels run on local
+shards through ``sharding.local_apply``: ``flash_attention`` on each
+worker's heads, ``rmsnorm`` on its rows. The token lookup
+(``layers._sharded_lookup``) and the cross entropy
+(``common._sharded_cross_entropy``) are redistributed explicitly, as
+DTensor has no rule for a vocab-sharded gather.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core.compression import parse_compression
+from repro_torch.distributed.sharding import (
+    activation_sharding,
+    batch_placements,
+)
+
+Tree = Dict[str, Any]
+
+
+def _tensor_parallel(params: Dict[str, Any]) -> bool:
+    """Whether some parameter is sharded (the DTensor forward), or every
+    one replicated (the local forward)."""
+    return any(not pl.is_replicate() for p in params.values()
+               for pl in p.placements)
+
+
+def _batch_dims(mesh, rules) -> Tuple[int, ...]:
+    """The mesh dims that split the batch's rows."""
+    return tuple(i for i, pl in enumerate(batch_placements(mesh, rules))
+                 if pl.is_shard())
+
+
+def _batch_group_sum(t: torch.Tensor, mesh, dims) -> torch.Tensor:
+    """``t`` summed over the workers along the mesh dims ``dims``."""
+    for i in dims:
+        dist.all_reduce(t, group=mesh.get_group(i))
+    return t
+
+
+def place_batch(batch: Dict[str, Any], mesh, rules) -> Dict[str, Any]:
+    """This worker's rows of a batch (tensors on its device) as DTensors
+    of the global batch, placed by the "batch" rule."""
+    from torch.distributed.tensor import DTensor
+    pl = batch_placements(mesh, rules)
+    return {k: DTensor.from_local(v, mesh, pl)
+            if torch.is_tensor(v) and v.dim() else v
+            for k, v in batch.items()}
+
+
+def _local_loss_grads(model, train_cfg, params, mstate, batch, mesh, dims):
+    """The local forward: ``(new state, metrics, gradients)``, each
+    gradient this worker's f32 share of the global one (its loss
+    weighted by its share of the global token or row count), the
+    metrics already global."""
+    names = list(params)
+    pc = {k: params[k].to_local().detach().to(model.compute_dtype)
+          .requires_grad_(True) for k in names}
+    loss, (new_mstate, metrics) = model.loss_fn(
+        pc, mstate, batch, train_cfg.label_smoothing)
+    metrics = dict(metrics)
+    if "tokens" in metrics:  # the token mean over every worker's targets
+        count = torch.stack([metrics["tokens"].detach().float()])
+        total = _batch_group_sum(count.clone(), mesh, dims)
+        weight = (count / total)[0]
+        metrics["tokens"] = total[0]
+    else:  # equal rows a worker
+        n = 1
+        for i in dims:
+            n *= mesh.size(i)
+        weight = torch.tensor(1.0 / n, device=loss.device)
+    gs = torch.autograd.grad(loss * weight, [pc[k] for k in names])
+    scalars = sorted(k for k, v in metrics.items() if k != "tokens"
+                     and torch.is_tensor(v) and v.dim() == 0)
+    if scalars:
+        stacked = torch.stack([metrics[k].detach().float() * weight
+                               for k in scalars])
+        _batch_group_sum(stacked, mesh, dims)
+        metrics.update({k: stacked[i] for i, k in enumerate(scalars)})
+    return new_mstate, metrics, {k: g.float() for k, g in zip(names, gs)}
+
+
+def _dtensor_loss_grads(model, train_cfg, params, mstate, batch, mesh,
+                        rules, param_shardings):
+    """The DTensor forward (tensor parallel): ``(new state, metrics,
+    gradients)``, the gradients f32 DTensors, Partial sums where the
+    forward left them so."""
+    names = list(params)
+    pc = {k: params[k].detach().to(model.compute_dtype).requires_grad_(True)
+          for k in names}
+    leaves = [pc[k] for k in names]
+    if param_shardings is not None:
+        pc = {k: v.redistribute(mesh, param_shardings[k])
+              for k, v in pc.items()}
+    with activation_sharding(mesh, rules):
+        loss, (new_mstate, metrics) = model.loss_fn(
+            pc, mstate, place_batch(batch, mesh, rules),
+            train_cfg.label_smoothing)
+        gs = torch.autograd.grad(loss, leaves)
+    return new_mstate, dict(metrics), {k: g.float()
+                                       for k, g in zip(names, gs)}
+
+
+def _partial_grads(grads: Dict[str, torch.Tensor], mesh, dims):
+    """Local gradient shares as DTensors: Partial sums over the batch
+    dims, replicated over the others."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    pl = tuple(Partial() if i in dims else Replicate()
+               for i in range(mesh.ndim))
+    return {k: DTensor.from_local(g, mesh, pl) for k, g in grads.items()}
+
+
+def make_gspmd_train_step(model, optimizer, train_cfg, mesh, rules,
+                          grad_constraint: Optional[Callable] = None,
+                          param_shardings: Optional[Dict] = None,
+                          microbatches: int = 1):
+    """The GSPMD step (see the module docstring): ``(state, batch) ->
+    (state', metrics)``, ``batch`` this worker's rows, the state's
+    parameters and optimizer fields DTensors on ``mesh``."""
+    if microbatches > 1:
+        raise NotImplementedError(
+            "gradient accumulation under a mesh is not ported: the "
+            "GSPMD step takes microbatches=1")
+    lars = train_cfg.optimizer.kind == "lars"
+    wire, _ = parse_compression(train_cfg.parallel.compression)
+    wdt = {"bf16": torch.bfloat16, "f16": torch.float16}.get(wire)
+    dims = _batch_dims(mesh, rules)
+    device = model.device
+
+    def train_step(state: Tree, batch: Tree):
+        from repro_torch.training.step import to_device
+        batch = to_device(batch, device)
+        params = state["params"]
+        tp = _tensor_parallel(params)
+        if lars and (tp or grad_constraint is not None):
+            raise NotImplementedError(
+                "LARS under a sharded GSPMD layout: its trust ratios "
+                "need whole-leaf norms, and the port's update runs on "
+                "local shards; run LARS on a pure-DP mesh")
+        if tp:
+            new_mstate, metrics, grads = _dtensor_loss_grads(
+                model, train_cfg, params, state["model_state"], batch, mesh,
+                rules, param_shardings)
+        else:
+            new_mstate, metrics, local = _local_loss_grads(
+                model, train_cfg, params, state["model_state"], batch, mesh,
+                dims)
+            grads = _partial_grads(local, mesh, dims)
+        # the f32 sums: ZeRO-1's reduce-scatter, or to each parameter's
+        # own placements
+        if grad_constraint is not None:
+            grads = grad_constraint(grads)
+        else:
+            grads = {k: g.redistribute(mesh, params[k].placements)
+                     for k, g in grads.items()}
+        with torch.no_grad():
+            g_loc = {k: g.to_local() for k, g in grads.items()}
+            if wdt is not None:  # one rounding of the summed gradient
+                g_loc = {k: g.to(wdt).to(torch.float32)
+                         for k, g in g_loc.items()}
+            _update_shards(optimizer, params, grads, g_loc, state["opt"],
+                           metrics)
+        if train_cfg.log_grad_norm:
+            metrics["grad_norm"] = _global_norm(g_loc, grads, mesh)
+        return {"params": params, "opt": state["opt"],
+                "model_state": new_mstate}, metrics
+
+    return train_step
+
+
+def _global_norm(g_loc, grads, mesh) -> torch.Tensor:
+    """The norm of the whole (wire-cast) gradient: each worker's local
+    squares, a leaf's divided by the number of workers that hold the
+    same shard of it, summed over every worker."""
+    sq = torch.zeros((), dtype=torch.float32, device=mesh.device_type)
+    for k, g in g_loc.items():
+        copies = 1
+        for i, pl in enumerate(grads[k].placements):
+            if pl.is_replicate():
+                copies *= mesh.size(i)
+        sq = sq + g.square().sum() / copies
+    sq = sq.reshape(1)
+    dist.all_reduce(sq)
+    return torch.sqrt(sq[0])
+
+
+def _update_shards(optimizer, params, grads, g_loc, opt, metrics) -> None:
+    """The optimizer update on each worker's local shards, in place: on
+    the parameters' own shards, or (ZeRO-1: the gradients placed
+    otherwise) on the gradients' shards of the parameters, gathered
+    back after."""
+    # a list in the parameters' order: every worker gathers alike
+    moved = [k for k in params
+             if tuple(grads[k].placements) != tuple(params[k].placements)]
+    p_loc = {}
+    for k, p in params.items():
+        if k in moved:
+            p_loc[k] = p.redistribute(p.device_mesh,
+                                      grads[k].placements).to_local()
+        else:
+            p_loc[k] = p.to_local()
+    fields = {f: {k: v.to_local() for k, v in opt[f].items()}
+              for f in opt if isinstance(opt[f], dict)}
+    local_opt = dict(opt)
+    local_opt.update(fields)
+    _, new_opt, opt_metrics = optimizer.update(p_loc, g_loc, local_opt)
+    for f in opt:
+        if not isinstance(opt[f], dict):
+            opt[f] = new_opt[f]
+    metrics.update(opt_metrics)
+    from torch.distributed.tensor import DTensor
+    for k in moved:
+        p = params[k]
+        shard = DTensor.from_local(p_loc[k], p.device_mesh,
+                                   grads[k].placements, shape=p.shape,
+                                   stride=p.stride())
+        p.to_local().copy_(shard.redistribute(p.device_mesh,
+                                              p.placements).to_local())
+
+
+def make_gspmd_eval_step(model, mesh, rules):
+    """Validation on the placed state: ``(params, model_state, batch) ->
+    metrics``, ``batch`` this worker's rows, the metrics global."""
+    dims = _batch_dims(mesh, rules)
+    device = model.device
+
+    @torch.no_grad()
+    def eval_step(params, model_state, batch) -> Dict:
+        from repro_torch.training.step import to_device
+        batch = to_device(batch, device)
+        if _tensor_parallel(params):
+            with activation_sharding(mesh, rules):
+                placed = place_batch(batch, mesh, rules)
+                if hasattr(model, "eval_fn"):
+                    return model.eval_fn(params, model_state, placed)
+                loss, (_, metrics) = model.loss_fn(params, model_state,
+                                                   placed)
+        else:
+            local = {k: v.to_local() for k, v in params.items()}
+            if hasattr(model, "eval_fn"):
+                metrics = model.eval_fn(local, model_state, batch)
+                loss = metrics.pop("loss")
+            else:
+                loss, (_, metrics) = model.loss_fn(local, model_state, batch)
+            n = 1
+            for i in dims:
+                n *= mesh.size(i)
+            keys = sorted(k for k, v in metrics.items() if k != "tokens"
+                          and torch.is_tensor(v) and v.dim() == 0)
+            stacked = torch.stack([loss.float()] + [
+                metrics[k].float() for k in keys]) / n
+            _batch_group_sum(stacked, mesh, dims)
+            loss = stacked[0]
+            metrics = {k: stacked[i + 1] for i, k in enumerate(keys)}
+        out = {k: v for k, v in metrics.items()
+               if not torch.is_tensor(v) or v.dim() == 0}
+        out["loss"] = loss
+        return out
+
+    return eval_step
+
+
+# ---------------------------------------------------------------------------
+# placing a state
+# ---------------------------------------------------------------------------
+
+
+def place_params(params: Dict[str, torch.Tensor], shardings: Dict, mesh
+                 ) -> Dict[str, Any]:
+    """Whole parameters, the same on every worker (drawn from one seed),
+    as DTensors with ``shardings``' placements: each worker keeps a copy
+    of its own slice (never a view of ``params``), nothing is sent."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import local_slice
+    return {k: DTensor.from_local(
+        local_slice(v.detach(), mesh, shardings[k]).clone(), mesh,
+        tuple(shardings[k]), shape=v.shape, stride=v.stride())
+        for k, v in params.items()}
+
+
+def init_placed_opt(optimizer, params: Dict[str, Any],
+                    field_shardings: Optional[Dict] = None) -> Tree:
+    """``optimizer.init`` of the placed ``params``: each per-leaf field a
+    DTensor with ``field_shardings``' placements (None: the parameters'
+    own), made from its local shards alone."""
+    from torch.distributed.tensor import DTensor
+    pl = {k: tuple(field_shardings[k]) if field_shardings else
+          tuple(p.placements) for k, p in params.items()}
+    local = {k: (p if tuple(p.placements) == pl[k] else
+                 p.redistribute(p.device_mesh, pl[k])).to_local()
+             for k, p in params.items()}
+    state = optimizer.init(local)
+    for f, v in state.items():
+        if isinstance(v, dict):
+            state[f] = {k: DTensor.from_local(t, params[k].device_mesh,
+                                              pl[k])
+                        for k, t in v.items()}
+    return state
+
+
+def gather_tree(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Whole tensors of a dict of DTensors (plain tensors as they are),
+    on every worker."""
+    from torch.distributed.tensor import DTensor
+    return {k: v.full_tensor() if isinstance(v, DTensor) else v
+            for k, v in tree.items()}

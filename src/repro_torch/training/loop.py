@@ -31,7 +31,10 @@ layout. A restore is decided by that rank (the newest intact step,
 after any corrupt-file fallback) and broadcast; every worker then loads
 that step and takes its own row. Decisions of the recovery state
 machine come from the all-reduced loss and gradient norm, so the
-workers take them alike.
+workers take them alike. On the GSPMD path (an ``interop.MeshSharding``)
+each save gathers the placed parameters and optimizer fields whole
+(the first rank writes them), and a restore places each whole array by
+the state's own placements, whatever mesh saved it.
 
 ``run_training`` is the step-driven API (one epoch, no eval) on the same
 loop.
@@ -41,7 +44,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -50,7 +53,8 @@ import torch.distributed as dist
 from repro_torch.checkpoint import AsyncCheckpointer, list_checkpoints, restore
 from repro_torch.checkpoint.checkpointer import BEST_DIR
 from repro_torch.data.pipeline import DataPipeline
-from repro_torch.interop import (WorkerSharding, train_state_from_jax,
+from repro_torch.interop import (MeshSharding, WorkerSharding,
+                                 train_state_from_jax,
                                  train_state_to_jax)
 from repro_torch.resilience.events import EventLog
 from repro_torch.resilience.recovery import (Action, RecoveryManager,
@@ -58,6 +62,9 @@ from repro_torch.resilience.recovery import (Action, RecoveryManager,
 from repro_torch.resilience.sentinel import SENTINEL_METRICS
 
 Tree = Dict[str, Any]
+
+# the state layouts of the data-parallel and the GSPMD paths
+StateShardings = Union[WorkerSharding, MeshSharding]
 
 
 @dataclasses.dataclass
@@ -119,7 +126,8 @@ class Trainer:
     ``metadata``: written into every checkpoint's manifest, beside the
         eval history and the best epoch.
     ``state_shardings``: ``interop.WorkerSharding`` on the data-parallel
-        path, None on one device.
+        path, ``interop.MeshSharding`` on the GSPMD path, None on one
+        device.
     ``chaos``: a ``resilience.ChaosEngine`` for fault injection.
     """
 
@@ -129,7 +137,7 @@ class Trainer:
                  finalize_state: Optional[Callable] = None,
                  put_batch: Optional[Callable] = None,
                  metadata: Optional[Dict] = None,
-                 state_shardings: Optional[WorkerSharding] = None,
+                 state_shardings: Optional[StateShardings] = None,
                  resilience: Optional[ResilienceConfig] = None,
                  chaos=None):
         if cfg.eval_every_epochs and eval_step is not None \
@@ -492,7 +500,7 @@ def run_training(
     loop_cfg: LoopConfig,
     put_batch: Optional[Callable] = None,  # host batch -> device batch
     metadata: Optional[Dict] = None,
-    state_shardings: Optional[WorkerSharding] = None,
+    state_shardings: Optional[StateShardings] = None,
 ) -> LoopResult:
     """Step-counter training without validation: one ``Trainer`` epoch."""
     cfg = TrainerConfig(

@@ -1,11 +1,13 @@
-"""Step builders: the single-device step and the paper's explicit
-data-parallel step.
+"""Step builders: the single-device step, the GSPMD step and the
+paper's explicit data-parallel step.
 
-``make_train_step`` is the single-device step of the JAX package's
-``make_train_step`` with no mesh: cast every float parameter to the
+``make_train_step`` is the JAX package's ``make_train_step``. With no
+mesh it is the single-device step: cast every float parameter to the
 compute dtype, take the loss and its gradients (accumulated over
 ``microbatches`` if asked), round-trip the gradients through the wire
-dtype of ``compression`` (paper §3), and apply the optimizer.
+dtype of ``compression`` (paper §3), and apply the optimizer. With a
+mesh (a ``DeviceMesh``) and the logical-axis rules it is the GSPMD step
+on a placed state (``training/gspmd.py``).
 
 ``make_dp_shardmap_train_step`` is the JAX package's
 ``make_dp_shardmap_train_step``. PyTorch has no shard_map: every worker
@@ -139,14 +141,25 @@ def _grads_of(model, train_cfg: TrainConfig, params, mstate, mbatch):
 
 
 def make_train_step(model, optimizer: Optimizer, train_cfg: TrainConfig,
+                    mesh=None, rules: Optional[Dict] = None,
+                    grad_constraint=None,
+                    param_shardings: Optional[Dict] = None,
                     microbatches: int = 1):
     """Train step: (state, batch) -> (state', metrics), with
-    state = {"params", "opt", "model_state"}. ``train_cfg.log_grad_norm``
+    state = {"params", "opt", "model_state"}. With ``mesh`` the GSPMD
+    step (``gspmd.make_gspmd_train_step``: ``grad_constraint`` is
+    ZeRO-1's gradient placement, ``param_shardings`` pins the
+    compute-dtype parameters). ``train_cfg.log_grad_norm``
     adds the norm of the (wire-cast) gradients as ``grad_norm``, as in
     the JAX package. ``microbatches`` > 1 splits
     the batch's leading dim and accumulates the mean of the microbatch
     gradients (equal to the full-batch gradient for a mean loss); the BN
     state threads through the microbatches and the last one's is kept."""
+    if mesh is not None:
+        from repro_torch.training.gspmd import make_gspmd_train_step
+        return make_gspmd_train_step(model, optimizer, train_cfg, mesh,
+                                     rules, grad_constraint, param_shardings,
+                                     microbatches)
     wire, _ = parse_compression(train_cfg.parallel.compression)
     device = model.device
 
@@ -195,14 +208,20 @@ def make_train_step(model, optimizer: Optimizer, train_cfg: TrainConfig,
     return train_step
 
 
-def make_eval_step(model, train_cfg: Optional[TrainConfig] = None):
-    """Validation step: (params, model_state, batch) -> metrics. The
+def make_eval_step(model, train_cfg: Optional[TrainConfig] = None,
+                   mesh=None, rules: Optional[Dict] = None):
+    """Validation step: (params, model_state, batch) -> metrics (with
+    ``mesh``, on the GSPMD step's placed state and this worker's rows:
+    ``gspmd.make_gspmd_eval_step``). The
     parameters stay fp32 masters (the model casts weights to the
     activation dtype where it uses them), as in the JAX package. A model
     without ``eval_fn`` (an LM) reports its train loss's scalar metrics,
     ``loss`` being the total (``{"loss", "moe_aux", "tokens"}``), as
     the JAX package does."""
     del train_cfg  # schedules don't enter the eval path
+    if mesh is not None:
+        from repro_torch.training.gspmd import make_gspmd_eval_step
+        return make_gspmd_eval_step(model, mesh, rules)
 
     @torch.no_grad()
     def eval_step(params, model_state, batch) -> Dict:

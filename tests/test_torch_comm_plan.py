@@ -14,7 +14,7 @@ package's ``distributed/comm_plan.py``.
   without ``--dp-mode shardmap`` is refused; ``--comm-plan hier:1``
   without ``--mesh`` raises ``make_hierarchy``'s error (the default
   layout has one worker per node); ``--mesh 2x2`` without a
-  hierarchical plan raises (tensor parallelism is not ported); a plan
+  hierarchical plan raises (the shard_map step is pure DP); a plan
   loaded from a file applies its wire configuration and is printed.
 """
 import contextlib

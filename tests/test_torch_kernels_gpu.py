@@ -949,3 +949,87 @@ def test_card_checkpoint_restores_on_the_cpu_bitwise(dp_card):
     for site, rec in state["model_state"].items():
         for k, t in rec.items():
             assert torch.equal(cpu_state["model_state"][site][k], t.cpu())
+
+
+# ---------------------------------------------------------------------------
+# the GSPMD step's local shards: the LM kernels at tensor-parallel shapes,
+# and through ``sharding.local_apply`` (``local_map``) on a DeviceMesh
+# ---------------------------------------------------------------------------
+
+# llama3.2-1b under TP 2 (its 32 / 8 heads split in two) at main path
+# 17's 4 x 1,024 tokens, and a short one
+TP_FLASH = [(4, 1024, 1024, 16, 4, 64, True, None),
+            (2, 256, 256, 16, 4, 64, True, None)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("case", TP_FLASH, ids=lambda c: f"b{c[0]}s{c[1]}")
+def test_flash_attention_at_tp_local_heads_on_card(cuda, case, dt):
+    test_flash_attention_matches_plain_on_card(cuda, case, dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_rmsnorm_at_tp_training_rows_on_card(cuda, dt):
+    test_rmsnorm_model_order_matches_plain_on_card(cuda, 4 * 1024, 2048, dt)
+
+
+@pytest.fixture
+def one_rank_mesh(cuda, tmp_path):
+    """A one-worker gloo group and its (1, 1) ("data", "model") mesh on
+    the card."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.process_group import device_mesh, shutdown
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        yield device_mesh((1, 1), ("data", "model"), device_type="cuda")
+    finally:
+        shutdown()
+
+
+@pytest.mark.gpu
+def test_local_apply_kernels_bitwise_the_unwrapped_on_card(one_rank_mesh):
+    """``flash_attention`` and ``rmsnorm`` through ``local_apply`` on
+    DTensors of one rank (batch Shard(0), heads Shard(2)), forward and
+    backward, bitwise the same kernels called on the plain tensors."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.distributed.sharding import local_apply
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import rmsnorm as trn
+    mesh = one_rank_mesh
+    g = torch.Generator(device="cuda").manual_seed(17)
+    q, k, v = (torch.randn(2, 256, h, 64, generator=g, device="cuda")
+               .bfloat16() for h in (16, 4, 4))
+    x = torch.randn(2, 256, 2048, generator=g, device="cuda").bfloat16()
+    s = (1 + 0.1 * torch.randn(2048, generator=g, device="cuda")).bfloat16()
+    heads = (Shard(0), Shard(2))
+    rows = (Shard(0), Replicate())
+
+    def run(wrapped):
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v, x, s)]
+        if wrapped:
+            dq, dk, dv = (DTensor.from_local(t, mesh, heads)
+                          for t in ins[:3])
+            dx = DTensor.from_local(ins[3], mesh, rows)
+            ds = DTensor.from_local(ins[4], mesh, (Replicate(),) * 2)
+            o = local_apply(tfa.flash_attention, dq, dk, dv, causal=True)
+            y = local_apply(trn.rmsnorm, dx, ds, round_inv=True)
+            o, y = o.to_local(), y.to_local()
+        else:
+            o = tfa.flash_attention(*ins[:3], causal=True)
+            y = trn.rmsnorm(ins[3], ins[4], round_inv=True)
+        (o.float().square().sum() + y.float().square().sum()).backward()
+        return [o.detach(), y.detach()] + [t.grad for t in ins]
+
+    tfa.reset_launch_counts()
+    trn.reset_launch_counts()
+    got, want = run(True), run(False)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention"] == 2
+    assert trn.LAUNCHES["rmsnorm"] == 2
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
