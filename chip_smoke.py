@@ -360,6 +360,39 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      worker's heads, rmsnorm, the fused update on its shards, launches
      checked; the first loss against main path 10's within
      ``GSPMD_TP_LOSS_RTOL``; step time and peak memory a worker.
+  3i (after 3h). ``flash_attention`` (bf16) at main paths 18 and 19's
+     worker-local heads and ``rmsnorm`` at their rows (whole under TP,
+     the out_norm sites of zamba2 and xLSTM too), against their plain
+     versions and timed (``SLICE18_*``; rmsnorm also with L2 emptied
+     before each call), and ``hybrid_update`` over one worker's shards
+     of each config the two paths train, bitwise per leaf;
+  24. main path 18, MoE under ``--dp-mode gspmd --mesh 1x2`` (EP 2),
+     one spawn of two processes on the card over gloo, bf16: mixtral at
+     main path 13's cut (1 of 32 layers), 2 steps, the first one's
+     routing replayed from a one-device step at the same weights and
+     batch (``RouteTape``; the token choices that differ counted), its
+     first loss within ``GSPMD_FAMILY_LOSS_RTOL``; then the GSPMD
+     prefill of main path 12's requests and 4 greedy decode steps
+     (``build_gspmd_serve_setup``, the cache placed by ``place_cache``)
+     for mixtral at 8 of 32 layers and llama4-maverick at one group (64
+     of 128 experts a worker), the routing of every call replayed from
+     the one-device run and each decode step fed the one-device run's
+     greedy token (teacher forcing): the prefill's and each decode
+     step's logits within ``GSPMD_MOE_SERVE_TOL``, each greedy choice
+     the one-device run's
+     but at a tie of its two candidates (``GSPMD_TIE_GAP``; the choices
+     that differ logged); launches a worker a step, a prefill and a
+     decode step checked;
+  25. main path 19, phi-3-vision, zamba2-7b, xlstm-350m and
+     whisper-tiny under ``--mesh 1x2`` (TP 2) at main path 15's depths,
+     one spawn as 24: 2 steps (first loss within
+     ``GSPMD_FAMILY_LOSS_RTOL`` of main path 15's), the GSPMD prefill
+     of main path 14's requests and 4 teacher-forced decode steps
+     against the one-device run (each call's logits within the family's
+     ``GSPMD_FAMILY_SERVE_TOL``, the greedy choices as 24), the same
+     prefill in f32 against one device's in f32 within
+     ``GSPMD_F32_SERVE_TOL`` (the witness that the bf16 distance is
+     rounding), launches checked.
 With ``--profile``, a few more steps of each main path run under
 torch.profiler (device busy time and idle share, top host ops and
 kernels), and one prefill and four decode steps of main path 4. With
@@ -378,10 +411,11 @@ step and ``path11_<n>w_<run>`` its multi-process runs (first worker),
 ``path12_<arch>_p<prompt>`` main path 12's per run, ``path13`` and
 ``path13_dp`` main path 13's, ``path14_<arch>`` main path 14's per
 config, ``path15_<arch>_<run>`` main path 15's per config and run,
-``path10_remat`` / ``path10_no_remat`` phase 16c's, ``path16`` and
-``path17`` main paths 16 and 17's (first worker); ``slice13``,
-``slice14``, ``slice15`` and ``slice17`` the times of phases 3f, 3g and
-3h at those paths' shapes;
+``path10_remat`` / ``path10_no_remat`` phase 16c's, ``path16`` to
+``path19`` main paths 16 to 19's (first worker; 18 and 19 summed over
+their runs); ``slice13``, ``slice14``, ``slice15``, ``slice17`` and
+``slice18`` the times of phases 3f, 3g, 3h and 3i at those paths'
+shapes;
 ``hybrid_update`` also carries its time at main path 7's shard), the card's name and power
 limit, and last the ``{"ok": true, "device": ...}`` line. ``--out DIR`` also
 writes the per-shape kernel tables to ``DIR/chip_smoke_kernels.json``.
@@ -520,6 +554,33 @@ def time_ms(torch, fn, iters: int = 10, trials: int = 5) -> float:
         times.append(start.elapsed_time(end) / iters)
     del graph
     return statistics.median(times)
+
+
+_L2_FLUSH = {}
+
+
+def time_cold_ms(torch, fn, samples: int = 21) -> float:
+    """Device time of one call of ``fn`` with nothing of its inputs in
+    L2: a read of 256 MiB (five times the card's 50 MB L2; a read, so
+    that no dirty line is written back during the call) runs before
+    each call, and CUDA events around the call alone time it (median of
+    ``samples``; the flush keeps the card busy while the host queues
+    the call)."""
+    if "buf" not in _L2_FLUSH:
+        _L2_FLUSH["buf"] = torch.ones(1 << 26, dtype=torch.int32,
+                                      device="cuda")
+    buf = _L2_FLUSH["buf"]
+    fn()
+    torch.cuda.synchronize()
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(samples)]
+    for start, end in marks:
+        buf.sum()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in marks)
 
 
 def time_eager_ms(torch, fn, iters: int = 5) -> float:
@@ -3479,6 +3540,8 @@ def rmsnorm_shares(torch, rec, x, st):
     empty kernel on the launch's own grid (``floor_ms``) and the larger
     of the two as its least time (``least_ms``, ``least_share``)."""
     rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    if "cold_ms" in rec:
+        rec["cold_share"] = rec["bound_ms"] / rec["cold_ms"]
     if rec["rows"] <= SERVE_BATCH:
         rec["floor_ms"] = empty_kernel_ms(torch, *rmsnorm_grid(x, st))
         rec["least_ms"] = max(rec["bound_ms"], rec["floor_ms"])
@@ -3490,6 +3553,9 @@ def rmsnorm_share_text(rec) -> str:
     if "least_ms" in rec:
         return (f"{rec['least_share']:.0%} of its least time, the empty "
                 f"kernel's {rec['floor_ms'] * 1e3:.2f} us")
+    if "cold_ms" in rec:
+        return (f"{rec['bound_share']:.0%} of bound; L2 cold "
+                f"{rec['cold_ms']:.4f} ms, {rec['cold_share']:.0%}")
     return f"{rec['bound_share']:.0%} of bound"
 
 
@@ -4007,7 +4073,10 @@ def flash_shape_cases(torch, gen, cases, dtypes=("bfloat16",)):
 def rmsnorm_shape_cases(torch, gen, cases):
     """``rmsnorm`` (bf16, the model's rounding order) against its plain
     version at each (rows, d), timed with its plain version,
-    ``F.rms_norm`` (the same bf16 scale) and its bound."""
+    ``F.rms_norm`` (the same bf16 scale) and its bound; above decode
+    rows also with L2 emptied before each call (``cold_ms``: graph
+    replays keep inputs of up to 50 MB in L2, where the HBM bound does
+    not hold)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import rmsnorm as rn
@@ -4031,6 +4100,9 @@ def rmsnorm_shape_cases(torch, gen, cases):
                "library_ms": time_ms(torch, lambda: F.rms_norm(
                    x, (d,), st, 1e-5)),
                "bound_ms": bound_ms, "bound_by": bound_by}
+        if rows > SERVE_BATCH:
+            rec["cold_ms"] = time_cold_ms(torch, lambda: rn.rmsnorm(
+                x, st, round_inv=True))
         out[name] = rmsnorm_shares(torch, rec, x, st)
         log(f"  rmsnorm bf16 {name} {rows} x {d}: {rec['ms']:.4f} ms (plain "
             f"{rec['plain_ms']:.4f}, F.rms_norm {rec['library_ms']:.4f}, "
@@ -5077,22 +5149,14 @@ def tp_local_shapes(cfg, mesh_sizes, device: str = "cuda"):
     return shapes
 
 
-def slice17_kernel_phase(torch):
-    """Phase 3h: ``flash_attention`` (bf16) at main path 17's
-    worker-local heads (16 of llama3.2-1b's 32 query heads, 4 of its 8
-    kv heads, Dh 64), ``rmsnorm`` at its rows (the rows stay whole under
-    TP), and ``hybrid_update`` over one worker's shards of every leaf
-    in one launch, each against its plain version (bitwise for the
-    update) and timed with its library call and bound."""
-    from repro_torch.configs import get_config
+def tp_update_case(torch, gen, cfg, mesh_sizes, what: str):
+    """``hybrid_update`` over one worker's shards of every leaf of
+    ``cfg`` on a GSPMD mesh (``tp_local_shapes``) in one launch, bitwise
+    per leaf against its plain version (weight decay 0, as the LM paths
+    train), timed against the per-leaf plain version and its bound."""
     from repro_torch.core.optimizer import HybridHyper
     from repro_torch.kernels import fused_update as fu
-
-    gen = torch.Generator(device="cuda").manual_seed(17)
-    out = {"flash_attention": flash_shape_cases(torch, gen, SLICE17_FLASH),
-           "rmsnorm": rmsnorm_shape_cases(torch, gen, SLICE17_RMSNORM)}
-    shapes = tp_local_shapes(get_config(LM_TRAIN_ARCH),
-                             dict(zip(("data", "model"), GSPMD_LM_MESH)))
+    shapes = tp_local_shapes(cfg, mesh_sizes)
     dev = torch.device("cuda")
     names = sorted(shapes)
     gs, ps, ds, ms = ([torch.randn(shapes[k], generator=gen, device=dev)
@@ -5105,9 +5169,11 @@ def slice17_kernel_phase(torch):
     for i, g in enumerate(gs):
         plain = [t[i].clone() for t in (ps, ds, ms)]
         fu.PLAIN["hybrid_update"](g, *plain, h, 0.0)
-        for what, a, b in zip(("theta", "delta", "m"),
-                              (kern[0][i], kern[1][i], kern[2][i]), plain):
-            _bitwise(f"hybrid_update TP-local {names[i]} {what}", a, b)
+        for field, a, b in zip(("theta", "delta", "m"),
+                               (kern[0][i], kern[1][i], kern[2][i]), plain):
+            _bitwise(f"hybrid_update {what} {cfg.name} {names[i]} {field}",
+                     a, b)
+        del plain
     del kern
     total = sum(g.numel() for g in gs)
 
@@ -5115,20 +5181,38 @@ def slice17_kernel_phase(torch):
         for i, g in enumerate(gs):
             fu.PLAIN["hybrid_update"](g, ps[i], ds[i], ms[i], h, 0.0)
 
-    upd = {"leaves": len(names), "elements": total, "max_abs_err": 0.0,
+    upd = {"arch": cfg.name, "n_layers": cfg.n_layers, "leaves": len(names),
+           "elements": total, "max_abs_err": 0.0,
            "ms": time_ms(torch, lambda: fu.fused_hybrid_update_leaves(
                gs, ps, ds, ms, h, [0.0] * len(names)), iters=3, trials=3),
            "plain_ms": time_ms(torch, plain_all, iters=2, trials=3),
            "library_ms": None}
     upd["bound_ms"], upd["bound_by"] = bound(28 * total,
                                              UPDATE_FLOPS * total)
-    log(f"  hybrid_update over one TP worker's shards ({len(names)} "
-        f"leaves, {total} elements) in one launch, bitwise: "
-        f"{upd['ms']:.3f} ms (plain {upd['plain_ms']:.3f}, bound "
-        f"{upd['bound_ms']:.3f})")
-    out["hybrid_update"] = upd
+    log(f"  hybrid_update over one {what} worker's shards of {cfg.name} "
+        f"({cfg.n_layers} layers, {len(names)} leaves, {total} elements) in "
+        f"one launch, bitwise: {upd['ms']:.3f} ms (plain "
+        f"{upd['plain_ms']:.3f}, bound {upd['bound_ms']:.3f})")
     del gs, ps, ds, ms
     torch.cuda.empty_cache()
+    return upd
+
+
+def slice17_kernel_phase(torch):
+    """Phase 3h: ``flash_attention`` (bf16) at main path 17's
+    worker-local heads (16 of llama3.2-1b's 32 query heads, 4 of its 8
+    kv heads, Dh 64), ``rmsnorm`` at its rows (the rows stay whole under
+    TP), and ``hybrid_update`` over one worker's shards of every leaf
+    in one launch, each against its plain version (bitwise for the
+    update) and timed with its library call and bound."""
+    from repro_torch.configs import get_config
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    out = {"flash_attention": flash_shape_cases(torch, gen, SLICE17_FLASH),
+           "rmsnorm": rmsnorm_shape_cases(torch, gen, SLICE17_RMSNORM)}
+    out["hybrid_update"] = tp_update_case(
+        torch, gen, get_config(LM_TRAIN_ARCH),
+        dict(zip(("data", "model"), GSPMD_LM_MESH)), "TP")
     return out
 
 
@@ -5461,6 +5545,555 @@ def gspmd_lm_path(torch, ref_first_loss: float):
                                   "spawn_s": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# slice 18: every family under a model axis (main paths 18 and 19)
+# ---------------------------------------------------------------------------
+
+# main path 18: MoE under EP (--dp-mode gspmd --mesh 1x2): mixtral
+# trained at main path 13's cut (1 of 32 layers; 4 of its 8 experts and
+# half the vocabulary a worker), then the GSPMD prefill and decode steps
+# at main path 12's cuts (mixtral at 8 of 32 layers, maverick at one
+# group: 64 of its 128 experts a worker)
+GSPMD_MOE_TRAIN = ((MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS),)
+GSPMD_MOE_SERVE = (("mixtral-8x7b", 8), ("llama4-maverick-400b-a17b", 2))
+# main path 19: the other four families under TP at main path 15's cuts
+GSPMD_FAMILY_TRAIN = FAMILY_TRAIN
+GSPMD_FAMILY_SERVE = FAMILY_TRAIN
+GSPMD_TRAIN_STEPS, GSPMD_DECODE_STEPS = 2, 4
+# the first loss of each path-18 / 19 run against its one-device step
+GSPMD_FAMILY_LOSS_RTOL = 2e-4
+# path 18's logits (the prefill's and each teacher-forced decode step's)
+# against the one-device run's, the routing replayed: the bound of the
+# flash vs naive prefill (phase 18)
+GSPMD_MOE_SERVE_TOL = NAIVE_REL_TOL
+# path 19's logits (prefill and each teacher-forced decode step) against
+# the one-device run's in bf16, by family, about twice the largest
+# measured: TP rounds each row-parallel product's halves before their
+# sum. Measured 1.47e-2 phi-3-vision, 2.59e-2 zamba2, 4.57e-2 xLSTM,
+# 8.06e-3 whisper; each below its one-device bf16 prefill's distance
+# from the f32 one (2.25e-2, 3.10e-2, 7.78e-2, 8.26e-3): the scale of
+# bf16's own rounding, which xLSTM's exponential input gates amplify;
+# xLSTM's bound is that own distance, rounded up
+GSPMD_FAMILY_SERVE_TOL = {"phi-3-vision-4.2b": 3e-2, "zamba2-7b": 5e-2,
+                          "xlstm-350m": 8e-2, "whisper-tiny": 2e-2}
+# the witness that path 19's bf16 distance is rounding: the same GSPMD
+# prefill in f32 against one device's in f32 (measured 8.5e-7 whisper to
+# 7.7e-6 xLSTM)
+GSPMD_F32_WITNESS = {18: (), 19: GSPMD_FAMILY_SERVE}
+GSPMD_F32_SERVE_TOL = 1e-4
+# a greedy choice of a GSPMD serve step may differ from one device's only
+# where one device's two candidates lie within this many logits of each
+# other: two bf16 ulps at logits in [4, 8) (measured: the choices that
+# differed had gaps of 0 to 0.046875, xLSTM's widest)
+GSPMD_TIE_GAP = 0.0625
+# phase 3i: flash_attention (bf16) at paths 18 and 19's worker-local
+# heads, (B, Sq, Sk, Hq, Hkv, Dh, causal, window) ...
+SLICE18_FLASH = {
+    "mixtral-8x7b EP 2 training": (LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                   LM_TRAIN_SEQ, 16, 4, 128, True, 4096),
+    "mixtral-8x7b EP 2 prefill": (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT,
+                                  16, 4, 128, True, 4096),
+    "llama4-maverick EP 2 prefill": (SERVE_BATCH, SERVE_PROMPT,
+                                     SERVE_PROMPT, 20, 4, 128, True, None),
+    "phi-3-vision-4.2b TP 2 training": (LM_TRAIN_BATCH,
+                                        VLM_PATCHES + LM_TRAIN_SEQ,
+                                        VLM_PATCHES + LM_TRAIN_SEQ, 16, 16,
+                                        96, True, None),
+    "phi-3-vision-4.2b TP 2 prefill": (SERVE_BATCH,
+                                       VLM_PATCHES + SERVE_PROMPT,
+                                       VLM_PATCHES + SERVE_PROMPT, 16, 16,
+                                       96, True, None),
+    "zamba2-7b TP 2 training": (LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_SEQ,
+                                16, 16, 112, True, None),
+    "zamba2-7b TP 2 prefill": (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 16,
+                               16, 112, True, 4096),
+    "whisper-tiny TP 2 encoder training": (LM_TRAIN_BATCH, WHISPER_FRAMES,
+                                           WHISPER_FRAMES, 3, 3, 64, False,
+                                           None),
+    "whisper-tiny TP 2 cross training": (LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                         WHISPER_FRAMES, 3, 3, 64, False,
+                                         None),
+    "whisper-tiny TP 2 decoder training": (LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                           LM_TRAIN_SEQ, 3, 3, 64, True,
+                                           None),
+    "whisper-tiny TP 2 encoder prefill": (SERVE_BATCH, WHISPER_FRAMES,
+                                          WHISPER_FRAMES, 3, 3, 64, False,
+                                          None),
+    "whisper-tiny TP 2 cross prefill": (SERVE_BATCH, SERVE_PROMPT,
+                                        WHISPER_FRAMES, 3, 3, 64, False,
+                                        None),
+}
+# ... and rmsnorm (bf16) at their rows, whole under TP: the training
+# rows of each width, and the out_norm sites made whole (zamba2's d_in
+# 7,168 and xLSTM's 2,048) at a prefill's and a decode step's rows
+SLICE18_RMSNORM = {
+    "mixtral-8x7b training": (LM_TRAIN_BATCH * LM_TRAIN_SEQ, 4096),
+    "phi-3-vision-4.2b training": (
+        LM_TRAIN_BATCH * (VLM_PATCHES + LM_TRAIN_SEQ), 3072),
+    "zamba2-7b training": (LM_TRAIN_BATCH * LM_TRAIN_SEQ, 3584),
+    "zamba2-7b training out_norm": (LM_TRAIN_BATCH * LM_TRAIN_SEQ, 7168),
+    "zamba2-7b prefill out_norm": (SERVE_BATCH * SERVE_PROMPT, 7168),
+    "zamba2-7b decode out_norm": (SERVE_BATCH, 7168),
+    "xlstm-350m training out_norm": (LM_TRAIN_BATCH * LM_TRAIN_SEQ, 2048),
+    "xlstm-350m prefill out_norm": (SERVE_BATCH * SERVE_PROMPT, 2048),
+    "xlstm-350m decode out_norm": (SERVE_BATCH, 2048),
+}
+
+
+def slice18_kernel_phase(torch):
+    """Phase 3i: ``flash_attention`` (bf16) at main paths 18 and 19's
+    worker-local heads and ``rmsnorm`` at their rows (whole under TP,
+    ``out_norm``'s too), each against its plain version (the tolerances
+    of phase 3d) and timed with its library call and bound; and
+    ``hybrid_update`` over one worker's shards of each config the two
+    paths train (mixtral's experts under EP, the others' TP shards),
+    bitwise per leaf against its plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    out = {"flash_attention": flash_shape_cases(torch, gen, SLICE18_FLASH),
+           "rmsnorm": rmsnorm_shape_cases(torch, gen, SLICE18_RMSNORM)}
+    mesh = dict(zip(("data", "model"), GSPMD_LM_MESH))
+    out["hybrid_update"] = {
+        arch: tp_update_case(torch, gen, _cut_config(arch, layers), mesh,
+                             "EP" if arch == MOE_TRAIN_ARCH else "TP")
+        for arch, layers in GSPMD_MOE_TRAIN + GSPMD_FAMILY_TRAIN}
+    return out
+
+
+def _cut_config(arch: str, layers):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def _family_train_build(torch, **kw):
+    """``build_train_setup``'s options of main paths 13 and 15 (one
+    device) and 18 and 19 (``kw``: the GSPMD mode)."""
+    from repro_torch.configs import OptimizerConfig
+    return dict(global_batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ,
+                opt_cfg=OptimizerConfig(**LM_TRAIN_OPT),
+                steps_per_epoch=FAMILY_TRAIN_STEPS,
+                compute_dtype=torch.bfloat16, attention_impl="chunked",
+                use_fused_kernel=True, compression="bf16",
+                draw_device="cuda", device="cuda", **kw)
+
+
+def _serve_inputs(torch, cfg, dtype=None):
+    """Main path 12 / 14's requests (8 prompts of 1,024 tokens, a VLM's
+    patches, an audio model's frames) on the card, the patches and
+    frames in ``dtype`` (bf16)."""
+    from repro_torch.launch.serve import make_requests
+    req = make_requests(cfg, SERVE_BATCH, SERVE_PROMPT)
+    batch = {"tokens": torch.from_numpy(req.pop("tokens")).to("cuda")}
+    batch.update({k: torch.from_numpy(v).to("cuda", dtype or torch.bfloat16)
+                  for k, v in req.items()})
+    return batch
+
+
+def _last_logits(torch, prefill, params, cache, batch):
+    """The prefill's last-position logits, on the host in f32."""
+    logits, _ = prefill(params, cache, batch)
+    return logits[:, -1].float().cpu()
+
+
+def _rel(a, b) -> float:
+    return float((a - b).norm() / b.norm())
+
+
+def _greedy(torch, prefill, decode, params, cache, batch, steps: int,
+            libs=None, forced=None):
+    """A prefill and ``steps`` decode steps, each fed the last call's
+    argmax token or (``forced``, teacher forcing) ``forced[:, i]``:
+    (each call's last logits on the host in f32, the argmax tokens (B,
+    steps + 1), per-call ms, the launches of the prefill and of the
+    first decode step when ``libs`` is given)."""
+    counts, ms, out = {}, [], []
+    if libs is not None:
+        reset_counts(libs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, cache, batch)
+    torch.cuda.synchronize()
+    ms.append((time.perf_counter() - t0) * 1e3)
+    if libs is not None:
+        counts["prefill"] = read_counts(libs)
+    toks = []
+    for i in range(steps + 1):
+        out.append(logits[:, -1].float().cpu())
+        toks.append(torch.argmax(logits[:, -1], -1))
+        if i == steps:
+            break
+        if libs is not None and i == 0:
+            reset_counts(libs)
+        feed = toks[-1] if forced is None else forced[:, i]
+        t0 = time.perf_counter()
+        logits, cache = decode(params, cache, {
+            "tokens": feed[:, None],
+            "cache_index": batch["tokens"].shape[1] + i})
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if libs is not None and i == 0:
+            counts["decode"] = read_counts(libs)
+    return out, torch.stack(toks, 1), ms, counts
+
+
+def gspmd_family_refs(torch, out_dir: str, train, serve, witness=()):
+    """The one-device references of main paths 18 and 19, in the main
+    process before the spawn: for each ``train`` (arch, layers) the
+    first step of main path 13 / 15's run (its loss; its MoE routing
+    recorded, ``RouteTape``), for each ``serve`` (arch, layers) a
+    prefill of main path 12 / 14's requests and ``GSPMD_DECODE_STEPS``
+    greedy decode steps, bf16, flash (the logits, the tokens, the
+    routing of every MoE call), and for each ``witness`` (arch, layers)
+    the same prefill in f32 (its last logits, and their distance from
+    the bf16 prefill's: the scale of bf16's own rounding). Tapes and
+    logits go to ``out_dir`` for the workers; returns {key: record}."""
+    from repro_torch.launch.serve import build_serve_setup
+    from repro_torch.launch.train import build_train_setup
+    from repro_torch.models import layers as mlayers
+    from repro_torch.training.step import make_decode_step, make_prefill_step
+
+    refs = {}
+    for arch, layers in train:
+        cfg = _cut_config(arch, layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _, state, step, data, _, _ = build_train_setup(
+            cfg, dp_mode="none", **_family_train_build(torch))
+        tape = RouteTape(mlayers._route)
+        mlayers._route = tape
+        try:
+            state, met = step(state, data.batch_at(0))
+        finally:
+            mlayers._route = tape.route
+        refs[f"train {arch}"] = {
+            "loss": float(met["loss"]),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        torch.save([c.cpu() for c in tape.calls],
+                   os.path.join(out_dir, f"train_tape_{arch}.pt"))
+        del state, step, data, tape, met
+    for arch, layers in serve:
+        cfg = _cut_config(arch, layers)
+        torch.cuda.empty_cache()
+        model, params = build_serve_setup(
+            cfg, compute_dtype=torch.bfloat16, attention_impl="chunked",
+            device="cuda", draw_device="cuda")
+        cache, _ = model.cache_shape(SERVE_BATCH,
+                                     SERVE_PROMPT + GSPMD_DECODE_STEPS + 1,
+                                     torch.bfloat16)
+        tape = RouteTape(mlayers._route)
+        mlayers._route = tape
+        try:
+            logits, toks, ms, _ = _greedy(
+                torch, make_prefill_step(model), make_decode_step(model),
+                params, cache, _serve_inputs(torch, cfg), GSPMD_DECODE_STEPS)
+        finally:
+            mlayers._route = tape.route
+        torch.save({"logits": logits, "tokens": toks.cpu(),
+                    "tape": [c.cpu() for c in tape.calls]},
+                   os.path.join(out_dir, f"serve_{arch}.pt"))
+        refs[f"serve {arch}"] = {"tokens": toks.cpu().tolist(), "ms": ms}
+        del model, params, cache, logits, tape
+    for arch, layers in witness:
+        cfg = _cut_config(arch, layers)
+        torch.cuda.empty_cache()
+        model, params = build_serve_setup(
+            cfg, compute_dtype=torch.float32, attention_impl="chunked",
+            device="cuda", draw_device="cuda")
+        cache, _ = model.cache_shape(SERVE_BATCH,
+                                     SERVE_PROMPT + GSPMD_DECODE_STEPS + 1,
+                                     torch.float32)
+        got = _last_logits(torch, make_prefill_step(model), params, cache,
+                           _serve_inputs(torch, cfg, torch.float32))
+        torch.save(got, os.path.join(out_dir, f"serve32_{arch}.pt"))
+        bf16 = torch.load(os.path.join(out_dir, f"serve_{arch}.pt"))
+        refs[f"serve {arch}"]["bf16_vs_f32"] = _rel(bf16["logits"][0], got)
+        del model, params, cache, bf16
+    torch.cuda.empty_cache()
+    return refs
+
+
+def gspmd_family_worker(rank: int, out_dir: str, path: int) -> None:
+    """One of main path 18's (``path`` 18) or 19's two processes, both on
+    the one card, joined over gloo, ``--dp-mode gspmd --mesh 1x2``: each
+    train config of the path (``GSPMD_TRAIN_STEPS`` steps, the first
+    one's routing replayed from the one-device step's tape), then each
+    serve config's GSPMD prefill and ``GSPMD_DECODE_STEPS`` decode
+    steps fed the one-device run's greedy tokens (the routing replayed,
+    ``build_gspmd_serve_setup``'s weights, the cache placed by
+    ``place_cache``), the kernel counts set to 0 before each run and
+    read after it. Writes ``rank{rank}.json``: each run's record, with
+    its logits' errors and the greedy choices that differ from the
+    one-device run's."""
+    sys.path.insert(0, SRC)
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import shutdown
+    from repro_torch.launch.serve import build_gspmd_serve_setup
+    from repro_torch.launch.train import build_train_setup
+    from repro_torch.models import layers as mlayers
+    from repro_torch.training.gspmd import place_cache
+    from repro_torch.training.step import make_decode_step, make_prefill_step
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/store",
+                            rank=rank, world_size=GSPMD_WORKERS)
+    train, serve = ((GSPMD_MOE_TRAIN, GSPMD_MOE_SERVE) if path == 18 else
+                    (GSPMD_FAMILY_TRAIN, GSPMD_FAMILY_SERVE))
+    libs = kernel_libs()
+    out = {}
+    try:
+        for arch, layers in train:
+            cfg = _cut_config(arch, layers)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            _, state, step, data, _, _ = build_train_setup(
+                cfg, **_family_train_build(torch, dp_mode="gspmd",
+                                           mesh_shape=GSPMD_LM_MESH))
+            rec = {"setup_s": time.perf_counter() - t0}
+            tape = None
+            if cfg.n_experts:  # the first step routes as the reference's
+                tape = RouteTape(mlayers._route, replay=RouteTape(None))
+                tape.replay.calls = torch.load(
+                    os.path.join(out_dir, f"train_tape_{arch}.pt"),
+                    map_location="cuda")
+            torch.cuda.synchronize()
+            reset_counts(libs)
+            losses, times = [], []
+            for i in range(GSPMD_TRAIN_STEPS):
+                mlayers._route = tape if tape and i == 0 else mlayers._route
+                t0 = time.perf_counter()
+                try:
+                    state, met = step(state, data.batch_at(i))
+                finally:
+                    mlayers._route = getattr(tape, "route", mlayers._route)
+                losses.append(float(met["loss"]))
+                times.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            rec.update(losses=losses, step_ms=times,
+                       launches=read_counts(libs),
+                       median_step_ms=statistics.median(times[1:] or times),
+                       peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                       local_parameters=sum(p.to_local().numel() for p in
+                                            state["params"].values()))
+            if tape is not None:
+                rec["flipped_tokens"] = tape.flipped
+                rec["routed_tokens"] = tape.tokens
+            out[f"train {arch}"] = rec
+            del state, step, data
+            torch.cuda.empty_cache()
+        for arch, layers in serve:
+            cfg = _cut_config(arch, layers)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            model, params, mesh, rules = build_gspmd_serve_setup(
+                cfg, GSPMD_LM_MESH, compute_dtype=torch.bfloat16,
+                attention_impl="chunked", device="cuda", draw_device="cuda")
+            setup_s = time.perf_counter() - t0
+            ref = torch.load(os.path.join(out_dir, f"serve_{arch}.pt"))
+            cache, axes = model.cache_shape(
+                SERVE_BATCH, SERVE_PROMPT + GSPMD_DECODE_STEPS + 1,
+                torch.bfloat16)
+            cache = place_cache(cache, axes, mesh, rules)
+            tape = None
+            if cfg.n_experts:
+                tape = RouteTape(mlayers._route, replay=RouteTape(None))
+                tape.replay.calls = [c.to("cuda") for c in ref["tape"]]
+                mlayers._route = tape
+            try:
+                logits, toks, ms, counts = _greedy(
+                    torch, make_prefill_step(model, mesh, rules),
+                    make_decode_step(model, mesh, rules), params, cache,
+                    _serve_inputs(torch, cfg), GSPMD_DECODE_STEPS, libs,
+                    forced=ref["tokens"].to("cuda"))
+            finally:
+                mlayers._route = getattr(tape, "route", mlayers._route)
+            want, ref_toks = ref["logits"], ref["tokens"].cpu()
+            toks = toks.cpu()
+            # each greedy choice that differs: (step, row, the one-device
+            # logit gap between its own choice and this run's)
+            flips = [[t, r, float(want[t][r, ref_toks[r, t]]
+                                  - want[t][r, toks[r, t]])]
+                     for t in range(len(want)) for r in range(toks.shape[0])
+                     if toks[r, t] != ref_toks[r, t]]
+            rec = {"setup_s": setup_s, "prefill_ms": ms[0],
+                   "decode_ms": ms[1:], "launches": counts,
+                   "tokens": toks.tolist(), "flips": flips,
+                   "choices": toks.numel(),
+                   "max_abs_err": [float((a - b).abs().max())
+                                   for a, b in zip(logits, want)],
+                   "rel_norm": [_rel(a, b) for a, b in zip(logits, want)],
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                   "local_parameters": sum(p.to_local().numel()
+                                           for p in params.values())}
+            if tape is not None:
+                rec["flipped_tokens"] = tape.flipped
+                rec["routed_tokens"] = tape.tokens
+            out[f"serve {arch}"] = rec
+            del model, params, cache, ref, logits
+            torch.cuda.empty_cache()
+            if (arch, layers) in GSPMD_F32_WITNESS[path]:
+                # the same prefill in f32 against one device's in f32
+                model, params, mesh, rules = build_gspmd_serve_setup(
+                    cfg, GSPMD_LM_MESH, compute_dtype=torch.float32,
+                    attention_impl="chunked", device="cuda",
+                    draw_device="cuda")
+                cache, axes = model.cache_shape(
+                    SERVE_BATCH, SERVE_PROMPT + GSPMD_DECODE_STEPS + 1,
+                    torch.float32)
+                got = _last_logits(
+                    torch, make_prefill_step(model, mesh, rules), params,
+                    place_cache(cache, axes, mesh, rules),
+                    _serve_inputs(torch, cfg, torch.float32))
+                rec["f32_rel_norm"] = _rel(got, torch.load(os.path.join(
+                    out_dir, f"serve32_{arch}.pt")))
+                del model, params, cache
+                torch.cuda.empty_cache()
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        shutdown()
+
+
+def gspmd_family_path(torch, path: int, ref_losses=None):
+    """Main path 18 (``path`` 18: MoE under EP) or 19 (the VLM, zamba2,
+    xLSTM and whisper under TP): the one-device references
+    (``gspmd_family_refs``), then one spawn of ``gspmd_family_worker``.
+    Holds both workers' losses finite and equal, each config's first
+    loss within ``GSPMD_FAMILY_LOSS_RTOL`` of its one-device step
+    (``ref_losses``: main path 13 / 15's first losses by arch; a MoE
+    config's step runs again for its routing, logged beside them),
+    the logits of each prefill and teacher-forced decode step to the
+    one-device run's (``GSPMD_MOE_SERVE_TOL`` with the routing replayed,
+    the family's ``GSPMD_FAMILY_SERVE_TOL``), path 19's f32 prefill to
+    one device's f32 prefill (``GSPMD_F32_SERVE_TOL``), each greedy
+    choice the one-device run's but at a tie (``GSPMD_TIE_GAP``), and
+    each worker's launches: flash and
+    rmsnorm as ``lm_launches`` counts them on one device (the heads are
+    a worker's, the rows whole), one fused update a step. Returns
+    (launches of worker 0 summed over the runs, stats)."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    train, serve = ((GSPMD_MOE_TRAIN, GSPMD_MOE_SERVE) if path == 18 else
+                    (GSPMD_FAMILY_TRAIN, GSPMD_FAMILY_SERVE))
+    root = tempfile.mkdtemp(prefix=f"chip_smoke_gspmd{path}_")
+    t0 = time.perf_counter()
+    try:
+        # a MoE config's reference step is run again for its routing;
+        # the others' first losses are main path 15's
+        refs = gspmd_family_refs(
+            torch, root, [(a, n) for a, n in train
+                          if _cut_config(a, n).n_experts or
+                          a not in (ref_losses or {})], serve,
+            GSPMD_F32_WITNESS[path])
+        for arch, _ in train:
+            if f"train {arch}" not in refs:
+                refs[f"train {arch}"] = {"loss": ref_losses[arch]}
+        refs_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        log(f"  one-device references in {refs_s:.1f}s; this process "
+            f"holds {torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB on "
+            f"the card before the spawn")
+        t1 = time.perf_counter()
+        mp.spawn(gspmd_family_worker, args=(root, path),
+                 nprocs=GSPMD_WORKERS)
+        spawn_s = time.perf_counter() - t1
+        ranks = []
+        for r in range(GSPMD_WORKERS):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    total = None
+    for arch, layers in train:
+        cfg = _cut_config(arch, layers)
+        key = f"train {arch}"
+        recs = [rk[key] for rk in ranks]
+        want = {k: 0 for k in recs[0]["launches"]}
+        remat = cfg.n_layers > 8
+        want.update(lm_launches(cfg, GSPMD_TRAIN_STEPS, GSPMD_TRAIN_STEPS,
+                                GSPMD_TRAIN_STEPS if remat else 0))
+        want["hybrid_update"] = GSPMD_TRAIN_STEPS
+        ref = refs[key]["loss"]
+        rel = abs(recs[0]["losses"][0] - ref) / abs(ref)
+        recs[0]["first_loss_rel"] = rel
+        recs[0]["one_device_first_loss"] = ref
+        logged = (ref_losses or {}).get(arch)
+        log(f"  {key} ({cfg.n_layers} layers): losses {recs[0]['losses']}, "
+            f"step ms {[round(t, 1) for t in recs[0]['step_ms']]}, peak "
+            f"{recs[0]['peak_gib']:.2f} GiB, {recs[0]['local_parameters']} "
+            f"local parameters, launches {recs[0]['launches']} (want "
+            f"{want}); first loss {recs[0]['losses'][0]} vs one device "
+            f"{ref} (the earlier path's {logged}): rel {rel:.3g}"
+            + (f"; {recs[0]['flipped_tokens']} of {recs[0]['routed_tokens']}"
+               " token routings differ (replayed)"
+               if "flipped_tokens" in recs[0] else ""))
+        assert all(math.isfinite(v) for v in recs[0]["losses"]), recs
+        assert recs[0]["losses"] == recs[1]["losses"], recs
+        assert all(r["launches"] == want for r in recs), (recs, want)
+        assert rel <= GSPMD_FAMILY_LOSS_RTOL, (key, rel)
+        total = dict(recs[0]["launches"]) if total is None else {
+            k: total[k] + v for k, v in recs[0]["launches"].items()}
+    for arch, layers in serve:
+        cfg = _cut_config(arch, layers)
+        key = f"serve {arch}"
+        recs = [rk[key] for rk in ranks]
+        for phase, (fw, pre) in (("prefill", (1, 1)), ("decode", (1, 0))):
+            want = {k: 0 for k in recs[0]["launches"][phase]}
+            want.update(lm_launches(cfg, fw, pre))
+            assert all(r["launches"][phase] == want for r in recs), (
+                key, phase, [r["launches"] for r in recs], want)
+            total = {k: total[k] + v
+                     for k, v in recs[0]["launches"][phase].items()}
+        flips = recs[0]["flips"]
+        tol = (GSPMD_MOE_SERVE_TOL if path == 18 else
+               GSPMD_FAMILY_SERVE_TOL[arch])
+        witness = ("" if "f32_rel_norm" not in recs[0] else
+                   f"; in f32, prefill logits vs one device's in f32: rel "
+                   f"norm {recs[0]['f32_rel_norm']:.3g} (bound "
+                   f"{GSPMD_F32_SERVE_TOL}), one device's bf16 prefill vs "
+                   f"its f32 one {refs[key]['bf16_vs_f32']:.3g}")
+        log(f"  {key} ({cfg.n_layers} layers): prefill "
+            f"{recs[0]['prefill_ms']:.1f} ms, decode ms "
+            f"{[round(t, 1) for t in recs[0]['decode_ms']]}, set-up "
+            f"{recs[0]['setup_s']:.1f}s, peak {recs[0]['peak_gib']:.2f} GiB, "
+            f"{recs[0]['local_parameters']} local parameters, launches "
+            f"{recs[0]['launches']}; logits vs one device, the prefill's "
+            f"and each teacher-forced decode step's: rel norm "
+            f"{[float(f'{e:.3g}') for e in recs[0]['rel_norm']]} (bound "
+            f"{tol}), max abs error "
+            f"{[round(e, 4) for e in recs[0]['max_abs_err']]}{witness}; "
+            f"greedy "
+            f"choices (teacher-forced by one device's) differing: "
+            f"{len(flips)} of {recs[0]['choices']} {flips}"
+            + (f"; {recs[0]['flipped_tokens']} of {recs[0]['routed_tokens']}"
+               " token routings differ (replayed)"
+               if "flipped_tokens" in recs[0] else ""))
+        assert recs[0]["tokens"] == recs[1]["tokens"], key
+        assert all(gap <= GSPMD_TIE_GAP for _, _, gap in flips), (key,
+                                                                 flips)
+        assert max(recs[0]["rel_norm"]) <= tol, (key, recs[0]["rel_norm"])
+        if "f32_rel_norm" in recs[0]:
+            assert recs[0]["f32_rel_norm"] <= GSPMD_F32_SERVE_TOL, (
+                key, recs[0]["f32_rel_norm"])
+    for k in ("flash_attention", "rmsnorm", "hybrid_update"):
+        assert total[k] > 0, (path, k, total)
+    return total, {"workers": ranks, "one_device": refs,
+                   "refs_s": refs_s, "spawn_s": spawn_s,
+                   "path_s": time.perf_counter() - t0}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -5594,6 +6227,15 @@ def main() -> int:
         "(16 / 4 of llama3.2-1b's 32 / 8, Dh 64), rmsnorm at its rows, "
         "hybrid_update over one TP worker's shards vs plain versions")
     slice17 = slice17_kernel_phase(torch)
+    log(f"  ({time.perf_counter() - t0:.1f}s)")
+    t0 = time.perf_counter()
+    log("[3i] flash_attention (bf16) at main paths 18 and 19's "
+        "worker-local heads (mixtral 16 / 4, maverick 20 / 4, phi-3-vision "
+        "16 at Dh 96, zamba2 16 at Dh 112, whisper-tiny 3 of 6), rmsnorm "
+        "at their rows (zamba2's and xLSTM's whole-row out_norm), "
+        "hybrid_update over one worker's shards of each config they train "
+        "vs plain versions")
+    slice18 = slice18_kernel_phase(torch)
     log(f"  ({time.perf_counter() - t0:.1f}s)")
 
     t0 = time.perf_counter()
@@ -5894,6 +6536,29 @@ def main() -> int:
     launches17, stats17 = gspmd_lm_path(
         torch, stats10["one_device"]["losses"][0])
     log(f"  ({time.perf_counter() - t0:.1f}s)")
+    t0 = time.perf_counter()
+    log(f"[24] main path 18: MoE under --dp-mode gspmd --mesh 1x2 (EP 2), "
+        f"two processes on the one card over gloo, bf16, flash on each "
+        f"worker's heads: {MOE_TRAIN_ARCH} trained at {MOE_TRAIN_LAYERS} of "
+        f"32 layers, {GSPMD_TRAIN_STEPS} steps of main path 13's batch "
+        f"(the first step's routing replayed from one device); the GSPMD "
+        f"prefill of main path 12's requests and {GSPMD_DECODE_STEPS} "
+        f"greedy decode steps for mixtral-8x7b at 8 of 32 layers and "
+        f"llama4-maverick at one group (the routing replayed)")
+    launches18, stats18 = gspmd_family_path(
+        torch, 18, {MOE_TRAIN_ARCH: stats13["one_device"]["losses"][0]})
+    log(f"  ({time.perf_counter() - t0:.1f}s)")
+    t0 = time.perf_counter()
+    log(f"[25] main path 19: phi-3-vision, zamba2-7b, xlstm-350m and "
+        f"whisper-tiny under --dp-mode gspmd --mesh 1x2 (TP 2) at main "
+        f"path 15's depths, two processes on the one card over gloo, bf16: "
+        f"{GSPMD_TRAIN_STEPS} steps of main path 15's batch, then the GSPMD "
+        f"prefill of main path 14's requests and {GSPMD_DECODE_STEPS} "
+        f"greedy decode steps")
+    launches19, stats19 = gspmd_family_path(
+        torch, 19, {arch: stats15[arch]["one_device"]["losses"][0]
+                    for arch, _ in FAMILY_TRAIN})
+    log(f"  ({time.perf_counter() - t0:.1f}s)")
     launches5 = sync_stats["path5_launches"]
     launches6 = overlap_stats["path6_launches"]
     by_path = {k: {"path2": launches[k], "path3": launches3[k],
@@ -5916,7 +6581,9 @@ def main() -> int:
                       for a in launches15 for run in launches15[a]},
                    "path10_remat": remat10["remat"]["launches"][k],
                    "path10_no_remat": remat10["no_remat"]["launches"][k],
-                   "path16": launches16[k], "path17": launches17[k]}
+                   "path16": launches16[k], "path17": launches17[k],
+                   "path18": launches18.get(k, 0),
+                   "path19": launches19.get(k, 0)}
                for k in launches}
     kernels = [{"name": k, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[k], "launches": launches[k],
@@ -5964,6 +6631,8 @@ def main() -> int:
             rec["slice15"] = slice15[rec["name"]]
         if rec["name"] in slice17:
             rec["slice17"] = slice17[rec["name"]]
+        if rec["name"] in slice18:
+            rec["slice18"] = slice18[rec["name"]]
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke_kernels.json"),
@@ -5993,7 +6662,10 @@ def main() -> int:
                        "reference_14": ref14, "main_path_15": stats15,
                        "slice17_kernels": slice17, "remat_10": remat10,
                        "main_path_16": stats16,
-                       "main_path_17": stats17}, f,
+                       "main_path_17": stats17,
+                       "slice18_kernels": slice18,
+                       "main_path_18": stats18,
+                       "main_path_19": stats19}, f,
                       indent=1)
     log(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))

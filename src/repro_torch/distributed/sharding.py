@@ -31,16 +31,29 @@ redistributes a DTensor activation to ``prune_spec(spec_for(axes))``
 (a Partial sum left by a row-parallel product is reduced there, as
 XLA's partitioner does at a ``with_sharding_constraint``); outside one,
 or for a plain tensor, it is the identity. ``local_apply`` runs a
-function (a hand-written kernel's wrapper) on the local shards of its
-DTensor arguments (``local_map``), with the gradient placements that
-make each input's gradient whole: an input replicated over a mesh dim
-on which the output is sharded gets a Partial gradient there.
+function (a hand-written kernel's wrapper, or a loop DTensor has no
+rules for: the MoE routing, the recurrences of the SSM families) on the
+local shards of its DTensor arguments (``local_map``), with the
+gradient placements that make each input's gradient whole: an input
+replicated over a mesh dim on which the output is sharded or a Partial
+sum gets a Partial gradient there.
+
+Every placement change goes through ``redistribute``: a shard is
+gathered by ``dist.all_gather`` (the list form), a new shard is this
+worker's cut (its gradient a Partial sum), a Partial sum is
+all-reduced. gloo takes a CUDA tensor's all-reduce and list all-gather,
+but DTensor's own all-gather of one through it (the single-tensor form)
+crashes, and the card's multi-process paths run gloo. ``whole``
+makes tensor dims whole (a row a normalization reads), ``split_whole``
+the pieces of a packed projection, ``relaid`` / ``placed_like`` lay a
+tensor out as another (the heads of ``heads_placements``) before a
+``local_apply``, and ``assign`` writes a placed cache in place.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
-import threading
+import types
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
@@ -48,7 +61,10 @@ import torch
 Spec = Tuple[Any, ...]
 Rules = Dict[str, Any]
 
-_STATE = threading.local()
+# the active (mesh, rules): process-wide, not per thread, so that the
+# backward's recompute of a checkpointed layer, which a CUDA device's
+# autograd thread runs, places its activations as the forward did
+_STATE = types.SimpleNamespace(ctx=None)
 
 
 def mesh_shape(mesh) -> Dict[str, int]:
@@ -252,10 +268,8 @@ def constrain(x, axes: Sequence[Optional[str]]):
     if ctx is None or not is_dtensor(x):
         return x
     mesh, rules = ctx
-    want = placements(prune_spec(x.shape, spec_for(axes, rules), mesh), mesh)
-    if tuple(x.placements) == want:
-        return x
-    return x.redistribute(mesh, want)
+    return redistribute(x, placements(
+        prune_spec(x.shape, spec_for(axes, rules), mesh), mesh))
 
 
 def current_rules() -> Optional[Rules]:
@@ -265,30 +279,203 @@ def current_rules() -> Optional[Rules]:
 
 def _grad_placements(p_in: Tuple, p_out: Tuple) -> Tuple:
     """The placements of an input's local gradient: Partial where the
-    input is replicated but the output sharded (each shard of the
-    output gives part of the gradient), the input's own elsewhere."""
+    input is replicated but the output sharded or a Partial sum (each
+    worker's part of the output gives part of the gradient), the
+    input's own elsewhere."""
     from torch.distributed.tensor import Partial
-    return tuple(Partial() if a.is_replicate() and b.is_shard() else a
-                 for a, b in zip(p_in, p_out))
+    return tuple(Partial() if a.is_replicate() and not b.is_replicate()
+                 else a for a, b in zip(p_in, p_out))
 
 
-def local_apply(fn, *args, like: int = 0, **kwargs):
+def local_apply(fn, *args, like: int = 0, out: Optional[Tuple] = None,
+                outs: Optional[Sequence] = None, **kwargs):
     """``fn(*args, **kwargs)`` on the local shards of the DTensor
-    ``args`` (``local_map``); the output is a DTensor with
-    ``args[like]``'s placements. With no DTensor argument it is the
-    plain call. Plain tensors (and other values) pass as they are."""
+    ``args`` (``local_map``); the output is a DTensor with ``out``'s
+    placements (None: ``args[like]``'s), or, with ``outs`` (one
+    placements tuple per output), ``fn`` returns a tuple placed so. The
+    gradient placements follow the (first) output. With no DTensor
+    argument it is the plain call. Plain tensors (and other values)
+    pass as they are."""
     from torch.distributed.tensor.experimental import local_map
     if not any(is_dtensor(a) for a in args):
         return fn(*args, **kwargs)
-    ref = args[like]
-    out = tuple(ref.placements)
+    mesh = next(a for a in args if is_dtensor(a)).device_mesh
+    if outs is not None:
+        placed = tuple(tuple(o) for o in outs)
+        first = placed[0]
+    else:
+        first = tuple(args[like].placements) if out is None else tuple(out)
+        placed = list(first)
     ins = tuple(tuple(a.placements) if is_dtensor(a) else None
                 for a in args)
-    grads = tuple(None if p is None else _grad_placements(p, out)
+    grads = tuple(None if p is None else _grad_placements(p, first)
                   for p in ins)
-    return local_map(functools.partial(fn, **kwargs), out_placements=list(out),
+    return local_map(functools.partial(fn, **kwargs), out_placements=placed,
                      in_placements=ins, in_grad_placements=grads,
-                     device_mesh=ref.device_mesh)(*args)
+                     device_mesh=mesh)(*args)
+
+
+class _GatherDim(torch.autograd.Function):
+    """The shards of a group's ``n`` workers along ``dim`` concatenated
+    in group-rank order (``dist.all_gather``, the list form); the
+    gradient is this worker's slice of the whole one."""
+
+    @staticmethod
+    def forward(ctx, t, group, dim: int, index: int, n: int):
+        import torch.distributed as dist
+        ctx.dim, ctx.lo, ctx.size = dim, index * t.shape[dim], t.shape[dim]
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t, group=group)
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.lo, ctx.size), None, None, None, None
+
+
+def _set(pl: Tuple, i: int, p) -> Tuple:
+    return tuple(p if j == i else q for j, q in enumerate(pl))
+
+
+def _gather(x, i: int):
+    """``x``'s shard over mesh dim ``i`` gathered whole (``_GatherDim``)."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh, pl = x.device_mesh, tuple(x.placements)
+    d, group = pl[i].dim, mesh.get_group(i)
+    index, n = mesh.get_local_rank(i), mesh.size(i)
+    return local_map(lambda t: _GatherDim.apply(t, group, d, index, n),
+                     out_placements=list(_set(pl, i, Replicate())),
+                     in_placements=(pl,), in_grad_placements=(pl,),
+                     device_mesh=mesh)(x)
+
+
+def _cut(x, i: int, d: int):
+    """``x``, whole over mesh dim ``i``, cut to this worker's slice of
+    its dim ``d``; the gradient a Partial sum of zero-padded slices."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh, pl = x.device_mesh, tuple(x.placements)
+    n = x.to_local().shape[d] // mesh.size(i)
+    lo = mesh.get_local_rank(i) * n
+    return local_map(lambda t: t.narrow(d, lo, n),
+                     out_placements=list(_set(pl, i, Shard(d))),
+                     in_placements=(pl,),
+                     in_grad_placements=(_set(pl, i, Partial()),),
+                     device_mesh=mesh)(x)
+
+
+def redistribute(x, want: Tuple):
+    """``x.redistribute(mesh, want)`` by all-reduces, list all-gathers
+    and local slices: a Partial sum all-reduced, a shard that moves or
+    goes gathered whole (``_gather``), a new shard cut from the whole
+    (``_cut``). gloo takes a CUDA tensor's all-reduce and list
+    all-gather, but DTensor's all-gather of one through it crashes, so
+    every placement change of the GSPMD steps comes here. A plain ``x``
+    is returned as it is."""
+    if not is_dtensor(x) or tuple(x.placements) == tuple(want):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    cur = tuple(x.placements)
+    if any(isinstance(w, Shard) and x.shape[w.dim] % mesh.size(i) or
+           w.is_partial() and not p.is_partial()
+           for i, (p, w) in enumerate(zip(cur, want))):
+        return x.redistribute(mesh, tuple(want))  # uneven: DTensor's own
+    mid = tuple(Replicate() if p.is_partial() and not w.is_partial() else p
+                for p, w in zip(cur, want))
+    if mid != cur:
+        x = x.redistribute(mesh, mid)
+    for i, w in enumerate(want):
+        if isinstance(x.placements[i], Shard) and x.placements[i] != w:
+            x = _gather(x, i)
+    for i, w in enumerate(want):
+        if isinstance(w, Shard) and x.placements[i] != w:
+            x = _cut(x, i, w.dim)
+    return x
+
+
+def split_whole(x, sizes: Sequence[int], dim: int = -1):
+    """``torch.split(x, sizes, dim)`` of ``x`` made whole along ``dim``:
+    the pieces of a packed projection whose columns are cut elsewhere
+    than between its pieces. On a DTensor the gather and the split are
+    one local op (``local_map``), so each piece's gradient is taken
+    whole (a Partial sum all-reduced) before it is put back into the
+    shard; the pieces keep ``x``'s other placements."""
+    if not is_dtensor(x):
+        return torch.split(x, list(sizes), dim)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    d = dim % x.dim()
+    mesh, pl = x.device_mesh, tuple(x.placements)
+    cut = [i for i, p in enumerate(pl) if isinstance(p, Shard) and p.dim == d]
+    if any(x.shape[d] % mesh.size(i) for i in cut):
+        return split_whole(whole(x, d), sizes, d)
+    out = tuple(Replicate() if i in cut else p for i, p in enumerate(pl))
+
+    def fn(t):
+        for i in reversed(cut):  # the minor mesh dim first
+            t = _GatherDim.apply(t, mesh.get_group(i), d,
+                                 mesh.get_local_rank(i), mesh.size(i))
+        return tuple(torch.split(t, list(sizes), d))
+
+    return local_map(fn, out_placements=(out,) * len(sizes),
+                     in_placements=(pl,), in_grad_placements=(pl,),
+                     device_mesh=mesh)(x)
+
+
+def whole(x, *dims: int):
+    """The DTensor ``x`` with its tensor dims ``dims`` whole on every
+    worker (a Partial sum reduced too): its other placements kept. A
+    plain tensor is returned as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    dims = tuple(d % x.dim() for d in dims)
+    return redistribute(x, tuple(
+        Replicate() if p.is_partial() or (isinstance(p, Shard) and
+                                          p.dim in dims) else p
+        for p in x.placements))
+
+
+def remap(pl: Tuple, dims: Dict[int, int]) -> Tuple:
+    """Placements for another tensor: where ``pl`` shards tensor dim d
+    and d is in ``dims``, ``Shard(dims[d])``; ``Replicate()``
+    elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(Shard(dims[p.dim]) if isinstance(p, Shard) and p.dim in dims
+                 else Replicate() for p in pl)
+
+
+def relaid(t, mesh, pl: Tuple):
+    """``t`` with placements ``pl`` on ``mesh``: a DTensor redistributed,
+    a plain tensor (whole on every worker) sliced (nothing sent)."""
+    if is_dtensor(t):
+        return redistribute(t, tuple(pl))
+    return distribute_local(t.contiguous(), mesh, tuple(pl))
+
+
+def placed_like(t, x, dims: Dict[int, int]):
+    """``t`` placed as the DTensor ``x`` is (``remap(x.placements,
+    dims)``); ``t`` itself when ``x`` is plain."""
+    if t is None or not is_dtensor(x):
+        return t
+    return relaid(t, x.device_mesh, remap(x.placements, dims))
+
+
+def heads_placements(x, n_heads: int, axis: str) -> Tuple:
+    """The placements of a ``(B, S, n_heads, ...)`` activation of the
+    DTensor ``x``'s rows (x's dim 0) whose heads (dim 2) split over the
+    mesh axes of the logical ``axis``, pruned to what divides
+    ``n_heads``; a ``(B, S, n_heads * dh)`` one splits the same way."""
+    ctx = getattr(_STATE, "ctx", None)
+    if ctx is None:
+        return remap(x.placements, {0: 0})
+    mesh, rules = ctx
+    spec = prune_spec((x.shape[0], x.shape[1], n_heads),
+                      spec_for(("batch", None, axis), rules), mesh)
+    return placements(spec, mesh)
 
 
 def local_slice(t: torch.Tensor, mesh, placements) -> torch.Tensor:
@@ -309,14 +496,15 @@ def distribute_local(t: torch.Tensor, mesh, placements):
                               stride=t.stride())
 
 
-def rows_like(t: torch.Tensor, x) -> Any:
-    """A plain tensor whose dim 0 runs over the rows of the DTensor
-    ``x`` (positions of a batch), as a DTensor sharded on that dim as
-    ``x`` is on its dim 0 and replicated elsewhere; ``t`` itself when
-    ``x`` is plain."""
-    if not is_dtensor(x):
-        return t
-    from torch.distributed.tensor import Replicate, Shard
-    pl = tuple(Shard(0) if p == Shard(0) else Replicate()
-               for p in x.placements)
-    return distribute_local(t.contiguous(), x.device_mesh, pl)
+def assign(dst, src) -> None:
+    """``dst.copy_(src)``: ``dst`` a view of a buffer written in place
+    (a cache's rows), in its dtype. A DTensor ``dst`` is written on each
+    worker's own shard: ``src`` is redistributed to its placements
+    first (a plain ``src``, whole on every worker, sliced)."""
+    if is_dtensor(dst):
+        if is_dtensor(src):
+            src = redistribute(src, tuple(dst.placements)).to_local()
+        else:
+            src = local_slice(src, dst.device_mesh, dst.placements)
+        dst = dst.to_local()
+    dst.copy_(src)

@@ -57,6 +57,56 @@ def build_serve_setup(cfg, *, seed: int = 0, compute_dtype=torch.float32,
     return model, params
 
 
+def build_gspmd_serve_setup(cfg, mesh_shape: Tuple[int, int], *,
+                            seed: int = 0, compute_dtype=torch.float32,
+                            attention_impl: str = "naive",
+                            device: DeviceLike = "cuda",
+                            draw_device: DeviceLike = "cpu") -> Tuple:
+    """(model, params, mesh, rules) for one worker of a GSPMD serving
+    session (``make_prefill_step(model, mesh, rules)``, the cache placed
+    by ``gspmd.place_cache``): the workers join (``init_workers``) and
+    lay out over ("data", "model") as ``mesh_shape``, "model" the
+    tensor-parallel axis (the launcher's rules: Megatron TP, MoE expert
+    parallelism or TP inside the experts, the SSM families' heads). The
+    weights are ``build_serve_setup``'s (drawn on ``draw_device``, each
+    leaf cast as it is drawn), gathered on the host by one worker at a
+    time, each worker moving only its own slice of every leaf to its
+    device: a card the workers share holds one f32 leaf of the draw
+    beside the slices (llama4-maverick's one group is 35 GiB in bf16,
+    one expert leaf 20 GiB in f32)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.distributed import init_workers
+    from repro_torch.distributed.process_group import device_mesh
+    from repro_torch.distributed.sharding import (local_slice, make_rules,
+                                                  tree_shardings)
+    from repro_torch.launch.train import MESH_AXES
+    dev = init_workers(device)
+    mesh = device_mesh(tuple(mesh_shape), MESH_AXES, device_type=dev.type)
+    rules = make_rules(cfg, mesh, ParallelConfig(
+        dp_axes=("data",), tp_axis="model", compression="none"))
+    model = build_model(cfg, compute_dtype=compute_dtype,
+                        attention_impl=attention_impl, device=dev)
+    host = build_model(cfg, compute_dtype=compute_dtype, device="cpu")
+    placed = {}
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            params, axes = host.init_params(seed, draw_device=draw_device,
+                                            dtype=compute_dtype)
+            shardings = tree_shardings(axes, mesh, rules)
+            for k in list(params):
+                v, pl = params.pop(k), tuple(shardings[k])
+                placed[k] = DTensor.from_local(
+                    local_slice(v, mesh, pl).to(dev, copy=True), mesh, pl,
+                    shape=v.shape, stride=v.stride())
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return model, placed, mesh, rules
+
+
 def make_requests(cfg, batch: int, prompt_len: int, seed: int = 0
                   ) -> Dict[str, np.ndarray]:
     """The JAX package's serving inputs, bit for bit: ``tokens`` (the

@@ -7,8 +7,10 @@ step-driven ``run_training``, no eval). On one device (``--dp-mode
 none``, or the default ``--dp-mode gspmd`` without ``--mesh``),
 data-parallel with one process per worker (``--dp-mode shardmap``, the
 paper's own run), or under ``--dp-mode gspmd --mesh DxM``: the GSPMD
-step on a DTensor mesh, its "model" axis Megatron tensor parallel for
-the dense family (``training/gspmd.py``).
+step on a DTensor mesh, its "model" axis tensor parallel for every
+LM family (Megatron TP, MoE expert parallelism or TP inside the
+experts, the SSM families on each worker's heads;
+``training/gspmd.py``).
 ``--optimizer lars`` on the bucketed DP path runs LARS on the packed
 gradient stream (the stream-LARS kernels with ``--use-fused-kernel``).
 ``--sync-bn`` makes every BN site cross-replica over the workers, and
@@ -249,9 +251,10 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
     returns ``interop.MeshSharding()`` as ``state_shardings``; the step
     is ``make_train_step(..., mesh, rules)`` (``training/gspmd.py``).
     Under a model axis of more than one worker the conv family keeps its
-    weights replicated (its rules) and the dense family is Megatron
-    tensor parallel; the other families raise (ROADMAP queue 1, item
-    15.7). As in the JAX package it refuses ``overlap_comm``,
+    weights replicated (its rules) and every other family is tensor
+    parallel by its rules: Megatron TP, the MoE experts over the axis
+    (EP) or their ``ffn`` (TP inside the experts), the SSM families'
+    "inner" dims. As in the JAX package it refuses ``overlap_comm``,
     ``zero_dp``, ``error_feedback``, ``hier_split`` and fused input, and
     ignores "+bucketed" (its wire dtype applies). ``zero_1`` (GSPMD on
     a mesh only; the JAX launcher leaves it off) places the optimizer
@@ -269,7 +272,7 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
                          "mesh_shape (the DP step's ZeRO is zero_dp)")
     if dp_mode == "gspmd":
         _gspmd_checks(overlap_comm, zero_dp, error_feedback, hier_split,
-                      input_cfg, cfg.family, mesh_shape)
+                      input_cfg)
         if mesh_shape is None:  # the one-device step
             dp_mode = "none"
             compression = parse_compression(compression)[0] or "none"
@@ -438,9 +441,8 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
 
 
 def _gspmd_checks(overlap_comm: bool, zero_dp: bool, error_feedback: bool,
-                  hier_split, input_cfg, family: str, mesh_shape) -> None:
-    """The JAX launcher's refusals of the GSPMD mode, in its words, and
-    the families whose tensor parallelism is not ported."""
+                  hier_split, input_cfg) -> None:
+    """The JAX launcher's refusals of the GSPMD mode, in its words."""
     if hier_split is not None:
         raise ValueError(
             "hier_split reschedules explicit per-bucket collectives, "
@@ -468,14 +470,6 @@ def _gspmd_checks(overlap_comm: bool, zero_dp: bool, error_feedback: bool,
             "error_feedback is only implemented for the explicit "
             "shard_map DP mode on a mesh (dp_mode='shardmap'); the "
             "GSPMD path has no worker-local gradients to correct")
-    if mesh_shape is not None and len(mesh_shape) == len(MESH_AXES) and \
-            int(mesh_shape[1]) > 1 and family not in ("conv", "dense"):
-        raise NotImplementedError(
-            f"arch family {family!r} under a model axis of "
-            f"{mesh_shape[1]} workers: tensor parallelism is ported for "
-            "the conv and dense families only; MoE EP, the VLM "
-            "frontend, zamba2, xLSTM and whisper under TP are ROADMAP "
-            "queue 1, item 15.7 (a pure-DP Dx1 mesh runs every family)")
 
 
 def _build_gspmd(cfg, mesh_sizes, global_batch, seq_len, opt_cfg,

@@ -48,7 +48,8 @@ class LeafDraw:
         return cls(gen.manual_seed(seed), device, dtype)
 
     def put(self, t: Tensor) -> Tensor:
-        return t.to(self.device, self.dtype or t.dtype)
+        # cast where the leaf was drawn, then move the cast bytes
+        return t.to(self.dtype or t.dtype).to(self.device)
 
 
 def prefixed(prefix: str, tree: Dict[str, Tensor]) -> Dict[str, Tensor]:
@@ -138,23 +139,30 @@ def apply_norm(p: Dict[str, Tensor], x: Tensor, kind: str,
     rounding order: ``inv`` is rounded to x's dtype before ``x * inv``
     (``round_inv=True``; the Pallas kernel's order rounds ``x * inv``
     instead). ``layernorm`` stays plain PyTorch, in the JAX package's op
-    order. On a DTensor ``x`` (the GSPMD step; rows split, features
-    whole) the kernel runs on each worker's rows (``local_apply``)."""
-    dtype = x.dtype
+    order. On a DTensor ``x`` (the GSPMD steps; rows split, features
+    whole) either runs on each worker's rows (``local_apply``), so its
+    backward takes the output's gradient whole (a Partial sum
+    all-reduced)."""
+    from repro_torch.distributed.sharding import local_apply
     if kind == "rmsnorm":
-        from repro_torch.distributed.sharding import local_apply
         from repro_torch.kernels.ops import rmsnorm
         return local_apply(rmsnorm, x, p["scale"], eps=eps, round_inv=True)
     if kind == "layernorm":
-        x32 = x.float()
-        mean = x32.mean(-1, keepdim=True)
-        mean_sq = x32.square().mean(-1, keepdim=True)
-        var = torch.clamp(mean_sq - mean.square(), min=0.0)
-        inv = torch.rsqrt(var + eps).to(dtype)
-        y = (x - mean.to(dtype)) * inv
-        y = y * p["scale"].to(dtype) + p["bias"].to(dtype)
-        return y.to(dtype)
+        return local_apply(_layernorm, x, p["scale"], p["bias"], eps=eps)
     raise ValueError(kind)
+
+
+def _layernorm(x: Tensor, scale: Tensor, bias: Tensor, eps: float
+               ) -> Tensor:
+    dtype = x.dtype
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    mean_sq = x32.square().mean(-1, keepdim=True)
+    var = torch.clamp(mean_sq - mean.square(), min=0.0)
+    inv = torch.rsqrt(var + eps).to(dtype)
+    y = (x - mean.to(dtype)) * inv
+    y = y * scale.to(dtype) + bias.to(dtype)
+    return y.to(dtype)
 
 
 def checkpointed(fn: Callable, *args):

@@ -29,10 +29,12 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (
+    assign,
     constrain,
     is_dtensor,
     local_apply,
-    rows_like,
+    placed_like,
+    whole,
 )
 from repro_torch.models import common
 from repro_torch.models.common import dense, gelu
@@ -52,7 +54,7 @@ def rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
     ``x`` (the GSPMD step) is rotated shard by shard, its positions
     split over the rows as its batch is."""
     if is_dtensor(x):
-        return local_apply(rope, x, rows_like(positions, x), theta)
+        return local_apply(rope, x, placed_like(positions, x, {0: 0}), theta)
     half = x.shape[-1] // 2
     freqs = theta ** (-torch.arange(half, dtype=torch.float32,
                                     device=x.device) / half)
@@ -326,28 +328,23 @@ def attention_apply(
         idx = int(cache_index)
         if x.shape[1] == 1:  # decode
             write = idx % cache_len if window else idx
-            cache["k"][:, write] = k[:, 0].to(cache["k"].dtype)
-            cache["v"][:, write] = v[:, 0].to(cache["v"].dtype)
+            _cache_write(cache, write, k, v)
             new_cache = cache
             valid = torch.full((x.shape[0],), min(idx + 1, cache_len),
                                device=x.device)
-            out = decode_attention(q, cache["k"].to(q.dtype),
-                                   cache["v"].to(q.dtype), valid,
-                                   None)  # the ring IS the window
+            out = _local_attention(
+                decode_attention, q, cache["k"].to(q.dtype),
+                cache["v"].to(q.dtype), placed_like(valid, q, {0: 0}),
+                None)  # the ring IS the window
         else:  # prefill into cache (keep the last cache_len positions)
-            k_in, v_in = k, v
-            if k.shape[1] > cache_len:
-                k_in, v_in = k[:, -cache_len:], v[:, -cache_len:]
+            keep = min(k.shape[1], cache_len)
             # jax.lax.dynamic_update_slice clamps the start so the update
             # fits inside the cache
-            start = min(idx, cache_len - k_in.shape[1])
-            end = start + k_in.shape[1]
-            cache["k"][:, start:end] = k_in.to(cache["k"].dtype)
-            cache["v"][:, start:end] = v_in.to(cache["v"].dtype)
+            _cache_write(cache, min(idx, cache_len - keep), k, v, keep)
             new_cache = cache
-            out = chunked(q, k, v, causal=causal, window=window) \
-                if impl.startswith("chunked") else \
-                naive_attention(q, k, v, causal=causal, window=window)
+            out = _local_attention(
+                chunked if impl.startswith("chunked") else naive_attention,
+                q, k, v, causal=causal, window=window)
     else:
         fn = chunked if impl.startswith("chunked") else naive_attention
         if impl.startswith("chunked") and (x.shape[1] < 128 or
@@ -363,17 +360,30 @@ def attention_apply(
     return constrain(y, ("batch", "seq", "embed")), new_cache
 
 
-def _local_attention(fn, q: Tensor, k: Tensor, v: Tensor, **kw) -> Tensor:
-    """``fn(q, k, v)``; on DTensors (the GSPMD step) on each worker's
-    heads: q, k and v must split their heads over the same mesh axes
-    (or the kv heads be a single one), so that query head h still reads
-    kv head h // group within a shard."""
+def _local_attention(fn, q: Tensor, k: Tensor, v: Tensor, *args,
+                     **kw) -> Tensor:
+    """``fn(q, k, v, *args)``; on DTensors (the GSPMD steps) on each
+    worker's heads: q, k and v (or the KV cache) must split their heads
+    over the same mesh axes (or the kv heads be a single one), so that
+    query head h still reads kv head h // group within a shard."""
     if is_dtensor(q) and k.shape[2] > 1 and tuple(q.placements) != tuple(
             k.placements):
         raise NotImplementedError(
             f"attention with q placed {q.placements} and kv placed "
             f"{k.placements}: the heads of q and kv must shard alike")
-    return local_apply(fn, q, k, v, **kw)
+    return local_apply(fn, q, k, v, *args, **kw)
+
+
+def _cache_write(cache: Params, start: int, k: Tensor, v: Tensor,
+                 keep: Optional[int] = None) -> None:
+    """``cache["k"][:, start:start + n] = k[:, -n:]`` (and v), n = ``keep``
+    or all of k's positions, in the cache's dtype. A placed cache (the
+    GSPMD serve steps) is written on each worker's own rows and kv heads
+    by its own k and v, which the cache's placements redistribute."""
+    n = k.shape[1] if keep is None else keep
+    for name, new in (("k", k), ("v", v)):
+        buf = cache[name]
+        assign(buf[:, start:start + n], new[:, new.shape[1] - n:])
 
 
 # ---------------------------------------------------------------------------
@@ -495,6 +505,52 @@ def _route(probs: Tensor, k: int, cap: int, dt) -> Tuple[Tensor, Tensor]:
     return dispatch, gates_full
 
 
+def _router(xg: Tensor, router: Tensor, k: int, cap: int
+            ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The router of some token groups: ``(probs, density, dispatch,
+    combine)``, the f32 softmax of the router logits, each group's share
+    of tokens whose first choice is each expert, ``_route``'s dispatch
+    one-hots and the combine one-hots (dispatch x the kept gates)."""
+    e = router.shape[-1]
+    logits = torch.einsum("gsd,de->gse", xg, router.to(xg.dtype))
+    probs = torch.softmax(logits.float(), dim=-1)
+    density = F.one_hot(probs.argmax(-1), e).to(torch.float32).mean(dim=1)
+    # looked up at call time: a caller may stand in for the routing
+    dispatch, gates_full = _route(probs, k, cap, xg.dtype)
+    combine = dispatch * gates_full[..., None].to(xg.dtype)
+    return probs, density, dispatch, combine
+
+
+def _experts(xg: Tensor, dispatch: Tensor, combine: Tensor, w_up: Tensor,
+             w_down: Tensor, w_gate: Optional[Tensor] = None) -> Tensor:
+    """The experts' MLPs of the dispatched tokens, combined back into
+    the groups (four einsums). On a worker that holds some of the
+    experts (EP) or a slice of each one's ``ffn`` (TP) the result is its
+    part of the sum over them."""
+    dt = xg.dtype
+    xe = torch.einsum("gsec,gsd->gecd", dispatch, xg)
+    if w_gate is not None:
+        h = F.silu(torch.einsum("gecd,edf->gecf", xe, w_gate.to(dt)))
+        h = h * torch.einsum("gecd,edf->gecf", xe, w_up.to(dt))
+    else:
+        h = gelu(torch.einsum("gecd,edf->gecf", xe, w_up.to(dt)))
+    ye = torch.einsum("gecf,efd->gecd", h, w_down.to(dt))
+    return torch.einsum("gsec,gecd->gsd", combine, ye)
+
+
+def _regroup(x: Tensor, rows: int) -> Tensor:
+    """``x`` reshaped to ``(-1, rows, d)`` (tokens cut into groups, or
+    groups put back into sequences). A DTensor is reshaped on each
+    worker's rows; when its rows do not make whole groups they are
+    gathered first."""
+    d = x.shape[-1]
+    if not is_dtensor(x):
+        return x.reshape(-1, rows, d)
+    if x.to_local().numel() % (rows * d):
+        x = whole(x, 0)
+    return local_apply(lambda t: t.reshape(-1, rows, d), x)
+
+
 def moe_apply(p: Params, x: Tensor, cfg: ModelConfig,
               capacity_factor: Optional[float] = None
               ) -> Tuple[Tensor, Tensor]:
@@ -507,46 +563,52 @@ def moe_apply(p: Params, x: Tensor, cfg: ModelConfig,
     tokens reach their experts and come back through the dispatch and
     combine (dispatch x gate) one-hots in four einsums; the shared
     expert adds its MLP of every token. The aux loss is Switch's,
-    ``mean(density * density_proxy) * e**2``."""
+    ``mean(density * density_proxy) * e**2``.
+
+    On DTensors (the GSPMD steps) the router and the routing run on
+    each worker's groups (``local_apply``: DTensor has no rules for the
+    one-hots and the cumsum), on the router probabilities every worker
+    of the model axis holds alike. The dispatch and combine one-hots
+    are then placed by their ``constrain`` sites: over the experts
+    (EP, "experts" on the model axis) or whole (TP inside the experts,
+    "ffn" on it). Each worker runs the experts it holds, or its slice
+    of each, on its own (``_experts``), which leaves a Partial sum over
+    the model axis that the output's ``constrain`` all-reduces."""
     if capacity_factor is None:
         capacity_factor = CAPACITY_FACTOR
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
-    n_tokens = b * s
-    g_size = min(MOE_GROUP, n_tokens)
-    n_groups = n_tokens // g_size
-    xg = constrain(x.reshape(n_groups, g_size, d), ("batch", None, "embed"))
-    dt, f32 = x.dtype, torch.float32
+    g_size = min(MOE_GROUP, b * s)
+    xg = constrain(_regroup(x, g_size), ("batch", None, "embed"))
+    dt = x.dtype
 
-    logits = torch.einsum("gsd,de->gse", xg, p["router"].to(dt))
-    probs = torch.softmax(logits.float(), dim=-1)
-    density = F.one_hot(probs.argmax(-1), e).to(f32).mean(dim=1)
+    cap = max(4, int(g_size * k * capacity_factor / e))
+    pl = tuple(xg.placements) if is_dtensor(xg) else None
+    probs, density, dispatch, combine = local_apply(
+        _router, xg, p["router"], k, cap, outs=None if pl is None
+        else (pl,) * 4)
     density_proxy = probs.mean(dim=1)
     aux = (density * density_proxy).mean() * (e * e)
 
-    cap = max(4, int(g_size * k * capacity_factor / e))
-    dispatch, gates_full = _route(probs, k, cap, dt)
     dispatch = constrain(dispatch, ("batch", None, "experts", None))
-    combine = dispatch * gates_full[..., None].to(dt)
     combine = constrain(combine, ("batch", None, "experts", None))
-    xe = torch.einsum("gsec,gsd->gecd", dispatch, xg)
-    xe = constrain(xe, ("batch", "experts", None, "embed"))
-    if "w_gate" in p:
-        h = F.silu(torch.einsum("gecd,edf->gecf", xe, p["w_gate"].to(dt)))
-        h = h * torch.einsum("gecd,edf->gecf", xe, p["w_up"].to(dt))
-    else:
-        h = gelu(torch.einsum("gecd,edf->gecf", xe, p["w_up"].to(dt)))
-    h = constrain(h, ("batch", "experts", None, "ffn"))
+    w = [p["w_up"], p["w_down"]] + ([p["w_gate"]] if "w_gate" in p else [])
+    out = None
+    if pl is not None:  # a Partial sum where the experts' weights split
+        from torch.distributed.tensor import Partial
+        out = tuple(Partial() if any(not t.placements[i].is_replicate()
+                                     for t in w) else q
+                    for i, q in enumerate(pl))
     # ye is a partial sum over the model axis when ffn is TP-sharded: not
-    # constrained, so the reduction lands on y, which is smaller
-    ye = torch.einsum("gecf,efd->gecd", h, p["w_down"].to(dt))
-    y = torch.einsum("gsec,gecd->gsd", combine, ye)
-    y = constrain(y, ("batch", None, "embed"))
+    # reduced inside, so the reduction lands on y, which is smaller
+    y = local_apply(_experts, xg, dispatch, combine, *w, out=out)
+    y = constrain(_regroup(constrain(y, ("batch", None, "embed")), s),
+                  ("batch", "seq", "embed"))
     shared = {k_[len("shared/"):]: v for k_, v in p.items()
               if k_.startswith("shared/")}
-    if shared:
-        y = y + mlp_apply(shared, xg, cfg)
-    return y.reshape(b, s, d), aux
+    if shared:  # every token's MLP (the groups' rows are the tokens')
+        y = y + mlp_apply(shared, x, cfg)
+    return y, aux
 
 
 # ---------------------------------------------------------------------------
@@ -594,7 +656,7 @@ def _sharded_lookup(table, tokens):
             raise NotImplementedError(
                 f"token lookup of a table placed {table.placements} with "
                 f"tokens placed {tok_pl} (FSDP's embed sharding is not "
-                "executed by the port)")
+                "executed by the port: ROADMAP queue 1, item 15.7)")
     local = table.to_local(grad_placements=tuple(grad_pl))
     ids = tokens.to_local() if is_dtensor(tokens) else tokens
     hit = (ids >= lo) & (ids < lo + n)

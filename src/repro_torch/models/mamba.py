@@ -27,7 +27,18 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import (
+    assign,
+    constrain,
+    heads_placements,
+    is_dtensor,
+    local_apply,
+    placed_like,
+    relaid,
+    remap,
+    split_whole,
+    whole,
+)
 from repro_torch.models import common, layers, ssd
 from repro_torch.models.common import (
     LeafDraw,
@@ -83,12 +94,10 @@ def mamba2_init(gen: LeafDraw, cfg: ModelConfig, stacked: int = 0) -> Params:
 
 
 def _split_in(cfg: ModelConfig, proj: Tensor):
-    d_in, n_h, _ = mamba2_dims(cfg)
-    ds = cfg.ssm_state
-    z = proj[..., :d_in]
-    xbc = proj[..., d_in:2 * d_in + 2 * ds]
-    dt = proj[..., 2 * d_in + 2 * ds:]
-    return z, xbc, dt
+    """``[z | x | B | C | dt]`` -> (z, xBC, dt), the packed projection
+    made whole first (``split_whole``)."""
+    d_in, n_h, conv_ch = mamba2_dims(cfg)
+    return split_whole(proj, (d_in, conv_ch, n_h))
 
 
 def _causal_conv(xbc: Tensor, w: Tensor, b: Tensor,
@@ -111,29 +120,22 @@ def _causal_conv(xbc: Tensor, w: Tensor, b: Tensor,
     return F.silu(out), new_state
 
 
-def mamba2_apply(p: Params, x: Tensor, cfg: ModelConfig,
-                 conv_state: Optional[Tensor] = None,
-                 ssm_state: Optional[Tensor] = None,
-                 decode: bool = False) -> Tuple[Tensor, Tensor, Tensor]:
-    """Returns (out, new_conv_state, new_ssm_state)."""
-    d_in, n_h, _ = mamba2_dims(cfg)
-    ds = cfg.ssm_state
-    dh = cfg.ssm_head_dim
-    h_res = apply_norm(sub_params(p, "norm"), x, cfg.norm, cfg.norm_eps)
-    proj = h_res @ p["w_in"].to(x.dtype)
-    z, xbc, dt = _split_in(cfg, proj)
-    xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
-    xs = xbc[..., :d_in]
-    B = xbc[..., d_in:d_in + ds]
-    C = xbc[..., d_in + ds:]
-    b, s, _ = x.shape
-
-    dt = softplus(dt.float() + p["dt_bias"])  # (B,S,H)
-    a = -torch.exp(p["A_log"].float())  # (H,) negative
+def _ssm_heads(xs: Tensor, B: Tensor, C: Tensor, dt: Tensor,
+               dt_bias: Tensor, A_log: Tensor, D: Tensor,
+               ssm_state: Optional[Tensor], dh: int, decode: bool
+               ) -> Tuple[Tensor, Tensor]:
+    """The SSD recurrence of some heads: ``xs`` (B, S, H * dh) their
+    inputs, ``B`` / ``C`` (B, S, ds) shared by every head, ``dt`` (B, S,
+    H) before its softplus. Returns (y (B, S, H * dh) with the skip
+    ``D * x``, the final state (B, H, dh, ds) f32)."""
+    b, s, _ = xs.shape
+    n_h, ds = dt.shape[-1], B.shape[-1]
+    dt = softplus(dt.float() + dt_bias)  # (B,S,H)
+    a = -torch.exp(A_log.float())  # (H,) negative
     log_decay = dt * a  # (B,S,H)
 
     xh = xs.reshape(b, s, n_h, dh)
-    xbar = xh * dt[..., None].to(x.dtype)
+    xbar = xh * dt[..., None].to(xs.dtype)
     # B/C shared across heads (single group)
     Bh = B[:, :, None, :].expand(b, s, n_h, ds)
     Ch = C[:, :, None, :].expand(b, s, n_h, ds)
@@ -145,10 +147,50 @@ def mamba2_apply(p: Params, x: Tensor, cfg: ModelConfig,
     else:
         y, new_ssm = ssd.chunked_gla(
             Ch, Bh, xbar, log_decay, initial_state=ssm_state)
-    y = y + xh * p["D"].to(x.dtype)[None, None, :, None]
-    y = y.reshape(b, s, d_in)
-    y = apply_norm(sub_params(p, "out_norm"), y * F.silu(z), "rmsnorm",
-                   cfg.norm_eps)
+    y = y + xh * D.to(xs.dtype)[None, None, :, None]
+    return y.reshape(b, s, n_h * dh), new_ssm
+
+
+def mamba2_apply(p: Params, x: Tensor, cfg: ModelConfig,
+                 conv_state: Optional[Tensor] = None,
+                 ssm_state: Optional[Tensor] = None,
+                 decode: bool = False) -> Tuple[Tensor, Tensor, Tensor]:
+    """Returns (out, new_conv_state, new_ssm_state).
+
+    On DTensors (the GSPMD steps, "inner" on the model axis) the packed
+    projection ``[z | x | B | C | dt]`` is gathered whole once (its
+    columns are cut inside ``x``, as the parameter's are), the depthwise
+    conv runs on every channel (``conv_w`` / ``conv_b`` gathered: they
+    pack ``[x | B | C]``), and the recurrence (``_ssm_heads``) runs on
+    each worker's heads (``local_apply``), B and C whole. The gated
+    output is gathered whole again before ``out_norm``, an RMSNorm over
+    ``d_in``, and the row-parallel ``w_out`` leaves a Partial sum that
+    the output's ``constrain`` reduces."""
+    d_in, n_h, _ = mamba2_dims(cfg)
+    ds = cfg.ssm_state
+    h_res = apply_norm(sub_params(p, "norm"), x, cfg.norm, cfg.norm_eps)
+    proj = h_res @ p["w_in"].to(x.dtype)
+    z, xbc, dt = _split_in(cfg, proj)
+    pl = tuple(xbc.placements) if is_dtensor(xbc) else None
+    xbc, new_conv = local_apply(
+        _causal_conv, xbc, whole(p["conv_w"], -1), whole(p["conv_b"], -1),
+        whole(conv_state, -1), outs=None if pl is None else (pl, pl))
+    xs, B, C = split_whole(xbc, (d_in, ds, ds))
+
+    heads = None
+    if is_dtensor(x):  # each worker's heads (B and C stay whole)
+        heads = heads_placements(x, n_h, "inner")
+        xs, dt, z = (relaid(t, x.device_mesh, heads) for t in (xs, dt, z))
+    hp = {2: 0}
+    y, new_ssm = local_apply(
+        _ssm_heads, xs, B, C, dt, *(placed_like(p[k], dt, hp)
+                                    for k in ("dt_bias", "A_log", "D")),
+        placed_like(ssm_state, dt, {0: 0, 2: 1}), cfg.ssm_head_dim, decode,
+        outs=None if heads is None else (heads, remap(heads, {0: 0, 2: 1})))
+    y = whole(y * F.silu(z), -1)  # the norm's rows whole
+    y = apply_norm(sub_params(p, "out_norm"), y, "rmsnorm", cfg.norm_eps)
+    if heads is not None:  # the row-parallel product's input, cut
+        y = relaid(y, x.device_mesh, heads)
     out = y @ p["w_out"].to(x.dtype)
     return constrain(out, ("batch", "seq", "embed")), new_conv, new_ssm
 
@@ -258,8 +300,8 @@ class Zamba2Model:
                                            decode=decode)
             x = x + out
             if cache is not None:
-                cache["conv"][i] = nc
-                cache["ssm"][i] = ns
+                assign(cache["conv"][i], nc)
+                assign(cache["ssm"][i], ns)
         return x
 
     def _shared(self, p: Params, g: int, x: Tensor, emb0: Tensor,

@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models import common, layers
 from repro_torch.models.common import (
     LeafDraw,
@@ -239,6 +240,8 @@ class TransformerLM:
             p, batch["tokens"], patches=batch.get("patches"), mode="train")
         loss, n_tok = common.cross_entropy_loss(
             logits, batch["targets"], label_smoothing=label_smoothing)
+        if is_dtensor(moe_aux):  # the GSPMD step: one value on every worker
+            moe_aux = moe_aux.full_tensor()
         moe_aux = torch.as_tensor(moe_aux, dtype=torch.float32,
                                   device=loss.device)
         total = loss + 0.01 * moe_aux

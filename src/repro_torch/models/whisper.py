@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import assign, placed_like
 from repro_torch.models import common, layers
 from repro_torch.models.common import (
     LeafDraw,
@@ -125,7 +126,8 @@ class WhisperModel:
     def encode(self, p: Params, frames: Tensor) -> Tensor:
         cfg, cd = self.cfg, self.compute_dtype
         x = frames.to(cd) @ p["frame_proj"].to(cd)
-        x = x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
+        pos = _sinusoid(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
+        x = x + placed_like(pos, x, {})  # a DTensor x: replicated
         positions = torch.arange(x.shape[1], device=x.device)[None].expand(
             x.shape[:2])
         for i in range(cfg.n_encoder_layers):
@@ -204,7 +206,7 @@ class WhisperModel:
         else:
             enc_out = self.encode(p, frames)
             if cache is not None:
-                cache["enc_out"].copy_(enc_out)
+                assign(cache["enc_out"], enc_out)
         logits = self.decode(p, tokens, enc_out, mode=mode, cache=cache,
                              cache_index=cache_index)
         return logits, 0.0, cache

@@ -27,7 +27,18 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import (
+    assign,
+    constrain,
+    heads_placements,
+    is_dtensor,
+    local_apply,
+    placed_like,
+    relaid,
+    remap,
+    split_whole,
+    whole,
+)
 from repro_torch.models import common, layers, ssd
 from repro_torch.models.common import (
     LeafDraw,
@@ -78,29 +89,25 @@ def mlstm_init(gen: LeafDraw, cfg: ModelConfig, stacked: int = 0) -> Params:
     return p
 
 
-def mlstm_apply(p: Params, x: Tensor, cfg: ModelConfig,
-                conv_state: Optional[Tensor] = None,
-                gla_state: Optional[Tensor] = None,
-                decode: bool = False) -> Tuple[Tensor, Tensor, Tensor]:
-    """Returns (out, new_conv_state, new_gla_state)."""
-    d_in, n_h, dh = _mlstm_dims(cfg)
-    b, s, _ = x.shape
-    h = apply_norm(sub_params(p, "norm"), x, cfg.norm, cfg.norm_eps)
-    up = h @ p["w_up"].to(x.dtype)
-    inner, z = up[..., :d_in], up[..., d_in:]
-    conv_out, new_conv = _causal_conv(inner, p["conv_w"], p["conv_b"],
-                                      conv_state)
+def _mlstm_heads(conv_out: Tensor, inner: Tensor, wq: Tensor, wk: Tensor,
+                 wv: Tensor, i_pre: Tensor, f_pre: Tensor,
+                 gla_state: Optional[Tensor], decode: bool
+                 ) -> Tuple[Tensor, Tensor]:
+    """The mLSTM cell of some heads: ``conv_out`` / ``inner`` (B, S, H *
+    dh) the q/k and v sources, ``wq`` / ``wk`` / ``wv`` (H, dh, dh), the
+    gate pre-activations ``i_pre`` / ``f_pre`` (B, S, H) f32. Returns
+    (y (B, S, H * dh), the final GLA state)."""
+    n_h, dh = wq.shape[0], wq.shape[1]
+    b, s, _ = conv_out.shape
     qk_src = conv_out.reshape(b, s, n_h, dh)
     v_src = inner.reshape(b, s, n_h, dh)
-    q = torch.einsum("bshd,hde->bshe", qk_src, p["wq"].to(x.dtype))
-    k = torch.einsum("bshd,hde->bshe", qk_src, p["wk"].to(x.dtype)) / (
+    q = torch.einsum("bshd,hde->bshe", qk_src, wq.to(conv_out.dtype))
+    k = torch.einsum("bshd,hde->bshe", qk_src, wk.to(conv_out.dtype)) / (
         dh ** 0.5)
-    v = torch.einsum("bshd,hde->bshe", v_src, p["wv"].to(x.dtype))
+    v = torch.einsum("bshd,hde->bshe", v_src, wv.to(conv_out.dtype))
 
-    gates = conv_out @ p["w_if"].to(x.dtype) + p["b_if"].to(x.dtype)
-    gates = gates.float()
-    i_gate = torch.exp(torch.clamp(gates[..., :n_h], max=10.0))  # capped
-    log_a = F.logsigmoid(gates[..., n_h:])  # forget gate
+    i_gate = torch.exp(torch.clamp(i_pre, max=10.0))  # capped
+    log_a = F.logsigmoid(f_pre)  # forget gate
 
     v_aug = torch.cat([v, torch.ones((b, s, n_h, 1), dtype=v.dtype,
                                      device=v.device)], dim=-1) \
@@ -115,8 +122,48 @@ def mlstm_apply(p: Params, x: Tensor, cfg: ModelConfig,
                                        initial_state=gla_state)
     num, den = y[..., :dh], y[..., dh:]
     y = num / torch.clamp(den.abs(), min=1.0).to(num.dtype)
-    y = y.reshape(b, s, d_in)
+    return y.reshape(b, s, n_h * dh), new_state
+
+
+def mlstm_apply(p: Params, x: Tensor, cfg: ModelConfig,
+                conv_state: Optional[Tensor] = None,
+                gla_state: Optional[Tensor] = None,
+                decode: bool = False) -> Tuple[Tensor, Tensor, Tensor]:
+    """Returns (out, new_conv_state, new_gla_state).
+
+    On DTensors (the GSPMD steps) the up-projection ``[inner | z]`` (its
+    columns cut at ``d_in`` over two workers) is gathered whole once;
+    the conv and the cell (``_mlstm_heads``) run on each worker's heads
+    (``local_apply``), the conv's channels being its heads' (``inner``
+    on the model axis); the gates' row-parallel product is reduced
+    whole first. The output is gathered whole before ``out_norm``, an
+    RMSNorm over ``d_in``, and the row-parallel ``w_down`` leaves a
+    Partial sum that the output's ``constrain`` reduces."""
+    d_in, n_h, dh = _mlstm_dims(cfg)
+    h = apply_norm(sub_params(p, "norm"), x, cfg.norm, cfg.norm_eps)
+    inner, z = split_whole(h @ p["w_up"].to(x.dtype), (d_in, d_in))
+    heads = None
+    if is_dtensor(x):  # each worker's heads, and their channels
+        heads = heads_placements(x, n_h, "inner")
+        inner = relaid(inner, x.device_mesh, heads)
+    conv_out, new_conv = local_apply(
+        _causal_conv, inner, placed_like(p["conv_w"], inner, {2: 1}),
+        placed_like(p["conv_b"], inner, {2: 0}),
+        placed_like(conv_state, inner, {0: 0, 2: 2}),
+        outs=None if heads is None else (heads, heads))
+    gates = whole(conv_out @ p["w_if"].to(x.dtype), -1) + \
+        whole(p["b_if"], -1).to(x.dtype)
+    i_pre, f_pre = (placed_like(g, inner, {0: 0, 2: 2}) for g in
+                    split_whole(gates.float(), (n_h, n_h)))
+    y, new_state = local_apply(
+        _mlstm_heads, conv_out, inner,
+        *(placed_like(p[k], inner, {2: 0}) for k in ("wq", "wk", "wv")),
+        i_pre, f_pre, placed_like(gla_state, inner, {0: 0, 2: 1}), decode,
+        outs=None if heads is None else (heads, remap(heads, {0: 0, 2: 1})))
+    y = whole(y, -1)  # the norm's rows whole
     y = apply_norm(sub_params(p, "out_norm"), y, "rmsnorm", cfg.norm_eps)
+    if heads is not None:  # the row-parallel product's input, cut
+        y, z = (relaid(t, x.device_mesh, heads) for t in (y, z))
     y = y * F.silu(z)
     out = y @ p["w_down"].to(x.dtype)
     return constrain(out, ("batch", "seq", "embed")), new_conv, new_state
@@ -185,27 +232,58 @@ def _slstm_cell(st: Dict[str, Tensor], wx_t: Tensor, r: Tensor
     return {"h": h, "c": c, "n": n, "m": m_new}
 
 
+def _slstm_scan(wx: Tensor, r: Tensor, h: Tensor, c: Tensor, n: Tensor,
+                m: Tensor, steps: int) -> Tuple[Tensor, ...]:
+    """The sLSTM recurrence of some heads over ``steps`` positions:
+    ``wx`` (B, S, 4, H, dh) f32 the gates' input projections, ``r`` (4,
+    H, dh, dh) the recurrent weights, the state h, c, n, m (B, H, dh).
+    Returns (the hidden states (B, steps, H, dh), h, c, n, m)."""
+    state = {"h": h, "c": c, "n": n, "m": m}
+    hs = []
+    for t in range(steps):
+        state = _slstm_cell(state, wx[:, t], r)
+        hs.append(state["h"])
+    return (torch.stack(hs, 1),) + tuple(state[k] for k in SLSTM_STATE)
+
+
 def slstm_apply(p: Params, x: Tensor, cfg: ModelConfig,
                 state: Optional[Dict[str, Tensor]] = None,
                 decode: bool = False) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """state: dict h, c, n, m, each (B, H, d / H) f32."""
+    """state: dict h, c, n, m, each (B, H, d / H) f32.
+
+    On DTensors (the GSPMD steps) the gates' projection (its columns
+    cut across the four gates) is gathered whole, and the recurrence
+    runs on each worker's heads (``local_apply``, the heads' recurrent
+    weights local); the hidden states are gathered whole for the gated
+    FFN."""
     d, n_h = cfg.d_model, cfg.n_heads
     dh = d // n_h
     b, s, _ = x.shape
     xin = apply_norm(sub_params(p, "norm"), x, cfg.norm, cfg.norm_eps)
-    wx = (xin @ p["w_gates"].to(x.dtype) + p["b_gates"].to(x.dtype))
-    wx = wx.float().reshape(b, s, 4, n_h, dh)
+    wx = whole(xin @ p["w_gates"].to(x.dtype) + p["b_gates"].to(x.dtype),
+               -1)
+    wx = local_apply(lambda t: t.float().reshape(t.shape[0], s, 4, n_h, dh),
+                     wx)
     r = p["r_gates"].float()
 
     if state is None:
         zeros = torch.zeros((b, n_h, dh), dtype=torch.float32,
                             device=x.device)
-        state = {k: zeros for k in SLSTM_STATE}
-    hs = []
-    for t in range(1 if decode else s):
-        state = _slstm_cell(state, wx[:, t], r)
-        hs.append(state["h"])
-    y = torch.stack(hs, 1).reshape(b, s, d).to(x.dtype)
+        state = {k: placed_like(zeros, x, {0: 0}) for k in SLSTM_STATE}
+    outs = None
+    if is_dtensor(x):  # each worker's heads
+        heads = heads_placements(x, n_h, "heads")
+        mesh = x.device_mesh
+        wx = relaid(wx, mesh, remap(heads, {0: 0, 2: 3}))
+        r = relaid(r, mesh, remap(heads, {2: 1}))
+        st = remap(heads, {0: 0, 2: 1})
+        state = {k: relaid(v, mesh, st) for k, v in state.items()}
+        outs = (heads,) + (st,) * len(SLSTM_STATE)
+    hs, *last = local_apply(_slstm_scan, wx, r,
+                            *(state[k] for k in SLSTM_STATE),
+                            1 if decode else s, outs=outs)
+    state = dict(zip(SLSTM_STATE, last))
+    y = whole(hs, 2).reshape(b, s, d).to(x.dtype)
     # gated FFN
     up = y @ p["w_up"].to(x.dtype)
     d_ffn = up.shape[-1] // 2
@@ -293,8 +371,8 @@ class XLSTMModel:
                                               decode=decode)
                 x = x + out
                 if cache is not None:
-                    cache["conv"][i] = nc
-                    cache["gla"][i] = ns
+                    assign(cache["conv"][i], nc)
+                    assign(cache["gla"][i], ns)
             s_state = None
             if cache is not None:
                 s_state = {k: cache[f"slstm/{k}"][seg] for k in SLSTM_STATE}
@@ -303,7 +381,7 @@ class XLSTMModel:
             x = x + out
             if cache is not None:
                 for k in SLSTM_STATE:
-                    cache[f"slstm/{k}"][seg] = new_s[k]
+                    assign(cache[f"slstm/{k}"][seg], new_s[k])
         x = apply_norm(sub_params(p, "final_norm"), x, cfg.norm,
                        cfg.norm_eps)
         logits = layers.lm_head(p["head"], x, tied=False)

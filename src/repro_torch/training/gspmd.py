@@ -1,5 +1,6 @@
-"""The GSPMD train and eval steps: the JAX package's ``make_train_step``
-and ``make_eval_step`` with a mesh, on DTensor.
+"""The GSPMD train, eval, prefill and decode steps: the JAX package's
+``make_train_step``, ``make_eval_step``, ``make_prefill_step`` and
+``make_decode_step`` with a mesh, on DTensor.
 
 The step computes the function of the one-device step on the whole
 global batch, with the state placed over a ``DeviceMesh`` by the
@@ -32,15 +33,22 @@ is replicated (pure DP over any mesh, ResNet-50 on any mesh: its conv
 rules replicate every channel), the model runs on each worker's local
 rows and parameters as the one-device step does, its loss weighted by
 the worker's share of the global count, and the gradients are Partial
-sums over the batch axes. Otherwise (the dense LM under Megatron TP)
-the forward runs on DTensors: the products shard by DTensor's rules,
-the models' ``constrain`` sites redistribute (the row-parallel partial
-sums are all-reduced there), and the hand-written kernels run on local
-shards through ``sharding.local_apply``: ``flash_attention`` on each
-worker's heads, ``rmsnorm`` on its rows. The token lookup
-(``layers._sharded_lookup``) and the cross entropy
-(``common._sharded_cross_entropy``) are redistributed explicitly, as
-DTensor has no rule for a vocab-sharded gather.
+sums over the batch axes. Otherwise (every LM family under a model
+axis: Megatron TP, the MoE experts or their ``ffn`` over it, the SSM
+families' heads) the forward runs on DTensors: the products shard by
+DTensor's rules, the models' ``constrain`` sites redistribute (the
+row-parallel partial sums are all-reduced there), and what DTensor has
+no rules for runs on local shards through ``sharding.local_apply``: the
+hand-written kernels (``flash_attention`` on each worker's heads,
+``rmsnorm`` on its rows), the MoE routing and experts, the SSM
+recurrences. The token lookup (``layers._sharded_lookup``) and the
+cross entropy (``common._sharded_cross_entropy``) are redistributed
+explicitly, as DTensor has no rule for a vocab-sharded gather.
+
+The serve steps take the whole batch on every worker (each keeps its
+rows), write the cache (``place_cache``: placed by its logical axes, as
+the JAX package's dry-run places it) in place, and return the logits
+whole on every worker.
 """
 from __future__ import annotations
 
@@ -53,6 +61,7 @@ from repro_torch.core.compression import parse_compression
 from repro_torch.distributed.sharding import (
     activation_sharding,
     batch_placements,
+    redistribute,
 )
 
 Tree = Dict[str, Any]
@@ -160,7 +169,8 @@ def make_gspmd_train_step(model, optimizer, train_cfg, mesh, rules,
     if microbatches > 1:
         raise NotImplementedError(
             "gradient accumulation under a mesh is not ported: the "
-            "GSPMD step takes microbatches=1")
+            "GSPMD step takes microbatches=1 (ROADMAP queue 1, item "
+            "15.7)")
     lars = train_cfg.optimizer.kind == "lars"
     wire, _ = parse_compression(train_cfg.parallel.compression)
     wdt = {"bf16": torch.bfloat16, "f16": torch.float16}.get(wire)
@@ -176,7 +186,8 @@ def make_gspmd_train_step(model, optimizer, train_cfg, mesh, rules,
             raise NotImplementedError(
                 "LARS under a sharded GSPMD layout: its trust ratios "
                 "need whole-leaf norms, and the port's update runs on "
-                "local shards; run LARS on a pure-DP mesh")
+                "local shards; run LARS on a pure-DP mesh (ROADMAP "
+                "queue 1, item 15.7)")
         if tp:
             new_mstate, metrics, grads = _dtensor_loss_grads(
                 model, train_cfg, params, state["model_state"], batch, mesh,
@@ -191,7 +202,7 @@ def make_gspmd_train_step(model, optimizer, train_cfg, mesh, rules,
         if grad_constraint is not None:
             grads = grad_constraint(grads)
         else:
-            grads = {k: g.redistribute(mesh, params[k].placements)
+            grads = {k: redistribute(g, tuple(params[k].placements))
                      for k, g in grads.items()}
         with torch.no_grad():
             g_loc = {k: g.to_local() for k, g in grads.items()}
@@ -300,9 +311,100 @@ def make_gspmd_eval_step(model, mesh, rules):
     return eval_step
 
 
+def _placed_batch(batch: Dict[str, Any], mesh, rules) -> Dict[str, Any]:
+    """A whole batch (the same on every worker) as DTensors placed by the
+    "batch" rule, pruned to what divides: each worker keeps its rows."""
+    from repro_torch.distributed.sharding import (distribute_local,
+                                                  placements, prune_spec,
+                                                  spec_for)
+    out = {}
+    for k, v in batch.items():
+        if torch.is_tensor(v) and v.dim():
+            pl = placements(prune_spec(v.shape, spec_for(("batch",), rules),
+                                       mesh), mesh)
+            v = distribute_local(v.contiguous(), mesh, pl)
+        out[k] = v
+    return out
+
+
+def _whole_logits(logits):
+    """The logits whole on every worker (a vocabulary split over the
+    model axis gathered by an all-reduce: ``sharding.redistribute``)."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.distributed.sharding import is_dtensor
+    if not is_dtensor(logits):
+        return logits
+    return redistribute(logits, (Replicate(),) * logits.device_mesh.ndim
+                        ).to_local()
+
+
+def make_gspmd_prefill_step(model, mesh, rules):
+    """The JAX package's ``make_prefill_step(model, mesh, rules)``:
+    ``prefill_step(params, cache, batch) -> (last logits, cache)`` on the
+    placed parameters and cache (``place_cache``), ``batch`` the whole
+    prompt batch on every worker (``tokens``, and a VLM's ``patches`` or
+    the audio model's ``frames``), each worker keeping its rows. The
+    forward runs on DTensors as the train step's (its kernels on local
+    shards); the logits come back whole on every worker, the cache is
+    written in place in its placements."""
+    device = model.device
+
+    @torch.no_grad()
+    def prefill_step(params, cache, batch):
+        from repro_torch.training.step import to_device
+        with activation_sharding(mesh, rules):
+            placed = _placed_batch(to_device(batch, device), mesh, rules)
+            kw = {k: placed[k] for k in ("frames", "patches") if k in placed}
+            logits, cache = model.prefill(params, placed["tokens"], cache,
+                                          **kw)
+        return _whole_logits(logits), cache
+
+    return prefill_step
+
+
+def make_gspmd_decode_step(model, mesh, rules):
+    """The JAX package's ``make_decode_step(model, mesh, rules)``:
+    ``decode_step(params, cache, batch) -> (logits, cache)``, ``batch``
+    the whole (B, 1) ``tokens`` on every worker and their
+    ``cache_index``; the logits whole, the cache written in place."""
+    device = model.device
+
+    @torch.no_grad()
+    def decode_step(params, cache, batch):
+        from repro_torch.training.step import to_device
+        with activation_sharding(mesh, rules):
+            placed = _placed_batch(to_device(batch, device), mesh, rules)
+            logits, cache = model.decode_step(params, cache,
+                                              placed["tokens"],
+                                              placed["cache_index"])
+        return _whole_logits(logits), cache
+
+    return decode_step
+
+
 # ---------------------------------------------------------------------------
 # placing a state
 # ---------------------------------------------------------------------------
+
+
+def place_cache(cache: Dict[str, torch.Tensor], axes: Dict, mesh, rules
+                ) -> Dict[str, Any]:
+    """A whole serve cache (the same on every worker, the model's
+    ``cache_shape``) as DTensors placed by its logical ``axes``, each
+    spec pruned per dim to what divides, as the JAX package's dry-run
+    places it: each worker keeps a copy of its own slice."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import (local_slice, placements,
+                                                  prune_spec, spec_for)
+    out = {}
+    for k, v in cache.items():
+        pl = placements(prune_spec(v.shape, spec_for(axes[k], rules), mesh),
+                        mesh)
+        out[k] = DTensor.from_local(local_slice(v, mesh, pl).clone(), mesh,
+                                    pl, shape=v.shape, stride=v.stride())
+    return out
 
 
 def place_params(params: Dict[str, torch.Tensor], shardings: Dict, mesh

@@ -984,9 +984,14 @@ def finalize_worker_bn_stats(model_state, group=None):
     return finalize_bn_stats(model_state, group)
 
 
-def make_prefill_step(model):
+def make_prefill_step(model, mesh=None, rules: Optional[Dict] = None):
     """``prefill_step(params, cache, batch) -> (last logits, cache)``;
-    ``batch["tokens"]`` is the (B, S) prompt."""
+    ``batch["tokens"]`` is the (B, S) prompt. With ``mesh`` the GSPMD
+    step (``gspmd.make_gspmd_prefill_step``)."""
+    if mesh is not None:
+        from repro_torch.training.gspmd import make_gspmd_prefill_step
+        return make_gspmd_prefill_step(model, mesh, rules)
+
     def prefill_step(params, cache, batch):
         kw = {k: batch[k] for k in ("frames", "patches") if k in batch}
         return model.prefill(params, batch["tokens"], cache, **kw)
@@ -994,9 +999,14 @@ def make_prefill_step(model):
     return prefill_step
 
 
-def make_decode_step(model):
+def make_decode_step(model, mesh=None, rules: Optional[Dict] = None):
     """``decode_step(params, cache, batch) -> (logits, cache)``;
-    ``batch`` holds the (B, 1) ``tokens`` and their ``cache_index``."""
+    ``batch`` holds the (B, 1) ``tokens`` and their ``cache_index``.
+    With ``mesh`` the GSPMD step (``gspmd.make_gspmd_decode_step``)."""
+    if mesh is not None:
+        from repro_torch.training.gspmd import make_gspmd_decode_step
+        return make_gspmd_decode_step(model, mesh, rules)
+
     def decode_step(params, cache, batch):
         return model.decode_step(params, cache, batch["tokens"],
                                  batch["cache_index"])

@@ -32,7 +32,8 @@ other run, and the restore of that checkpoint at (1, 2)).
    the same parameters and optimizer state, bitwise, and the JAX
    package's ``restore`` reads the same files.
 4. The refusals of the GSPMD mode, and ``--dp-mode gspmd`` without a
-   mesh is bitwise the one-device step.
+   mesh is bitwise the one-device step. (The other families under a
+   model axis: ``test_torch_gspmd_families.py``.)
 """
 import os
 import subprocess
@@ -329,14 +330,6 @@ def _build(arch="llama3.2-1b", **kw):
 def test_gspmd_refuses_the_explicit_dp_options(kw, match):
     with pytest.raises(ValueError, match=match):
         _build(dp_mode="gspmd", **kw)
-
-
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "phi-3-vision-4.2b",
-                                  "zamba2-7b", "xlstm-350m",
-                                  "whisper-tiny"])
-def test_gspmd_refuses_other_families_under_a_model_axis(arch):
-    with pytest.raises(NotImplementedError, match="item 15.7"):
-        _build(arch, dp_mode="gspmd", mesh_shape=(1, 2))
 
 
 def test_zero_1_needs_the_gspmd_mode_on_a_mesh():
