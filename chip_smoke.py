@@ -374,7 +374,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      first loss within ``GSPMD_FAMILY_LOSS_RTOL``; then the GSPMD
      prefill of main path 12's requests and 4 greedy decode steps
      (``build_gspmd_serve_setup``, the cache placed by ``place_cache``)
-     for mixtral at 8 of 32 layers and llama4-maverick at one group (64
+     for mixtral at 4 of 32 layers and llama4-maverick at one group (64
      of 128 experts a worker), the routing of every call replayed from
      the one-device run and each decode step fed the one-device run's
      greedy token (teacher forcing): the prefill's and each decode
@@ -384,8 +384,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      that differ logged); launches a worker a step, a prefill and a
      decode step checked;
   25. main path 19, phi-3-vision, zamba2-7b, xlstm-350m and
-     whisper-tiny under ``--mesh 1x2`` (TP 2) at main path 15's depths,
-     one spawn as 24: 2 steps (first loss within
+     whisper-tiny under ``--mesh 1x2`` (TP 2) at main path 15's depths
+     (zamba2 served at 6 of its 12), one spawn as 24: 2 steps (first
+     loss within
      ``GSPMD_FAMILY_LOSS_RTOL`` of main path 15's), the GSPMD prefill
      of main path 14's requests and 4 teacher-forced decode steps
      against the one-device run (each call's logits within the family's
@@ -393,6 +394,43 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      prefill in f32 against one device's in f32 within
      ``GSPMD_F32_SERVE_TOL`` (the witness that the bf16 distance is
      rounding), launches checked.
+  3j (after 3i). ``flash_attention`` (bf16) at main path 21's prefill
+     (granite-34b's 4,096 tokens whole, its 48 heads and a worker's 24
+     on one kv head) and main path 20's worker-local heads, ``rmsnorm``
+     at main path 20's rows (a worker's 2,048 of yi-9b's width), against
+     their plain versions and timed, and ``hybrid_update`` over one
+     worker's FSDP x TP x ZeRO-1 shards of main path 20's leaves,
+     bitwise per leaf;
+  26. main path 20, yi-9b at full width, 2 of 48 layers, under its own
+     policy (``cell_parallel``: FSDP's "embed" over "data", Megatron TP
+     over "model", ZeRO-1, the bf16 wire, per-layer remat), ``--mesh
+     2x2``: four processes on the card over gloo, main path 10's batch
+     and recipe, 2 steps: the first loss within ``FSDP_LOSS_RTOL`` of
+     one device's on the same weights and batch, each worker's
+     parameters a quarter of every leaf split over both axes, its peak
+     memory in the steps below the same run's without ``fsdp_params``;
+     in the same processes, in f32, one step with and one without
+     ``fsdp_params`` against one device's (the parameters within
+     ``HYBRID_F32_TOL``), ``microbatches=2`` against
+     one (the loss within ``ACCUM_LOSS_RTOL``, the parameters within
+     ``ACCUM_LEAF_TOL``, one device's own microbatches as the control)
+     and one LARS step against one device's (trust ratios within
+     ``LARS_TRUST_RTOL``, parameters within ``LARS_PARAM_TOL``), each
+     parameter bound below the smallest step a leaf takes; launches
+     checked, DTensor's own all-gather, reduce-scatter and all-to-all
+     counted at 0;
+  27. main path 21, granite-34b at full width, 8 of 88 layers, served
+     under its batch-1 prefill policy (TP over "model", sequence
+     parallelism, the cache's positions on "model"), ``--mesh 1x2``:
+     two processes on the card, one 4,096-token prompt, a bf16 prefill
+     and 4 decode steps teacher-forced by one device's tokens: each
+     worker's cache holds half the positions, the logits within
+     ``SP_SERVE_TOL`` of one device's (its own bf16-vs-f32 distance
+     rounded up), the greedy choices as 24, the same prefill in f32
+     within ``SP_F32_TOL`` of one device's f32 prefill and the bf16
+     prefill within ``SP_F32_RATIO`` of one device's bf16 distance from
+     that f32 prefill; launches checked, DTensor's own collectives
+     counted at 0.
 With ``--profile``, a few more steps of each main path run under
 torch.profiler (device busy time and idle share, top host ops and
 kernels), and one prefill and four decode steps of main path 4. With
@@ -412,10 +450,11 @@ step and ``path11_<n>w_<run>`` its multi-process runs (first worker),
 ``path13_dp`` main path 13's, ``path14_<arch>`` main path 14's per
 config, ``path15_<arch>_<run>`` main path 15's per config and run,
 ``path10_remat`` / ``path10_no_remat`` phase 16c's, ``path16`` to
-``path19`` main paths 16 to 19's (first worker; 18 and 19 summed over
-their runs); ``slice13``, ``slice14``, ``slice15``, ``slice17`` and
-``slice18`` the times of phases 3f, 3g, 3h and 3i at those paths'
-shapes;
+``path21`` main paths 16 to 21's (first worker; 18 and 19 summed over
+their runs, 20 its first run's, 21 its prefill's and first decode
+step's); ``slice13``, ``slice14``, ``slice15``, ``slice17``,
+``slice18`` and ``slice19`` the times of phases 3f, 3g, 3h, 3i and 3j
+at those paths' shapes;
 ``hybrid_update`` also carries its time at main path 7's shard), the card's name and power
 limit, and last the ``{"ok": true, "device": ...}`` line. ``--out DIR`` also
 writes the per-shape kernel tables to ``DIR/chip_smoke_kernels.json``.
@@ -4593,9 +4632,10 @@ SLICE14_RMSNORM = {
 # steps. Over gloo, processes sharing the one card each hold a worker's
 # whole state and activations (~13.5 GB beside ~1.5 GB a layer at 4 x
 # 1,024 tokens, from main path 10's 46.57 GiB at 16 layers on an
-# NVIDIA H100 80GB HBM3 at 700 W), so the multi-process runs keep 4
-# layers (2 processes) and 2 (4 processes)
-LM_DP_LAYERS = {2: 4, 4: 2}
+# NVIDIA H100 80GB HBM3 at 700 W), so the multi-process runs keep 2
+# layers (the 2-process runs kept 4 until PR 29, which cut them to make
+# room for main paths 20 and 21)
+LM_DP_LAYERS = {2: 2, 4: 2}
 # one step at full width (gloo sums a worker's ~0.8-1 GB of bf16
 # gradients on the host: 2.6-9.4 s a step on that card), three on the
 # reduced model
@@ -5128,35 +5168,43 @@ SLICE17_RMSNORM = {
 }
 
 
-def tp_local_shapes(cfg, mesh_sizes, device: str = "cuda"):
+def tp_local_shapes(cfg, mesh_sizes, device: str = "cuda", parallel=None):
     """Each parameter's shape on one worker of a GSPMD mesh
-    (``{axis: size}``) by the launcher's rules (the whole tree is drawn
-    on ``device`` for its shapes, then freed)."""
+    (``{axis: size}``) by the launcher's rules, or by ``parallel``'s
+    (where the update runs: ZeRO-1's specs over the parameters' own
+    when it says ``zero_1``); the whole tree is drawn on ``device`` for
+    its shapes, then freed."""
     from repro_torch.configs import ParallelConfig
     from repro_torch.distributed.sharding import make_rules, spec_for
     from repro_torch.models import build_model
-    rules = make_rules(cfg, mesh_sizes, ParallelConfig(
-        dp_axes=("data",), tp_axis="model", zero_1=False))
+    from repro_torch.optim.zero import zero_spec_for
+    parallel = parallel or ParallelConfig(dp_axes=("data",),
+                                          tp_axis="model", zero_1=False)
+    rules = make_rules(cfg, mesh_sizes, parallel)
     params, axes = build_model(cfg, device=device).init_params(
         0, draw_device=device)
     shapes = {}
     for name, a in axes.items():
         shape = list(params.pop(name).shape)
-        for d, e in enumerate(spec_for(a, rules)):
+        spec = spec_for(a, rules)
+        if parallel.zero_1:
+            spec = zero_spec_for(tuple(shape), spec, mesh_sizes,
+                                 parallel.dp_axes)
+        for d, e in enumerate(spec):
             for ax in ((e,) if isinstance(e, str) else (e or ())):
                 shape[d] //= mesh_sizes[ax]
         shapes[name] = tuple(shape)
     return shapes
 
 
-def tp_update_case(torch, gen, cfg, mesh_sizes, what: str):
+def tp_update_case(torch, gen, cfg, mesh_sizes, what: str, parallel=None):
     """``hybrid_update`` over one worker's shards of every leaf of
     ``cfg`` on a GSPMD mesh (``tp_local_shapes``) in one launch, bitwise
     per leaf against its plain version (weight decay 0, as the LM paths
     train), timed against the per-leaf plain version and its bound."""
     from repro_torch.core.optimizer import HybridHyper
     from repro_torch.kernels import fused_update as fu
-    shapes = tp_local_shapes(cfg, mesh_sizes)
+    shapes = tp_local_shapes(cfg, mesh_sizes, parallel=parallel)
     dev = torch.device("cuda")
     names = sorted(shapes)
     gs, ps, ds, ms = ([torch.randn(shapes[k], generator=gen, device=dev)
@@ -5552,13 +5600,18 @@ def gspmd_lm_path(torch, ref_first_loss: float):
 # main path 18: MoE under EP (--dp-mode gspmd --mesh 1x2): mixtral
 # trained at main path 13's cut (1 of 32 layers; 4 of its 8 experts and
 # half the vocabulary a worker), then the GSPMD prefill and decode steps
-# at main path 12's cuts (mixtral at 8 of 32 layers, maverick at one
-# group: 64 of its 128 experts a worker)
+# of mixtral at 4 of 32 layers (8 until PR 29, which cut it to make room
+# for paths 20 and 21: its one-device reference runs at the same cut)
+# and maverick at one group (64 of its 128 experts a worker)
 GSPMD_MOE_TRAIN = ((MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS),)
-GSPMD_MOE_SERVE = (("mixtral-8x7b", 8), ("llama4-maverick-400b-a17b", 2))
-# main path 19: the other four families under TP at main path 15's cuts
+GSPMD_MOE_SERVE = (("mixtral-8x7b", 4), ("llama4-maverick-400b-a17b", 2))
+# main path 19: the other four families under TP, trained at main path
+# 15's cuts (zamba2 needs its 12 layers there: two groups, so both
+# shared blocks take a gradient), served at them but zamba2's, cut to 6
+# (one group, one shared block) for paths 20 and 21's room
 GSPMD_FAMILY_TRAIN = FAMILY_TRAIN
-GSPMD_FAMILY_SERVE = FAMILY_TRAIN
+GSPMD_FAMILY_SERVE = tuple((arch, 6 if arch == "zamba2-7b" else layers)
+                           for arch, layers in FAMILY_TRAIN)
 GSPMD_TRAIN_STEPS, GSPMD_DECODE_STEPS = 2, 4
 # the first loss of each path-18 / 19 run against its one-device step
 GSPMD_FAMILY_LOSS_RTOL = 2e-4
@@ -6094,6 +6147,683 @@ def gspmd_family_path(torch, path: int, ref_losses=None):
                    "path_s": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# slice 19: every placement of the GSPMD policy (main paths 20 and 21)
+# ---------------------------------------------------------------------------
+
+# main path 20: yi-9b at full width, 2 of its 48 layers, trained under
+# its own policy, cell_parallel(yi-9b, ShapeConfig("train", 1024, 4)):
+# FSDP ("embed" over "data"), Megatron TP over "model", ZeRO-1, the bf16
+# wire, each layer checkpointed; --mesh 2x2, four processes on the card
+FSDP_ARCH, FSDP_LAYERS = "yi-9b", 2
+FSDP_MESH, FSDP_WORKERS, FSDP_STEPS = (2, 2), 4, 2
+# the first loss against one device's on the same weights and batch
+# (path 17's TP measured 4.24e-5)
+FSDP_LOSS_RTOL = 2e-4
+# in f32 (compute and wire), one step of path 10's recipe on this layout
+# against one device's f32 step from the same weights: each leaf's
+# relative norm within the CPU tests' 2e-4 (the shards' update and its
+# write-back under FSDP x TP x ZeRO-1, measured 4.69e-5; and so without
+# fsdp_params, where ZeRO-1's shards move: with FSDP they match the
+# parameters' own and nothing is written back). Every leaf's
+# own step (one device's, from the initial weights: what an update
+# never applied reads; measured 2.8e-3 at least) must lie above the
+# bound
+HYBRID_F32_TOL = 2e-4
+# microbatches=2 against microbatches=1 in the same processes, in f32
+# (compute and wire): the logged loss (the mean of the microbatches'),
+# and the parameters after one step: each leaf within 2e-4 relative norm
+# (the CPU tests' bound), and at most ACCUM_RARE of its elements outside
+# the JAX package's own f32 accumulation bound (ACCUM_PARAM_TOL,
+# tests/test_grad_accumulation.py, "~1% relative on rare elements": the
+# RMSprop warm-up's rsqrt of near-zero second moments amplifies the sum
+# order's noise). One device's microbatches=2 against its own 1 at the
+# same width is the control, logged beside: on an H100 80GB HBM3 at
+# 700 W it put 12 elements of 6 leaves outside that bound (worst leaf
+# 4.89e-5, max abs 8.57e-4) where the mesh put 5 of 3 (2.88e-5,
+# 5.36e-4). The bf16 run's accumulation is held by its loss alone, not
+# by its parameters (in bf16 8 of 12 leaves held elements outside that
+# bound, max abs 5.6e-3: a tiny gradient's bf16 rounding flips an
+# RMSprop step of +-lr)
+ACCUM_LOSS_RTOL, ACCUM_LEAF_TOL = 1e-5, 2e-4
+ACCUM_PARAM_TOL, ACCUM_RARE = dict(rtol=2e-2, atol=2e-4), 1e-5
+# LARS on the same layout, one step, against one device's LARS, in f32
+# (compute and wire: in bf16 the sharded gradient's roundings moved the
+# trust ratios 7.47e-5): the trust ratios (whole-leaf norms summed over
+# the shards) and each leaf's relative norm, measured 5.85e-9 at worst;
+# one LARS step moves a leaf by about eta x trust_coef = 1e-4 of its
+# norm (measured 1.0e-4 at least), which the run measures (one device's
+# step from the initial weights) and which must lie above the bound
+FSDP_LARS_OPT = dict(kind="lars", schedule="poly")
+LARS_TRUST_RTOL, LARS_PARAM_TOL = 1e-5, 1e-7
+# main path 21: granite-34b at full width, main path 9's cut of 8 of 88
+# layers, served under cell_parallel(granite-34b, ShapeConfig("prefill",
+# 4096, 1)): TP over "model", sequence parallelism (batch 1) and the
+# cache's positions on "model" (its one kv head cannot split);
+# --mesh 1x2, two processes on the card, one 4,096-token prompt, a
+# prefill and 4 decode steps teacher-forced by one device's tokens
+SP_ARCH, SP_LAYERS, SP_MESH, SP_WORKERS = "granite-34b", 8, (1, 2), 2
+SP_PROMPT, SP_DECODE = 4096, 4
+# the logits (the prefill's and each decode step's) against one device's
+# in bf16 (rel norm): one device's own bf16-vs-f32 distance rounded up
+# (measured: 8.55e-3 to 9.06e-3 against its 9.36e-3, on an H100 80GB
+# HBM3 at 700 W). The two bf16 runs round apart (TP's partial sums are
+# rounded to bf16 before their all-reduce, and summed in another order),
+# so they lie as far from each other as each lies from f32, and no bf16
+# bound below that distance separates the precisions: the gates are the
+# f32 GSPMD prefill against one device's f32 prefill (measured 3.6e-6),
+# and the bf16 GSPMD prefill's own distance from one device's f32
+# prefill, within SP_F32_RATIO of one device's bf16 distance from it
+SP_SERVE_TOL, SP_F32_TOL, SP_F32_RATIO = 1e-2, 1e-4, 1.5
+# phase 3j: the kernels at paths 20 and 21's worker-local shapes
+SLICE19_FLASH = {
+    "granite-34b SP prefill, the gathered sequence, all heads":
+        (1, SP_PROMPT, SP_PROMPT, 48, 1, 128, True, None),
+    "granite-34b SP prefill, a worker's heads":
+        (1, SP_PROMPT, SP_PROMPT, 24, 1, 128, True, None),
+    "yi-9b FSDP x TP training, a worker's heads":
+        (LM_TRAIN_BATCH // FSDP_MESH[0], LM_TRAIN_SEQ, LM_TRAIN_SEQ,
+         32 // FSDP_MESH[1], 4 // FSDP_MESH[1], 128, True, None),
+}
+SLICE19_RMSNORM = {
+    "yi-9b FSDP x TP training, a worker's rows":
+        (LM_TRAIN_BATCH // FSDP_MESH[0] * LM_TRAIN_SEQ, 4096),
+}
+
+
+def fsdp_parallel():
+    """Main path 20's ``ParallelConfig``: the JAX package's policy for
+    the whole yi-9b (its cut has fewer than 3e9 parameters, which the
+    policy would train pure DP)."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.mesh import cell_parallel
+    return cell_parallel(get_config(FSDP_ARCH), ShapeConfig(
+        "train", LM_TRAIN_SEQ, LM_TRAIN_BATCH, "train"))
+
+
+def sp_parallel():
+    """Main path 21's ``ParallelConfig``: the policy of granite-34b's
+    batch-1 prefill."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.mesh import cell_parallel
+    return cell_parallel(get_config(SP_ARCH), ShapeConfig(
+        "prefill", SP_PROMPT, 1, "prefill"))
+
+
+def slice19_kernel_phase(torch):
+    """Phase 3j: ``flash_attention`` (bf16) at main path 21's prefill
+    (granite-34b's 4,096 tokens whole under sequence parallelism, its
+    48 heads and a worker's 24, on one kv head) and main path 20's
+    worker-local heads, ``rmsnorm`` at main path 20's rows (a worker's
+    2,048 of yi-9b's width), each against its plain version and timed
+    with its library call and bound; ``hybrid_update`` over one worker's
+    FSDP x TP x ZeRO-1 shards of main path 20's leaves, bitwise."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    out = {"flash_attention": flash_shape_cases(torch, gen, SLICE19_FLASH),
+           "rmsnorm": rmsnorm_shape_cases(torch, gen, SLICE19_RMSNORM)}
+    out["hybrid_update"] = tp_update_case(
+        torch, gen, _cut_config(FSDP_ARCH, FSDP_LAYERS),
+        dict(zip(("data", "model"), FSDP_MESH)), "FSDP x TP x ZeRO-1",
+        parallel=fsdp_parallel())
+    return out
+
+
+def leaf_gaps(torch, a, b, p=None):
+    """``a``'s distance from ``b``, a leaf's (or, with ``p`` its DTensor,
+    a worker's shards of it: summed over the workers, each copy counted
+    once): the largest absolute difference, the relative norm and the
+    elements outside ``ACCUM_PARAM_TOL``."""
+    a, b = a.double(), b.to(a.device).double()
+    sq = torch.stack([(a - b).square().sum(), b.square().sum(),
+                      (~torch.isclose(a, b, **ACCUM_PARAM_TOL)).sum()
+                      .double()])
+    big = (a - b).abs().max().reshape(1)
+    if p is not None:
+        import torch.distributed as dist
+        dist.all_reduce(sq)
+        dist.all_reduce(big, op=dist.ReduceOp.MAX)
+        sq /= math.prod(p.device_mesh.size(i)
+                        for i, q in enumerate(p.placements) if q.is_replicate())
+    return {"max_abs": float(big),
+            "rel": float(sq[0].sqrt() / sq[1].sqrt().clamp_min(1e-30)),
+            "outside": int(sq[2]), "elements": (a if p is None else p).numel()}
+
+
+def _fsdp_build(torch, opt, f32=False, **kw):
+    """``build_train_setup``'s options of main path 20 (one device, or
+    with ``kw`` the GSPMD mode): path 10's batch and recipe (``opt``),
+    bf16 and the bf16 wire (``f32``: f32 both), flash, the fused update,
+    weights drawn on the card; the wire goes into ``kw["parallel"]``
+    where there is one."""
+    import dataclasses
+
+    from repro_torch.configs import OptimizerConfig
+    wire = "none" if f32 else "bf16"
+    if "parallel" in kw:
+        kw["parallel"] = dataclasses.replace(kw["parallel"], compression=wire)
+    else:
+        kw["compression"] = wire
+    return dict(global_batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ,
+                opt_cfg=OptimizerConfig(**opt),
+                steps_per_epoch=LM_TRAIN_STEPS,
+                compute_dtype=torch.float32 if f32 else torch.bfloat16,
+                attention_impl="chunked", use_fused_kernel=True,
+                draw_device="cuda", device="cuda", **kw)
+
+
+def fsdp_refs(torch, out_dir: str):
+    """Main path 20's one-device references, in the main process before
+    the spawn: the first step's loss of path 10's recipe (bf16); in f32,
+    one step of that recipe and one LARS step (their parameters to
+    ``out_dir``, and each leaf's step from the initial weights), and
+    the recipe's step with ``microbatches=2`` against its step with 1
+    (the accumulation's control)."""
+    from repro_torch.launch.train import build_train_setup
+    from repro_torch.optim.lars import tape_trust_ratios
+    cfg = _cut_config(FSDP_ARCH, FSDP_LAYERS)
+    refs = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, state, step, data, _, _ = build_train_setup(
+        cfg, dp_mode="none", **_fsdp_build(torch, LM_TRAIN_OPT))
+    t0 = time.perf_counter()
+    state, met = step(state, data.batch_at(0))
+    torch.cuda.synchronize()
+    refs.update(loss=float(met["loss"]),
+                step_ms=(time.perf_counter() - t0) * 1e3,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del state, step, data, met
+    for key, opt, mb in (("hybrid", LM_TRAIN_OPT, 1),
+                         ("accum", LM_TRAIN_OPT, 2),
+                         ("lars", FSDP_LARS_OPT, 1)):
+        torch.cuda.empty_cache()
+        _, state, step, data, _, _ = build_train_setup(
+            cfg, dp_mode="none", microbatches=mb,
+            **_fsdp_build(torch, opt, f32=True))
+        start = {k: v.detach().clone() for k, v in state["params"].items()}
+        with tape_trust_ratios() as trust:
+            state, met = step(state, data.batch_at(0))
+        params = {k: v.detach() for k, v in state["params"].items()}
+        refs[key] = {"loss": float(met["loss"]), "trust": list(trust),
+                     "step": {k: leaf_gaps(torch, v, start[k])["rel"]
+                               for k, v in params.items()}}
+        del start
+        if key == "accum":  # against the step with one microbatch
+            one = torch.load(os.path.join(out_dir, "hybrid_params.pt"),
+                             mmap=True)
+            refs[key]["vs_one_microbatch"] = {
+                k: leaf_gaps(torch, v, one[k]) for k, v in params.items()}
+            del one
+        else:
+            torch.save({k: v.cpu() for k, v in params.items()},
+                       os.path.join(out_dir, f"{key}_params.pt"))
+        del state, step, data, met, params
+    torch.cuda.empty_cache()
+    return refs
+
+
+def gspmd_fsdp_worker(rank: int, out_dir: str) -> None:
+    """One of main path 20's four processes, all on the one card, joined
+    over gloo as ``--mesh 2x2``: yi-9b at 2 layers under its own policy
+    (``fsdp_parallel``), ``FSDP_STEPS`` steps of path 10's batch and
+    recipe; the same run without ``fsdp_params`` (TP x ZeRO-1; its peak
+    memory beside); in f32, one step of the recipe with and without
+    ``fsdp_params`` (against one device's, ``fsdp_refs``), one with
+    ``microbatches=2`` (against the one with 1), and one LARS step
+    (against one device's). The kernel
+    counts are set to 0 before each run's steps, DTensor's own
+    collectives counted; each worker's parameter elements by leaf.
+    Writes ``rank{rank}.json``."""
+    sys.path.insert(0, SRC)
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import shutdown
+    from repro_torch.distributed.sharding import (count_dtensor_collectives,
+                                                  local_slice)
+    from repro_torch.launch.train import build_train_setup
+    from repro_torch.optim.lars import tape_trust_ratios
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/store",
+                            rank=rank, world_size=FSDP_WORKERS)
+    calls = count_dtensor_collectives()
+    libs = kernel_libs()
+    cfg = _cut_config(FSDP_ARCH, FSDP_LAYERS)
+    par = fsdp_parallel()
+    out = {}
+
+    def run(key, parallel, steps, opt=LM_TRAIN_OPT, mb=1, f32=False):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, state, step, data, _, _ = build_train_setup(cfg, **_fsdp_build(
+            torch, opt, f32, dp_mode="gspmd", mesh_shape=FSDP_MESH,
+            parallel=parallel, microbatches=mb))
+        torch.cuda.synchronize()
+        rec = {"setup_s": time.perf_counter() - t0,
+               "setup_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(libs)
+        calls.update(n=0, on=True)
+        losses, times = [], []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            state, met = step(state, data.batch_at(i))
+            losses.append(float(met["loss"]))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        calls["on"] = False
+        field = next(v for v in state["opt"].values() if isinstance(v, dict))
+        rec.update(losses=losses, step_ms=times, launches=read_counts(libs),
+                   moved=sorted(k for k, p in state["params"].items()
+                                if tuple(field[k].placements)
+                                != tuple(p.placements)),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   dtensor_collectives=calls["n"],
+                   local={k: p.to_local().numel()
+                          for k, p in state["params"].items()},
+                   whole={k: p.numel() for k, p in state["params"].items()},
+                   placements={k: [str(q) for q in p.placements]
+                               for k, p in state["params"].items()},
+                   local_param_bytes=sum(p.to_local().numel() *
+                                         p.to_local().element_size()
+                                         for p in state["params"].values()))
+        out[key] = rec
+        return state["params"]
+
+    def vs_one_device(params, name):  # each worker's shards, no gather
+        ref = torch.load(os.path.join(out_dir, f"{name}_params.pt"),
+                         mmap=True)
+        return {k: leaf_gaps(torch, p.to_local(), local_slice(
+            ref[k], p.device_mesh, p.placements), p)
+            for k, p in params.items()}
+
+    try:
+        run("fsdp", par, FSDP_STEPS)
+        run("no_fsdp", dataclasses.replace(par, fsdp_params=False), 1)
+        params = run("accum1", par, 1, f32=True)
+        out["accum1"]["vs_one_device"] = vs_one_device(params, "hybrid")
+        tp_zero = run("tp_zero", dataclasses.replace(par, fsdp_params=False),
+                      1, f32=True)  # ZeRO-1's shards written back
+        out["tp_zero"]["vs_one_device"] = vs_one_device(tp_zero, "hybrid")
+        del tp_zero
+        kept = {k: p.to_local().detach().clone() for k, p in params.items()}
+        del params
+        params = run("accum", par, 1, mb=2, f32=True)  # kept's layout
+        out["accum"]["vs_one_microbatch"] = {
+            k: leaf_gaps(torch, p.to_local(), kept[k], p)
+            for k, p in params.items()}
+        del params, kept
+        with tape_trust_ratios() as trust:
+            params = run("lars", par, 1, opt=FSDP_LARS_OPT, f32=True)
+        out["lars"]["trust"] = list(trust)
+        out["lars"]["vs_one_device"] = vs_one_device(params, "lars")
+        del params
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        shutdown()
+
+
+def _worst(gaps):
+    """(leaf, relative norm) of the leaf furthest from its reference."""
+    return max(((k, v["rel"]) for k, v in gaps.items()), key=lambda kv: kv[1])
+
+
+def gspmd_fsdp_path(torch):
+    """Main path 20 (``gspmd_fsdp_worker``, four processes on the card):
+    every worker's losses finite and equal; the first within
+    ``FSDP_LOSS_RTOL`` of one device's (``fsdp_refs``); each worker's
+    parameter elements exactly a quarter of every leaf split over both
+    axes (the leaves split over "data" alone, a half, listed); its peak
+    memory in the steps below the same run's without ``fsdp_params``;
+    in f32, the recipe's step within ``HYBRID_F32_TOL`` of one device's
+    (and so without ``fsdp_params``, where ZeRO-1's shards move and are
+    written back),
+    ``microbatches=2``'s loss within ``ACCUM_LOSS_RTOL`` of the whole
+    batch's and its parameters within ``ACCUM_LEAF_TOL`` (at most
+    ``ACCUM_RARE`` of a leaf outside ``ACCUM_PARAM_TOL``; one device's
+    own count beside), LARS's trust ratios within ``LARS_TRUST_RTOL`` of
+    one device's and its parameters within ``LARS_PARAM_TOL``, each
+    parameter bound below every leaf's own step; no DTensor all-gather,
+    reduce-scatter or all-to-all; the launches: flash at every layer
+    twice a step (the forward and its recompute), rmsnorm at every norm
+    site and at the recomputed ones, one fused update a step (none for
+    LARS). Returns (worker 0's launches of the first run, stats)."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    cfg = _cut_config(FSDP_ARCH, FSDP_LAYERS)
+    root = tempfile.mkdtemp(prefix="chip_smoke_fsdp_")
+    t0 = time.perf_counter()
+    try:
+        refs = fsdp_refs(torch, root)
+        refs_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        mp.spawn(gspmd_fsdp_worker, args=(root,), nprocs=FSDP_WORKERS)
+        spawn_s = time.perf_counter() - t1
+        ranks = []
+        for r in range(FSDP_WORKERS):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rec = ranks[0]
+    fsdp = rec["fsdp"]
+    for key in ("fsdp", "no_fsdp", "accum1", "tp_zero", "accum", "lars"):
+        r = rec[key]
+        log(f"  {key}: losses {r['losses']}, step ms "
+            f"{[round(t, 1) for t in r['step_ms']]}, set-up "
+            f"{r['setup_s']:.1f}s (peak {r['setup_peak_gib']:.2f} GiB), "
+            f"peak in the steps {r['peak_gib']:.2f} GiB, "
+            f"{r['local_param_bytes'] / 2 ** 30:.3f} GiB of parameters a "
+            f"worker, launches {r['launches']}, DTensor collectives "
+            f"{r['dtensor_collectives']}, leaves updated on ZeRO-1's "
+            f"moved shards {len(r['moved'])}")
+    first_rel = abs(fsdp["losses"][0] - refs["loss"]) / abs(refs["loss"])
+    quarter = sorted(k for k in fsdp["whole"]
+                     if 4 * fsdp["local"][k] == fsdp["whole"][k])
+    other = {k: fsdp["local"][k] / fsdp["whole"][k] for k in fsdp["whole"]
+             if k not in quarter}
+    smallest = {k: min(refs[k]["step"].items(), key=lambda kv: kv[1])
+             for k in ("hybrid", "lars")}
+    hybrid_worst = _worst(rec["accum1"]["vs_one_device"])
+    zero_worst = _worst(rec["tp_zero"]["vs_one_device"])
+    one_mb = rec["accum1"]["losses"][0]
+    accum_rel = abs(rec["accum"]["losses"][0] - one_mb) / abs(one_mb)
+    vs_one = rec["accum"]["vs_one_microbatch"]
+    accum_bad = {k: v for k, v in vs_one.items()
+                 if v["rel"] > ACCUM_LEAF_TOL
+                 or v["outside"] > ACCUM_RARE * v["elements"]}
+    accum_err = max(v["max_abs"] for v in vs_one.values())
+    accum_worst = _worst(vs_one)
+    accum_outside = {k: v["outside"] for k, v in vs_one.items()
+                     if v["outside"]}
+    control = refs["accum"]["vs_one_microbatch"]
+    trust, trust_ref = rec["lars"]["trust"], refs["lars"]["trust"]
+    trust_rel = (max(abs(a - b) / abs(b) for a, b in zip(trust, trust_ref))
+                 if len(trust) == len(trust_ref) else float("inf"))
+    lars_worst = _worst(rec["lars"]["vs_one_device"])
+    log(f"  first loss {fsdp['losses'][0]} vs one device {refs['loss']}: "
+        f"rel {first_rel:.3g} (bound {FSDP_LOSS_RTOL}); one device's step "
+        f"{refs['step_ms']:.1f} ms, peak {refs['peak_gib']:.2f} GiB")
+    log(f"  a worker's parameters: a quarter of {len(quarter)} of "
+        f"{len(fsdp['whole'])} leaves; the others (split over 'data' "
+        f"alone) {other}; peak in the steps {fsdp['peak_gib']:.2f} GiB "
+        f"with FSDP vs {rec['no_fsdp']['peak_gib']:.2f} GiB without")
+    log(f"  one step (f32) vs one device's: loss {one_mb} vs "
+        f"{refs['hybrid']['loss']}, worst leaf {hybrid_worst[0]} rel "
+        f"{hybrid_worst[1]:.3g} (bound {HYBRID_F32_TOL}); the smallest "
+        f"leaf step (an update not applied) {smallest['hybrid'][1]:.3g} "
+        f"({smallest['hybrid'][0]}); without fsdp_params (TP x ZeRO-1, "
+        f"{len(rec['tp_zero']['moved'])} leaves updated on moved shards and "
+        f"written back) worst leaf {zero_worst[0]} rel {zero_worst[1]:.3g}")
+    log(f"  microbatches=2 (f32): loss {rec['accum']['losses'][0]} vs "
+        f"{one_mb} (rel {accum_rel:.3g}, bound "
+        f"{ACCUM_LOSS_RTOL}); parameters after one step: worst leaf "
+        f"{accum_worst[0]} rel {accum_worst[1]:.3g} (bound "
+        f"{ACCUM_LEAF_TOL}), max abs diff {accum_err:.3g}, elements outside "
+        f"{ACCUM_PARAM_TOL} by leaf {accum_outside} (at most {ACCUM_RARE} "
+        f"of a leaf); failing: {accum_bad}; one device's control: loss "
+        f"{refs['accum']['loss']} vs {refs['hybrid']['loss']}, worst leaf "
+        f"rel {_worst(control)[1]:.3g}, max abs diff "
+        f"{max(v['max_abs'] for v in control.values()):.3g}, elements "
+        f"outside by leaf "
+        f"{ {k: v['outside'] for k, v in control.items() if v['outside']} }")
+    log(f"  LARS (f32): {len(trust)} trust ratios, max rel diff vs one "
+        f"device {trust_rel:.3g} (bound {LARS_TRUST_RTOL}); worst leaf "
+        f"{lars_worst[0]} rel {lars_worst[1]:.3g} (bound {LARS_PARAM_TOL});"
+        f" the smallest leaf step (an update not applied) "
+        f"{smallest['lars'][1]:.3g} ({smallest['lars'][0]})")
+    want = {k: 0 for k in fsdp["launches"]}
+    want.update(lm_launches(cfg, FSDP_STEPS, FSDP_STEPS, FSDP_STEPS))
+    want["hybrid_update"] = FSDP_STEPS
+    want_accum = dict(want)
+    want_accum.update(lm_launches(cfg, 2, 2, 2))
+    want_accum["hybrid_update"] = 1
+    for r in ranks:
+        assert r["fsdp"]["losses"] == fsdp["losses"], ranks
+        assert all(r[k]["dtensor_collectives"] == 0 for k in r), r
+        assert r["fsdp"]["launches"] == want, (r["fsdp"]["launches"], want)
+        assert r["accum"]["launches"] == want_accum, (
+            r["accum"]["launches"], want_accum)
+        assert r["fsdp"]["peak_gib"] < r["no_fsdp"]["peak_gib"], r
+    assert all(math.isfinite(v) for v in fsdp["losses"]), fsdp
+    assert first_rel <= FSDP_LOSS_RTOL, first_rel
+    assert quarter and all(2 * fsdp["local"][k] == fsdp["whole"][k]
+                           for k in other), other
+    assert all("norm" in k for k in other), other
+    assert HYBRID_F32_TOL < smallest["hybrid"][1], smallest
+    assert hybrid_worst[1] <= HYBRID_F32_TOL, hybrid_worst
+    assert rec["tp_zero"]["moved"], rec["tp_zero"]["moved"]
+    assert zero_worst[1] <= HYBRID_F32_TOL, zero_worst
+    assert accum_rel <= ACCUM_LOSS_RTOL, accum_rel
+    assert not accum_bad, accum_bad
+    assert trust_rel <= LARS_TRUST_RTOL, trust_rel
+    assert LARS_PARAM_TOL < smallest["lars"][1], smallest
+    assert lars_worst[1] <= LARS_PARAM_TOL, lars_worst
+    return fsdp["launches"], {
+        "workers": ranks, "one_device": refs,
+        "first_loss_rel": first_rel, "quarter_leaves": len(quarter),
+        "half_leaves": other, "hybrid_f32_worst": hybrid_worst,
+        "tp_zero_f32_worst": zero_worst,
+        "accum_loss_rel": accum_rel, "accum_max_abs_diff": accum_err,
+        "trust_rel": trust_rel, "lars_worst": lars_worst,
+        "smallest_step": smallest, "refs_s": refs_s, "spawn_s": spawn_s,
+        "path_s": time.perf_counter() - t0}
+
+
+def _sp_inputs(torch, cfg):
+    """One prompt of ``SP_PROMPT`` tokens (``make_requests``), on the
+    card."""
+    from repro_torch.launch.serve import make_requests
+    tokens = make_requests(cfg, 1, SP_PROMPT)["tokens"]
+    return {"tokens": torch.from_numpy(tokens).to("cuda")}
+
+
+def sp_refs(torch, out_dir: str):
+    """Main path 21's one-device references, in the main process before
+    the spawn: the bf16 prefill and ``SP_DECODE`` greedy decode steps
+    (their logits and tokens, to ``out_dir``), and the f32 prefill (its
+    last logits, and the bf16 prefill's distance from them)."""
+    from repro_torch.launch.serve import build_serve_setup
+    from repro_torch.training.step import make_decode_step, make_prefill_step
+    cfg = _cut_config(SP_ARCH, SP_LAYERS)
+    refs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model, params = build_serve_setup(
+            cfg, compute_dtype=dt, attention_impl="chunked", device="cuda",
+            draw_device="cuda")
+        cache, _ = model.cache_shape(1, SP_PROMPT + SP_DECODE, dt)
+        steps = SP_DECODE if dt == torch.bfloat16 else 0
+        logits, toks, ms, _ = _greedy(
+            torch, make_prefill_step(model), make_decode_step(model), params,
+            cache, _sp_inputs(torch, cfg), steps)
+        name = "bf16" if dt == torch.bfloat16 else "f32"
+        refs[name] = {"ms": ms, "tokens": toks.cpu().tolist(),
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        torch.save({"logits": logits, "tokens": toks.cpu()},
+                   os.path.join(out_dir, f"sp_{name}.pt"))
+        del model, params, cache
+    bf16 = torch.load(os.path.join(out_dir, "sp_bf16.pt"))["logits"][0]
+    f32 = torch.load(os.path.join(out_dir, "sp_f32.pt"))["logits"][0]
+    refs["bf16_vs_f32"] = _rel(bf16, f32)
+    torch.cuda.empty_cache()
+    return refs
+
+
+def gspmd_sp_worker(rank: int, out_dir: str) -> None:
+    """One of main path 21's two processes, both on the one card, joined
+    over gloo as ``--mesh 1x2``: granite-34b at 8 layers under
+    ``sp_parallel`` (``build_gspmd_serve_setup``), the cache placed by
+    ``place_cache`` (its positions split over "model"), a bf16 prefill
+    of one 4,096-token prompt and ``SP_DECODE`` decode steps fed one
+    device's tokens; then the same prefill in f32. The kernel counts are
+    set to 0 before the bf16 run, DTensor's own collectives counted.
+    Writes ``rank{rank}.json``."""
+    sys.path.insert(0, SRC)
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import shutdown
+    from repro_torch.distributed.sharding import count_dtensor_collectives
+    from repro_torch.launch.serve import build_gspmd_serve_setup
+    from repro_torch.training.gspmd import place_cache
+    from repro_torch.training.step import make_decode_step, make_prefill_step
+
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/store",
+                            rank=rank, world_size=SP_WORKERS)
+    calls = count_dtensor_collectives()
+    libs = kernel_libs()
+    cfg = _cut_config(SP_ARCH, SP_LAYERS)
+    out = {}
+    try:
+        for dt in (torch.bfloat16, torch.float32):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            model, params, mesh, rules = build_gspmd_serve_setup(
+                cfg, SP_MESH, compute_dtype=dt, attention_impl="chunked",
+                device="cuda", draw_device="cuda", parallel=sp_parallel())
+            setup_s = time.perf_counter() - t0
+            name = "bf16" if dt == torch.bfloat16 else "f32"
+            ref = torch.load(os.path.join(out_dir, f"sp_{name}.pt"))
+            cache, axes = model.cache_shape(1, SP_PROMPT + SP_DECODE, dt)
+            cache = place_cache(cache, axes, mesh, rules)
+            held = {k: [v.to_local().shape[2], v.shape[2]]
+                    for k, v in cache.items()}
+            steps = SP_DECODE if dt == torch.bfloat16 else 0
+            calls.update(n=0, on=True)
+            logits, toks, ms, counts = _greedy(
+                torch, make_prefill_step(model, mesh, rules),
+                make_decode_step(model, mesh, rules), params, cache,
+                _sp_inputs(torch, cfg), steps, libs,
+                forced=ref["tokens"].to("cuda") if steps else None)
+            calls["on"] = False
+            want, ref_toks = ref["logits"], ref["tokens"].cpu()
+            toks = toks.cpu()
+            flips = [[t, r, float(want[t][r, ref_toks[r, t]]
+                                  - want[t][r, toks[r, t]])]
+                     for t in range(len(want)) for r in range(toks.shape[0])
+                     if toks[r, t] != ref_toks[r, t]]
+            out[name] = {
+                "setup_s": setup_s, "prefill_ms": ms[0], "decode_ms": ms[1:],
+                "launches": counts, "tokens": toks.tolist(), "flips": flips,
+                "choices": toks.numel(), "cache_positions": held,
+                "rel_norm": [_rel(a, b) for a, b in zip(logits, want)],
+                "max_abs_err": [float((a - b).abs().max())
+                                for a, b in zip(logits, want)],
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "dtensor_collectives": calls["n"],
+                "local_parameters": sum(p.to_local().numel()
+                                        for p in params.values())}
+            if dt == torch.bfloat16:  # its prefill against one device's f32
+                exact = torch.load(os.path.join(out_dir, "sp_f32.pt"))
+                out[name]["vs_f32"] = _rel(logits[0], exact["logits"][0])
+                del exact
+            del model, params, cache, ref, logits
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        shutdown()
+
+
+def gspmd_sp_path(torch):
+    """Main path 21 (``gspmd_sp_worker``, two processes on the card):
+    each worker's cache leaves hold exactly half of one device's
+    positions; the logits of the bf16 prefill and of each teacher-forced
+    decode step within ``SP_SERVE_TOL`` of one device's (``sp_refs``;
+    one device's own bf16-vs-f32 distance logged beside); the f32 prefill
+    within ``SP_F32_TOL`` of one device's f32 prefill, the bf16
+    prefill's distance from it within ``SP_F32_RATIO`` of one device's
+    bf16 prefill's; a greedy choice
+    that differs only at one device's tie (``GSPMD_TIE_GAP``); no
+    DTensor all-gather, reduce-scatter or all-to-all; the launches:
+    flash at every layer of the prefill (on the whole sequence, a
+    worker's heads), none in a decode step. Returns (worker 0's
+    launches of the prefill and the first decode step, summed;
+    stats)."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    cfg = _cut_config(SP_ARCH, SP_LAYERS)
+    root = tempfile.mkdtemp(prefix="chip_smoke_sp_")
+    t0 = time.perf_counter()
+    try:
+        refs = sp_refs(torch, root)
+        refs_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        mp.spawn(gspmd_sp_worker, args=(root,), nprocs=SP_WORKERS)
+        spawn_s = time.perf_counter() - t1
+        ranks = []
+        for r in range(SP_WORKERS):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rec, rec32 = ranks[0]["bf16"], ranks[0]["f32"]
+    log(f"  one device: bf16 prefill + decode ms "
+        f"{[round(t, 1) for t in refs['bf16']['ms']]} (peak "
+        f"{refs['bf16']['peak_gib']:.2f} GiB), f32 prefill ms "
+        f"{refs['f32']['ms'][0]:.1f}; its bf16 prefill vs its f32 one: rel "
+        f"norm {refs['bf16_vs_f32']:.3g}")
+    log(f"  SP + kv_seq (bf16): prefill {rec['prefill_ms']:.1f} ms, decode "
+        f"ms {[round(t, 1) for t in rec['decode_ms']]}, set-up "
+        f"{rec['setup_s']:.1f}s, peak {rec['peak_gib']:.2f} GiB, "
+        f"{rec['local_parameters']} local parameters, cache positions held "
+        f"{rec['cache_positions']}, launches {rec['launches']}, DTensor "
+        f"collectives {rec['dtensor_collectives']}; logits vs one device, "
+        f"the prefill's and each teacher-forced decode step's: rel norm "
+        f"{[float(f'{e:.3g}') for e in rec['rel_norm']]} (bound "
+        f"{SP_SERVE_TOL}), max abs error "
+        f"{[round(e, 4) for e in rec['max_abs_err']]}; greedy choices "
+        f"differing: {len(rec['flips'])} of {rec['choices']} {rec['flips']}")
+    log(f"  f32 witness: prefill {rec32['prefill_ms']:.1f} ms, peak "
+        f"{rec32['peak_gib']:.2f} GiB, logits vs one device's f32: rel norm "
+        f"{rec32['rel_norm'][0]:.3g} (bound {SP_F32_TOL}); the bf16 "
+        f"prefill vs one device's f32: rel norm {rec['vs_f32']:.3g}, "
+        f"{rec['vs_f32'] / refs['bf16_vs_f32']:.3g}x one device's bf16 "
+        f"(bound {SP_F32_RATIO}x)")
+    for r in ranks:
+        for name in ("bf16", "f32"):
+            x = r[name]
+            assert x["dtensor_collectives"] == 0, (name, x)
+            assert all(2 * a == b for a, b in x["cache_positions"].values()
+                       ), x["cache_positions"]
+        for phase, (fw, pre) in (("prefill", (1, 1)), ("decode", (1, 0))):
+            want = {k: 0 for k in r["bf16"]["launches"][phase]}
+            want.update(lm_launches(cfg, fw, pre))
+            assert r["bf16"]["launches"][phase] == want, (
+                phase, r["bf16"]["launches"], want)
+    assert ranks[0]["bf16"]["tokens"] == ranks[1]["bf16"]["tokens"]
+    assert max(rec["rel_norm"]) <= SP_SERVE_TOL, rec["rel_norm"]
+    assert rec32["rel_norm"][0] <= SP_F32_TOL, rec32["rel_norm"]
+    assert rec["vs_f32"] <= SP_F32_RATIO * refs["bf16_vs_f32"], (
+        rec["vs_f32"], refs["bf16_vs_f32"])
+    assert all(gap <= GSPMD_TIE_GAP for _, _, gap in rec["flips"]), (
+        rec["flips"])
+    total = {k: rec["launches"]["prefill"][k] + rec["launches"]["decode"][k]
+             for k in rec["launches"]["prefill"]}
+    return total, {"workers": ranks, "one_device": refs, "refs_s": refs_s,
+                   "spawn_s": spawn_s, "path_s": time.perf_counter() - t0}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -6236,6 +6966,14 @@ def main() -> int:
         "hybrid_update over one worker's shards of each config they train "
         "vs plain versions")
     slice18 = slice18_kernel_phase(torch)
+    log(f"  ({time.perf_counter() - t0:.1f}s)")
+    t0 = time.perf_counter()
+    log("[3j] flash_attention (bf16) at main path 21's prefill "
+        "(granite-34b's 4,096 tokens whole, 48 and 24 heads on one kv "
+        "head) and main path 20's worker-local heads, rmsnorm at main "
+        "path 20's rows, hybrid_update over one FSDP x TP x ZeRO-1 "
+        "worker's shards vs plain versions")
+    slice19 = slice19_kernel_phase(torch)
     log(f"  ({time.perf_counter() - t0:.1f}s)")
 
     t0 = time.perf_counter()
@@ -6543,7 +7281,7 @@ def main() -> int:
         f"32 layers, {GSPMD_TRAIN_STEPS} steps of main path 13's batch "
         f"(the first step's routing replayed from one device); the GSPMD "
         f"prefill of main path 12's requests and {GSPMD_DECODE_STEPS} "
-        f"greedy decode steps for mixtral-8x7b at 8 of 32 layers and "
+        f"greedy decode steps for mixtral-8x7b at 4 of 32 layers and "
         f"llama4-maverick at one group (the routing replayed)")
     launches18, stats18 = gspmd_family_path(
         torch, 18, {MOE_TRAIN_ARCH: stats13["one_device"]["losses"][0]})
@@ -6551,13 +7289,33 @@ def main() -> int:
     t0 = time.perf_counter()
     log(f"[25] main path 19: phi-3-vision, zamba2-7b, xlstm-350m and "
         f"whisper-tiny under --dp-mode gspmd --mesh 1x2 (TP 2) at main "
-        f"path 15's depths, two processes on the one card over gloo, bf16: "
+        f"path 15's depths (zamba2 served at 6 layers), two processes on "
+        f"the one card over gloo, bf16: "
         f"{GSPMD_TRAIN_STEPS} steps of main path 15's batch, then the GSPMD "
         f"prefill of main path 14's requests and {GSPMD_DECODE_STEPS} "
         f"greedy decode steps")
     launches19, stats19 = gspmd_family_path(
         torch, 19, {arch: stats15[arch]["one_device"]["losses"][0]
                     for arch, _ in FAMILY_TRAIN})
+    log(f"  ({time.perf_counter() - t0:.1f}s)")
+    t0 = time.perf_counter()
+    log(f"[26] main path 20: {FSDP_ARCH} at full width, {FSDP_LAYERS} of "
+        f"48 layers, under its own policy (FSDP over 'data', Megatron TP "
+        f"over 'model', ZeRO-1, the bf16 wire, remat), --mesh 2x2, four "
+        f"processes on the one card over gloo, bf16, flash, "
+        f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens, {FSDP_STEPS} steps; "
+        f"against one device, without fsdp_params, with microbatches=2 "
+        f"and with LARS")
+    launches20, stats20 = gspmd_fsdp_path(torch)
+    log(f"  ({time.perf_counter() - t0:.1f}s)")
+    t0 = time.perf_counter()
+    log(f"[27] main path 21: {SP_ARCH} at full width, {SP_LAYERS} of 88 "
+        f"layers, served under its batch-1 prefill policy (TP, sequence "
+        f"parallelism, the cache's positions on 'model'), --mesh 1x2, two "
+        f"processes on the one card over gloo: one {SP_PROMPT}-token "
+        f"prompt, a bf16 prefill and {SP_DECODE} teacher-forced decode "
+        f"steps against one device's, the f32 prefill as the witness")
+    launches21, stats21 = gspmd_sp_path(torch)
     log(f"  ({time.perf_counter() - t0:.1f}s)")
     launches5 = sync_stats["path5_launches"]
     launches6 = overlap_stats["path6_launches"]
@@ -6583,7 +7341,9 @@ def main() -> int:
                    "path10_no_remat": remat10["no_remat"]["launches"][k],
                    "path16": launches16[k], "path17": launches17[k],
                    "path18": launches18.get(k, 0),
-                   "path19": launches19.get(k, 0)}
+                   "path19": launches19.get(k, 0),
+                   "path20": launches20.get(k, 0),
+                   "path21": launches21.get(k, 0)}
                for k in launches}
     kernels = [{"name": k, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[k], "launches": launches[k],
@@ -6633,6 +7393,8 @@ def main() -> int:
             rec["slice17"] = slice17[rec["name"]]
         if rec["name"] in slice18:
             rec["slice18"] = slice18[rec["name"]]
+        if rec["name"] in slice19:
+            rec["slice19"] = slice19[rec["name"]]
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke_kernels.json"),
@@ -6665,7 +7427,10 @@ def main() -> int:
                        "main_path_17": stats17,
                        "slice18_kernels": slice18,
                        "main_path_18": stats18,
-                       "main_path_19": stats19}, f,
+                       "main_path_19": stats19,
+                       "slice19_kernels": slice19,
+                       "main_path_20": stats20,
+                       "main_path_21": stats21}, f,
                       indent=1)
     log(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))

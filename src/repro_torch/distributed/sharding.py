@@ -48,6 +48,12 @@ makes tensor dims whole (a row a normalization reads), ``split_whole``
 the pieces of a packed projection, ``relaid`` / ``placed_like`` lay a
 tensor out as another (the heads of ``heads_placements``) before a
 ``local_apply``, and ``assign`` writes a placed cache in place.
+
+A parameter is read at its use placements (``use_rules``: the rules
+without FSDP's "embed" / "conv_out", llama4's "embed" on the model axis
+or a table's "seq"): ``UseTree`` gathers a leaf where the model reads
+it (``_UseGather``: cast first, list all-gathers; the backward an f32
+all-reduce and a cut back to the shard).
 """
 from __future__ import annotations
 
@@ -215,14 +221,20 @@ def placements(spec: Spec, mesh) -> Tuple:
     """DTensor placements of ``spec`` on ``mesh`` (a ``DeviceMesh`` with
     named dims): for each mesh dim, ``Shard(d)`` if tensor dim d names
     it, else ``Replicate()``. A tensor dim named by several mesh dims is
-    split over them major to minor, as a ``PartitionSpec`` entry is."""
+    split over them major to minor, as a ``PartitionSpec`` entry is. A
+    mesh dim of one worker replicates (the same layout; DTensor will not
+    flatten a batch of one split over it, as a prefill's row is)."""
     from torch.distributed.tensor import Replicate, Shard
+    try:
+        sizes = mesh_shape(mesh)
+    except AttributeError:  # axis names alone: no size known to be 1
+        sizes = {}
     where = {}
     for d, e in enumerate(spec):
         for a in ((e,) if isinstance(e, str) else (e or ())):
             where[a] = d
-    return tuple(Shard(where[a]) if a in where else Replicate()
-                 for a in mesh.mesh_dim_names)
+    return tuple(Shard(where[a]) if a in where and sizes.get(a) != 1
+                 else Replicate() for a in mesh.mesh_dim_names)
 
 
 def tree_shardings(axes_tree: Dict[str, Tuple], mesh, rules: Rules
@@ -268,6 +280,11 @@ def constrain(x, axes: Sequence[Optional[str]]):
     if ctx is None or not is_dtensor(x):
         return x
     mesh, rules = ctx
+    # an activation's "embed" dim stays whole: FSDP's "embed" is on the
+    # batch's axes already, and llama4's on the model axis (its heads do
+    # not divide it) would leave the products a Partial gradient, which
+    # DTensor reduce-scatters; its weights are gathered at their use
+    axes = tuple(None if a == "embed" else a for a in axes)
     return redistribute(x, placements(
         prune_spec(x.shape, spec_for(axes, rules), mesh), mesh))
 
@@ -366,6 +383,38 @@ def _cut(x, i: int, d: int):
                      device_mesh=mesh)(x)
 
 
+# DTensor's own collectives that ``redistribute`` never calls
+_DTENSOR_COLLECTIVES = (
+    ("torch.distributed._functional_collectives",
+     ("all_gather_single", "all_gather_tensor", "all_gather_tensor_autograd",
+      "reduce_scatter_single", "reduce_scatter_tensor",
+      "reduce_scatter_tensor_autograd", "all_to_all_single",
+      "all_to_all_single_autograd")),
+    ("torch.distributed.tensor.placement_types", ("shard_dim_alltoall",)))
+
+
+def count_dtensor_collectives() -> Dict[str, Any]:
+    """Wraps DTensor's own all-gathers, reduce-scatters and all-to-alls
+    for the rest of the process and returns their counter: ``calls["n"]``
+    goes up by one a call while ``calls["on"]``. A step that moves every
+    placement through ``redistribute`` leaves it at 0."""
+    import importlib
+    calls = {"n": 0, "on": False}
+
+    def counted(fn):
+        def call(*a, **k):
+            calls["n"] += calls["on"]
+            return fn(*a, **k)
+        return call
+
+    for mod_name, names in _DTENSOR_COLLECTIVES:
+        mod = importlib.import_module(mod_name)
+        for name in names:
+            if hasattr(mod, name):
+                setattr(mod, name, counted(getattr(mod, name)))
+    return calls
+
+
 def redistribute(x, want: Tuple):
     """``x.redistribute(mesh, want)`` by all-reduces, list all-gathers
     and local slices: a Partial sum all-reduced, a shard that moves or
@@ -379,6 +428,17 @@ def redistribute(x, want: Tuple):
     from torch.distributed.tensor import Replicate, Shard
     mesh = x.device_mesh
     cur = tuple(x.placements)
+    one = tuple(w if mesh.size(i) == 1 and not (p.is_partial() or
+                                                 w.is_partial()) else p
+                for i, (p, w) in enumerate(zip(cur, want)))
+    if one != cur:  # a mesh dim of one worker: relabelled, nothing moves
+        from torch.distributed.tensor.experimental import local_map
+        x = local_map(lambda t: t, out_placements=list(one),
+                      in_placements=(cur,), in_grad_placements=(cur,),
+                      device_mesh=mesh)(x)
+        cur = one
+        if cur == tuple(want):
+            return x
     if any(isinstance(w, Shard) and x.shape[w.dim] % mesh.size(i) or
            w.is_partial() and not p.is_partial()
            for i, (p, w) in enumerate(zip(cur, want))):
@@ -494,6 +554,157 @@ def distribute_local(t: torch.Tensor, mesh, placements):
     return DTensor.from_local(local_slice(t, mesh, placements), mesh,
                               tuple(placements), shape=t.shape,
                               stride=t.stride())
+
+
+# ---------------------------------------------------------------------------
+# parameters gathered where they are read (FSDP)
+# ---------------------------------------------------------------------------
+
+# the logical axes whose parameter shards are gathered where the
+# parameter is read: FSDP's "embed" / "conv_out" over the data axes,
+# llama4's "embed" on the model axis (heads that do not divide it), and
+# a positional table's "seq" under sequence parallelism
+GATHERED_AXES = ("embed", "conv_out", "seq")
+
+
+def use_rules(rules: Rules) -> Rules:
+    """The rules a parameter is read by: ``rules`` without its
+    ``GATHERED_AXES`` (a dim that gave up its mesh axis to "embed", as
+    "ffn" does to llama4's, takes it back: Megatron TP's layout)."""
+    return {**rules, **{a: None for a in GATHERED_AXES}}
+
+
+def tree_uses(axes_tree: Dict[str, Tuple], placed: Dict[str, Tuple], mesh,
+              rules: Rules) -> Dict[str, Tuple]:
+    """The use placements (by ``use_rules``) of the leaves read
+    elsewhere than they are placed (``placed``: each leaf's
+    placements)."""
+    read = use_rules(rules)
+    out = {}
+    for k, pl in placed.items():
+        use = placements(spec_for(axes_tree[k], read), mesh)
+        if use != tuple(pl):
+            out[k] = use
+    return out
+
+
+def _all_gather_dim(t: torch.Tensor, mesh, i: int, d: int) -> torch.Tensor:
+    """The shards of mesh dim ``i``'s group along ``d``, concatenated in
+    group-rank order (``dist.all_gather``, the list form)."""
+    import torch.distributed as dist
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(mesh.size(i))]
+    dist.all_gather(parts, t, group=mesh.get_group(i))
+    return torch.cat(parts, d)
+
+
+def _narrow_dim(t: torch.Tensor, mesh, i: int, d: int) -> torch.Tensor:
+    """This worker's slice of ``t``'s dim ``d`` over mesh dim ``i``."""
+    if t.shape[d] % mesh.size(i):
+        raise ValueError(f"dim {d} of a tensor shaped {tuple(t.shape)} "
+                         f"does not divide over mesh dim {i}")
+    n = t.shape[d] // mesh.size(i)
+    return t.narrow(d, mesh.get_local_rank(i) * n, n)
+
+
+class _UseGather(torch.autograd.Function):
+    """A parameter (a DTensor placed ``pl``) moved to its use placements
+    ``want``, cast to ``dtype`` first (None: kept), so the gathers move
+    the compute dtype: on each mesh dim where the two differ, its shard
+    gathered whole (the minor mesh dim of a tensor dim split over
+    several first), then the use's shard cut. The backward reduces the
+    gradient to the parameter's placements on those mesh dims: a
+    Partial sum all-reduced in f32 (a shard gathered), then the
+    parameter's shard cut; on the others it keeps the gradient's own
+    placements (a Partial sum over the batch axes is reduced by the
+    step)."""
+
+    @staticmethod
+    def forward(ctx, x, want, dtype):
+        from torch.distributed.tensor import DTensor
+        mesh, pl = x.device_mesh, tuple(x.placements)
+        ctx.dims = [i for i, (p, w) in enumerate(zip(pl, want)) if p != w]
+        ctx.mesh, ctx.pl, ctx.shape = mesh, pl, x.shape
+        ctx.stride, ctx.dtype = x.stride(), x.dtype
+        t = x.to_local() if dtype is None else x.to_local().to(dtype)
+        for i in reversed(ctx.dims):
+            if pl[i].is_shard():
+                t = _all_gather_dim(t, mesh, i, pl[i].dim)
+        for i in ctx.dims:
+            if want[i].is_shard():
+                t = _narrow_dim(t, mesh, i, want[i].dim)
+        return DTensor.from_local(t.contiguous(), mesh, tuple(want),
+                                  shape=x.shape, stride=x.stride())
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        from torch.distributed.tensor import DTensor
+        mesh = ctx.mesh
+        pl = list(g.placements)
+        t = g.to_local().float()
+        for i in reversed(ctx.dims):
+            if pl[i].is_shard():
+                t = _all_gather_dim(t, mesh, i, pl[i].dim)
+            elif pl[i].is_partial():
+                t = t.clone()
+                dist.all_reduce(t, group=mesh.get_group(i))
+        for i in ctx.dims:
+            if ctx.pl[i].is_shard():
+                t = _narrow_dim(t, mesh, i, ctx.pl[i].dim)
+            pl[i] = ctx.pl[i]
+        return DTensor.from_local(t.contiguous().to(ctx.dtype), mesh,
+                                  tuple(pl), shape=ctx.shape,
+                                  stride=ctx.stride), None, None
+
+
+def _drop_lead(pl: Tuple) -> Tuple:
+    """The placements of a stacked leaf's row (its dim 0 dropped)."""
+    from torch.distributed.tensor import Shard
+    return tuple(Shard(p.dim - 1) if p.is_shard() else p for p in pl)
+
+
+class UseTree(dict):
+    """A step's parameters (by name) whose reads gather (FSDP): ``p[k]``
+    is leaf k at its use placements (``uses[k]``, ``_UseGather``: cast
+    to ``dtype``, then gathered); a leaf without a use placement is
+    read as it is stored. ``sub(prefix, layer)`` is ``sub_params``: one
+    row of the stacked leaves under ``prefix``, each gathered as it is
+    cut, so a layer's weights are gathered when the layer runs (inside
+    its checkpoint, with remat: the recompute gathers again). With
+    ``local`` (the step's local forward) a read is this worker's plain
+    tensor, its gradient this worker's share (a Partial sum over the
+    mesh dims where ``local`` says so)."""
+
+    def __init__(self, leaves: Dict[str, Any], uses: Dict[str, Tuple],
+                 dtype, local: Optional[Tuple] = None):
+        super().__init__(leaves)
+        self.uses, self.dtype, self.local = uses, dtype, local
+
+    def __getitem__(self, k):
+        return self._read(dict.__getitem__(self, k), self.uses.get(k))
+
+    def _read(self, v, want):
+        if want is None:
+            return v
+        v = _UseGather.apply(v, want, self.dtype)
+        return v if self.local is None else v.to_local(
+            grad_placements=self.local)
+
+    def sub(self, prefix: str, layer: Optional[int] = None):
+        cut = len(prefix) + 1
+        keys = [k for k in self if k.startswith(prefix + "/")]
+        if layer is None:
+            return UseTree({k[cut:]: dict.__getitem__(self, k) for k in keys},
+                           {k[cut:]: self.uses[k] for k in keys
+                            if k in self.uses}, self.dtype, self.local)
+        out = {}
+        for k in keys:
+            want = self.uses.get(k)
+            out[k[cut:]] = self._read(dict.__getitem__(self, k)[layer],
+                                      None if want is None
+                                      else _drop_lead(want))
+        return out
 
 
 def assign(dst, src) -> None:

@@ -61,19 +61,29 @@ def build_gspmd_serve_setup(cfg, mesh_shape: Tuple[int, int], *,
                             seed: int = 0, compute_dtype=torch.float32,
                             attention_impl: str = "naive",
                             device: DeviceLike = "cuda",
-                            draw_device: DeviceLike = "cpu") -> Tuple:
+                            draw_device: DeviceLike = "cpu",
+                            parallel=None) -> Tuple:
     """(model, params, mesh, rules) for one worker of a GSPMD serving
     session (``make_prefill_step(model, mesh, rules)``, the cache placed
     by ``gspmd.place_cache``): the workers join (``init_workers``) and
     lay out over ("data", "model") as ``mesh_shape``, "model" the
     tensor-parallel axis (the launcher's rules: Megatron TP, MoE expert
-    parallelism or TP inside the experts, the SSM families' heads). The
+    parallelism or TP inside the experts, the SSM families' heads), or
+    by ``parallel``, a whole ``ParallelConfig`` as the JAX package's
+    ``lower_cell(parallel=...)`` takes, e.g. ``cell_parallel(cfg,
+    ShapeConfig("prefill", 4096, 1, "prefill"))``: sequence parallelism
+    ("seq" on "model": the activations between blocks split over the
+    sequence), the cache's positions on "model" ("kv_seq": ``place_cache``
+    splits them, a decode step attends without gathering them), and
+    FSDP's "embed" over "data" (``serve_fsdp``: each leaf gathered where
+    the forward reads it). The
     weights are ``build_serve_setup``'s (drawn on ``draw_device``, each
-    leaf cast as it is drawn), gathered on the host by one worker at a
-    time, each worker moving only its own slice of every leaf to its
-    device: a card the workers share holds one f32 leaf of the draw
-    beside the slices (llama4-maverick's one group is 35 GiB in bf16,
-    one expert leaf 20 GiB in f32)."""
+    leaf cast as it is drawn), gathered by one worker at a time (on its
+    card when the tree fits there twice over in half the free memory,
+    else on the host), each worker keeping only its own slice of every
+    leaf on its device: a card the workers share holds one f32 leaf of
+    the draw beside the slices (llama4-maverick's one group is 35 GiB in
+    bf16, one expert leaf 20 GiB in f32)."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
@@ -85,16 +95,24 @@ def build_gspmd_serve_setup(cfg, mesh_shape: Tuple[int, int], *,
     from repro_torch.launch.train import MESH_AXES
     dev = init_workers(device)
     mesh = device_mesh(tuple(mesh_shape), MESH_AXES, device_type=dev.type)
-    rules = make_rules(cfg, mesh, ParallelConfig(
+    rules = make_rules(cfg, mesh, parallel or ParallelConfig(
         dp_axes=("data",), tp_axis="model", compression="none"))
     model = build_model(cfg, compute_dtype=compute_dtype,
                         attention_impl=attention_impl, device=dev)
-    host = build_model(cfg, compute_dtype=compute_dtype, device="cpu")
+    # where the whole tree waits to be sliced: the worker's card when it
+    # fits there twice over (in the compute dtype and in f32, which
+    # bounds the draw's f32 leaf) in half the card's free memory, else
+    # the host; the same values either way
+    stage = build_model(cfg, compute_dtype=compute_dtype, device="cpu")
+    if dev.type == "cuda":
+        need = cfg.param_count() * (compute_dtype.itemsize + 4)
+        if need < torch.cuda.mem_get_info(dev)[0] / 2:
+            stage = model
     placed = {}
     for turn in range(dist.get_world_size()):
         if turn == dist.get_rank():
-            params, axes = host.init_params(seed, draw_device=draw_device,
-                                            dtype=compute_dtype)
+            params, axes = stage.init_params(seed, draw_device=draw_device,
+                                             dtype=compute_dtype)
             shardings = tree_shardings(axes, mesh, rules)
             for k in list(params):
                 v, pl = params.pop(k), tuple(shardings[k])

@@ -141,7 +141,8 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
                       dp_mode: str = "none",
                       compute_dtype=torch.float32, seed: int = 0,
                       use_fused_kernel: bool = False,
-                      sync_bn: bool = False, compression: str = "bf16",
+                      sync_bn: bool = False,
+                      compression: Optional[str] = None,
                       bucket_bytes: int = 64 * 1024 * 1024,
                       error_feedback: bool = False,
                       overlap_comm: bool = False, zero_dp: bool = False,
@@ -149,12 +150,14 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
                       label_smoothing: float = 0.0,
                       input_cfg: Optional[InputConfig] = None,
                       sentinel: bool = False,
-                      dp_axes: Tuple[str, ...] = ("data",),
+                      dp_axes: Optional[Tuple[str, ...]] = None,
                       hier_split: Optional[int] = None,
                       mesh_shape: Optional[Tuple[int, ...]] = None,
                       attention_impl: str = "naive",
                       remat: Optional[bool] = None,
-                      zero_1: bool = False,
+                      zero_1: Optional[bool] = None,
+                      parallel: Optional[ParallelConfig] = None,
+                      microbatches: int = 1,
                       draw_device: DeviceLike = "cpu",
                       device: DeviceLike = "cuda"):
     """Returns (model, state, train_step, data, put_batch,
@@ -261,15 +264,49 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
     fields by ZeRO-1's specs (``optim/zero.py``) and gives the step
     their ``grad_constraint``.
 
+    ``parallel`` (GSPMD on a mesh; None: the launcher's policy above)
+    is a whole ``ParallelConfig``, as the JAX package's
+    ``lower_cell(parallel=...)`` takes one, e.g. ``cell_parallel(cfg,
+    ShapeConfig("train", 1024, 4, "train"))``: its ``dp_axes``,
+    ``tp_axis``, ``zero_1`` (its fields placed by ZeRO-1's specs over
+    the parameters' own, FSDP's included), ``compression``, ``remat``
+    ("block": each layer checkpointed, unless ``remat`` says otherwise)
+    and ``fsdp_params`` (the parameters' "embed" / "conv_out" dims over
+    the data axes, each leaf gathered where the forward reads it) are
+    then the layout's one source: it raises if ``dp_axes``, ``zero_1``
+    or ``compression`` is passed beside it (None: "bf16", ("data",) and
+    False without it).
+    ``microbatches`` > 1 accumulates the gradients of that many equal
+    microbatches a step (one device, or each worker's rows under
+    GSPMD).
+
     ``remat`` (None: the JAX launcher's ``n_layers > 8``) checkpoints an
     LM's layers in training."""
     if dp_mode not in DP_MODES:
         raise ValueError(f"dp_mode must be one of {DP_MODES}, got "
                          f"{dp_mode!r}")
-    if zero_1 and (dp_mode != "gspmd" or mesh_shape is None):
-        raise ValueError("zero_1 shards the GSPMD step's optimizer state "
-                         "over a mesh: pass dp_mode='gspmd' and a "
-                         "mesh_shape (the DP step's ZeRO is zero_dp)")
+    if parallel is not None:
+        beside = [name for name, v in (("compression", compression),
+                                       ("dp_axes", dp_axes),
+                                       ("zero_1", zero_1)) if v is not None]
+        if beside:
+            raise ValueError(f"parallel holds the GSPMD layout: pass "
+                             f"{', '.join(beside)} in it, not beside it")
+        compression, dp_axes, zero_1 = (parallel.compression or "none",
+                                        parallel.dp_axes, parallel.zero_1)
+    compression = "bf16" if compression is None else compression
+    dp_axes = ("data",) if dp_axes is None else tuple(dp_axes)
+    zero_1 = bool(zero_1)
+    if (zero_1 or parallel is not None) and (dp_mode != "gspmd" or
+                                             mesh_shape is None):
+        raise ValueError("zero_1 (and a ParallelConfig) place the GSPMD "
+                         "step's state over a mesh: pass dp_mode='gspmd' "
+                         "and a mesh_shape (the DP step's ZeRO is "
+                         "zero_dp)")
+    if microbatches > 1 and dp_mode == "shardmap":
+        raise ValueError("microbatches accumulate in the one-device and "
+                         "GSPMD steps; the data-parallel step takes one "
+                         "batch a step")
     if dp_mode == "gspmd":
         _gspmd_checks(overlap_comm, zero_dp, error_feedback, hier_split,
                       input_cfg)
@@ -346,13 +383,21 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
     num_hosts = input_cfg.num_hosts if input_cfg else 1
     host_id = input_cfg.host_id if input_cfg else 0
     if remat is None:
-        remat = cfg.n_layers > 8  # the JAX launcher's rule
+        remat = (cfg.n_layers > 8 if parallel is None  # the JAX launcher's
+                 else parallel.remat == "block")  # lower_cell's
     if dp_mode == "gspmd":
+        if parallel is None:  # pure DP spans every mesh axis in dp_axes;
+            # "model" is the TP axis otherwise (the JAX launcher's choice)
+            parallel = ParallelConfig(
+                dp_axes=tuple(dp_axes),
+                tp_axis=None if "model" in dp_axes else "model",
+                compression=parse_compression(compression)[0] or "none",
+                zero_1=zero_1)
         return _build_gspmd(cfg, mesh, global_batch, seq_len, opt_cfg,
                             steps_per_epoch, compute_dtype, seed,
-                            use_fused_kernel, compression, label_smoothing,
-                            input_cfg, sentinel, dp_axes, attention_impl,
-                            remat, zero_1, draw_device, device)
+                            use_fused_kernel, label_smoothing, input_cfg,
+                            sentinel, attention_impl, remat, parallel,
+                            microbatches, draw_device, device)
     if dp_mode == "shardmap":
         dev = init_workers(device)
         world, me = world_size(), rank()
@@ -429,7 +474,8 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
         data = make_data(cfg, shape, seed=seed, num_hosts=num_hosts * world,
                          host_id=host_id * world + me)
     else:
-        train_step = make_train_step(model, optimizer, train_cfg)
+        train_step = make_train_step(model, optimizer, train_cfg,
+                                     microbatches=microbatches)
         data = make_data(cfg, shape, seed=seed, num_hosts=num_hosts,
                          host_id=host_id)
     if sentinel:
@@ -474,9 +520,10 @@ def _gspmd_checks(overlap_comm: bool, zero_dp: bool, error_feedback: bool,
 
 def _build_gspmd(cfg, mesh_sizes, global_batch, seq_len, opt_cfg,
                  steps_per_epoch, compute_dtype, seed, use_fused_kernel,
-                 compression, label_smoothing, input_cfg, sentinel, dp_axes,
-                 attention_impl, remat, zero_1, draw_device, device):
-    """``build_train_setup`` of ``dp_mode="gspmd"`` on a mesh."""
+                 label_smoothing, input_cfg, sentinel, attention_impl, remat,
+                 parallel, microbatches, draw_device, device):
+    """``build_train_setup`` of ``dp_mode="gspmd"`` on a mesh, placed by
+    ``parallel``."""
     from repro_torch.distributed.process_group import device_mesh
     from repro_torch.distributed.sharding import (make_rules, tree_shardings,
                                                   tree_specs)
@@ -486,13 +533,9 @@ def _build_gspmd(cfg, mesh_sizes, global_batch, seq_len, opt_cfg,
     dev = init_workers(device)
     mesh = device_mesh(tuple(mesh_sizes.values()), MESH_AXES,
                        device_type=dev.type)
-    # pure DP spans every mesh axis in dp_axes; "model" is the TP axis
-    # otherwise (the JAX launcher's choice)
-    parallel = ParallelConfig(
-        dp_axes=tuple(dp_axes),
-        tp_axis=None if "model" in dp_axes else "model",
-        compression=parse_compression(compression)[0] or "none",
-        zero_1=zero_1)
+    parallel = dataclasses.replace(
+        parallel, compression=parse_compression(parallel.compression)[0]
+        or "none")
     rules = make_rules(cfg, mesh, parallel)
     batch_dims = [i for i, a in enumerate(MESH_AXES)
                   if a in (rules["batch"] or ())]
@@ -527,7 +570,7 @@ def _build_gspmd(cfg, mesh_sizes, global_batch, seq_len, opt_cfg,
     optimizer = make_optimizer(opt_cfg, steps_per_epoch, global_batch,
                                use_fused=use_fused_kernel)
     fields = grad_constraint = None
-    if zero_1:
+    if parallel.zero_1:  # over the parameters' own specs (FSDP's too)
         fields = zero_shardings(placed, tree_specs(axes, rules), mesh,
                                 parallel.dp_axes)
         grad_constraint = zero_constraint(fields)
@@ -535,7 +578,8 @@ def _build_gspmd(cfg, mesh_sizes, global_batch, seq_len, opt_cfg,
              "opt": init_placed_opt(optimizer, placed, fields),
              "model_state": init_model_state(model)}
     train_step = make_train_step(model, optimizer, train_cfg, mesh, rules,
-                                 grad_constraint=grad_constraint)
+                                 grad_constraint=grad_constraint,
+                                 microbatches=microbatches)
     if sentinel:
         train_step = wrap_step_with_sentinel(train_step)
     shape = ShapeConfig("train", seq_len, global_batch, "train")

@@ -61,7 +61,11 @@ def prefixed(prefix: str, tree: Dict[str, Tensor]) -> Dict[str, Tensor]:
 def sub_params(p: Dict[str, Tensor], prefix: str,
                layer: Optional[int] = None) -> Dict[str, Tensor]:
     """The params under ``prefix`` by their names below it (``sub0/attn``
-    -> ``{"wq": ..., ...}``); layer ``layer``'s slice of stacked ones."""
+    -> ``{"wq": ..., ...}``); layer ``layer``'s slice of stacked ones.
+    Of a ``sharding.UseTree`` (the GSPMD steps under FSDP) the leaves are
+    gathered as they are read (``UseTree.sub``)."""
+    if hasattr(p, "sub"):
+        return p.sub(prefix, layer)
     cut = len(prefix) + 1
     return {k[cut:]: v if layer is None else v[layer]
             for k, v in p.items() if k.startswith(prefix + "/")}

@@ -20,6 +20,7 @@ kernel either.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -33,7 +34,9 @@ from repro_torch.distributed.sharding import (
     constrain,
     is_dtensor,
     local_apply,
+    local_slice,
     placed_like,
+    redistribute,
     whole,
 )
 from repro_torch.models import common
@@ -128,10 +131,13 @@ def _qkv(p: Params, x: Tensor, kv_x: Tensor, cfg: ModelConfig,
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, kv_positions, cfg.rope_theta)
-    # "attn_batch" is "batch" unless the heads cannot shard
-    q = constrain(q, ("attn_batch", "seq", "heads", None))
-    k = constrain(k, ("attn_batch", "kv_seq", "kv_heads", None))
-    v = constrain(v, ("attn_batch", "kv_seq", "kv_heads", None))
+    # "attn_batch" is "batch" unless the heads cannot shard. The sequence
+    # stays whole inside a block: sequence parallelism ("seq") splits the
+    # activations between blocks, and a "kv_seq" cache is written by
+    # position (_cache_write)
+    q = constrain(q, ("attn_batch", None, "heads", None))
+    k = constrain(k, ("attn_batch", None, "kv_heads", None))
+    v = constrain(v, ("attn_batch", None, "kv_heads", None))
     return q, k, v
 
 
@@ -304,13 +310,22 @@ def attention_apply(
     """Returns (output, updated cache); the cache tensors are written in
     place and returned.
 
+    On DTensors the input's sequence is gathered whole first (sequence
+    parallelism splits it between blocks; the flash kernel's causal mask
+    takes no query offset), and the output leaves split over it again
+    at its ``constrain``. A cache whose positions split over a mesh dim
+    ("kv_seq") is written by each worker at its own positions, and a
+    decode step attends to it without gathering it
+    (``_kv_seq_decode``).
+
     If the cache is *smaller* than the position index it behaves as a
     ring buffer (sliding-window serving): writes go to ``index %
     cache_len`` and the whole ring is valid once full. RoPE phases are
     absolute, so scores are storage-order independent.
     """
     cross = kv_x is not None
-    kv_x = x if kv_x is None else kv_x
+    x = whole(x, 1)
+    kv_x = x if kv_x is None else whole(kv_x, 1)
     kv_positions = positions if kv_positions is None else kv_positions
     q, k, v = _qkv(p, x, kv_x, cfg, positions, kv_positions,
                    use_rope and not cross and cfg.pos_embedding == "rope")
@@ -332,10 +347,12 @@ def attention_apply(
             new_cache = cache
             valid = torch.full((x.shape[0],), min(idx + 1, cache_len),
                                device=x.device)
-            out = _local_attention(
-                decode_attention, q, cache["k"].to(q.dtype),
-                cache["v"].to(q.dtype), placed_like(valid, q, {0: 0}),
-                None)  # the ring IS the window
+            attend = (_kv_seq_decode if _position_dim(cache["k"]) is not None
+                      else functools.partial(_local_attention,
+                                             decode_attention))
+            out = attend(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
+                         placed_like(valid, q, {0: 0}),
+                         None)  # the ring IS the window
         else:  # prefill into cache (keep the last cache_len positions)
             keep = min(k.shape[1], cache_len)
             # jax.lax.dynamic_update_slice clamps the start so the update
@@ -353,7 +370,7 @@ def attention_apply(
         out = _local_attention(fn, q, k, v, causal=causal and not cross,
                                window=window)
 
-    out = constrain(out, ("attn_batch", "seq", "heads", None))
+    out = constrain(out, ("attn_batch", None, "heads", None))
     h, dh, d = p["wo"].shape
     y = out.reshape(*out.shape[:2], h * dh) @ p["wo"].to(x.dtype).reshape(
         h * dh, d)
@@ -374,16 +391,85 @@ def _local_attention(fn, q: Tensor, k: Tensor, v: Tensor, *args,
     return local_apply(fn, q, k, v, *args, **kw)
 
 
+def _position_dim(buf) -> Optional[int]:
+    """The mesh dim that splits a placed cache's positions (its dim 1:
+    "kv_seq"), or None."""
+    if not is_dtensor(buf):
+        return None
+    return next((i for i, p in enumerate(buf.placements)
+                 if p.is_shard() and p.dim == 1), None)
+
+
 def _cache_write(cache: Params, start: int, k: Tensor, v: Tensor,
                  keep: Optional[int] = None) -> None:
     """``cache["k"][:, start:start + n] = k[:, -n:]`` (and v), n = ``keep``
     or all of k's positions, in the cache's dtype. A placed cache (the
     GSPMD serve steps) is written on each worker's own rows and kv heads
-    by its own k and v, which the cache's placements redistribute."""
+    by its own k and v, which the cache's placements redistribute; a
+    cache whose positions split over a mesh dim ("kv_seq") is written by
+    each worker at the positions it holds, nothing sent (a decode step's
+    position by its owner alone)."""
     n = k.shape[1] if keep is None else keep
     for name, new in (("k", k), ("v", v)):
-        buf = cache[name]
-        assign(buf[:, start:start + n], new[:, new.shape[1] - n:])
+        buf, new = cache[name], new[:, new.shape[1] - n:]
+        i = _position_dim(buf)
+        if i is None:
+            assign(buf[:, start:start + n], new)
+            continue
+        from torch.distributed.tensor import Replicate
+        mesh = buf.device_mesh
+        rows = tuple(Replicate() if j == i else p
+                     for j, p in enumerate(buf.placements))
+        local = buf.to_local()
+        m = local.shape[1]
+        lo = mesh.get_local_rank(i) * m
+        a, b = max(start, lo), min(start + n, lo + m)
+        src = (redistribute(new, rows).to_local() if is_dtensor(new)
+               else local_slice(new, mesh, rows))
+        if a < b:
+            local[:, a - lo:b - lo].copy_(src[:, a - start:b - start])
+
+
+def _kv_seq_decode(q: Tensor, k_cache: Tensor, v_cache: Tensor,
+                   valid_len: Tensor, window=None) -> Tensor:
+    """``decode_attention`` against a cache whose positions split over a
+    mesh dim ("kv_seq"), no cache gathered: q's heads are gathered whole
+    over that dim (one token's), each worker takes its f32 scores over
+    the valid positions it holds, and the softmax is combined over the
+    dim by all-reduces of the row max, then of the exp-sums and of the
+    weighted values (in f32: each worker's probabilities times its
+    values, one rounding of the sum)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate
+    del window  # the ring IS the window
+    mesh = k_cache.device_mesh
+    i = _position_dim(k_cache)
+    group = mesh.get_group(i)
+    lo = mesh.get_local_rank(i) * k_cache.to_local().shape[1]
+    q = redistribute(q, tuple(Replicate() if j == i else p
+                              for j, p in enumerate(q.placements)))
+
+    def fn(q, kc, vc, valid):
+        b, one, h, dh = q.shape
+        s, kv = kc.shape[1], kc.shape[2]
+        qg = q.reshape(b, one, kv, h // kv, dh)
+        scores = torch.einsum("bqkgd,bskd->bkgqs", qg, kc).float() / \
+            math.sqrt(dh)
+        kj = lo + torch.arange(s, device=q.device)
+        mask = kj[None, None, None, None, :] < valid.reshape(-1, 1, 1, 1, 1)
+        scores = torch.where(mask, scores,
+                             torch.full((), NEG_INF, device=q.device))
+        m = scores.amax(dim=-1, keepdim=True)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        e = torch.exp(scores - m)
+        total = e.sum(dim=-1, keepdim=True)
+        dist.all_reduce(total, group=group)
+        probs = (e / total).to(q.dtype)
+        out = torch.einsum("bkgqs,bskd->bqkgd", probs.float(), vc.float())
+        dist.all_reduce(out, group=group)
+        return out.to(q.dtype).reshape(b, one, h, dh)
+
+    return local_apply(fn, q, k_cache, v_cache, valid_len)
 
 
 # ---------------------------------------------------------------------------
@@ -415,11 +501,12 @@ def mlp_axes(cfg: ModelConfig, stacked: int = 0) -> Dict[str, common.Axes]:
 
 
 def mlp_apply(p: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
+    x = whole(x, 1)  # sequence parallelism: the block's sequence whole
     if "w_gate" in p:
         h = F.silu(x @ p["w_gate"].to(x.dtype)) * (x @ p["w_up"].to(x.dtype))
     else:
         h = gelu(x @ p["w_up"].to(x.dtype))
-    h = constrain(h, ("batch", "seq", "ffn"))
+    h = constrain(h, ("batch", None, "ffn"))
     return constrain(h @ p["w_down"].to(x.dtype), ("batch", "seq", "embed"))
 
 
@@ -576,6 +663,7 @@ def moe_apply(p: Params, x: Tensor, cfg: ModelConfig,
     the model axis that the output's ``constrain`` all-reduces."""
     if capacity_factor is None:
         capacity_factor = CAPACITY_FACTOR
+    x = whole(x, 1)  # sequence parallelism: the block's sequence whole
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
     g_size = min(MOE_GROUP, b * s)
@@ -636,8 +724,11 @@ def _sharded_lookup(table, tokens):
     a Partial sum over the vocab's mesh axis (reduced by the caller's
     ``constrain``); its rows are placed as the tokens' rows are. The
     table's gradient is whole on its own rows, and a Partial sum over
-    the mesh axes that split the batch."""
+    the mesh axes that split the batch. A table whose "embed" columns
+    split (FSDP) has them gathered first (the steps read it through
+    ``UseTree``, which gathers them already)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    table = whole(table, 1)  # FSDP's "embed" split: the columns whole
     mesh = table.device_mesh
     tok_pl = (tuple(tokens.placements) if is_dtensor(tokens)
               else (Replicate(),) * mesh.ndim)
@@ -652,11 +743,10 @@ def _sharded_lookup(table, tokens):
         elif tp.is_replicate():
             out_pl.append(kp)
             grad_pl.append(Partial() if kp.is_shard() else Replicate())
-        else:
+        else:  # the vocabulary and the tokens split over one axis
             raise NotImplementedError(
                 f"token lookup of a table placed {table.placements} with "
-                f"tokens placed {tok_pl} (FSDP's embed sharding is not "
-                "executed by the port: ROADMAP queue 1, item 15.7)")
+                f"tokens placed {tok_pl}")
     local = table.to_local(grad_placements=tuple(grad_pl))
     ids = tokens.to_local() if is_dtensor(tokens) else tokens
     hit = (ids >= lo) & (ids < lo + n)
@@ -665,5 +755,8 @@ def _sharded_lookup(table, tokens):
 
 
 def lm_head(table_or_w: Tensor, x: Tensor, tied: bool) -> Tensor:
+    """The logits, the sequence whole (sequence parallelism splits it
+    only between blocks)."""
+    x = whole(x, 1)
     w = table_or_w.to(x.dtype)
-    return constrain(x @ (w.T if tied else w), ("batch", "seq", "vocab"))
+    return constrain(x @ (w.T if tied else w), ("batch", None, "vocab"))

@@ -168,6 +168,7 @@ def mamba2_apply(p: Params, x: Tensor, cfg: ModelConfig,
     the output's ``constrain`` reduces."""
     d_in, n_h, _ = mamba2_dims(cfg)
     ds = cfg.ssm_state
+    x = whole(x, 1)  # sequence parallelism: the scan's sequence whole
     h_res = apply_norm(sub_params(p, "norm"), x, cfg.norm, cfg.norm_eps)
     proj = h_res @ p["w_in"].to(x.dtype)
     z, xbc, dt = _split_in(cfg, proj)
@@ -291,9 +292,12 @@ class Zamba2Model:
             if cache is not None:
                 conv_c, ssm_c = cache["conv"][i], cache["ssm"][i]
             if self.remat and cache is None and torch.is_grad_enabled():
+                # the layer's weights read (an FSDP gather) inside the
+                # checkpoint: the recompute reads them again
                 out, nc, ns = common.checkpointed(
-                    mamba2_apply, sub_params(p, "mamba", i), x, self.cfg,
-                    conv_c, ssm_c, decode)
+                    lambda p, i, *a: mamba2_apply(sub_params(p, "mamba", i),
+                                                  *a),
+                    p, i, x, self.cfg, conv_c, ssm_c, decode)
             else:
                 out, nc, ns = mamba2_apply(sub_params(p, "mamba", i), x,
                                            self.cfg, conv_c, ssm_c,

@@ -34,7 +34,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed.sharding import is_dtensor
+from repro_torch.distributed.sharding import is_dtensor, whole
 from repro_torch.models import common, layers
 from repro_torch.models.common import (
     LeafDraw,
@@ -213,8 +213,8 @@ class TransformerLM:
         x, aux = self._groups(p, self.n_groups, x, positions, cache,
                               cache_index, 0.0)
         x = apply_norm(sub_params(p, "final_norm"), x, cfg.norm, cfg.norm_eps)
-        if patches is not None:
-            x = x[:, patches.shape[1]:, :]
+        if patches is not None:  # the sequence whole (SP) for the cut
+            x = whole(x, 1)[:, patches.shape[1]:, :]
         w = p["embed/table"] if cfg.tie_embeddings else p["head"]
         logits = layers.lm_head(w, x, cfg.tie_embeddings)
         return logits, aux, cache

@@ -131,8 +131,10 @@ class WhisperModel:
         positions = torch.arange(x.shape[1], device=x.device)[None].expand(
             x.shape[:2])
         for i in range(cfg.n_encoder_layers):
-            x = self._remat(self._enc_block, sub_params(p, "enc", i), x,
-                            positions)
+            # the layer's weights read (an FSDP gather) inside its
+            # checkpoint
+            x = self._remat(lambda p, i, *a: self._enc_block(
+                sub_params(p, "enc", i), *a), p, i, x, positions)
         return apply_norm(sub_params(p, "enc_norm"), x, cfg.norm,
                           cfg.norm_eps)
 
@@ -164,12 +166,13 @@ class WhisperModel:
         enc_positions = torch.arange(enc_out.shape[1], device=x.device)[
             None].expand(enc_out.shape[:2])
         for i in range(cfg.n_layers):
-            lp = sub_params(p, "dec", i)
             if cache is None:
-                x = self._remat(self._dec_block, lp, x, positions, enc_out,
-                                enc_positions, None, cache_index)
+                x = self._remat(lambda p, i, *a: self._dec_block(
+                    sub_params(p, "dec", i), *a), p, i, x, positions,
+                    enc_out, enc_positions, None, cache_index)
             else:
-                x = self._dec_block(lp, x, positions, enc_out, enc_positions,
+                x = self._dec_block(sub_params(p, "dec", i), x, positions,
+                                    enc_out, enc_positions,
                                     {"k": cache["kv/k"][i],
                                      "v": cache["kv/v"][i]}, cache_index)
         x = apply_norm(sub_params(p, "dec_norm"), x, cfg.norm, cfg.norm_eps)

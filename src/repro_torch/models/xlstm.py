@@ -140,6 +140,7 @@ def mlstm_apply(p: Params, x: Tensor, cfg: ModelConfig,
     RMSNorm over ``d_in``, and the row-parallel ``w_down`` leaves a
     Partial sum that the output's ``constrain`` reduces."""
     d_in, n_h, dh = _mlstm_dims(cfg)
+    x = whole(x, 1)  # sequence parallelism: the scan's sequence whole
     h = apply_norm(sub_params(p, "norm"), x, cfg.norm, cfg.norm_eps)
     inner, z = split_whole(h @ p["w_up"].to(x.dtype), (d_in, d_in))
     heads = None
@@ -259,6 +260,7 @@ def slstm_apply(p: Params, x: Tensor, cfg: ModelConfig,
     d, n_h = cfg.d_model, cfg.n_heads
     dh = d // n_h
     b, s, _ = x.shape
+    x = whole(x, 1)  # sequence parallelism: the scan's sequence whole
     xin = apply_norm(sub_params(p, "norm"), x, cfg.norm, cfg.norm_eps)
     wx = whole(xin @ p["w_gates"].to(x.dtype) + p["b_gates"].to(x.dtype),
                -1)
@@ -362,9 +364,11 @@ class XLSTMModel:
                 if cache is not None:
                     conv_c, gla_c = cache["conv"][i], cache["gla"][i]
                 if self.remat and cache is None and torch.is_grad_enabled():
+                    # the layer's weights read inside the checkpoint
                     out, nc, ns = common.checkpointed(
-                        mlstm_apply, sub_params(p, "mlstm", i), x, cfg,
-                        conv_c, gla_c, decode)
+                        lambda p, i, *a: mlstm_apply(
+                            sub_params(p, "mlstm", i), *a),
+                        p, i, x, cfg, conv_c, gla_c, decode)
                 else:
                     out, nc, ns = mlstm_apply(sub_params(p, "mlstm", i), x,
                                               cfg, conv_c, gla_c,

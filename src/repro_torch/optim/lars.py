@@ -11,6 +11,8 @@ is in place, like every optimizer of the port.
 """
 from __future__ import annotations
 
+import contextlib
+import sys
 from typing import Tuple
 
 import torch
@@ -44,6 +46,27 @@ def trust_from_sq(p_sq, g_sq, trust_coef: float, apply_trust):
         trust_coef * p_n / (g_n + 1e-9), torch.ones_like(p_n))
 
 
+@contextlib.contextmanager
+def tape_trust_ratios():
+    """While open, every trust ratio the per-leaf update computes is
+    appended (as a float, leaf by leaf in the update's order) to the list
+    it yields: a sharded step's whole-leaf ratios can be held against
+    one device's."""
+    mod, ratios = sys.modules[__name__], []
+    plain = mod.trust_from_sq
+
+    def taped(*a):
+        t = plain(*a)
+        ratios.append(float(t))
+        return t
+
+    mod.trust_from_sq = taped
+    try:
+        yield ratios
+    finally:
+        mod.trust_from_sq = plain
+
+
 def lars(cfg: OptimizerConfig, steps_per_epoch: int, global_batch: int,
          **_) -> Optimizer:
     lr_fn = make_lr_schedule(cfg.schedule, global_batch,
@@ -56,17 +79,30 @@ def lars(cfg: OptimizerConfig, steps_per_epoch: int, global_batch: int,
         return {"step": 0, "delta": tree_zeros_like(params)}
 
     @torch.no_grad()
-    def update(params, grads, state) -> Tuple:
+    def update(params, grads, state, sq_reduce=None) -> Tuple:
+        """``sq_reduce`` (the GSPMD step on local shards): maps {leaf:
+        its shard's squared norms of p and of the decayed g} to the
+        whole leaf's; None: the leaves are whole."""
         step = state["step"]
         epoch = epoch_of(step, steps_per_epoch)
         eta = float(lr_fn(epoch))
+        sq = {}
+        if sq_reduce is not None:
+            for k, p in params.items():
+                if decays(k):
+                    p32 = p.float()
+                    g32 = grads[k].float() + cfg.weight_decay * p32
+                    sq[k] = torch.stack([leaf_sq_norm(p32),
+                                         leaf_sq_norm(g32)])
+            sq = sq_reduce(sq)
         for k, p in params.items():
             g32 = grads[k].float()
             p32 = p.float()
             if decays(k):
                 g32 = g32 + cfg.weight_decay * p32
-                trust = trust_from_sq(leaf_sq_norm(p32), leaf_sq_norm(g32),
-                                      cfg.trust_coef, True)
+                p_sq, g_sq = (sq[k] if k in sq else
+                              (leaf_sq_norm(p32), leaf_sq_norm(g32)))
+                trust = trust_from_sq(p_sq, g_sq, cfg.trust_coef, True)
             else:
                 trust = 1.0  # bias/BN: plain momentum, as the stream's
                 # masked segments

@@ -14,7 +14,8 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Sequence, Tuple
 
-from repro_torch.distributed.sharding import Spec, mesh_shape, placements
+from repro_torch.distributed.sharding import (Spec, mesh_shape, placements,
+                                              redistribute)
 
 
 def zero_spec_for(shape: Tuple[int, ...], param_spec: Spec, mesh,
@@ -60,8 +61,9 @@ def zero_shardings(params, param_specs: Dict[str, Spec], mesh,
 
 def zero_constraint(shardings: Dict[str, Tuple]) -> Callable:
     """The step's ``grad_constraint``: each gradient redistributed to its
-    ZeRO-1 placements (a Partial sum becomes a reduce-scatter)."""
+    ZeRO-1 placements (``sharding.redistribute``: a Partial sum
+    all-reduced, then this worker's shard cut)."""
     def constrain_grads(grads):
-        return {k: g.redistribute(g.device_mesh, shardings[k])
+        return {k: redistribute(g, tuple(shardings[k]))
                 for k, g in grads.items()}
     return constrain_grads

@@ -26,7 +26,8 @@ rows).
   reduce-scatter; the update then runs on each worker's ZeRO shard and
   the parameters are gathered back to their own placements.
   ``param_shardings`` pins the compute-dtype copy of the parameters
-  (FSDP's gathers then move the compute dtype).
+  to given placements (FSDP's gathers move the compute dtype without
+  it: ``UseTree`` casts each shard before its gather).
 
 How the forward runs depends on the placements. When every parameter
 is replicated (pure DP over any mesh, ResNet-50 on any mesh: its conv
@@ -45,10 +46,29 @@ recurrences. The token lookup (``layers._sharded_lookup``) and the
 cross entropy (``common._sharded_cross_entropy``) are redistributed
 explicitly, as DTensor has no rule for a vocab-sharded gather.
 
+A parameter placed otherwise than it is read (FSDP's "embed" /
+"conv_out" over the data axes, llama4's "embed" on the model axis, a
+positional table's "seq": ``sharding.tree_uses``) stays an f32 shard;
+the forward reads it through ``sharding.UseTree``: cast to the compute
+dtype, then gathered to its use placements where the layer runs (inside
+its checkpoint under remat), its gradient all-reduced in f32 and cut
+back to the shard in the backward. The forward is local when every
+parameter is read whole (ResNet-50 under ``fsdp_params``).
+
+``microbatches`` > 1 cuts each worker's rows into equal microbatches
+and accumulates the mean of their f32 gradients, the model state
+threaded through them and the metrics their mean; their Partial sums
+are reduced once, after the last. LARS on sharded leaves (TP, FSDP,
+ZeRO-1) sums each leaf's squared norms over the mesh dims that split it
+(``_sq_reducer``) before its trust ratio.
+
 The serve steps take the whole batch on every worker (each keeps its
 rows), write the cache (``place_cache``: placed by its logical axes, as
 the JAX package's dry-run places it) in place, and return the logits
-whole on every worker.
+whole on every worker. Under sequence parallelism ("seq") the
+activations between blocks split over the sequence and each block
+gathers it whole; a cache whose positions split ("kv_seq") is written
+by position and attended without a gather (``layers._kv_seq_decode``).
 """
 from __future__ import annotations
 
@@ -59,19 +79,29 @@ import torch.distributed as dist
 
 from repro_torch.core.compression import parse_compression
 from repro_torch.distributed.sharding import (
+    UseTree,
     activation_sharding,
     batch_placements,
     redistribute,
+    tree_uses,
 )
 
 Tree = Dict[str, Any]
 
 
-def _tensor_parallel(params: Dict[str, Any]) -> bool:
-    """Whether some parameter is sharded (the DTensor forward), or every
-    one replicated (the local forward)."""
-    return any(not pl.is_replicate() for p in params.values()
-               for pl in p.placements)
+def _uses(model, params: Dict[str, Any], mesh, rules) -> Dict[str, Tuple]:
+    """The use placements of the parameters read elsewhere than they are
+    placed (FSDP's gathers: ``sharding.tree_uses`` of the model's axes)."""
+    return tree_uses(model.axes(), {k: tuple(p.placements)
+                                    for k, p in params.items()}, mesh, rules)
+
+
+def _tensor_parallel(params: Dict[str, Any], uses: Dict[str, Tuple]
+                     ) -> bool:
+    """Whether some parameter is read sharded (the DTensor forward), or
+    every one whole, after its gathers (the local forward)."""
+    return any(not pl.is_replicate() for k, p in params.items()
+               for pl in uses.get(k, p.placements))
 
 
 def _batch_dims(mesh, rules) -> Tuple[int, ...]:
@@ -97,16 +127,38 @@ def place_batch(batch: Dict[str, Any], mesh, rules) -> Dict[str, Any]:
             for k, v in batch.items()}
 
 
-def _local_loss_grads(model, train_cfg, params, mstate, batch, mesh, dims):
+def _batch_rows(batch: Tree, n: int):
+    """``batch`` (this worker's rows) cut into ``n`` equal microbatches."""
+    rows = [v.shape[0] for v in batch.values()
+            if torch.is_tensor(v) and v.dim()]
+    if rows and rows[0] % n:
+        raise ValueError(f"a worker's {rows[0]} rows do not split into "
+                         f"{n} microbatches")
+    return [{k: v.chunk(n)[i] if torch.is_tensor(v) and v.dim() else v
+             for k, v in batch.items()} for i in range(n)]
+
+
+def _local_loss_grads(model, train_cfg, params, mstate, batch, mesh, dims,
+                      uses):
     """The local forward: ``(new state, metrics, gradients)``, each
     gradient this worker's f32 share of the global one (its loss
     weighted by its share of the global token or row count), the
-    metrics already global."""
+    metrics already global. A gathered leaf (``uses``: FSDP) is read
+    through ``UseTree``: its gradient comes back reduced to its shard
+    (a DTensor); the others' are plain local tensors."""
+    from torch.distributed.tensor import Partial, Replicate
     names = list(params)
-    pc = {k: params[k].to_local().detach().to(model.compute_dtype)
-          .requires_grad_(True) for k in names}
+    cd = model.compute_dtype
+    pc = {k: (params[k].detach() if k in uses else
+              params[k].to_local().detach().to(cd)).requires_grad_(True)
+          for k in names}
+    tree = pc
+    if uses:
+        share = tuple(Partial() if i in dims else Replicate()
+                      for i in range(mesh.ndim))
+        tree = UseTree(pc, uses, cd, local=share)
     loss, (new_mstate, metrics) = model.loss_fn(
-        pc, mstate, batch, train_cfg.label_smoothing)
+        tree, mstate, batch, train_cfg.label_smoothing)
     metrics = dict(metrics)
     if "tokens" in metrics:  # the token mean over every worker's targets
         count = torch.stack([metrics["tokens"].detach().float()])
@@ -130,20 +182,26 @@ def _local_loss_grads(model, train_cfg, params, mstate, batch, mesh, dims):
 
 
 def _dtensor_loss_grads(model, train_cfg, params, mstate, batch, mesh,
-                        rules, param_shardings):
+                        rules, param_shardings, uses):
     """The DTensor forward (tensor parallel): ``(new state, metrics,
     gradients)``, the gradients f32 DTensors, Partial sums where the
-    forward left them so."""
+    forward left them so. A gathered leaf (``uses``: FSDP, llama4's
+    embed on the model axis) stays an f32 shard and is read through
+    ``UseTree`` (cast, then gathered at its use); its gradient comes
+    back reduced to the shard."""
     names = list(params)
-    pc = {k: params[k].detach().to(model.compute_dtype).requires_grad_(True)
+    cd = model.compute_dtype
+    pc = {k: (params[k].detach() if k in uses else
+              params[k].detach().to(cd)).requires_grad_(True)
           for k in names}
     leaves = [pc[k] for k in names]
     if param_shardings is not None:
         pc = {k: v.redistribute(mesh, param_shardings[k])
               for k, v in pc.items()}
+    tree = UseTree(pc, uses, cd) if uses else pc
     with activation_sharding(mesh, rules):
         loss, (new_mstate, metrics) = model.loss_fn(
-            pc, mstate, place_batch(batch, mesh, rules),
+            tree, mstate, place_batch(batch, mesh, rules),
             train_cfg.label_smoothing)
         gs = torch.autograd.grad(loss, leaves)
     return new_mstate, dict(metrics), {k: g.float()
@@ -152,11 +210,31 @@ def _dtensor_loss_grads(model, train_cfg, params, mstate, batch, mesh,
 
 def _partial_grads(grads: Dict[str, torch.Tensor], mesh, dims):
     """Local gradient shares as DTensors: Partial sums over the batch
-    dims, replicated over the others."""
+    dims, replicated over the others (a DTensor, a gathered leaf's
+    gradient already reduced to its shard, as it is)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
     pl = tuple(Partial() if i in dims else Replicate()
                for i in range(mesh.ndim))
-    return {k: DTensor.from_local(g, mesh, pl) for k, g in grads.items()}
+    return {k: g if isinstance(g, DTensor) else
+            DTensor.from_local(g, mesh, pl) for k, g in grads.items()}
+
+
+def _accumulate(acc, grads: Dict[str, Any], n: int):
+    """``acc + grads / n`` on the local tensors (each gradient keeps its
+    placements: a Partial sum is reduced once, after the last
+    microbatch)."""
+    from torch.distributed.tensor import DTensor
+    out = {}
+    for k, g in grads.items():
+        local = g.to_local() / n
+        if acc is not None:
+            if tuple(acc[k].placements) != tuple(g.placements):
+                raise RuntimeError(f"{k}: microbatch gradients placed "
+                                   f"{acc[k].placements} and {g.placements}")
+            local = acc[k].to_local() + local
+        out[k] = DTensor.from_local(local, g.device_mesh, g.placements,
+                                    shape=g.shape, stride=g.stride())
+    return out
 
 
 def make_gspmd_train_step(model, optimizer, train_cfg, mesh, rules,
@@ -165,38 +243,44 @@ def make_gspmd_train_step(model, optimizer, train_cfg, mesh, rules,
                           microbatches: int = 1):
     """The GSPMD step (see the module docstring): ``(state, batch) ->
     (state', metrics)``, ``batch`` this worker's rows, the state's
-    parameters and optimizer fields DTensors on ``mesh``."""
-    if microbatches > 1:
-        raise NotImplementedError(
-            "gradient accumulation under a mesh is not ported: the "
-            "GSPMD step takes microbatches=1 (ROADMAP queue 1, item "
-            "15.7)")
+    parameters and optimizer fields DTensors on ``mesh``.
+    ``microbatches`` > 1 cuts each worker's rows into that many equal
+    microbatches and accumulates the mean of their f32 gradients (the
+    model state threaded through them, the metrics their mean), then
+    reduces, casts and updates once."""
     lars = train_cfg.optimizer.kind == "lars"
     wire, _ = parse_compression(train_cfg.parallel.compression)
     wdt = {"bf16": torch.bfloat16, "f16": torch.float16}.get(wire)
     dims = _batch_dims(mesh, rules)
     device = model.device
 
+    def loss_grads(params, mstate, batch, uses):
+        """One (micro)batch: (new state, metrics, gradient DTensors)."""
+        if _tensor_parallel(params, uses):
+            return _dtensor_loss_grads(model, train_cfg, params, mstate,
+                                       batch, mesh, rules, param_shardings,
+                                       uses)
+        new_mstate, metrics, local = _local_loss_grads(
+            model, train_cfg, params, mstate, batch, mesh, dims, uses)
+        return new_mstate, metrics, _partial_grads(local, mesh, dims)
+
     def train_step(state: Tree, batch: Tree):
         from repro_torch.training.step import to_device
         batch = to_device(batch, device)
         params = state["params"]
-        tp = _tensor_parallel(params)
-        if lars and (tp or grad_constraint is not None):
-            raise NotImplementedError(
-                "LARS under a sharded GSPMD layout: its trust ratios "
-                "need whole-leaf norms, and the port's update runs on "
-                "local shards; run LARS on a pure-DP mesh (ROADMAP "
-                "queue 1, item 15.7)")
-        if tp:
-            new_mstate, metrics, grads = _dtensor_loss_grads(
-                model, train_cfg, params, state["model_state"], batch, mesh,
-                rules, param_shardings)
+        uses = _uses(model, params, mesh, rules)
+        if microbatches <= 1:
+            new_mstate, metrics, grads = loss_grads(
+                params, state["model_state"], batch, uses)
         else:
-            new_mstate, metrics, local = _local_loss_grads(
-                model, train_cfg, params, state["model_state"], batch, mesh,
-                dims)
-            grads = _partial_grads(local, mesh, dims)
+            new_mstate, grads, seq = state["model_state"], None, []
+            for mb in _batch_rows(batch, microbatches):
+                new_mstate, met, g = loss_grads(params, new_mstate, mb, uses)
+                grads = _accumulate(grads, g, microbatches)
+                seq.append(met)
+            metrics = {k: torch.stack([torch.as_tensor(m[k]).float()
+                                       for m in seq]).mean()
+                       for k in seq[0]}
         # the f32 sums: ZeRO-1's reduce-scatter, or to each parameter's
         # own placements
         if grad_constraint is not None:
@@ -205,12 +289,12 @@ def make_gspmd_train_step(model, optimizer, train_cfg, mesh, rules,
             grads = {k: redistribute(g, tuple(params[k].placements))
                      for k, g in grads.items()}
         with torch.no_grad():
-            g_loc = {k: g.to_local() for k, g in grads.items()}
+            g_loc = {k: g.to_local().contiguous() for k, g in grads.items()}
             if wdt is not None:  # one rounding of the summed gradient
                 g_loc = {k: g.to(wdt).to(torch.float32)
                          for k, g in g_loc.items()}
             _update_shards(optimizer, params, grads, g_loc, state["opt"],
-                           metrics)
+                           metrics, mesh if lars else None)
         if train_cfg.log_grad_norm:
             metrics["grad_norm"] = _global_norm(g_loc, grads, mesh)
         return {"params": params, "opt": state["opt"],
@@ -235,26 +319,54 @@ def _global_norm(g_loc, grads, mesh) -> torch.Tensor:
     return torch.sqrt(sq[0])
 
 
-def _update_shards(optimizer, params, grads, g_loc, opt, metrics) -> None:
+def _sq_reducer(grads, mesh) -> Callable:
+    """LARS's ``sq_reduce`` on local shards: each leaf's squared norms
+    (of its parameter and its decayed gradient) summed over exactly the
+    mesh dims that shard it where the update runs (a replicated dim
+    holds the same squares on every worker: not summed), leaves that
+    share those dims in one all-reduce each."""
+    def reduce(sq: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        groups: Dict[Tuple[int, ...], list] = {}
+        for k in sq:  # the parameters' order: every worker alike
+            split = tuple(i for i, p in enumerate(grads[k].placements)
+                          if p.is_shard())
+            groups.setdefault(split, []).append(k)
+        out = dict(sq)
+        for split, keys in groups.items():
+            if not split:
+                continue
+            t = torch.stack([sq[k] for k in keys])
+            for i in split:
+                dist.all_reduce(t, group=mesh.get_group(i))
+            out.update(zip(keys, t.unbind(0)))
+        return out
+    return reduce
+
+
+def _update_shards(optimizer, params, grads, g_loc, opt, metrics,
+                   lars_mesh=None) -> None:
     """The optimizer update on each worker's local shards, in place: on
     the parameters' own shards, or (ZeRO-1: the gradients placed
     otherwise) on the gradients' shards of the parameters, gathered
-    back after."""
+    back after (``sharding.redistribute``). LARS (``lars_mesh``) takes
+    its trust ratios from whole-leaf norms (``_sq_reducer``)."""
     # a list in the parameters' order: every worker gathers alike
     moved = [k for k in params
              if tuple(grads[k].placements) != tuple(params[k].placements)]
     p_loc = {}
     for k, p in params.items():
-        if k in moved:
-            p_loc[k] = p.redistribute(p.device_mesh,
-                                      grads[k].placements).to_local()
+        if k in moved:  # a copy of the shard (the update runs in place)
+            p_loc[k] = redistribute(p, tuple(grads[k].placements)
+                                    ).to_local().contiguous()
         else:
             p_loc[k] = p.to_local()
     fields = {f: {k: v.to_local() for k, v in opt[f].items()}
               for f in opt if isinstance(opt[f], dict)}
     local_opt = dict(opt)
     local_opt.update(fields)
-    _, new_opt, opt_metrics = optimizer.update(p_loc, g_loc, local_opt)
+    kw = {} if lars_mesh is None else {
+        "sq_reduce": _sq_reducer(grads, lars_mesh)}
+    _, new_opt, opt_metrics = optimizer.update(p_loc, g_loc, local_opt, **kw)
     for f in opt:
         if not isinstance(opt[f], dict):
             opt[f] = new_opt[f]
@@ -265,8 +377,8 @@ def _update_shards(optimizer, params, grads, g_loc, opt, metrics) -> None:
         shard = DTensor.from_local(p_loc[k], p.device_mesh,
                                    grads[k].placements, shape=p.shape,
                                    stride=p.stride())
-        p.to_local().copy_(shard.redistribute(p.device_mesh,
-                                              p.placements).to_local())
+        p.to_local().copy_(redistribute(shard, tuple(p.placements))
+                           .to_local())
 
 
 def make_gspmd_eval_step(model, mesh, rules):
@@ -277,9 +389,13 @@ def make_gspmd_eval_step(model, mesh, rules):
 
     @torch.no_grad()
     def eval_step(params, model_state, batch) -> Dict:
+        from torch.distributed.tensor import Replicate
+
         from repro_torch.training.step import to_device
         batch = to_device(batch, device)
-        if _tensor_parallel(params):
+        uses = _uses(model, params, mesh, rules)
+        if _tensor_parallel(params, uses):
+            params = _read_tree(model, params, mesh, rules)
             with activation_sharding(mesh, rules):
                 placed = place_batch(batch, mesh, rules)
                 if hasattr(model, "eval_fn"):
@@ -287,7 +403,11 @@ def make_gspmd_eval_step(model, mesh, rules):
                 loss, (_, metrics) = model.loss_fn(params, model_state,
                                                    placed)
         else:
-            local = {k: v.to_local() for k, v in params.items()}
+            local = {k: v if k in uses else v.to_local()
+                     for k, v in params.items()}
+            if uses:  # FSDP: each leaf read whole
+                local = UseTree(local, uses, None,
+                                local=(Replicate(),) * mesh.ndim)
             if hasattr(model, "eval_fn"):
                 metrics = model.eval_fn(local, model_state, batch)
                 loss = metrics.pop("loss")
@@ -309,6 +429,14 @@ def make_gspmd_eval_step(model, mesh, rules):
         return out
 
     return eval_step
+
+
+def _read_tree(model, params: Dict[str, Any], mesh, rules):
+    """``params`` as the forward reads them: a ``UseTree`` when some leaf
+    is read elsewhere than it is placed (FSDP's gathers, in the leaves'
+    own dtype), else as they are."""
+    uses = _uses(model, params, mesh, rules)
+    return UseTree(params, uses, None) if uses else params
 
 
 def _placed_batch(batch: Dict[str, Any], mesh, rules) -> Dict[str, Any]:
@@ -356,8 +484,9 @@ def make_gspmd_prefill_step(model, mesh, rules):
         with activation_sharding(mesh, rules):
             placed = _placed_batch(to_device(batch, device), mesh, rules)
             kw = {k: placed[k] for k in ("frames", "patches") if k in placed}
-            logits, cache = model.prefill(params, placed["tokens"], cache,
-                                          **kw)
+            logits, cache = model.prefill(
+                _read_tree(model, params, mesh, rules), placed["tokens"],
+                cache, **kw)
         return _whole_logits(logits), cache
 
     return prefill_step
@@ -375,9 +504,9 @@ def make_gspmd_decode_step(model, mesh, rules):
         from repro_torch.training.step import to_device
         with activation_sharding(mesh, rules):
             placed = _placed_batch(to_device(batch, device), mesh, rules)
-            logits, cache = model.decode_step(params, cache,
-                                              placed["tokens"],
-                                              placed["cache_index"])
+            logits, cache = model.decode_step(
+                _read_tree(model, params, mesh, rules), cache,
+                placed["tokens"], placed["cache_index"])
         return _whole_logits(logits), cache
 
     return decode_step
@@ -429,8 +558,7 @@ def init_placed_opt(optimizer, params: Dict[str, Any],
     from torch.distributed.tensor import DTensor
     pl = {k: tuple(field_shardings[k]) if field_shardings else
           tuple(p.placements) for k, p in params.items()}
-    local = {k: (p if tuple(p.placements) == pl[k] else
-                 p.redistribute(p.device_mesh, pl[k])).to_local()
+    local = {k: redistribute(p, pl[k]).to_local()
              for k, p in params.items()}
     state = optimizer.init(local)
     for f, v in state.items():
@@ -443,7 +571,9 @@ def init_placed_opt(optimizer, params: Dict[str, Any],
 
 def gather_tree(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """Whole tensors of a dict of DTensors (plain tensors as they are),
-    on every worker."""
-    from torch.distributed.tensor import DTensor
-    return {k: v.full_tensor() if isinstance(v, DTensor) else v
+    on every worker (``sharding.redistribute``: list all-gathers, which
+    gloo takes for CUDA tensors)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    return {k: redistribute(v, (Replicate(),) * v.device_mesh.ndim)
+            .to_local() if isinstance(v, DTensor) else v
             for k, v in tree.items()}

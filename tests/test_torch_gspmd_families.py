@@ -225,26 +225,8 @@ def setup(tag, **kw):
 # DTensor's own all-gathers, reduce-scatters and all-to-alls, counted
 # while the steps run (gloo crashes on them with CUDA tensors)
 import torch.distributed._functional_collectives as funcol
-import torch.distributed.tensor.placement_types as ptypes
-calls = {{"n": 0, "on": False}}
-
-def counted(fn):
-    def call(*a, **k):
-        calls["n"] += calls["on"]
-        return fn(*a, **k)
-    return call
-
-for mod, names in ((funcol, ("all_gather_single", "all_gather_tensor",
-                             "all_gather_tensor_autograd",
-                             "reduce_scatter_single",
-                             "reduce_scatter_tensor",
-                             "reduce_scatter_tensor_autograd",
-                             "all_to_all_single",
-                             "all_to_all_single_autograd")),
-                   (ptypes, ("shard_dim_alltoall",))):
-    for name in names:
-        if hasattr(mod, name):
-            setattr(mod, name, counted(getattr(mod, name)))
+from repro_torch.distributed.sharding import count_dtensor_collectives
+calls = count_dtensor_collectives()
 
 class Tape:  # records the dispatch one-hots of each _route call
     def __init__(self, route):

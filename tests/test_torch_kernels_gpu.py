@@ -1033,3 +1033,27 @@ def test_local_apply_kernels_bitwise_the_unwrapped_on_card(one_rank_mesh):
     assert trn.LAUNCHES["rmsnorm"] == 2
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# every placement of the GSPMD policy: granite-34b's prefill under sequence
+# parallelism (the 4,096 tokens gathered whole, 48 query heads on its one
+# kv head, and a worker's 24 of them), and yi-9b's rows under FSDP x TP
+# ---------------------------------------------------------------------------
+
+SP_FLASH = [(1, 4096, 4096, 48, 1, 128, True, None),
+            (1, 4096, 4096, 24, 1, 128, True, None)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("case", SP_FLASH, ids=lambda c: f"h{c[3]}")
+def test_flash_attention_at_the_gathered_sp_prefill_on_card(cuda, case, dt):
+    test_flash_attention_matches_plain_on_card(cuda, case, dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [2 * 1024, 8])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_rmsnorm_at_fsdp_tp_training_rows_on_card(cuda, dt, rows):
+    test_rmsnorm_model_order_matches_plain_on_card(cuda, rows, 4096, dt)
