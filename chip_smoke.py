@@ -168,8 +168,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      cut to the worker's shard); launches a step as main path 2's, with
      ``hybrid_update`` through its decay-stream entry; one more step
      counting one reduce-scatter and one all-gather a bucket and one
-     all-reduce (the metrics); a save every 3 of 6 steps, resumed from
-     step 3 alone, and the step-3 checkpoint restored into main path 2's
+     all-reduce (the metrics); a save every 2 of 4 steps, resumed from
+     step 2 alone, and the step-2 checkpoint restored into main path 2's
      per-leaf state (``make_zero_restore_transform``), both bitwise the
      unbroken run; the step times (gloo on one card: not a user's
      figure), peak memory and optimizer-state bytes a worker; then
@@ -401,7 +401,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      their plain versions and timed, and ``hybrid_update`` over one
      worker's FSDP x TP x ZeRO-1 shards of main path 20's leaves,
      bitwise per leaf;
-  26. main path 20, yi-9b at full width, 2 of 48 layers, under its own
+  26. main path 20, yi-9b at full width, 1 of 48 layers, under its own
      policy (``cell_parallel``: FSDP's "embed" over "data", Megatron TP
      over "model", ZeRO-1, the bf16 wire, per-layer remat), ``--mesh
      2x2``: four processes on the card over gloo, main path 10's batch
@@ -430,7 +430,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      within ``SP_F32_TOL`` of one device's f32 prefill and the bf16
      prefill within ``SP_F32_RATIO`` of one device's bf16 distance from
      that f32 prefill; launches checked, DTensor's own collectives
-     counted at 0.
+     counted at 0;
+  28. the audit of the recorded step (``analysis/audit.py``): eight
+     processes on the card over gloo run every sync mode x {sgd, lars}
+     (flat 8 x 1, hierarchical 2 x 4 with ``hier_split=1``), f32, the
+     f16 wire, global batch 16, each cell's second step recorded (a
+     gspmd or perleaf cell's first, its steady one): at
+     full ResNet-50 every cell meets the JAX package's contract
+     (``analysis/contracts.py``) on every worker but the one check the
+     JAX package's own full audit fails in its four stream-LARS ZeRO
+     cells (held to exactly that), both ZeRO relations hold, each recorded backward holds 53 ``convolution_backward`` ops;
+     at the reduced config the bucketed, overlapped, ZeRO and
+     hierarchical cells' qualifying collective counts and
+     ``gradient_sync`` equal ``AUDIT.json``'s and so do the ZeRO
+     relations' expected shrinks (gspmd's and perleaf's counts printed);
+     ``cast_copy`` launched in every bucketed cell, ``seg_sq_partials``
+     and ``lars_update`` in every stream-LARS cell; then those kernels
+     timed at the full cells' shapes (the stream and a worker's shard)
+     with their plain versions, bounds and library calls; and the
+     fusion report of one BN site recorded fused against unfused
+     (fewer reduction passes, no more activation writes).
 With ``--profile``, a few more steps of each main path run under
 torch.profiler (device busy time and idle share, top host ops and
 kernels), and one prefill and four decode steps of main path 4. With
@@ -452,9 +471,10 @@ config, ``path15_<arch>_<run>`` main path 15's per config and run,
 ``path10_remat`` / ``path10_no_remat`` phase 16c's, ``path16`` to
 ``path21`` main paths 16 to 21's (first worker; 18 and 19 summed over
 their runs, 20 its first run's, 21 its prefill's and first decode
-step's); ``slice13``, ``slice14``, ``slice15``, ``slice17``,
+step's), ``audit`` phase 28's summed over the full cells' recorded
+steps (rank 0); ``slice13``, ``slice14``, ``slice15``, ``slice17``,
 ``slice18`` and ``slice19`` the times of phases 3f, 3g, 3h, 3i and 3j
-at those paths' shapes;
+at those paths' shapes, ``audit`` phase 28's;
 ``hybrid_update`` also carries its time at main path 7's shard), the card's name and power
 limit, and last the ``{"ok": true, "device": ...}`` line. ``--out DIR`` also
 writes the per-shape kernel tables to ``DIR/chip_smoke_kernels.json``.
@@ -526,6 +546,23 @@ BUCKET_BYTES = 64 * 1024 * 1024
 # the sums are held relative to the sum of the magnitudes they add
 # (reduction order); bn_apply and bn_bwd_dx bitwise
 SUM_TOL = 1e-5
+
+
+# what every worker process imports: the phases' processes fork from a
+# server that imported them once (``spawn``)
+WORKER_PRELOAD = ("torch", "torch.distributed", "repro_torch.launch.train",
+                  "repro_torch.launch.serve", "repro_torch.analysis.audit")
+
+
+def spawn(fn, args, nprocs: int) -> None:
+    """``torch.multiprocessing.spawn`` of ``fn(rank, *args)`` through
+    multiprocessing's fork server, which imported ``WORKER_PRELOAD`` once
+    (``main``) and touched no CUDA device: a phase's processes start in a
+    fraction of a second instead of importing torch anew. Raises as
+    ``spawn`` does if a process fails."""
+    import torch.multiprocessing as mp
+    mp.start_processes(fn, args=args, nprocs=nprocs,
+                       start_method="forkserver")
 
 
 def log(msg: str) -> None:
@@ -2255,11 +2292,10 @@ def sync_bn_cards_phase(torch):
     import tempfile
 
     import numpy as np
-    import torch.multiprocessing as mp
 
     root = tempfile.mkdtemp(prefix="chip_smoke_sync_")
     try:
-        mp.spawn(sync_bn_cards_worker, args=(root,), nprocs=2)
+        spawn(sync_bn_cards_worker, args=(root,), nprocs=2)
         ranks = [dict(np.load(os.path.join(root, f"rank{r}.npz")))
                  for r in (0, 1)]
     finally:
@@ -2421,7 +2457,7 @@ def overlap_reference_phase(torch):
 
 
 ZERO_WORKERS = 2  # main path 7: two processes share the one card
-ZERO_CKPT_STEPS, ZERO_CKPT_EVERY = 6, 3
+ZERO_CKPT_STEPS, ZERO_CKPT_EVERY = 4, 2  # cut from 6, 3 for phase 28's time
 ZERO_SMALL_BUCKET = 16384  # 13b: several ready-order buckets (as 12b)
 # bytes an element of the hybrid update with the decay stream: g, p, d,
 # m and wd read, p, d and m written, f32
@@ -2610,11 +2646,11 @@ def zero_path7(torch, libs, rank: int):
 
 
 def zero_ckpt(torch, libs, rank: int, root: str):
-    """Phase 13's checkpoints: ZeRO with a save every 3 of 6 steps, a
-    fresh ``Trainer`` resumed from the step-3 checkpoint alone (bitwise
-    the unbroken run), and the step-3 ZeRO checkpoint restored into main
+    """Phase 13's checkpoints: ZeRO with a save every 2 of 4 steps, a
+    fresh ``Trainer`` resumed from the step-2 checkpoint alone (bitwise
+    the unbroken run), and the step-2 ZeRO checkpoint restored into main
     path 2's configuration through ``make_zero_restore_transform``,
-    which then runs steps 3-5 (bitwise the unbroken ZeRO run)."""
+    which then runs steps 2-3 (bitwise the unbroken ZeRO run)."""
     import shutil
 
     import torch.distributed as dist
@@ -2826,8 +2862,8 @@ def zero_phase(torch):
     parameters, BN state, ``opt.step``, ``delta`` / ``m`` as this
     worker's shard); launches a step as path 2's, ``hybrid_update``
     through its decay-stream entry; one reduce-scatter and one all-gather
-    a bucket and one all-reduce (the metrics) a step; a save every 3 of
-    6 steps resumed from step 3 alone and the step-3 checkpoint carried
+    a bucket and one all-reduce (the metrics) a step; a save every 2 of
+    4 steps resumed from step 2 alone and the step-2 checkpoint carried
     into main path 2's per-leaf state, both bitwise the unbroken run.
     13b: the reduced ResNet in f32, every kernel on: ZeRO + overlap
     against overlap, ZeRO stream-LARS and ``momentum_sgd`` against their
@@ -2838,11 +2874,10 @@ def zero_phase(torch):
     import shutil
     import tempfile
 
-    import torch.multiprocessing as mp
 
     root = tempfile.mkdtemp(prefix="chip_smoke_zero_")
     try:
-        mp.spawn(zero_cards_worker, args=(root,), nprocs=ZERO_WORKERS)
+        spawn(zero_cards_worker, args=(root,), nprocs=ZERO_WORKERS)
         ranks = []
         for r in range(ZERO_WORKERS):
             with open(os.path.join(root, f"rank{r}.json")) as f:
@@ -3248,11 +3283,10 @@ def hier_phase(torch):
     import shutil
     import tempfile
 
-    import torch.multiprocessing as mp
 
     root = tempfile.mkdtemp(prefix="chip_smoke_hier_")
     try:
-        mp.spawn(hier_cards_worker, args=(root,), nprocs=HIER_WORKERS)
+        spawn(hier_cards_worker, args=(root,), nprocs=HIER_WORKERS)
         ranks = []
         for r in range(HIER_WORKERS):
             with open(os.path.join(root, f"rank{r}.json")) as f:
@@ -4871,13 +4905,12 @@ def lm_dp_phase(torch):
     import shutil
     import tempfile
 
-    import torch.multiprocessing as mp
 
     out = {}
     root = tempfile.mkdtemp(prefix="chip_smoke_lm_dp_")
     try:
         t0 = time.perf_counter()
-        mp.spawn(lm_dp_cards_worker, args=(root,), nprocs=max(LM_DP_RUNS))
+        spawn(lm_dp_cards_worker, args=(root,), nprocs=max(LM_DP_RUNS))
         spawn_s = time.perf_counter() - t0
         for n in LM_DP_RUNS:
             out[n] = []
@@ -5469,13 +5502,12 @@ def gspmd_resnet_path(torch):
     import shutil
     import tempfile
 
-    import torch.multiprocessing as mp
 
     torch.cuda.empty_cache()
     root = tempfile.mkdtemp(prefix="chip_smoke_gspmd_")
     t0 = time.perf_counter()
     try:
-        mp.spawn(gspmd_resnet_worker, args=(root,), nprocs=GSPMD_WORKERS)
+        spawn(gspmd_resnet_worker, args=(root,), nprocs=GSPMD_WORKERS)
         with open(os.path.join(root, "rank0.json")) as f:
             out = json.load(f)
     finally:
@@ -5555,7 +5587,6 @@ def gspmd_lm_path(torch, ref_first_loss: float):
     import shutil
     import tempfile
 
-    import torch.multiprocessing as mp
 
     from repro_torch.configs import get_config
 
@@ -5563,7 +5594,7 @@ def gspmd_lm_path(torch, ref_first_loss: float):
     root = tempfile.mkdtemp(prefix="chip_smoke_tp_")
     t0 = time.perf_counter()
     try:
-        mp.spawn(gspmd_lm_worker, args=(root,), nprocs=GSPMD_WORKERS)
+        spawn(gspmd_lm_worker, args=(root,), nprocs=GSPMD_WORKERS)
         ranks = []
         for r in range(GSPMD_WORKERS):
             with open(os.path.join(root, f"rank{r}.json")) as f:
@@ -6035,7 +6066,6 @@ def gspmd_family_path(torch, path: int, ref_losses=None):
     import shutil
     import tempfile
 
-    import torch.multiprocessing as mp
 
     train, serve = ((GSPMD_MOE_TRAIN, GSPMD_MOE_SERVE) if path == 18 else
                     (GSPMD_FAMILY_TRAIN, GSPMD_FAMILY_SERVE))
@@ -6059,7 +6089,7 @@ def gspmd_family_path(torch, path: int, ref_losses=None):
             f"holds {torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB on "
             f"the card before the spawn")
         t1 = time.perf_counter()
-        mp.spawn(gspmd_family_worker, args=(root, path),
+        spawn(gspmd_family_worker, args=(root, path),
                  nprocs=GSPMD_WORKERS)
         spawn_s = time.perf_counter() - t1
         ranks = []
@@ -6151,11 +6181,12 @@ def gspmd_family_path(torch, path: int, ref_losses=None):
 # slice 19: every placement of the GSPMD policy (main paths 20 and 21)
 # ---------------------------------------------------------------------------
 
-# main path 20: yi-9b at full width, 2 of its 48 layers, trained under
-# its own policy, cell_parallel(yi-9b, ShapeConfig("train", 1024, 4)):
+# main path 20: yi-9b at full width, 1 of its 48 layers (cut from 2),
+# trained under its own policy, cell_parallel(yi-9b, ShapeConfig("train",
+# 1024, 4)):
 # FSDP ("embed" over "data"), Megatron TP over "model", ZeRO-1, the bf16
 # wire, each layer checkpointed; --mesh 2x2, four processes on the card
-FSDP_ARCH, FSDP_LAYERS = "yi-9b", 2
+FSDP_ARCH, FSDP_LAYERS = "yi-9b", 1
 FSDP_MESH, FSDP_WORKERS, FSDP_STEPS = (2, 2), 4, 2
 # the first loss against one device's on the same weights and batch
 # (path 17's TP measured 4.24e-5)
@@ -6498,7 +6529,6 @@ def gspmd_fsdp_path(torch):
     import shutil
     import tempfile
 
-    import torch.multiprocessing as mp
 
     cfg = _cut_config(FSDP_ARCH, FSDP_LAYERS)
     root = tempfile.mkdtemp(prefix="chip_smoke_fsdp_")
@@ -6509,7 +6539,7 @@ def gspmd_fsdp_path(torch):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
-        mp.spawn(gspmd_fsdp_worker, args=(root,), nprocs=FSDP_WORKERS)
+        spawn(gspmd_fsdp_worker, args=(root,), nprocs=FSDP_WORKERS)
         spawn_s = time.perf_counter() - t1
         ranks = []
         for r in range(FSDP_WORKERS):
@@ -6758,7 +6788,6 @@ def gspmd_sp_path(torch):
     import shutil
     import tempfile
 
-    import torch.multiprocessing as mp
 
     cfg = _cut_config(SP_ARCH, SP_LAYERS)
     root = tempfile.mkdtemp(prefix="chip_smoke_sp_")
@@ -6769,7 +6798,7 @@ def gspmd_sp_path(torch):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
-        mp.spawn(gspmd_sp_worker, args=(root,), nprocs=SP_WORKERS)
+        spawn(gspmd_sp_worker, args=(root,), nprocs=SP_WORKERS)
         spawn_s = time.perf_counter() - t1
         ranks = []
         for r in range(SP_WORKERS):
@@ -6824,6 +6853,316 @@ def gspmd_sp_path(torch):
                    "spawn_s": spawn_s, "path_s": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the audit of the recorded step (analysis/audit.py) on the card
+# ---------------------------------------------------------------------------
+
+AUDIT_WORKERS = 8  # the JAX audit's layouts: flat 8 x 1, hierarchical 2 x 4
+# the JAX package's committed audit record (reduced ResNet-50, 8 devices)
+AUDIT_RECORD = os.path.join(ROOT, "AUDIT.json")
+# the cells whose qualifying counts the bucket plan fixes; gspmd and
+# perleaf differ by design (XLA's combiner merged the JAX package's)
+AUDIT_COUNTED = ("bucketed", "overlap", "zero", "zero_overlap", "hier",
+                 "hier_overlap", "hier_zero", "hier_zero_overlap")
+RESNET50_CONVS = 53
+# full ResNet-50's stream-LARS ZeRO cells fail one check of the JAX
+# package's contract in both packages (the JAX audit's own --full run of
+# zero/lars reads "hierarchical" alike): LARS's trust-ratio sum, (2, 162)
+# f32 (1,296 B), moves 2 x 1,296 x 7/8 = 2,268 ring bytes at 8 workers,
+# over the contract's 2,048-byte metric floor, which gradient_sync
+# compares with ring bytes. The gate holds each to that one violation,
+# its largest all-reduce a metric-sized buffer (ROADMAP queue 3). The
+# JAX package's record of that cell: tests/data/jax_audit_full_zero_lars.json,
+# which tests/test_torch_audit.py holds to the same reading.
+AUDIT_FULL_SHARED = {f"{m}/lars": ["collectives.gradient_sync"]
+                     for m in ("zero", "zero_overlap", "hier_zero",
+                               "hier_zero_overlap")}
+
+
+def audit_cards_worker(rank: int, out_dir: str) -> None:
+    """One of phase 28's eight processes on the card over gloo: the audit
+    at full ResNet-50 (the JAX audit's ``--full``), then at the reduced
+    config; rank 0 writes both reports."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, SRC)
+    torch.cuda.set_device(0)
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/store",
+                            rank=rank, world_size=AUDIT_WORKERS)
+    try:
+        from repro_torch.analysis.audit import run_audit
+        out = {}
+        for name, full in (("full", True), ("reduced", False)):
+            t0 = time.perf_counter()
+            out[name] = run_audit(full=full, device="cuda", verbose=False)
+            out[f"{name}_s"] = time.perf_counter() - t0
+        if rank == 0:
+            with open(os.path.join(out_dir, "audit.json"), "w") as f:
+                json.dump(out, f)
+    finally:
+        from repro_torch.distributed import shutdown
+        shutdown()
+
+
+def _qualifying(cell):
+    return {k: v["execs"] for k, v in
+            cell["passes"]["collectives"]["summary"]["per_op"].items()}
+
+
+def audit_phase(torch):
+    """Phase 28: the port's audit on the card, eight processes over gloo.
+    (a) all 20 cells (10 sync modes x {sgd, lars}) at full ResNet-50 meet
+    the JAX package's contracts unchanged on every worker (but below),
+    both ZeRO
+    relations hold, and each cell's recorded backward holds one
+    ``convolution_backward`` for each of the 53 convolutions; (b) at the
+    reduced config the qualifying collective counts and ``gradient_sync``
+    of the bucketed, overlapped, ZeRO and hierarchical cells equal
+    ``AUDIT.json``'s (gspmd's and perleaf's are printed beside it);
+    (c) the ZeRO relations' expected shrink equals ``AUDIT.json``'s.
+    Every cell's kernel launches are printed: ``cast_copy`` in every
+    bucketed cell, ``seg_sq_partials`` and ``lars_update`` in every
+    stream-LARS cell. The four stream-LARS ZeRO cells at full size fail
+    the one check the JAX package's own full audit fails
+    (``AUDIT_FULL_SHARED``): the gate holds them to exactly that.
+    Returns the record and rank 0's full cells."""
+    import shutil
+    import tempfile
+
+
+    from repro_torch.analysis.audit import MODES
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_audit_")
+    try:
+        spawn(audit_cards_worker, args=(root,), nprocs=AUDIT_WORKERS)
+        with open(os.path.join(root, "audit.json")) as f:
+            rep = json.load(f)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    with open(AUDIT_RECORD) as f:
+        jax_rec = json.load(f)
+    jax_cells = {(c["mode"], c["optimizer"]): c for c in jax_rec["cells"]}
+    out = {"full_s": rep["full_s"], "reduced_s": rep["reduced_s"],
+           "cells": {}}
+    for name in ("full", "reduced"):
+        r = rep[name]
+        log(f"  {name}: {len(r['cells'])} cells in {rep[name + '_s']:.1f}s, "
+            f"every worker ok {r['ranks_ok']}")
+        for c in r["cells"]:
+            key = f"{name}/{c['mode']}/{c['optimizer']}"
+            if c["violations"]:
+                log(f"  {key}: violations {c['violations']}")
+            q = _qualifying(c) if c["passes"] else {}
+            sync = c["passes"]["collectives"]["summary"]["gradient_sync"] \
+                if c["passes"] else None
+            secs = c.get("info", {}).get("seconds")
+            log(f"  {key}: ok {c['ok']}, qualifying {q}, {sync}, seconds "
+                f"(set-up, step, recorded step) {secs}, "
+                f"convolution_backward {c.get('convolution_backward')} "
+                f"({c.get('convolution_backward_in_backward')} in the "
+                f"backward), launches {c.get('kernel_launches')}")
+            out["cells"][key] = {"ok": c["ok"], "qualifying": q,
+                                 "gradient_sync": sync,
+                                 "launches": c.get("kernel_launches")}
+        for rel in r["relations"]:
+            log(f"  {name} relation {rel['optimizer']}: shrink "
+                f"{rel['actual_shrink_bytes']:.0f} B, expected "
+                f"{rel['expected_shrink_bytes']:.0f} B, ok {rel['ok']}")
+        known = AUDIT_FULL_SHARED if name == "full" else {}
+        want = {f"{c['mode']}/{c['optimizer']}": known.get(
+            f"{c['mode']}/{c['optimizer']}", []) for c in r["cells"]}
+        assert all(v == want for v in r["ranks_verdicts"]), (
+            name, r["ranks_verdicts"][0])
+        assert all(rel["ok"] for rel in r["relations"]), r["relations"]
+        for c in r["cells"]:
+            if f"{c['mode']}/{c['optimizer']}" in known:
+                summ = c["passes"]["collectives"]["summary"]
+                assert summ["gradient_sync"] == "hierarchical"
+                assert summ["allreduce_max_bytes"] < \
+                    c["expectations"]["metric_bytes_floor"], summ
+        assert len(r["cells"]) == 20 and len(r["relations"]) == 2
+        for c in r["cells"]:
+            launches = c["kernel_launches"]
+            if "bucketed" in MODES[c["mode"]]["compression"]:
+                assert launches.get("cast_copy", 0) >= 1, (c["mode"],
+                                                           launches)
+            if c["optimizer"] == "lars" and c["mode"] not in (
+                    "gspmd", "perleaf"):
+                assert launches.get("seg_sq_partials", 0) >= 1 and \
+                    launches.get("lars_update", 0) >= 1, (c["mode"],
+                                                          launches)
+    for c in rep["full"]["cells"]:
+        assert c["convolution_backward"] == \
+            c["convolution_backward_in_backward"] == RESNET50_CONVS, c["mode"]
+    for c in rep["reduced"]["cells"]:
+        want = jax_cells[(c["mode"], c["optimizer"])]
+        got_q, want_q = _qualifying(c), _qualifying(want)
+        got_s = c["passes"]["collectives"]["summary"]["gradient_sync"]
+        want_s = want["passes"]["collectives"]["summary"]["gradient_sync"]
+        if c["mode"] in AUDIT_COUNTED:
+            assert (got_q, got_s) == (want_q, want_s), (c["mode"], got_q,
+                                                        want_q)
+        else:
+            log(f"  reduced {c['mode']}/{c['optimizer']}: qualifying "
+                f"{got_q} against AUDIT.json's {want_q} (XLA's combiner "
+                f"merges the JAX package's; not compared)")
+            assert got_s == want_s, (c["mode"], got_s, want_s)
+    want_rel = {r["optimizer"]: r["expected_shrink_bytes"]
+                for r in jax_rec["relations"]}
+    got_rel = {r["optimizer"]: r["expected_shrink_bytes"]
+               for r in rep["reduced"]["relations"]}
+    log(f"  ZeRO expected shrink (reduced, 8 workers) {got_rel}, "
+        f"AUDIT.json's {want_rel}")
+    assert got_rel == want_rel, (got_rel, want_rel)
+    out["relations"] = {n: rep[n]["relations"] for n in ("full", "reduced")}
+    return out, rep["full"]["cells"]
+
+
+def audit_fusion_phase(torch):
+    """The fusion report (``analysis/passes/fusion.py``) on the card: one
+    BN site's forward and backward recorded through the fused kernels
+    and through the unfused PyTorch ops (``core/batchnorm.py``), at
+    ResNet-50's first stage-1 site (32 x 56 x 56 x 64, f32, ReLU). The
+    fused site must make fewer activation-sized reduction passes and no
+    more activation-sized writes. Returns the report."""
+    from repro_torch.analysis.op_trace import record
+    from repro_torch.analysis.passes.fusion import fusion_report
+    from repro_torch.core.batchnorm import bn_apply_stats, bn_batch_stats
+    from repro_torch.kernels.fused_bn import fused_bn_train
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(30)
+    x = torch.randn(32, 56, 56, 64, generator=gen, device=dev)
+    x.requires_grad_()
+    scale = torch.ones(64, device=dev, requires_grad=True)
+    bias = torch.zeros(64, device=dev, requires_grad=True)
+    traces = {}
+    for name in ("fused", "unfused"):
+        with record("cuda") as trace:
+            if name == "fused":
+                y = fused_bn_train(x, scale, bias, relu=True)[0]
+            else:
+                mean, var = bn_batch_stats(x)
+                y = torch.relu(bn_apply_stats(x, mean, var, scale, bias))
+            y.sum().backward()
+        torch.cuda.synchronize()
+        traces[name] = trace
+    rep = fusion_report(traces["fused"], traces["unfused"], x.numel())
+    log(f"  fusion at one BN site: reductions {rep['reduction_ops_per_site']}"
+        f", activation writes {rep['activation_writes_per_site']}, fused "
+        f"launches {traces['fused'].launches}")
+    assert rep["collapsed"], rep
+    return rep
+
+
+def audit_kernel_phase(torch, full_cells):
+    """The audit's kernels at the full-width cells' shapes, 8 workers,
+    the f16 wire in 4 MiB buckets: ``cast_copy`` as one pack and one
+    unpack of the bucketed cell's stream (the ZeRO cells' unpack takes a
+    worker's shard); ``seg_sq_partials`` and ``lars_update`` over the
+    bucketed stream-LARS cell's whole stream and the ZeRO cell's shard,
+    each against its plain version (bitwise but the sums, held to the
+    float64 sum) with its bound and library call. Returns the records by
+    kernel and shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.bucketing import (local_shard, plan_buckets,
+                                                   segment_ids_stream)
+    from repro_torch.kernels import bucket_ops as bo
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.models import build_model
+    from repro_torch.optim.stream import trust_mask_segments
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(28)
+    cells = {(c["mode"], c["optimizer"]): c for c in full_cells}
+    model = build_model(get_config("resnet50"), device="cpu")
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    plan = plan_buckets(params, 4 * 2 ** 20, "f16", align=AUDIT_WORKERS)
+    n = plan.padded_total
+    assert n == cells[("bucketed", "lars")]["info"]["padded_total"], n
+    out = {}
+    f16, f32 = torch.float16, torch.float32
+    for name, elems in (("stream", n), ("shard", n // AUDIT_WORKERS)):
+        x = torch.randn(elems, generator=gen, device=dev)
+        w = x.to(f16)
+        _bitwise(f"cast_copy audit {name} pack", bo.pack_cast(x, f16), w)
+        _bitwise(f"cast_copy audit {name} unpack", bo.unpack_cast(w),
+                 w.to(f32))
+        rec = {"elements": elems,
+               "ms": time_ms(torch, lambda: bo.pack_cast(x, f16))
+               + time_ms(torch, lambda: bo.unpack_cast(w)),
+               "plain_ms": time_ms(torch, lambda: bo.PLAIN["cast_copy"](
+                   x, f16)) + time_ms(torch, lambda: bo.PLAIN["cast_copy"](
+                       w, f32)),
+               "library_ms": time_ms(torch, lambda: x.to(f16))
+               + time_ms(torch, lambda: w.to(f32)),
+               "max_abs_err": 0.0}
+        rec["bound_ms"], rec["bound_by"] = bound(2 * 6 * elems, 0)
+        out[f"cast_copy/{name}"] = rec
+        del x, w
+    seg_all = torch.from_numpy(segment_ids_stream(plan)).to(dev)
+    mask = torch.from_numpy(trust_mask_segments(params, plan)).to(dev)
+    n_seg = mask.numel()
+    trust = torch.where(mask, torch.rand(n_seg, generator=gen, device=dev)
+                        * 1e-2, 1.0)
+    eta, mu1, decay = 0.1, 0.9, 1e-4
+    for name, cut in (("stream", None), ("shard", 0)):
+        def part(t):
+            return t if cut is None else local_shard(t, plan, AUDIT_WORKERS,
+                                                     cut)
+        p = part(torch.randn(n, generator=gen, device=dev) * 0.05)
+        g = part(torch.randn(n, generator=gen, device=dev) * 1e-3)
+        d = part(torch.randn(n, generator=gen, device=dev) * 1e-3)
+        seg = part(seg_all).contiguous()
+        p, g, d = p.contiguous(), g.contiguous(), d.contiguous()
+        wd = torch.full_like(p, decay)
+        m = p.numel()
+        got = fu.fused_segment_sq_partials(p, g, wd, seg, n_seg)
+        plain = fu.PLAIN["seg_sq_partials"](p, g, wd, seg, n_seg)
+        p64, ge64 = p.double(), g.double() + wd.double() * p.double()
+        want = torch.zeros(2, n_seg, dtype=torch.float64, device=dev)
+        want.index_add_(1, seg.long(), torch.stack([p64 * p64, ge64 * ge64]))
+        rel = ((got.double() - want).abs() / want.clamp_min(1e-300)).max()
+        assert rel.item() <= 1e-5, (name, rel.item())
+        kern, ref = [p.clone(), d.clone()], [p.clone(), d.clone()]
+        fu.fused_lars_update(g, *kern, wd, seg, trust, eta, mu1)
+        fu.PLAIN["lars_update"](g, *ref, wd, seg, trust, eta, mu1)
+        _bitwise(f"lars_update audit {name} p", kern[0], ref[0])
+        _bitwise(f"lars_update audit {name} d", kern[1], ref[1])
+        sq = torch.stack([p * p, (g + wd * p).square()])
+        seg64 = seg.long()
+        out[f"seg_sq_partials/{name}"] = {
+            "elements": m, "segments": n_seg,
+            "ms": time_ms(torch, lambda: fu.fused_segment_sq_partials(
+                p, g, wd, seg, n_seg)),
+            "plain_ms": time_eager_ms(torch, lambda: fu.PLAIN[
+                "seg_sq_partials"](p, g, wd, seg, n_seg)),
+            # one call of the same sums: index_add_ of the squares
+            "library_ms": time_ms(torch, lambda: torch.zeros(
+                2, n_seg, device=dev).index_add_(1, seg64, sq)),
+            "max_abs_err": (got - plain).abs().max().item(),
+            "rel_err_f64": rel.item()}
+        (out[f"seg_sq_partials/{name}"]["bound_ms"],
+         out[f"seg_sq_partials/{name}"]["bound_by"]) = bound(
+            16 * m + 8 * n_seg, SEG_SQ_FLOPS * m)
+        out[f"lars_update/{name}"] = {
+            "elements": m, "segments": n_seg,
+            "ms": time_ms(torch, lambda: fu.fused_lars_update(
+                g, kern[0], kern[1], wd, seg, trust, eta, mu1)),
+            "plain_ms": time_ms(torch, lambda: fu.PLAIN["lars_update"](
+                g, ref[0], ref[1], wd, seg, trust, eta, mu1)),
+            "library_ms": None, "max_abs_err": 0.0}
+        (out[f"lars_update/{name}"]["bound_ms"],
+         out[f"lars_update/{name}"]["bound_by"]) = bound(
+            28 * m + 4 * n_seg, LARS_FLOPS * m)
+    for k, r in out.items():
+        lib = "none" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f}"
+        log(f"  {k:24s} n={r['elements']:9d} {r['ms']:.4f} ms (plain "
+            f"{r['plain_ms']:.4f}, library {lib}, bound "
+            f"{r['bound_ms']:.4f} by {r['bound_by']})")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -6846,6 +7185,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
+    import multiprocessing
+    multiprocessing.set_forkserver_preload(list(WORKER_PRELOAD))
     from repro_torch.configs import OptimizerConfig, get_config
     from repro_torch.distributed import shutdown
     from repro_torch.kernels import _build
@@ -7317,6 +7658,23 @@ def main() -> int:
         f"steps against one device's, the f32 prefill as the witness")
     launches21, stats21 = gspmd_sp_path(torch)
     log(f"  ({time.perf_counter() - t0:.1f}s)")
+    t0 = time.perf_counter()
+    log(f"[28] the audit of the recorded step: {AUDIT_WORKERS} processes on "
+        f"the one card over gloo, every sync mode x {{sgd, lars}} (flat "
+        f"{AUDIT_WORKERS}x1, hierarchical 2x{AUDIT_WORKERS // 2}), f32, "
+        f"the f16 wire, global batch 16: full ResNet-50 against the JAX "
+        f"package's contracts, the reduced one against AUDIT.json; the "
+        f"audit's kernels at the full cells' shapes")
+    audit, audit_cells = audit_phase(torch)
+    audit["kernels"] = audit_kernel_phase(torch, audit_cells)
+    audit["fusion"] = audit_fusion_phase(torch)
+    audit_launches = {}
+    for c in audit_cells:
+        for k, v in c["kernel_launches"].items():
+            audit_launches[k] = audit_launches.get(k, 0) + v
+    del audit_cells
+    log(f"  launches over the 20 full cells' recorded steps (rank 0) "
+        f"{audit_launches} ({time.perf_counter() - t0:.1f}s)")
     launches5 = sync_stats["path5_launches"]
     launches6 = overlap_stats["path6_launches"]
     by_path = {k: {"path2": launches[k], "path3": launches3[k],
@@ -7343,7 +7701,8 @@ def main() -> int:
                    "path18": launches18.get(k, 0),
                    "path19": launches19.get(k, 0),
                    "path20": launches20.get(k, 0),
-                   "path21": launches21.get(k, 0)}
+                   "path21": launches21.get(k, 0),
+                   "audit": audit_launches.get(k, 0)}
                for k in launches}
     kernels = [{"name": k, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[k], "launches": launches[k],
@@ -7395,6 +7754,11 @@ def main() -> int:
             rec["slice18"] = slice18[rec["name"]]
         if rec["name"] in slice19:
             rec["slice19"] = slice19[rec["name"]]
+        audit_k = {shape.split("/")[1]: t for shape, t in
+                   audit["kernels"].items()
+                   if shape.split("/")[0] == rec["name"]}
+        if audit_k:
+            rec["audit"] = audit_k
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke_kernels.json"),
@@ -7430,7 +7794,8 @@ def main() -> int:
                        "main_path_19": stats19,
                        "slice19_kernels": slice19,
                        "main_path_20": stats20,
-                       "main_path_21": stats21}, f,
+                       "main_path_21": stats21,
+                       "audit": audit}, f,
                       indent=1)
     log(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -11,7 +11,9 @@ from repro_torch.configs.base import (  # noqa: F401
     ShapeConfig,
     TrainConfig,
     get_config,
+    list_archs,
     reduced_config,
+    shapes_for,
 )
 
 from repro_torch.configs import (  # noqa: F401,E402
@@ -26,4 +28,17 @@ from repro_torch.configs import (  # noqa: F401,E402
     xlstm_350m,
     yi_9b,
     zamba2_7b,
+)
+
+ASSIGNED_ARCHS = (
+    "qwen2-72b",
+    "yi-9b",
+    "llama3.2-1b",
+    "granite-34b",
+    "phi-3-vision-4.2b",
+    "zamba2-7b",
+    "whisper-tiny",
+    "llama4-maverick-400b-a17b",
+    "mixtral-8x7b",
+    "xlstm-350m",
 )

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 # ---------------------------------------------------------------------------
 # Model configuration
@@ -221,6 +221,47 @@ class ShapeConfig:
     skip_reason: Optional[str] = None  # e.g. long_500k on full-attention archs
 
 
+LM_SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4096, 256, "train"),
+    ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32768, 128, "decode"),
+    ShapeConfig("long_500k", 524288, 1, "decode"),
+)
+
+RESNET_SHAPES: Tuple[ShapeConfig, ...] = (
+    # The paper's headline cell: 32k global minibatch.
+    ShapeConfig("train_32k", 224, 32768, "train"),
+    ShapeConfig("train_8k", 224, 8192, "train"),
+)
+
+# archs whose every attention layer is full/dense => long_500k is skipped
+FULL_ATTENTION_SKIP = (
+    "long_500k needs sub-quadratic attention; this arch is pure "
+    "full-attention (see DESIGN.md section 4)"
+)
+
+
+def shapes_for(cfg: ModelConfig) -> Tuple[ShapeConfig, ...]:
+    """The (arch, shape) cells of ``cfg``: the paper's two ResNet-50
+    batches, or the four LM shapes with a skip reason where an arch
+    cannot take ``long_500k`` (the JAX package's cells, verbatim)."""
+    if cfg.family == "conv":
+        return RESNET_SHAPES
+    out: List[ShapeConfig] = []
+    subquadratic = (
+        cfg.family in ("ssm", "hybrid") or cfg.sliding_window is not None
+    )
+    for s in LM_SHAPES:
+        if s.name == "long_500k" and not subquadratic:
+            s = dataclasses.replace(s, skip_reason=FULL_ATTENTION_SKIP)
+        if cfg.name == "whisper-tiny" and s.name == "long_500k":
+            s = dataclasses.replace(
+                s, skip_reason="enc-dec audio decoder caps at 448 positions"
+            )
+        out.append(s)
+    return tuple(out)
+
+
 # ---------------------------------------------------------------------------
 # Training / parallelism configuration (the paper's recipe knobs)
 # ---------------------------------------------------------------------------
@@ -352,6 +393,10 @@ def get_config(arch_id: str) -> ModelConfig:
             f"unknown arch {arch_id!r}; available: {sorted(_REGISTRY)}"
         )
     return _REGISTRY[arch_id]()
+
+
+def list_archs() -> List[str]:
+    return sorted(_REGISTRY)
 
 
 def reduced_config(cfg: ModelConfig) -> ModelConfig:

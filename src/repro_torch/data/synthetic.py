@@ -114,6 +114,31 @@ class SyntheticLMData:
         return out
 
 
+# the last templates made, read-only: a train and a val source (or the
+# next run in one process) of the same seed share them instead of
+# drawing 0.6 GB again
+_LAST_TEMPLATES: Dict[tuple, np.ndarray] = {}
+
+
+def _templates(num_classes: int, image_size: int, seed: int,
+               rank: int) -> np.ndarray:
+    """Low-rank smooth class templates, ``(classes, size, size, 3)``
+    float32 of unit std: a function of the seed alone (shared across
+    splits)."""
+    key = (num_classes, image_size, seed, rank)
+    if key not in _LAST_TEMPLATES:
+        _LAST_TEMPLATES.clear()
+        rng = np.random.RandomState(seed)
+        u = rng.randn(num_classes, image_size, rank).astype(np.float32)
+        w = rng.randn(num_classes, rank, image_size * 3).astype(np.float32)
+        t = np.einsum("cir,crj->cij", u, w).reshape(
+            num_classes, image_size, image_size, 3)
+        t /= (t.std() + 1e-6)
+        t.setflags(write=False)
+        _LAST_TEMPLATES[key] = t
+    return _LAST_TEMPLATES[key]
+
+
 class SyntheticImageData:
     """ImageNet-like classification: image = class template + noise.
 
@@ -138,14 +163,8 @@ class SyntheticImageData:
         self.noise = noise
         self.split = split
         self.sample_offset = sample_offset
-        rng = np.random.RandomState(seed)
-        # low-rank smooth class templates (seed-only: shared across splits)
-        r = template_rank
-        u = rng.randn(num_classes, image_size, r).astype(np.float32)
-        w = rng.randn(num_classes, r, image_size * 3).astype(np.float32)
-        self.templates = np.einsum("cir,crj->cij", u, w).reshape(
-            num_classes, image_size, image_size, 3)
-        self.templates /= (self.templates.std() + 1e-6)
+        self.templates = _templates(num_classes, image_size, seed,
+                                    template_rank)
 
     def batch_at(self, step: int) -> Dict[str, np.ndarray]:
         idx = _split_index(self.split, step)

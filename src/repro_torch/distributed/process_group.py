@@ -83,7 +83,8 @@ def device_mesh(shape: Tuple[int, ...], names: Tuple[str, ...],
     the workers out). Its per-axis subgroups take the group's backend.
     Made once per (shape, names) and worker group, on ``device_type``
     (None: ``cuda`` under NCCL, else ``cpu``; gloo workers that share a
-    card pass ``cuda``); ``shutdown`` drops it."""
+    card pass ``cuda``; a dry run's ``meta`` takes ``cpu`` over its
+    fake group, ``launch/dryrun.py``); ``shutdown`` drops it."""
     from torch.distributed.device_mesh import DeviceMesh
     shape, names = tuple(int(s) for s in shape), tuple(names)
     n = 1
@@ -94,6 +95,8 @@ def device_mesh(shape: Tuple[int, ...], names: Tuple[str, ...],
                          f"workers, this run has {world_size()}")
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    if device_type == "meta":  # DTensor's cost model has no meta mesh:
+        device_type = "cpu"    # a dry run's runs on the CPU's, fake group
     key = (shape, names, device_type)
     if key not in _MESHES:
         _MESHES[key] = DeviceMesh(device_type,

@@ -1,7 +1,11 @@
 """Launch plumbing shared by the kernel wrappers: binding a library's C
 entry points, the device rule (plain version on the CPU, kernel on one
 CUDA device, anything else raises), the current stream, and the
-gradient of a plain version for kernels whose backward recomputes it."""
+gradient of a plain version for kernels whose backward recomputes it.
+``LIBRARIES`` holds every ``Library`` built, so a recorder
+(``analysis/op_trace.py``) reads all launch counts at once, and
+``LAUNCHES`` counts every launch of any of them.
+"""
 from __future__ import annotations
 
 import ctypes
@@ -13,6 +17,9 @@ P = ctypes.c_void_p
 I64 = ctypes.c_longlong
 I32 = ctypes.c_int
 F32 = ctypes.c_float
+
+LIBRARIES: list = []
+LAUNCHES = [0]  # launches of every library, for a cheap "any since?" test
 
 
 class Library:
@@ -35,6 +42,7 @@ class Library:
             k: 0 for k in signatures if k not in self.counts_as}
         self.entry_launches: Dict[str, int] = {k: 0 for k in signatures}
         self._fns: Dict[str, object] = {}
+        LIBRARIES.append(self)
 
     def _fn(self, sym: str):
         if not self._fns:
@@ -57,6 +65,7 @@ class Library:
                                f"{err}")
         self.launches[self.counts_as.get(sym, sym)] += 1
         self.entry_launches[sym] += 1
+        LAUNCHES[0] += 1
 
     def query(self, sym: str, *args) -> None:
         """Call the query ``sym``; raise on the CUDA error it returns."""
@@ -71,10 +80,12 @@ class Library:
 
 
 def on_cpu(what: str, *ts: Optional[torch.Tensor]) -> bool:
-    """True when the inputs lie on the CPU (plain version); False on one
-    CUDA device (kernel). Anything else raises."""
+    """True when the inputs lie on the CPU or all on the ``meta`` device
+    (the plain version: on meta it computes shapes only, for a caller
+    that built its tensors there, ``launch/dryrun.py``); False on one
+    CUDA device (kernel). Anything else, a mix included, raises."""
     devs = {t.device for t in ts if t is not None}
-    if {d.type for d in devs} == {"cpu"}:
+    if {d.type for d in devs} in ({"cpu"}, {"meta"}):
         return True
     if len(devs) == 1 and next(iter(devs)).type == "cuda":
         return False

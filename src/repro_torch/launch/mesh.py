@@ -5,7 +5,9 @@ process per device; ``distributed/process_group.py``).
 ``make_production_mesh`` and ``preferred_mesh`` return the shape and
 axis names of the JAX package's production meshes (a 256- or
 512-worker ``DeviceMesh`` is not built here), and ``cell_parallel`` is
-its parallelism policy for one (arch, shape) cell, verbatim.
+its parallelism policy for one (arch, shape) cell, verbatim. The
+roofline constants are the card's (``launch/dryrun.py`` divides by
+them).
 """
 from __future__ import annotations
 
@@ -14,6 +16,16 @@ from typing import Tuple
 from repro_torch.configs.base import ModelConfig, ParallelConfig, ShapeConfig
 
 MeshLayout = Tuple[Tuple[int, ...], Tuple[str, ...]]
+
+# roofline constants of one card, NVIDIA H100 80GB HBM3 (700.00 W limit,
+# as nvidia-smi names it): dense bf16 tensor-core peak, HBM rate, one
+# collective link (NVLink's rate per direction) and HBM capacity. A
+# mesh that spans nodes runs its collectives slower than LINK_BW, so the
+# collective term of a roofline is a lower bound.
+PEAK_FLOPS_BF16 = 989e12  # FLOP/s
+HBM_BW = 3.35e12  # B/s
+LINK_BW = 450e9  # B/s per direction
+HBM_BYTES = 80e9  # B
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> MeshLayout:

@@ -83,7 +83,9 @@ def build_gspmd_serve_setup(cfg, mesh_shape: Tuple[int, int], *,
     else on the host), each worker keeping only its own slice of every
     leaf on its device: a card the workers share holds one f32 leaf of
     the draw beside the slices (llama4-maverick's one group is 35 GiB in
-    bf16, one expert leaf 20 GiB in f32)."""
+    bf16, one expert leaf 20 GiB in f32). On the ``meta`` device (a dry
+    run, ``launch/dryrun.py``) nothing is drawn or gathered: each worker
+    holds its slices' shapes."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
@@ -103,7 +105,8 @@ def build_gspmd_serve_setup(cfg, mesh_shape: Tuple[int, int], *,
     # fits there twice over (in the compute dtype and in f32, which
     # bounds the draw's f32 leaf) in half the card's free memory, else
     # the host; the same values either way
-    stage = build_model(cfg, compute_dtype=compute_dtype, device="cpu")
+    stage = model if dev.type == "meta" else build_model(
+        cfg, compute_dtype=compute_dtype, device="cpu")
     if dev.type == "cuda":
         need = cfg.param_count() * (compute_dtype.itemsize + 4)
         if need < torch.cuda.mem_get_info(dev)[0] / 2:

@@ -30,11 +30,19 @@ class LeafDraw:
     in bf16); the values are those of drawing the whole tree and casting
     it afterwards."""
 
-    def __init__(self, gen: torch.Generator, device=None, dtype=None):
+    def __init__(self, gen: Optional[torch.Generator], device=None,
+                 dtype=None):
+        """``gen`` None draws nothing: every leaf is an empty tensor on
+        the ``meta`` device (shapes and dtypes only, ``training/
+        specs.py``)."""
         self.gen, self.dtype = gen, dtype
-        self.device = gen.device if device is None else device
+        self.device = (device if device is not None else
+                       gen.device if gen is not None else
+                       torch.device("meta"))
 
     def randn(self, shape: Sequence[int]) -> Tensor:
+        if self.gen is None:
+            return torch.empty(tuple(shape), device="meta")
         return torch.randn(tuple(shape), generator=self.gen,
                            device=self.gen.device)
 
@@ -42,9 +50,13 @@ class LeafDraw:
     def from_seed(cls, seed: int, draw_device, device, dtype=None
                   ) -> "LeafDraw":
         """Draws from ``seed`` on ``draw_device``, each leaf put on
-        ``device`` in ``dtype`` (an LM's ``init``)."""
+        ``device`` in ``dtype`` (an LM's ``init``). A ``meta``
+        ``draw_device`` skips the draw (``gen`` None)."""
         from repro_torch.device import resolve_device
-        gen = torch.Generator(device=resolve_device(draw_device))
+        dev = resolve_device(draw_device)
+        if dev.type == "meta":
+            return cls(None, device, dtype)
+        gen = torch.Generator(device=dev)
         return cls(gen.manual_seed(seed), device, dtype)
 
     def put(self, t: Tensor) -> Tensor:

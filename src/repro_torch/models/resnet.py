@@ -97,7 +97,9 @@ class ResNet50(nn.Module):
                          else bool(fused_bn))
         self.bn_group = bn_group
         self.device = resolve_device(device)
-        gen = common.LeafDraw(torch.Generator().manual_seed(seed))
+        # a model on the meta device draws nothing (training/specs.py)
+        gen = common.LeafDraw(None if self.device.type == "meta" else
+                              torch.Generator().manual_seed(seed))
         for name, value in self._init_values(gen).items():
             self.register_parameter(name, nn.Parameter(value.to(self.device)))
 

@@ -67,15 +67,20 @@ def _flags(metrics: Dict, threshold: float):
 
 
 def _in_place_tensors(state: Tree) -> List[torch.Tensor]:
-    """The tensors a step updates in place: the parameters and every
-    tensor of the optimizer state (per-leaf dicts or flat streams); of a
+    """The tensors a step updates in place: the parameters, every
+    tensor of the optimizer state (per-leaf dicts or flat streams) and
+    of the model state (``training/step.py`` ``keep_storage``); of a
     DTensor (the GSPMD step's placed state), this worker's shard."""
     out = list(state["params"].values())
-    for v in state["opt"].values():
-        if isinstance(v, dict):
-            out += list(v.values())
-        elif torch.is_tensor(v):
-            out.append(v)
+
+    def add(tree):
+        for v in tree.values():
+            if isinstance(v, dict):
+                add(v)
+            elif torch.is_tensor(v):
+                out.append(v)
+    add(state["opt"])
+    add(state.get("model_state", {}))
     return [t.to_local() if hasattr(t, "to_local") else t for t in out]
 
 
@@ -84,8 +89,8 @@ def wrap_step_with_sentinel(step: Callable) -> Callable:
     ``(state, batch, controls) -> (state', metrics)`` resilient step
     (``controls`` from ``sentinel_controls``). Works on every step
     builder of the port: it needs only that the step report ``loss``
-    (and ideally ``grad_norm``) and update params and ``opt`` in
-    place."""
+    (and ideally ``grad_norm``) and update params, ``opt`` and the
+    model state in place."""
     backup: List[torch.Tensor] = []
 
     def resilient_step(state: Tree, batch: Tree, controls: Dict):

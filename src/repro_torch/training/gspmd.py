@@ -78,6 +78,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.compression import parse_compression
+from repro_torch.training.step import keep_storage
 from repro_torch.distributed.sharding import (
     UseTree,
     activation_sharding,
@@ -298,7 +299,8 @@ def make_gspmd_train_step(model, optimizer, train_cfg, mesh, rules,
         if train_cfg.log_grad_norm:
             metrics["grad_norm"] = _global_norm(g_loc, grads, mesh)
         return {"params": params, "opt": state["opt"],
-                "model_state": new_mstate}, metrics
+                "model_state": keep_storage(state["model_state"],
+                                            new_mstate)}, metrics
 
     return train_step
 

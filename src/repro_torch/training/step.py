@@ -123,6 +123,29 @@ def to_device(batch: Dict[str, Any], device: torch.device
     return out
 
 
+def keep_storage(old: Tree, new: Tree) -> Tree:
+    """``new``'s tensors written into ``old``'s (the same tree: the model
+    state, BN statistics per site), and ``old`` returned: the step's
+    state stays in its own storage across the step, as the JAX package's
+    donated state does (``analysis/passes/donation.py`` checks it).
+    Parameters and optimizer state are updated in place already."""
+    if new is old:
+        return old
+    olds, news = [], []
+
+    def walk(o, n):
+        for k, v in n.items():
+            if isinstance(v, dict):
+                walk(o[k], v)
+            else:
+                olds.append(o[k])
+                news.append(v)
+    walk(old, new)
+    with torch.no_grad():
+        torch._foreach_copy_(olds, news)
+    return old
+
+
 def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(x.float().square().sum() for x in tree.values()))
 
@@ -202,7 +225,8 @@ def make_train_step(model, optimizer: Optimizer, train_cfg: TrainConfig,
             # sentinel's whole-gradient health flag)
             metrics["grad_norm"] = global_norm(grads)
         new_state = {"params": new_params, "opt": new_opt,
-                     "model_state": new_mstate}
+                     "model_state": keep_storage(state["model_state"],
+                                                  new_mstate)}
         return new_state, metrics
 
     return train_step
@@ -382,7 +406,8 @@ def make_dp_shardmap_train_step(model, optimizer: Optimizer,
         new_params, new_opt, metrics = _synced_update(
             optimizer, params, grads, state["opt"], metrics, sq_norm, group)
         new_state = {"params": new_params, "opt": new_opt,
-                     "model_state": new_mstate}
+                     "model_state": keep_storage(state["model_state"],
+                                                  new_mstate)}
         if use_ef:
             new_state["ef_residual"] = new_residual
         return new_state, metrics
@@ -691,7 +716,8 @@ def _make_dp_stream_train_step(model, optimizer, train_cfg: TrainConfig,
                                         state["opt"], n, w, aux, metrics,
                                         group)
         new_state = {"params": params, "opt": state["opt"],
-                     "model_state": new_mstate}
+                     "model_state": keep_storage(state["model_state"],
+                                                  new_mstate)}
         if use_ef:
             new_state["ef_residual"] = new_residual
         return new_state, metrics
@@ -750,7 +776,8 @@ def _make_dp_zero_train_step(model, optimizer, train_cfg: TrainConfig,
                                       state["opt"], n, w, aux, metrics,
                                       group, hier)
         new_state = {"params": params, "opt": state["opt"],
-                     "model_state": new_mstate}
+                     "model_state": keep_storage(state["model_state"],
+                                                  new_mstate)}
         if use_ef:
             new_state["ef_residual"] = new_residual
         return new_state, metrics
@@ -941,7 +968,8 @@ def make_dp_overlap_train_step(model, optimizer: Optimizer,
                 optimizer, params, {k: grads[k] for k in params},
                 state["opt"], metrics, sq_norm, group)
         new_state = {"params": new_params, "opt": new_opt,
-                     "model_state": new_mstate}
+                     "model_state": keep_storage(state["model_state"],
+                                                  new_mstate)}
         if use_ef:
             new_residual = merge_slices(new_residual)
             new_state["ef_residual"] = {k: new_residual[k] for k in params}
