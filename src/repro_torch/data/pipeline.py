@@ -26,8 +26,11 @@ earliest failed step wins) and raised from ``next()`` when the consumer
 ``close()`` is race-free against blocked consumers and producers: all
 wait on one condition variable and re-check the closed flag.
 
-``wait_s_total`` / ``last_wait_s`` accrue the time the consumer spent
-blocked on the host stage: about zero when the feed keeps ahead.
+``last_wait_s`` is the time the last ``next()`` spent blocked on the
+host stage: about zero when the feed keeps ahead. Under a profiler,
+``next()`` is the ``feed`` span (``repro_torch.spans``), holding
+``feed.wait`` (the block for a host batch) and ``feed.stage`` (each call
+of ``put``).
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.fused_input import input_augment_params
+from repro_torch.spans import span
 
 
 class DataPipeline:
@@ -82,9 +86,7 @@ class DataPipeline:
         self._error_step: Optional[int] = None
         self._raised = False
         self._staged: deque = deque()  # (step, staged batch), step order
-        self.wait_s_total = 0.0
         self.last_wait_s = 0.0
-        self.batches_delivered = 0
         self._threads = [
             threading.Thread(target=self._worker, daemon=True,
                              name=f"data-worker-{i}")
@@ -156,25 +158,33 @@ class DataPipeline:
             if host is None:
                 return
             last += 1
-            self._staged.append((last, self._put(host)))
+            with span("feed.stage"):
+                self._staged.append((last, self._put(host)))
 
     def __iter__(self) -> Iterator:
         return self
 
     def __next__(self):
+        with span("feed"):
+            return self._next()
+
+    def _next(self):
         step = self._next_out
         t0 = time.perf_counter()
         if self._put is not None:
             if not (self._staged and self._staged[0][0] == step):
                 # cold start, or staging fell behind: block for this step
-                self._staged.append(
-                    (step, self._put(self._host_get(step, block=True))))
+                with span("feed.wait"):
+                    host = self._host_get(step, block=True)
+                with span("feed.stage"):
+                    self._staged.append((step, self._put(host)))
             wait = time.perf_counter() - t0
             _, batch = self._staged.popleft()
             if isinstance(batch, StagedBatch):
                 batch = batch.take()
         else:
-            batch = self._host_get(step, block=True)
+            with span("feed.wait"):
+                batch = self._host_get(step, block=True)
             wait = time.perf_counter() - t0
         self._next_out = step + 1
         with self._cv:
@@ -183,8 +193,6 @@ class DataPipeline:
             # stage the next steps while the caller computes this one
             self._stage_through(step + self._device_ahead)
         self.last_wait_s = wait
-        self.wait_s_total += wait
-        self.batches_delivered += 1
         return step, batch
 
     def close(self) -> None:

@@ -54,6 +54,7 @@ import torch.distributed as dist
 
 from repro_torch.core.compression import _wire, apply_error_feedback
 from repro_torch.kernels.bucket_ops import pack_cast, unpack_cast
+from repro_torch.spans import span
 
 DEFAULT_BUCKET_BYTES = 64 * 1024 * 1024
 Tensor = torch.Tensor
@@ -168,14 +169,15 @@ def pack(grads: Dict[str, Tensor], plan: BucketPlan) -> List[Tensor]:
     concatenated into one stream, which is cast as a whole (the
     ``cast_copy`` kernel on the card), zero-padded to the plan's length
     and cut into views."""
-    leaves = [grads[k].reshape(-1) for k in plan.names]
-    stream = torch.cat(leaves)
-    if stream.dtype != plan.stream_dtype:
-        stream = pack_cast(stream, plan.stream_dtype)
-    if plan.pad_elems:
-        stream = torch.cat([stream, stream.new_zeros(plan.pad_elems)])
-    return [stream[lo:hi] for lo, hi in
-            (plan.bucket_bounds(i) for i in range(plan.n_buckets))]
+    with span("sync.pack"):
+        leaves = [grads[k].reshape(-1) for k in plan.names]
+        stream = torch.cat(leaves)
+        if stream.dtype != plan.stream_dtype:
+            stream = pack_cast(stream, plan.stream_dtype)
+        if plan.pad_elems:
+            stream = torch.cat([stream, stream.new_zeros(plan.pad_elems)])
+        return [stream[lo:hi] for lo, hi in
+                (plan.bucket_bounds(i) for i in range(plan.n_buckets))]
 
 
 def unpack(buckets: Sequence[Tensor], plan: BucketPlan,
@@ -184,22 +186,24 @@ def unpack(buckets: Sequence[Tensor], plan: BucketPlan,
     divides after the cast back, as ``compressed_psum`` does.
     ``with_sq_norm`` also returns the squared L2 norm of the whole
     (cast back, divided) stream, from one pass over it."""
-    stream = buckets[0] if len(buckets) == 1 else torch.cat(list(buckets))
-    stream = stream[:plan.total_elems]
-    dtypes = {s.dtype for s in plan.slots}
-    if len(dtypes) != 1:
-        raise ValueError("unpack needs one accumulation dtype, got "
-                         f"{sorted(str(d) for d in dtypes)}")
-    acc = next(iter(dtypes))
-    if stream.dtype != acc:
-        stream = unpack_cast(stream.contiguous(), acc)
-    if denom is not None:
-        stream = stream / denom
-    grads = {k: stream[s.offset:s.offset + s.size].view(s.shape)
-             for k, s in zip(plan.names, plan.slots)}
-    if with_sq_norm:
-        return grads, stream.float().square().sum()
-    return grads
+    with span("sync.unpack"):
+        stream = (buckets[0] if len(buckets) == 1
+                  else torch.cat(list(buckets)))
+        stream = stream[:plan.total_elems]
+        dtypes = {s.dtype for s in plan.slots}
+        if len(dtypes) != 1:
+            raise ValueError("unpack needs one accumulation dtype, got "
+                             f"{sorted(str(d) for d in dtypes)}")
+        acc = next(iter(dtypes))
+        if stream.dtype != acc:
+            stream = unpack_cast(stream.contiguous(), acc)
+        if denom is not None:
+            stream = stream / denom
+        grads = {k: stream[s.offset:s.offset + s.size].view(s.shape)
+                 for k, s in zip(plan.names, plan.slots)}
+        if with_sq_norm:
+            return grads, stream.float().square().sum()
+        return grads
 
 
 def bucketed_psum(grads: Dict[str, Tensor], wire: Optional[str] = "bf16",
@@ -220,10 +224,11 @@ def bucketed_psum(grads: Dict[str, Tensor], wire: Optional[str] = "bf16",
     n = dist.get_world_size(group)
     buckets = pack(grads, plan)
     for b in buckets:
-        if hierarchy is not None:
-            hierarchical_psum(b, hierarchy)
-        else:
-            dist.all_reduce(b, group=group)
+        with span("sync.all_reduce"):
+            if hierarchy is not None:
+                hierarchical_psum(b, hierarchy)
+            else:
+                dist.all_reduce(b, group=group)
     return unpack(buckets, plan, denom=n if mean else None,
                   with_sq_norm=with_sq_norm)
 

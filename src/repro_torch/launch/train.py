@@ -82,6 +82,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -117,6 +118,7 @@ from repro_torch.distributed.bucketing import shard_size
 from repro_torch.optim.stream import make_stream_optimizer, zero_padded_total
 from repro_torch.resilience import (ResilienceConfig, parse_chaos,
                                     wrap_step_with_sentinel)
+from repro_torch.spans import span
 from repro_torch.training import (LoopConfig, Trainer, TrainerConfig,
                                   run_training)
 from repro_torch.training.step import (
@@ -483,7 +485,18 @@ def build_train_setup(cfg, *, global_batch: int, seq_len: int,
     data = _wrap_train_source(data, input_cfg, seed=seed,
                               global_batch=global_batch,
                               is_conv=cfg.family == "conv")
-    return model, state, train_step, data, put_batch, shardings
+    return (model, state, _in_step_span(train_step), data, put_batch,
+            shardings)
+
+
+def _in_step_span(train_step):
+    """``train_step`` (either signature, the sentinel's too) inside the
+    ``step`` span (``repro_torch.spans``)."""
+    @functools.wraps(train_step)
+    def step(*args):
+        with span("step"):
+            return train_step(*args)
+    return step
 
 
 def _gspmd_checks(overlap_comm: bool, zero_dp: bool, error_feedback: bool,
@@ -588,7 +601,8 @@ def _build_gspmd(cfg, mesh_sizes, global_batch, seq_len, opt_cfg,
     data = _wrap_train_source(data, input_cfg, seed=seed,
                               global_batch=global_batch,
                               is_conv=cfg.family == "conv")
-    return (model, state, train_step, data, make_put_batch(dev),
+    return (model, state, _in_step_span(train_step), data,
+            make_put_batch(dev),
             MeshSharding(mesh=mesh, rules=rules, n_rows=n_rows, row=row))
 
 

@@ -103,9 +103,6 @@ class TrainResult:
     # resilience event records: skipped steps, rollbacks, chaos
     # injections, corrupt checkpoints skipped on restore
     events: list = dataclasses.field(default_factory=list)
-    # total wall time, total time blocked on the input pipeline, and
-    # their ratio (~0 compute-bound, ~1 data-starved)
-    input_stats: Dict = dataclasses.field(default_factory=dict)
 
 
 class Trainer:
@@ -301,8 +298,6 @@ class Trainer:
         history: List[Dict] = []
         straggler_events: List[Dict] = []
         step_times: List[float] = []
-        data_wait_total = 0.0
-        wall_total = 0.0
         last_saved = start_step if resumed_from is not None else -1
         try:
             # anchor checkpoint: rollback must always have a target, even
@@ -349,8 +344,6 @@ class Trainer:
                 if loss is not None:
                     loss = float(loss)  # waits for the device
                 dt = time.perf_counter() - t0
-                data_wait_total += data_wait
-                wall_total += dt
                 step_times.append(dt)
                 med = float(np.median(step_times[-50:]))
                 if len(step_times) > 5 and dt > cfg.deadline_factor * med:
@@ -455,18 +448,11 @@ class Trainer:
             if events is not None:
                 events.close()
         self.state = state
-        input_stats = {
-            "wall_s": wall_total,
-            "data_wait_s": data_wait_total,
-            "data_starved_frac": (data_wait_total / wall_total
-                                  if wall_total > 0 else 0.0),
-        }
         return TrainResult(state=state, history=history,
                            epoch_history=eval_history,
                            straggler_events=straggler_events,
                            resumed_from=resumed_from, best=best,
-                           events=list(events.records) if events else [],
-                           input_stats=input_stats)
+                           events=list(events.records) if events else [])
 
 
 # ---------------------------------------------------------------------------

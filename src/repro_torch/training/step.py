@@ -102,6 +102,7 @@ from repro_torch.models.common import (
 )
 from repro_torch.optim.interface import Optimizer
 from repro_torch.optim.stream import trust_mask_segments
+from repro_torch.spans import span
 
 Tree = Dict[str, Any]
 
@@ -155,12 +156,15 @@ def _grads_of(model, train_cfg: TrainConfig, params, mstate, mbatch):
     parameter is cast to the compute dtype first; the gradients reach
     the f32 masters through that cast."""
     names = list(params)
-    pc = {k: params[k].detach().to(model.compute_dtype).requires_grad_(True)
-          for k in names}
-    loss, (new_mstate, metrics) = model.loss_fn(
-        pc, mstate, mbatch, train_cfg.label_smoothing)
-    gs = torch.autograd.grad(loss, [pc[k] for k in names])
-    return new_mstate, metrics, {k: g.float() for k, g in zip(names, gs)}
+    with span("forward"):
+        pc = {k: params[k].detach().to(model.compute_dtype)
+              .requires_grad_(True) for k in names}
+        loss, (new_mstate, metrics) = model.loss_fn(
+            pc, mstate, mbatch, train_cfg.label_smoothing)
+    with span("backward"):
+        gs = torch.autograd.grad(loss, [pc[k] for k in names])
+        grads = {k: g.float() for k, g in zip(names, gs)}
+    return new_mstate, metrics, grads
 
 
 def make_train_step(model, optimizer: Optimizer, train_cfg: TrainConfig,
@@ -394,15 +398,17 @@ def make_dp_shardmap_train_step(model, optimizer: Optimizer,
             None
 
     def train_step(state: Tree, batch: Tree):
-        batch = to_device(batch, device)
-        if input_transform is not None:
-            batch = input_transform(batch)
+        with span("input"):
+            batch = to_device(batch, device)
+            if input_transform is not None:
+                batch = input_transform(batch)
         params = state["params"]
         new_mstate, metrics, grads = _grads_of(
             model, train_cfg, params, state["model_state"], batch)
         # ---- the paper's technique: fp16/bf16 compressed all-reduce ----
-        grads, new_residual, sq_norm = sync_grads(
-            grads, state.get("ef_residual"))
+        with span("sync"):
+            grads, new_residual, sq_norm = sync_grads(
+                grads, state.get("ef_residual"))
         new_params, new_opt, metrics = _synced_update(
             optimizer, params, grads, state["opt"], metrics, sq_norm, group)
         new_state = {"params": new_params, "opt": new_opt,
@@ -421,11 +427,13 @@ def _synced_update(optimizer, params, grads, opt, metrics: Dict,
     metrics: averaged over the workers, with the optimizer's and the
     norm of the synced gradient (from ``sq_norm`` when the sync gave
     it). Returns ``(params', opt', metrics)``."""
-    metrics = _pmean_metrics(metrics, group)
-    new_params, new_opt, opt_metrics = optimizer.update(params, grads, opt)
-    metrics.update(opt_metrics)
-    metrics["grad_norm"] = (torch.sqrt(sq_norm) if sq_norm is not None
-                            else global_norm(grads))
+    with span("update"):
+        metrics = _pmean_metrics(metrics, group)
+        new_params, new_opt, opt_metrics = optimizer.update(params, grads,
+                                                            opt)
+        metrics.update(opt_metrics)
+        metrics["grad_norm"] = (torch.sqrt(sq_norm) if sq_norm is not None
+                                else global_norm(grads))
     return new_params, new_opt, metrics
 
 
@@ -464,9 +472,10 @@ def _all_reduce(bucket, hier: Optional[Hierarchy], group=None,
                 async_op: bool = False):
     """One bucket's all-reduce, in place: flat, or the two-level
     ``hierarchical_psum``."""
-    if hier is not None:
-        return hierarchical_psum(bucket, hier, async_op=async_op)
-    return dist.all_reduce(bucket, group=group, async_op=async_op)
+    with span("sync.all_reduce"):
+        if hier is not None:
+            return hierarchical_psum(bucket, hier, async_op=async_op)
+        return dist.all_reduce(bucket, group=group, async_op=async_op)
 
 
 def _reduce_scatter(out, bucket, hier: Optional[Hierarchy], group=None,

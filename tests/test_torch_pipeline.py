@@ -172,9 +172,9 @@ def test_wait_attribution_counters():
         for _ in range(5):
             next(pipe)
             waits.append(pipe.last_wait_s)
-        assert pipe.batches_delivered == 5
-        assert pipe.wait_s_total == pytest.approx(sum(waits))
-        assert max(waits) >= 0.1  # the slow step shows up as wait
+        # the slow step shows up as wait, in its own step
+        assert waits.index(max(waits)) == 3
+        assert waits[3] >= 0.1
     finally:
         pipe.close()
 
