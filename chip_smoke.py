@@ -33,7 +33,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      none and per leaf, gradients as views 0, 1 and 2 elements into one
      stream), ``cast_copy`` to bf16/f16 and back at the whole stream,
      odd lengths (7, 8k + 3) and views 4 and 8 bytes (f32) or 2 and 4
-     bytes (half) into a buffer, ``input_train``/``input_eval`` at (32,
+     bytes (half) into a buffer, the sync's one-pass ends over the
+     161 leaves and 64 MiB buckets (``pack_leaves`` and
+     ``unpack_buckets`` bitwise the sequence they replace at n = 1 and
+     3, the norm within rtol 1e-5 of a float64 sum and the same bits
+     twice, timed beside that sequence), ``input_train``/``input_eval`` at (32,
      224, 224, 3) with +-4 shifts and flips, bf16 and f32 out, and
      ``input_train`` at edge shapes ((2, 7, 5, 3), C = 1 and 4, an
      unaligned input) with shifts of +-W, +-(W+1) and +-3H; with kernel,
@@ -93,7 +97,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      bf16 all-reduce, the fused update (one launch a step over every
      leaf), the fused input and a 4-worker feed, 8 steps and one eval
      batch after the BN all-reduce; every kernel's launch count is
-     checked;
+     checked, and the wire cast's by entry (one ``pack_leaves`` and one
+     ``unpack_buckets`` a step; on the overlapped sync one ``cast_copy``
+     a segment in place of the pack);
   6b. reference: the reduced ResNet in f32, the DP step with every new
      kernel on against the same step with them off (plain per-leaf
      update, per-leaf all-reduce, host input transform), three steps;
@@ -224,7 +230,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      SDPA / ``F.rms_norm`` and its bound; ``hybrid_update`` over
      llama3.2-1b's 11 f32 leaves (1,235,814,400 elements) in one launch,
      bitwise per leaf, timed with its plain version and bound;
-     ``cast_copy`` at that gradient stream (as 3b's ``cast_phase``);
+     ``cast_copy`` and the one-pass ends at that gradient stream (as
+     3b's ``cast_phase``);
   15. main path 9, the other dense configs served
      (``repro_torch.launch.serve.serve``, weights drawn on the card):
      yi-9b at full width and depth (48 layers, d 4,096, 32 / 4 heads, Dh
@@ -1141,11 +1148,12 @@ def update_host_phase(torch, params_cpu, steps: int = 20):
     return out
 
 
-def cast_phase(torch, total: int):
+def cast_phase(torch, total: int, sizes=None):
     """``cast_copy`` (``pack_cast`` / ``unpack_cast``) bitwise against
     ``Tensor.to`` at odd lengths and the whole stream, to bf16 and f16
-    and back; timed as one pack and one unpack of the bf16 stream, the
-    main path's casts per step."""
+    and back; timed as one pack and one unpack of the bf16 stream. With
+    the leaf ``sizes`` of the stream, also the sync's one-pass ends
+    (``onepass_phase``)."""
     from repro_torch.kernels import bucket_ops as bo
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -1184,6 +1192,79 @@ def cast_phase(torch, total: int):
     log(f"  cast_copy per step (pack + unpack, {total} elements): "
         f"{out['ms']:.3f} ms (plain {out['plain_ms']:.3f}, Tensor.to "
         f"{out['library_ms']:.3f}, bound {out['bound_ms']:.3f})")
+    if sizes is not None:
+        del w
+        out["onepass"] = onepass_phase(torch, x, sizes)
+    return out
+
+
+def onepass_phase(torch, x, sizes, pad: int = 3):
+    """The bucketed sync's two ends, each one launch (``pack_leaves``,
+    ``unpack_buckets``), against the sequence they replace (the plain
+    versions on the card: ``torch.cat``, ``Tensor.to``, the pad; the
+    buckets' ``torch.cat``, ``Tensor.to``, ``/ n``, ``.square().sum()``)
+    over the stream ``x`` cut into leaves of ``sizes`` (views, as the
+    leaves sit at their stream offsets) and 64 MiB buckets: bitwise in
+    bf16 and f16 (n = 1 and 3), the norm within rtol 1e-5 of a float64
+    sum and the same bits twice; one launch each; timed at n = 1, the
+    world size of the benchmark's cells, with the norm."""
+    from repro_torch.kernels import bucket_ops as bo
+    total = x.numel()
+    assert sum(sizes) == total, (sum(sizes), total)
+    bounds = [0]
+    for n in sizes:
+        bounds.append(bounds[-1] + n)
+    leaves = [x[lo:hi] for lo, hi in zip(bounds, bounds[1:])]
+
+    def cut(stream, wire):
+        step = BUCKET_BYTES // wire.itemsize
+        return [stream[lo:lo + step] for lo in range(0, stream.numel(), step)]
+
+    for wire in (torch.bfloat16, torch.float16):
+        bo.reset_launch_counts()
+        packed = bo.pack_leaves(leaves, wire, pad)
+        _bitwise(f"pack_leaves {wire}", packed,
+                 bo.PLAIN["pack_leaves"](leaves, wire, pad))
+        buckets = cut(packed, wire)
+        for denom in (1, 3):
+            got, sq = bo.unpack_buckets(buckets, total, denom, True)
+            want, _ = bo.PLAIN["unpack_buckets"](buckets, total, denom)
+            _bitwise(f"unpack_buckets {wire} n={denom}", got, want)
+            del got
+            _, sq2 = bo.unpack_buckets(buckets, total, denom, True)
+            _bitwise(f"unpack_buckets norm {wire} n={denom} twice", sq, sq2)
+            ref = sum(float(c.double().square().sum())
+                      for c in want.split(1 << 26))
+            del want
+            assert abs(float(sq) - ref) <= 1e-5 * ref, (
+                f"unpack_buckets norm {wire} n={denom}", float(sq), ref)
+        assert bo.ENTRY_LAUNCHES == {"cast_copy": 0, "pack_leaves": 1,
+                                     "unpack_buckets": 4}, bo.ENTRY_LAUNCHES
+        del packed, buckets
+    bf16 = torch.bfloat16
+    w = bo.pack_leaves(leaves, bf16, pad)
+    buckets = cut(w, bf16)
+    big = dict(iters=3, trials=3) if total > 1e8 else {}
+    out = {
+        "leaves": len(sizes), "buckets": len(buckets), "elements": total,
+        "pack_ms": time_ms(torch, lambda: bo.pack_leaves(leaves, bf16, pad),
+                           **big),
+        "unpack_ms": time_ms(torch, lambda: bo.unpack_buckets(
+            buckets, total, 1, True), **big),
+        "plain_pack_ms": time_ms(torch, lambda: bo.PLAIN["pack_leaves"](
+            leaves, bf16, pad), **big),
+        "plain_unpack_ms": time_ms(torch, lambda: bo.PLAIN["unpack_buckets"](
+            buckets, total, 1, True), **big)}
+    out["ms"] = out["pack_ms"] + out["unpack_ms"]
+    out["plain_ms"] = out["plain_pack_ms"] + out["plain_unpack_ms"]
+    out["bound_ms"], out["bound_by"] = bound(2 * 6 * total, 0)
+    log(f"  one-pass ends ({len(sizes)} leaves, {len(buckets)} buckets, "
+        f"{total} elements), bitwise bf16 / f16, n = 1 and 3: pack "
+        f"{out['pack_ms']:.3f} + unpack with the norm {out['unpack_ms']:.3f}"
+        f" = {out['ms']:.3f} ms ({100 * out['bound_ms'] / out['ms']:.1f}% "
+        f"of bound {out['bound_ms']:.3f}); the sequence they replace "
+        f"{out['plain_pack_ms']:.3f} + {out['plain_unpack_ms']:.3f} = "
+        f"{out['plain_ms']:.3f}")
     return out
 
 
@@ -1666,6 +1747,15 @@ def dp_want(calls: int, evals: int, n_leaves: int, lars: bool = False,
             "flash_attention": 0, "rmsnorm": 0}
 
 
+def dp_cast_entries(calls: int, segments: int = 0):
+    """The wire cast's launches per entry point on the DP main paths:
+    one ``pack_leaves`` (or a ``cast_copy`` a segment on the overlapped
+    sync) and one ``unpack_buckets`` per step."""
+    return {"cast_copy": segments * calls,
+            "pack_leaves": 0 if segments else calls,
+            "unpack_buckets": calls}
+
+
 def dp_main_path(torch, libs, cfg, steps: int, premade: bool = False,
                  lars: bool = False, build=None, keep_bits: bool = False):
     """Main path 2: the paper's data-parallel step at world size 1 on
@@ -1719,9 +1809,12 @@ def dp_main_path(torch, libs, cfg, steps: int, premade: bool = False,
     segments = (2 + len(cfg.conv_stages)
                 if (build or {}).get("overlap_comm") else 0)
     want = dp_want(steps, val, n_leaves, lars, segments)
-    log(f"  launches {launches} (want {want}); batches staged "
-        f"{put_batch.staged}")
+    from repro_torch.kernels import bucket_ops as bo
+    entries = dict(bo.ENTRY_LAUNCHES)
+    log(f"  launches {launches} (want {want}), the wire cast's by entry "
+        f"{entries}; batches staged {put_batch.staged}")
     assert launches == want, (launches, want)
+    assert entries == dp_cast_entries(steps, segments), entries
     bits = None
     if keep_bits:
         bits = train_state_bits(state)
@@ -2331,8 +2424,8 @@ def sync_bn_cards_phase(torch):
 def overlap_phase(torch, libs, cfg, bits2, path2_ms: float):
     """Phase 12: main path 6, main paths 2 and 3 with ``overlap_comm=True``
     (buckets of ``OVERLAP_BUCKET_MIB``), cuDNN held to deterministic
-    algorithms, ``cast_copy`` launched once a segment and once for the
-    unpack. Path 2 overlapped must be bitwise path 2 (phase 11's run,
+    algorithms, the wire cast launched once a segment (``cast_copy``) and
+    once for the unpack (``unpack_buckets``). Path 2 overlapped must be bitwise path 2 (phase 11's run,
     same seed), and path 3 overlapped bitwise path 3 (both run here):
     losses, parameters, the optimizer state (path 3's flat ``delta``:
     the overlapped step puts the synced stream back in the bucketed
@@ -4246,7 +4339,7 @@ def tree_update_cast(torch, gen, cfg):
         f"bound {upd['bound_ms']:.3f})")
     del gs, ps, ds, ms, stream
     torch.cuda.empty_cache()
-    cast = cast_phase(torch, total)
+    cast = cast_phase(torch, total, sizes)
     cast["elements"] = total
     torch.cuda.empty_cache()
     return upd, cast
@@ -7237,7 +7330,7 @@ def main() -> int:
     new = {}
     new["hybrid_update"], total = update_phase(torch, leaves, wd)
     new["hybrid_update"]["host"] = update_host_phase(torch, params_cpu)
-    new["cast_copy"] = cast_phase(torch, total)
+    new["cast_copy"] = cast_phase(torch, total, [n for _, n, _ in leaves])
     new.update(input_phase(torch, cfg))
     log(f"  ({time.perf_counter() - t0:.1f}s)")
 

@@ -14,8 +14,10 @@ The layout is the JAX package's, field by field: leaves in the order
 path), the same offsets, ``bucket_elems``, ``n_buckets`` and
 ``pad_elems``. Numerics are those of the per-leaf path: cast to the
 wire dtype, sum over the workers, cast back, divide; packing only moves
-where element i sits during the sum. The casts of the whole stream are
-the ``cast_copy`` kernel (``kernels/bucket_ops.py``) on the card.
+where element i sits during the sum. On the card each end of the sync
+is one pass of the wire-cast kernel (``kernels/bucket_ops.py``):
+``pack_leaves`` casts the leaves into the stream, ``unpack_buckets``
+casts the buckets back, divides and sums the squares.
 
 The stream-LARS path adds the leaf-segment map of the stream
 (``segment_ids_stream``), its per-segment squared norms
@@ -53,7 +55,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.compression import _wire, apply_error_feedback
-from repro_torch.kernels.bucket_ops import pack_cast, unpack_cast
+from repro_torch.kernels.bucket_ops import (pack_cast, pack_leaves,
+                                             unpack_buckets)
 from repro_torch.spans import span
 
 DEFAULT_BUCKET_BYTES = 64 * 1024 * 1024
@@ -166,16 +169,16 @@ def _plan(names: List[str], grads: Dict[str, Tensor], bucket_bytes: int,
 
 def pack(grads: Dict[str, Tensor], plan: BucketPlan) -> List[Tensor]:
     """Gradients -> ``n_buckets`` wire-dtype buckets: the leaves are
-    concatenated into one stream, which is cast as a whole (the
-    ``cast_copy`` kernel on the card), zero-padded to the plan's length
-    and cut into views."""
+    cast into one stream in plan order, zero-padded to the plan's length
+    (one ``pack_leaves`` pass on the card), and cut into views."""
     with span("sync.pack"):
-        leaves = [grads[k].reshape(-1) for k in plan.names]
-        stream = torch.cat(leaves)
-        if stream.dtype != plan.stream_dtype:
-            stream = pack_cast(stream, plan.stream_dtype)
-        if plan.pad_elems:
-            stream = torch.cat([stream, stream.new_zeros(plan.pad_elems)])
+        leaves = [grads[k] for k in plan.names]
+        if leaves[0].dtype != plan.stream_dtype:
+            stream = pack_leaves(leaves, plan.stream_dtype, plan.pad_elems)
+        else:  # no wire cast
+            stream = torch.cat([t.reshape(-1) for t in leaves])
+            if plan.pad_elems:
+                stream = torch.cat([stream, stream.new_zeros(plan.pad_elems)])
         return [stream[lo:hi] for lo, hi in
                 (plan.bucket_bounds(i) for i in range(plan.n_buckets))]
 
@@ -185,25 +188,30 @@ def unpack(buckets: Sequence[Tensor], plan: BucketPlan,
     """Buckets -> gradients (views into one float stream). ``denom``
     divides after the cast back, as ``compressed_psum`` does.
     ``with_sq_norm`` also returns the squared L2 norm of the whole
-    (cast back, divided) stream, from one pass over it."""
+    (cast back, divided) stream. With a wire dtype, the cast, the
+    division and the norm are one ``unpack_buckets`` pass on the card,
+    which reads the buckets where they lie."""
     with span("sync.unpack"):
-        stream = (buckets[0] if len(buckets) == 1
-                  else torch.cat(list(buckets)))
-        stream = stream[:plan.total_elems]
         dtypes = {s.dtype for s in plan.slots}
         if len(dtypes) != 1:
             raise ValueError("unpack needs one accumulation dtype, got "
                              f"{sorted(str(d) for d in dtypes)}")
         acc = next(iter(dtypes))
-        if stream.dtype != acc:
-            stream = unpack_cast(stream.contiguous(), acc)
-        if denom is not None:
-            stream = stream / denom
+        if buckets[0].dtype != acc:
+            if acc != torch.float32:
+                raise TypeError(f"unpack casts the wire back to float32, "
+                                f"not {acc}")
+            stream, sq = unpack_buckets(buckets, plan.total_elems, denom,
+                                        with_sq_norm)
+        else:  # no wire cast
+            stream = (buckets[0] if len(buckets) == 1
+                      else torch.cat(list(buckets)))[:plan.total_elems]
+            if denom is not None:
+                stream = stream / denom
+            sq = stream.float().square().sum() if with_sq_norm else None
         grads = {k: stream[s.offset:s.offset + s.size].view(s.shape)
                  for k, s in zip(plan.names, plan.slots)}
-        if with_sq_norm:
-            return grads, stream.float().square().sum()
-        return grads
+        return (grads, sq) if with_sq_norm else grads
 
 
 def bucketed_psum(grads: Dict[str, Tensor], wire: Optional[str] = "bf16",

@@ -9,6 +9,7 @@ import torch
 
 from repro_torch.kernels.bucket_ops import (  # noqa: F401
     pack_cast,
+    unpack_buckets,
     unpack_cast,
 )
 from repro_torch.kernels.flash_attention import flash_attention

@@ -50,7 +50,7 @@ as in the JAX package.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -92,7 +92,7 @@ from repro_torch.kernels.ops import (
     fused_input_eval,
     fused_input_train,
     input_augment_params,
-    unpack_cast,
+    unpack_buckets,
 )
 from repro_torch.models.common import (
     merge_slices,
@@ -543,18 +543,20 @@ def _stream_aux(optimizer, plan: BucketPlan, params, n: int, w: int,
             "trust_mask": mask}
 
 
-def _cast_divide_stream(stream: torch.Tensor, plan: BucketPlan, n: int
-                        ) -> torch.Tensor:
-    """The synced wire stream cast back to f32 and divided by the worker
-    count, with ``unpack``'s ops."""
+def _cast_divide_stream(parts: Sequence[torch.Tensor], plan: BucketPlan,
+                        n: int) -> torch.Tensor:
+    """The synced wire stream (its ``parts`` in order) cast back to f32
+    and divided by the worker count, with ``unpack``'s ops (one
+    ``unpack_buckets`` pass on the card)."""
     dtypes = {s.dtype for s in plan.slots}
     if dtypes != {torch.float32}:
         raise ValueError(
             "packed-stream updates need a uniform fp32 param tree; got "
             f"leaf dtypes {sorted(str(d) for d in dtypes)}")
-    if stream.dtype != torch.float32:
-        stream = unpack_cast(stream.contiguous(), torch.float32)
-    return stream / n
+    if parts[0].dtype != torch.float32:
+        return unpack_buckets(parts, sum(p.numel() for p in parts),
+                              denom=n)[0]
+    return (parts[0] if len(parts) == 1 else torch.cat(list(parts))) / n
 
 
 def _stream_full_update(optimizer, plan: BucketPlan, params, g_stream, opt,
@@ -591,8 +593,7 @@ def _stream_synced_update(optimizer, plan: BucketPlan, params, buckets,
     """The stream update from the all-reduced wire buckets (in plan
     order), and the step's metrics: averaged over the workers, with the
     global gradient norm and the optimizer's."""
-    g_stream = _cast_divide_stream(
-        buckets[0] if len(buckets) == 1 else torch.cat(buckets), plan, n)
+    g_stream = _cast_divide_stream(buckets, plan, n)
     opt_metrics, local_sq = _stream_full_update(
         optimizer, plan, params, g_stream, opt, n, w, aux, group)
     metrics["grad_sq_local"] = local_sq
@@ -665,8 +666,7 @@ def _zero_synced_update(optimizer, plan: BucketPlan, params, shards, opt,
     """The ZeRO update from this worker's reduce-scattered wire chunks
     (in bucket order), and the step's metrics: averaged over the
     workers, with the global gradient norm and the optimizer's."""
-    g_shard = _cast_divide_stream(
-        shards[0] if len(shards) == 1 else torch.cat(shards), plan, n)
+    g_shard = _cast_divide_stream(shards, plan, n)
     opt_metrics, local_sq = _zero_sharded_update(
         optimizer, plan, params, g_shard, opt, n, w, aux, group, hier)
     metrics["grad_sq_local"] = local_sq

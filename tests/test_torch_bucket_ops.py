@@ -71,9 +71,92 @@ def test_cast_copy_refuses_what_the_kernel_does_not_take():
                              torch.float16)
     with pytest.raises(ValueError):
         bucket_ops.pack_cast(torch.zeros(2, 2), torch.bfloat16)
+    with pytest.raises(TypeError):  # the leaves are float32
+        bucket_ops.pack_leaves([torch.zeros(3, dtype=torch.bfloat16)],
+                               torch.bfloat16)
+    with pytest.raises(TypeError):  # to a half-precision wire
+        bucket_ops.pack_leaves([torch.zeros(3)], torch.float32)
+    with pytest.raises(TypeError):  # back from one half-precision wire
+        bucket_ops.unpack_buckets([torch.zeros(3)], 3)
+    with pytest.raises(TypeError):
+        bucket_ops.unpack_buckets([torch.zeros(3, dtype=torch.bfloat16),
+                                   torch.zeros(3, dtype=torch.float16)], 6)
+    with pytest.raises(ValueError):  # more elements than the buckets hold
+        bucket_ops.unpack_buckets([torch.zeros(3, dtype=torch.bfloat16)], 4)
     bucket_ops.reset_launch_counts()
     bucket_ops.pack_cast(torch.zeros(5), torch.bfloat16)
+    bucket_ops.pack_leaves([torch.zeros(5), torch.zeros(2, 2)],
+                           torch.bfloat16, 3)
+    bucket_ops.unpack_buckets([torch.zeros(5, dtype=torch.float16)], 4,
+                              denom=2, with_sq_norm=True)
     assert bucket_ops.LAUNCHES == {"cast_copy": 0}  # the CPU runs plain
+    assert bucket_ops.ENTRY_LAUNCHES == {"cast_copy": 0, "pack_leaves": 0,
+                                         "unpack_buckets": 0}
+
+
+def _small_tree(seed=4):
+    rng = np.random.default_rng(seed)
+    return {k: torch.from_numpy((rng.standard_normal(shape) * 3)
+                                .astype(np.float32))
+            for k, shape in (("w", (33, 7)), ("b/x", (5,)),
+                             ("b/y", (2, 3, 4)))}
+
+
+@pytest.mark.parametrize("wire", sorted(WIRES))
+@pytest.mark.parametrize("denom", [None, 1, 2, 3])
+def test_one_pass_entries_are_the_sequence_they_replace(wire, denom):
+    """``pack_leaves`` and ``unpack_buckets`` (their plain versions on
+    the CPU) bitwise the sequence the sync ran before them: ``torch.cat``
+    of the leaves, ``Tensor.to``, the zero pad; ``torch.cat`` of the
+    buckets, ``Tensor.to``, ``/ denom``, ``.square().sum()``. Several
+    buckets that are not one stream, a pad tail (align 3)."""
+    tdt = WIRES[wire][1]
+    tree = _small_tree()
+    plan = tb.plan_buckets(tree, 64, wire, align=3)
+    assert plan.n_buckets > 1 and plan.pad_elems > 0
+    leaves = [tree[k] for k in plan.names]
+    want = torch.cat([t.reshape(-1) for t in leaves]).to(tdt)
+    want = torch.cat([want, want.new_zeros(plan.pad_elems)])
+    got = bucket_ops.pack_leaves(leaves, tdt, plan.pad_elems)
+    assert got.dtype == tdt and torch.equal(got, want)
+    buckets = [b.clone() for b in tb.pack(tree, plan)]
+    assert torch.equal(torch.cat(buckets), want)
+    stream, sq = bucket_ops.unpack_buckets(buckets, plan.total_elems, denom,
+                                           with_sq_norm=True)
+    ref = torch.cat(buckets)[:plan.total_elems].to(torch.float32)
+    if denom is not None:
+        ref = ref / denom
+    assert torch.equal(stream, ref)
+    assert torch.equal(sq, ref.float().square().sum())
+    np.testing.assert_allclose(float(sq), float(ref.double().square().sum()),
+                               rtol=1e-6)
+    assert bucket_ops.unpack_buckets(buckets, plan.total_elems, denom)[1] \
+        is None
+    grads, sq2 = tb.unpack(buckets, plan, denom=denom, with_sq_norm=True)
+    assert torch.equal(sq2, sq)
+    for k, s in zip(plan.names, plan.slots):
+        assert torch.equal(grads[k], ref[s.offset:s.offset + s.size]
+                           .view(s.shape)), k
+
+
+def test_unpack_norm_carries_nan_and_the_meta_path_gives_shapes():
+    """A NaN leaf makes the squared norm NaN (the sentinel reads it); on
+    ``meta`` tensors (``launch/dryrun.py``) both entries give shapes."""
+    tree = _small_tree()
+    tree["b/x"][2] = float("nan")
+    plan = tb.plan_buckets(tree, 64, "bf16", align=3)
+    grads, sq = tb.unpack(tb.pack(tree, plan), plan, denom=2,
+                          with_sq_norm=True)
+    assert torch.isnan(sq) and torch.isnan(grads["b/x"][2])
+    meta = {k: v.to("meta") for k, v in tree.items()}
+    buckets = tb.pack(meta, plan)
+    assert [b.device.type for b in buckets] == ["meta"] * plan.n_buckets
+    assert sum(b.numel() for b in buckets) == plan.padded_total
+    grads, sq = tb.unpack(buckets, plan, denom=2, with_sq_norm=True)
+    assert sq.device.type == "meta" and sq.shape == ()
+    assert {k: tuple(v.shape) for k, v in grads.items()} == \
+        {k: tuple(v.shape) for k, v in tree.items()}
+    assert all(v.dtype == torch.float32 for v in grads.values())
 
 
 @pytest.mark.parametrize("bucket_bytes", [1024, 100_000, 64 << 20])

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the fused-BN kernels, the stream-LARS segment norms, flash
 attention and RMSNorm, and bitwise the fused update, the LARS update,
-the wire cast and the fused input; checkpoints (a bitwise resume, a card
+the wire casts (one stream, and the sync's one-pass pack and unpack)
+and the fused input; checkpoints (a bitwise resume, a card
 checkpoint restored on the CPU) and the sentinel's skip on the DP path.
 Every test here is marked ``gpu`` and skips
 without a CUDA device. The file imports neither jax nor the JAX package, so it also
@@ -17,8 +18,8 @@ version on the CPU too, which forms B and C with the same reciprocal
 and reduction order); bf16 outputs rtol 1e-2 / atol 2e-2 (one bf16 ulp
 where the f32 values before rounding differ in their last bits); sums
 rtol 1e-4; the
-segment norms rtol 1e-5 of a float64 sum of the same inputs, and the
-same bits on every run; flash attention f32 rtol 1e-5 / atol 1e-6 (its
+segment norms and the unpack's squared norm rtol 1e-5 of a float64 sum
+of the same inputs, and the same bits on every run; flash attention f32 rtol 1e-5 / atol 1e-6 (its
 sums run in another order than the plain full softmax), RMSNorm f32
 rtol 1e-6 (the row sum's order moves inv by an ulp); in bf16, beyond
 those, flash within one bf16 ulp and RMSNorm within two (it rounds
@@ -444,6 +445,129 @@ def test_cast_copy_offset_views_bitwise_on_card(cuda, offset):
         half = packed.new_empty(n + offset)
         half[offset:] = packed
         assert torch.equal(bo.unpack_cast(half[offset:]), packed.float())
+
+
+WIRE = {"bf16": torch.bfloat16, "f16": torch.float16}
+# leaf lengths of the one-pass pack: one element, odd lengths, BN
+# vectors, several chunks, one past a chunk edge
+PACK_LEAVES = [1, 7, 127, 64, 8 * 4099 + 3, 1_000_003, 8193, 2048]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wire", sorted(WIRE))
+@pytest.mark.parametrize("skew", [0, 1])
+def test_pack_leaves_bitwise_on_card(cuda, wire, skew):
+    """The one-pass pack bitwise the card's own sequence (``torch.cat``,
+    ``Tensor.to``, the zero pad) at odd lengths; ``skew`` 1 puts the
+    first leaf 1 element into its buffer while its stream offset is 0,
+    so no head aligns both (the scalar loop), and later leaves land at
+    odd stream offsets."""
+    from repro_torch.kernels import bucket_ops as bo
+    g = torch.Generator().manual_seed(5 + skew)
+    buf = (torch.randn(skew + sum(PACK_LEAVES), generator=g) * 3).to(cuda)
+    buf[skew:skew + 4] = torch.tensor([7e4, 1e-8, 3e38, 1e-40])
+    bounds = torch.tensor([0] + PACK_LEAVES).cumsum(0).tolist()
+    leaves = [buf[skew + lo:skew + hi] for lo, hi in zip(bounds, bounds[1:])]
+    leaves[3] = leaves[3].clone().view(8, 8)  # a leaf of its own, 2-D
+    want = torch.cat([t.reshape(-1) for t in leaves]).to(WIRE[wire])
+    want = torch.cat([want, want.new_zeros(5)])
+    bo.reset_launch_counts()
+    got = bo.pack_leaves(leaves, WIRE[wire], pad=5)
+    assert bo.ENTRY_LAUNCHES == {"cast_copy": 0, "pack_leaves": 1,
+                                 "unpack_buckets": 0}
+    assert bo.LAUNCHES == {"cast_copy": 1}
+    assert torch.equal(got, want)
+
+
+def _buckets(cuda, sizes, wire, seed, offset=0):
+    """Wire buckets of ``sizes``, each its own tensor (the last a view
+    ``offset`` elements into a larger one), not one stream."""
+    g = torch.Generator().manual_seed(seed)
+    out = [(torch.randn(n, generator=g) * 3).to(wire).to(cuda)
+           for n in sizes[:-1]]
+    last = (torch.randn(offset + sizes[-1], generator=g) * 3).to(wire)
+    return out + [last.to(cuda)[offset:]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wire", sorted(WIRE))
+@pytest.mark.parametrize("denom", [None, 1, 2, 3])
+def test_unpack_buckets_bitwise_on_card(cuda, wire, denom):
+    """The one-pass unpack bitwise the card's own sequence (``torch.cat``
+    of the buckets, ``Tensor.to``, ``/ n``: at n = 3 ATen multiplies by
+    the f32 reciprocal) from buckets that are not one stream, the last
+    bucket cut short (a pad); its squared norm within rtol 1e-5 of a
+    float64 sum of the same stream, the same bits on a second call."""
+    from repro_torch.kernels import bucket_ops as bo
+    sizes = [4096 * 5 + 2, 3, 8193, 1_000_001]
+    buckets = _buckets(cuda, sizes, WIRE[wire], seed=denom or 0, offset=1)
+    n = sum(sizes) - 3
+    want = torch.cat(buckets)[:n].to(torch.float32)
+    if denom is not None:
+        want = want / denom
+    bo.reset_launch_counts()
+    got, sq = bo.unpack_buckets(buckets, n, denom, with_sq_norm=True)
+    again, sq2 = bo.unpack_buckets(buckets, n, denom, with_sq_norm=True)
+    plain, _ = bo.PLAIN["unpack_buckets"](buckets, n, denom)
+    assert bo.ENTRY_LAUNCHES == {"cast_copy": 0, "pack_leaves": 0,
+                                 "unpack_buckets": 2}
+    assert torch.equal(got, want) and torch.equal(plain, want)
+    assert torch.equal(again, want) and torch.equal(sq, sq2)
+    torch.testing.assert_close(sq.double().cpu(),
+                               want.double().square().sum().cpu(),
+                               rtol=1e-5, atol=0)
+    alone, none = bo.unpack_buckets(buckets, n, denom)
+    assert none is None and torch.equal(alone, want)
+
+
+@pytest.mark.gpu
+def test_unpack_buckets_norm_at_2_25_elements_on_card(cuda):
+    """The squared norm over 2^25 + 5 elements in three buckets within
+    rtol 1e-5 of a float64 sum, the same bits on a second call; a NaN or
+    an Inf in the stream reaches the norm."""
+    from repro_torch.kernels import bucket_ops as bo
+    sizes = [2 ** 24, 2 ** 23 + 5, 2 ** 23]
+    buckets = _buckets(cuda, sizes, torch.bfloat16, seed=25)
+    n = sum(sizes)
+    got, sq = bo.unpack_buckets(buckets, n, 4, with_sq_norm=True)
+    _, sq2 = bo.unpack_buckets(buckets, n, 4, with_sq_norm=True)
+    want = (torch.cat(buckets).to(torch.float32) / 4).double()
+    assert torch.equal(sq, sq2)
+    torch.testing.assert_close(sq.double().cpu(),
+                               want.square().sum().cpu(), rtol=1e-5, atol=0)
+    for bad in (float("nan"), float("inf")):
+        buckets[1][7] = bad
+        _, sq = bo.unpack_buckets(buckets, n, 4, with_sq_norm=True)
+        assert torch.isnan(sq) if bad != bad else torch.isinf(sq)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bucket_bytes", [64 << 20, 40_000, 2_000])
+def test_bucketed_psum_is_one_pack_and_one_unpack_on_card(dp_card,
+                                                          bucket_bytes):
+    """``bucketed_psum`` at world size 1 launches exactly one pack and
+    one unpack for 1, a few or more than ``MAX_SEGMENTS`` buckets, and
+    its gradients and norm are the plain sync's."""
+    from repro_torch.distributed import bucketing as tb
+    from repro_torch.kernels import bucket_ops as bo
+    g = torch.Generator().manual_seed(7)
+    grads = {f"l{i:02d}": (torch.randn(n, generator=g) * 1e-2).to("cuda")
+             for i, n in enumerate(PACK_LEAVES)}
+    grads["l03"] = grads["l03"].view(8, 8)
+    plan = tb.plan_buckets(grads, bucket_bytes, "bf16")
+    assert (plan.n_buckets > bo.MAX_SEGMENTS) == (bucket_bytes == 2_000)
+    bo.reset_launch_counts()
+    synced, sq = tb.bucketed_psum(grads, "bf16", plan=plan,
+                                  with_sq_norm=True)
+    assert bo.ENTRY_LAUNCHES == {"cast_copy": 0, "pack_leaves": 1,
+                                 "unpack_buckets": 1}
+    stream = torch.cat([grads[k].reshape(-1) for k in plan.names]).to(
+        torch.bfloat16).to(torch.float32) / 1
+    for k, s in zip(plan.names, plan.slots):
+        assert torch.equal(synced[k], stream[s.offset:s.offset + s.size]
+                           .view(s.shape)), k
+    torch.testing.assert_close(sq.double(), stream.double().square().sum(),
+                               rtol=1e-5, atol=0)
 
 
 @pytest.mark.gpu
